@@ -78,6 +78,18 @@ def _torch_name(model: nn.Module, path: Tuple[str, ...], collection: str
     return ".".join(names + [leaf])
 
 
+def flax_leaf(model: nn.Module, torch_name: str) -> str:
+    """The Flax leaf name of the port tensor ``torch_name``, the inverse of
+    ``_torch_name``'s leaf rule: ``kernel`` for the weight of a dense or
+    convolution layer, ``scale`` for the weight of a norm, otherwise the
+    name's last part (``bias``, ``level_embed``, ``query_embed``, ...)."""
+    mod_name, _, leaf = torch_name.rpartition(".")
+    if leaf != "weight":
+        return leaf
+    mod = model.get_submodule(mod_name)
+    return "kernel" if isinstance(mod, (nn.Linear, nn.Conv2d)) else "scale"
+
+
 def _to_torch_layout(arr: np.ndarray, flax_leaf: str) -> np.ndarray:
     if flax_leaf == "kernel" and arr.ndim == 2:
         return arr.T                              # (in, out) -> (out, in)

@@ -18,8 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from monosowa_tpu_torch.models.layers import (MultiHeadAttention, conv,
-                                              dense, group_norm)
+from monosowa_tpu_torch.models.layers import (Dropout, MultiHeadAttention,
+                                              conv, dense, group_norm)
 
 
 def lid_bin_values(num_bins: int, depth_min: float, depth_max: float) -> np.ndarray:
@@ -30,6 +30,11 @@ def lid_bin_values(num_bins: int, depth_min: float, depth_max: float) -> np.ndar
     return np.concatenate([value, [depth_max]]).astype(np.float32)
 
 
+# the depth encoder's own dropout, not the detector's ``dropout`` (JAX
+# package depth_predictor.py:52, the reference's fixed 0.1)
+DEPTH_ENCODER_DROPOUT = 0.1
+
+
 class DepthEncoderLayer(nn.Module):
     """One post-norm transformer encoder layer (depth_predictor/transformer.py).
     ``linear1``/``linear2`` are Flax's ``Dense_0``/``Dense_1``."""
@@ -37,17 +42,21 @@ class DepthEncoderLayer(nn.Module):
     def __init__(self, d_model: int, gen: torch.Generator, nhead: int = 8,
                  dim_feedforward: int = 256):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, nhead, gen)
+        dropout = DEPTH_ENCODER_DROPOUT
+        self.self_attn = MultiHeadAttention(d_model, nhead, gen, dropout)
+        self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = dense(d_model, dim_feedforward, gen)
+        self.dropout2 = Dropout(dropout)
         self.linear2 = dense(dim_feedforward, d_model, gen)
+        self.dropout3 = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos):
         q = k = src + pos
-        src = self.norm1(src + self.self_attn(q, k, src))
-        ff = self.linear2(torch.relu(self.linear1(src)))
-        return self.norm2(src + ff)
+        src = self.norm1(src + self.dropout1(self.self_attn(q, k, src)))
+        ff = self.linear2(self.dropout2(torch.relu(self.linear1(src))))
+        return self.norm2(src + self.dropout3(ff))
 
 
 class DepthPredictor(nn.Module):

@@ -108,20 +108,44 @@ class FrozenBatchNorm(nn.Module):
         return x * w[:, None, None] + b[:, None, None]
 
 
+class Dropout(nn.Module):
+    """Inverted dropout in training mode (``flax.linen.Dropout``: keep with
+    probability 1 - p and scale by 1 / (1 - p)); the identity in eval mode.
+
+    The mask is drawn from ``generator``, which ``MonoDETR.forward`` sets
+    on every dropout of the model, or, when it is None, from the default
+    generator of the tensor's device (seeded by ``torch.manual_seed``)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device,
+                          dtype=x.dtype) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+
+
 class MultiHeadAttention(nn.Module):
-    """Dot-product MHA, batch-first: (B, Lq, D) x (B, Lk, D).
+    """Dot-product MHA, batch-first: (B, Lq, D) x (B, Lk, D), with dropout
+    on the attention weights in training mode.
 
     Separate q/k/v/out projections and the softmax written out, one-to-one
     with the JAX package's module (not ``nn.MultiheadAttention``, whose
     packed in-projection has other weights)."""
 
-    def __init__(self, d_model: int, num_heads: int, gen: torch.Generator):
+    def __init__(self, d_model: int, num_heads: int, gen: torch.Generator,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.q_proj = dense(d_model, d_model, gen)
         self.k_proj = dense(d_model, d_model, gen)
         self.v_proj = dense(d_model, d_model, gen)
         self.out_proj = dense(d_model, d_model, gen)
+        self.attn_dropout = Dropout(dropout)
 
     def forward(self, query, key, value):
         d = query.shape[-1]
@@ -134,6 +158,6 @@ class MultiHeadAttention(nn.Module):
         k = split(self.k_proj(key))
         v = split(self.v_proj(value))
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
-        attn = torch.softmax(logits, dim=-1)
+        attn = self.attn_dropout(torch.softmax(logits, dim=-1))
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return self.out_proj(out.reshape(query.shape[:-1] + (d,)))

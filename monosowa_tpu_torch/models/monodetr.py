@@ -1,4 +1,4 @@
-"""MonoDETR-equivalent monocular 3D detector, inference (torch).
+"""MonoDETR-equivalent monocular 3D detector (torch).
 
 Behavioral contract (MonoDETR/lib/models/monodetr/monodetr.py:34-299) at
 the shipped flags (configs/monodetr_kitti.yaml: sine position embedding,
@@ -6,8 +6,8 @@ box refinement on; two_stage, use_dab, use_dn and use_depth off):
 
 * input projections of C3/C4/C5 to hidden_dim + one extra stride-64 level
   (:84-105);
-* the first group of 50 queries at inference (:200-216); the parameter
-  table keeps all num_queries x group_num rows;
+* 50 queries x 11 Group-DETR groups in training mode, the first group in
+  eval mode (:200-216);
 * initial 2-dof reference points from a linear over the query pos embedding
   (depthaware_transformer.py:123, :283-287);
 * per-decoder-layer heads with iterative 6-dof box refinement (:219-274):
@@ -18,13 +18,15 @@ box refinement on; two_stage, use_dab, use_dn and use_depth off):
 * aux outputs per intermediate decoder layer (:289-297).
 
 ``forward`` takes NHWC images like the JAX package and returns its output
-dict with the same layouts.
+dict with the same layouts.  ``model.train()`` / ``model.eval()`` play the
+JAX package's ``training`` flag: all groups of queries and dropout in
+training mode, the first group and no dropout in eval mode.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -32,8 +34,8 @@ from torch import nn
 from monosowa_tpu_torch.device import resolve_device
 from monosowa_tpu_torch.models.backbone import BACKBONE_CHANNELS, ResNet50
 from monosowa_tpu_torch.models.depth_predictor import DepthPredictor
-from monosowa_tpu_torch.models.layers import (MLP, conv, dense, group_norm,
-                                              inverse_sigmoid)
+from monosowa_tpu_torch.models.layers import (MLP, Dropout, conv, dense,
+                                              group_norm, inverse_sigmoid)
 from monosowa_tpu_torch.models.position_encoding import sine_position_encoding
 from monosowa_tpu_torch.models.transformer import (MSDA_BACKENDS,
                                                    DepthAwareDecoderLayer,
@@ -73,7 +75,8 @@ class MonoDETR(nn.Module):
                  num_feature_levels: int = 4, enc_n_points: int = 4,
                  dec_n_points: int = 4, num_depth_bins: int = 80,
                  depth_min: float = 1e-3, depth_max: float = 60.0,
-                 msda_backend: str = "auto", two_stage: bool = False,
+                 msda_backend: str = "auto", dropout: float = 0.1,
+                 two_stage: bool = False,
                  position_embedding: str = "sine", use_depth: bool = False,
                  use_dab: bool = False,
                  device: Union[str, torch.device, None] = None,
@@ -116,14 +119,14 @@ class MonoDETR(nn.Module):
                                               depth_min, depth_max)
         self.encoder = VisualEncoder(gen, enc_layers, d_model, d_ffn,
                                      num_feature_levels, nheads, enc_n_points,
-                                     msda_backend)
+                                     msda_backend, dropout)
         self.query_embed = _normal((num_queries * group_num, 2 * d_model),
                                    gen)
         self.reference_points = dense(d_model, 2, gen)
         for i in range(dec_layers):
             self.add_module(f"decoder_layer{i}", DepthAwareDecoderLayer(
                 gen, d_model, d_ffn, num_feature_levels, nheads,
-                dec_n_points, msda_backend))
+                dec_n_points, msda_backend, dropout, group_num))
             cls = dense(d_model, num_classes, gen)
             with torch.no_grad():
                 cls.bias.fill_(FOCAL_BIAS)
@@ -151,12 +154,19 @@ class MonoDETR(nn.Module):
         return self._pos_cache[key]
 
     def forward(self, images: torch.Tensor, calibs: torch.Tensor,
-                img_sizes: torch.Tensor) -> Dict[str, Any]:
+                img_sizes: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
         """images (B, H, W, 3) normalized; calibs (B, 3, 4) P2; img_sizes
-        (B, 2) as (width, height).  Returns the reference's output dict."""
+        (B, 2) as (width, height).  Returns the reference's output dict.
+        In training mode every dropout draws from ``generator`` (on the
+        model's device), or from the device's default generator if None."""
         b = images.shape[0]
         d = self.d_model
         dev = images.device
+        for mod in self.modules():
+            if isinstance(mod, Dropout):
+                mod.generator = generator
         c3, c4, c5 = self.backbone(images.permute(0, 3, 1, 2))
 
         srcs = [getattr(self, f"input_norm{i}")(
@@ -181,8 +191,9 @@ class MonoDETR(nn.Module):
         # ------- encoder ----------------------------------------------
         memory = self.encoder(src_flat, pos_flat, spatial_shapes)
 
-        # ------- queries: the first group ------------------------------
-        qe = self.query_embed[:self.num_queries]
+        # ------- queries: all groups in training, else the first -------
+        nq = self.num_queries * (self.group_num if self.training else 1)
+        qe = self.query_embed[:nq]
         query_pos = qe[None, :, :d].expand(b, -1, -1)
         tgt = qe[None, :, d:].expand(b, -1, -1)
         ref = torch.sigmoid(self.reference_points(query_pos))   # (B, nq, 2)
@@ -198,12 +209,15 @@ class MonoDETR(nn.Module):
                 depth_embed_seq)
             refs_before.append(ref)
             hs.append(output)
+            # in-decoder refinement, detached (depthaware_transformer.py:
+            # 601-613): layer 0's reference keeps its gradient
             tmp = getattr(self, f"bbox_embed{lid}")(output)
             if ref.shape[-1] == 6:
                 ref = torch.sigmoid(tmp + inverse_sigmoid(ref))
             else:
                 ref = torch.sigmoid(torch.cat(
                     [tmp[..., :2] + inverse_sigmoid(ref), tmp[..., 2:]], -1))
+            ref = ref.detach()
 
         # ------- per-layer heads (monodetr.py:219-274) ------------------
         outputs = []
@@ -223,7 +237,8 @@ class MonoDETR(nn.Module):
             box2d_h = ((coord[..., 4] + coord[..., 5])
                        * img_sizes[:, 1:2]).clamp(min=1.0)
             depth_geo = size3d[..., 0] / box2d_h * calibs[:, 0, 0][:, None]
-            depth_map_s = _sample_depth_map(weighted_depth, coord[..., :2])
+            depth_map_s = _sample_depth_map(weighted_depth,
+                                            coord[..., :2].detach())
             depth_val = ((1.0 / (torch.sigmoid(depth_reg[..., 0:1]) + 1e-6)
                           - 1.0) + depth_geo[..., None]
                          + depth_map_s[..., None]) / 3.0
@@ -293,6 +308,7 @@ def build_monodetr(cfg: Dict[str, Any],
         depth_min=float(cfg.get("depth_min", 1e-3)),
         depth_max=float(cfg.get("depth_max", 60.0)),
         msda_backend=cfg.get("msda_backend", "auto"),
+        dropout=cfg.get("dropout", 0.1),
         two_stage=bool(cfg.get("two_stage", False)),
         position_embedding=cfg.get("position_embedding", "sine"),
         use_depth=bool(cfg.get("use_depth", False)),

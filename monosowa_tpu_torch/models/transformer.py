@@ -10,15 +10,17 @@ Behavioral contract (MonoDETR/lib/models/monodetr/depthaware_transformer.py):
 * ``VisualEncoderLayer``/``VisualEncoder`` = :315-384 — deformable self-attn
   over the flattened 4-level feature pyramid, reference points at pixel
   centers.
-* ``DepthAwareDecoderLayer`` = :387-516 at inference — depth
-  cross-attention, self-attention over the queries, deformable
-  cross-attention, FFN.  Like the JAX package it reproduces the reference's
-  effective computation: q/k go through the sa_* projections and then the
-  attention's own projections; the value is the raw target (:409).
+* ``DepthAwareDecoderLayer`` = :387-516 — depth cross-attention,
+  group-wise self-attention (Group-DETR: in training each group of queries
+  attends only within itself, by folding the groups into the batch axis,
+  :480-498), deformable cross-attention, FFN.  Like the JAX package it
+  reproduces the reference's effective computation: q/k go through the
+  sa_* projections and then the attention's own projections; the value is
+  the raw target (:409).
 
 All sequences are batch-first; padding masks are dropped because the
 reference runs fixed 1280x384 inputs where masks are always all-valid.
-Inference only: dropout is the identity.
+Dropout (``layers.Dropout``) acts in training mode only.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from monosowa_tpu_torch.models.layers import (MultiHeadAttention, dense,
-                                              xavier_uniform_)
+from monosowa_tpu_torch.models.layers import (Dropout, MultiHeadAttention,
+                                              dense, xavier_uniform_)
 from monosowa_tpu_torch.ops.msda import ms_deform_attn
 
 # MSDA backend names of the JAX package; on the card every one of them is
@@ -105,21 +107,25 @@ class VisualEncoderLayer(nn.Module):
 
     def __init__(self, gen: torch.Generator, d_model: int = 256,
                  d_ffn: int = 256, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 4, msda_backend: str = "auto"):
+                 n_points: int = 4, msda_backend: str = "auto",
+                 dropout: float = 0.1):
         super().__init__()
         self.self_attn = MSDeformAttnModule(gen, d_model, n_levels, n_heads,
                                             n_points, msda_backend)
+        self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = dense(d_model, d_ffn, gen)
+        self.dropout2 = Dropout(dropout)
         self.linear2 = dense(d_ffn, d_model, gen)
+        self.dropout3 = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, src, pos, reference_points, spatial_shapes):
         attn = self.self_attn(src + pos, reference_points, src,
                               spatial_shapes)
-        src = self.norm1(src + attn)
-        ff = self.linear2(torch.relu(self.linear1(src)))
-        return self.norm2(src + ff)
+        src = self.norm1(src + self.dropout1(attn))
+        ff = self.linear2(self.dropout2(torch.relu(self.linear1(src))))
+        return self.norm2(src + self.dropout3(ff))
 
 
 def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]]
@@ -140,12 +146,12 @@ class VisualEncoder(nn.Module):
     def __init__(self, gen: torch.Generator, num_layers: int = 3,
                  d_model: int = 256, d_ffn: int = 256, n_levels: int = 4,
                  n_heads: int = 8, n_points: int = 4,
-                 msda_backend: str = "auto"):
+                 msda_backend: str = "auto", dropout: float = 0.1):
         super().__init__()
         for i in range(num_layers):
             self.add_module(f"layer{i}", VisualEncoderLayer(
                 gen, d_model, d_ffn, n_levels, n_heads, n_points,
-                msda_backend))
+                msda_backend, dropout))
         self.num_layers = num_layers
 
     def forward(self, src, pos, spatial_shapes):
@@ -160,39 +166,63 @@ class VisualEncoder(nn.Module):
 class DepthAwareDecoderLayer(nn.Module):
     def __init__(self, gen: torch.Generator, d_model: int = 256,
                  d_ffn: int = 256, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 4, msda_backend: str = "auto"):
+                 n_points: int = 4, msda_backend: str = "auto",
+                 dropout: float = 0.1, group_num: int = 11):
         super().__init__()
-        self.cross_attn_depth = MultiHeadAttention(d_model, n_heads, gen)
+        self.group_num = group_num
+        self.cross_attn_depth = MultiHeadAttention(d_model, n_heads, gen,
+                                                   dropout)
+        self.dropout_depth = Dropout(dropout)
         self.norm_depth = nn.LayerNorm(d_model, eps=1e-5)
         self.sa_qcontent_proj = dense(d_model, d_model, gen)
         self.sa_qpos_proj = dense(d_model, d_model, gen)
         self.sa_kcontent_proj = dense(d_model, d_model, gen)
         self.sa_kpos_proj = dense(d_model, d_model, gen)
-        self.self_attn = MultiHeadAttention(d_model, n_heads, gen)
+        self.self_attn = MultiHeadAttention(d_model, n_heads, gen, dropout)
+        self.dropout_sa = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformAttnModule(gen, d_model, n_levels, n_heads,
                                              n_points, msda_backend)
+        self.dropout_ca = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = dense(d_model, d_ffn, gen)
+        self.dropout_ffn = Dropout(dropout)
         self.linear2 = dense(d_ffn, d_model, gen)
+        self.dropout_out = Dropout(dropout)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+
+    def group_self_attn(self, q_in, k_in, v_in):
+        """Self-attention over the queries.  In training with several
+        groups, (B, g * nq, d) is folded to (B * g, nq, d) so each group
+        attends only within itself (JAX package transformer.py:249-264)."""
+        if not (self.training and self.group_num > 1):
+            return self.self_attn(q_in, k_in, v_in)
+        b, gq, d = q_in.shape
+        g = self.group_num
+
+        def fold(x):
+            return x.reshape(b * g, gq // g, d)
+
+        return self.self_attn(fold(q_in), fold(k_in), fold(v_in)).reshape(
+            b, gq, d)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
                 depth_embed_seq):
         # depth cross-attention
-        tgt = self.norm_depth(tgt + self.cross_attn_depth(
-            tgt, depth_embed_seq, depth_embed_seq))
+        tgt = self.norm_depth(tgt + self.dropout_depth(self.cross_attn_depth(
+            tgt, depth_embed_seq, depth_embed_seq)))
 
-        # self-attention over the queries (one group at inference)
+        # group-wise self-attention over the queries
         qk = tgt + query_pos
         q_in = self.sa_qcontent_proj(qk) + self.sa_qpos_proj(qk)
         k_in = self.sa_kcontent_proj(qk) + self.sa_kpos_proj(qk)
-        tgt = self.norm2(tgt + self.self_attn(q_in, k_in, tgt))
+        tgt = self.norm2(tgt + self.dropout_sa(
+            self.group_self_attn(q_in, k_in, tgt)))
 
         # deformable cross-attention
-        tgt = self.norm1(tgt + self.cross_attn(
-            tgt + query_pos, reference_points, src, spatial_shapes))
+        tgt = self.norm1(tgt + self.dropout_ca(self.cross_attn(
+            tgt + query_pos, reference_points, src, spatial_shapes)))
 
         # FFN
-        ff = self.linear2(torch.relu(self.linear1(tgt)))
-        return self.norm3(tgt + ff)
+        ff = self.linear2(self.dropout_ffn(torch.relu(self.linear1(tgt))))
+        return self.norm3(tgt + self.dropout_out(ff))

@@ -60,3 +60,67 @@ def test_msda_kernel_rejects_other_dtypes(cuda):
     with pytest.raises(TypeError):
         msda.ms_deform_attn(value.half(), shapes, loc, aw)
     assert msda.launches == before
+
+
+def _dout(seed, q, b, m, d, dev):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=(b, q, m * d)).astype(
+        np.float32)).to(dev)
+
+
+# the forward's shapes: lanes idle, a full warp, two channel passes, a
+# 1-row level and P=3; float32 sums in another order (dvalue's atomics in
+# an order that changes from run to run): 1e-5 of each output's magnitude
+@pytest.mark.parametrize("shapes,q,m,d,p", [
+    (((12, 20), (6, 10), (3, 5), (2, 3)), 130, 4, 8, 4),
+    (((48, 160), (24, 80), (12, 40), (6, 20)), 550, 8, 32, 4),
+    (((7, 9), (1, 5)), 33, 2, 48, 3),
+])
+def test_msda_bwd_kernel_matches_plain(cuda, shapes, q, m, d, p):
+    value, loc, aw = _inputs(2, shapes, q, 2, m, d, p, cuda)
+    dout = _dout(3, q, 2, m, d, cuda)
+    before = msda.bwd_launches
+    got = msda._launch_bwd(value, shapes, loc, aw, dout)
+    dloc, daw = msda.msda_grad_loc_aw_plain(value, shapes, loc, aw, dout)
+    want = (msda.msda_grad_value_plain(value.shape, shapes, loc, aw, dout),
+            dloc, daw)
+    torch.cuda.synchronize()
+    assert msda.bwd_launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_msda_gradient_goes_through_the_kernels(cuda):
+    shapes = ((12, 20), (6, 10), (3, 5), (2, 3))
+    value, loc, aw = (t.requires_grad_() for t in
+                      _inputs(4, shapes, 37, 2, 4, 8, 4, cuda))
+    dout = _dout(5, 37, 2, 4, 8, cuda)
+    before = (msda.launches, msda.bwd_launches)
+    out = msda.ms_deform_attn(value, shapes, loc, aw)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (msda.launches, msda.bwd_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    dloc, daw = msda.msda_grad_loc_aw_plain(value.detach(), shapes,
+                                            loc.detach(), aw.detach(), dout)
+    dvalue = msda.msda_grad_value_plain(value.shape, shapes, loc.detach(),
+                                        aw.detach(), dout)
+    for t, w in ((value, dvalue), (loc, dloc), (aw, daw)):
+        assert float((t.grad - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+
+
+def test_msda_bwd_kernel_rejects_other_dtypes(cuda):
+    shapes = ((4, 4),)
+    value, loc, aw = _inputs(6, shapes, 5, 1, 2, 8, 2, cuda)
+    dout = _dout(7, 5, 1, 2, 8, cuda)
+    before = msda.bwd_launches
+    with pytest.raises(TypeError):
+        msda._launch_bwd(value.double(), shapes, loc.double(), aw.double(),
+                         dout.double())
+    with pytest.raises(TypeError):      # float64 runs on the CPU only
+        msda.ms_deform_attn(value.double(), shapes, loc.double(),
+                            aw.double())
+    assert msda.bwd_launches == before

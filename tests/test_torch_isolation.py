@@ -17,6 +17,8 @@ CHILD = r"""
 import importlib, json, pkgutil, sys
 sys.path.insert(0, sys.argv[1])
 import numpy as np
+import torch
+torch.set_num_threads(1)    # the suite runs six worker processes at once
 import monosowa_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(monosowa_tpu_torch.__path__,
                                                "monosowa_tpu_torch.")]
@@ -34,8 +36,16 @@ batch = {"image": np.random.default_rng(0).normal(
                              [0, 0, 1, 0]]], np.float32),
          "img_size": np.array([[w, h]], np.float32)}
 dets = make_eval_step(model, topk=5)(batch)
+from monosowa_tpu_torch.train.optim import make_optimizer
+from monosowa_tpu_torch.train.sample import sample_batch
+from monosowa_tpu_torch.train.trainer import make_train_step
+losses = make_train_step(model, None, make_optimizer(model))(
+    sample_batch(1, h, w), torch.Generator().manual_seed(0))
 print(json.dumps({"modules": names, "dets": list(dets.shape),
                   "finite": bool(np.isfinite(dets.numpy()).all()),
+                  "train_finite": bool(np.isfinite(list(losses.values())
+                                                   ).all()),
+                  "grad_norm": losses["grad_norm"],
                   "loaded": sorted(m for m in sys.modules
                                    if m.split(".")[0] in %r)}))
 """ % (FORBIDDEN,)
@@ -53,8 +63,8 @@ def _top_imports(path):
 
 
 def test_port_runs_without_jax():
-    """Every module imports and a tiny CPU forward runs in a fresh
-    interpreter without loading JAX, Flax or the JAX package."""
+    """Every module imports, and a tiny CPU forward and train step run, in
+    a fresh interpreter without loading JAX, Flax or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", CHILD, ROOT], env=env,
                           capture_output=True, text=True, timeout=300,
@@ -63,6 +73,7 @@ def test_port_runs_without_jax():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "monosowa_tpu_torch.ops.msda" in res["modules"]
     assert res["dets"] == [1, 5, 37] and res["finite"]
+    assert res["train_finite"] and res["grad_norm"] > 0
     assert res["loaded"] == []
 
 

@@ -2,7 +2,8 @@
 weights carried over by the weight bridge (``monosowa_tpu_torch.convert``).
 
 Widths are those of tests/test_train_step.py (d_model 64, 4 heads) at a
-96x160 image; inputs come from numpy.  Tolerance: 2e-4 of each output's
+96x160 image; inputs come from numpy.  The JAX modules run deterministic
+(their default), the port's in eval mode.  Tolerance: 2e-4 of each output's
 largest magnitude (the transformer bar of ROADMAP.md; random-init ResNet
 activations grow, so the bar is relative).
 """
@@ -91,7 +92,7 @@ def test_depth_predictor_matches_jax():
     v = jm.init(jax.random.PRNGKey(0), feats, pos16)
     want = jax.jit(lambda v, f: jm.apply(v, f, pos16))(v, feats)
 
-    tm = DepthPredictor(_gen(), d_model=D, num_depth_bins=16)
+    tm = DepthPredictor(_gen(), d_model=D, num_depth_bins=16).eval()
     load_flax_params(tm, _np(v["params"]))
     with torch.no_grad():
         got = tm([_t(f).permute(0, 3, 1, 2) for f in feats], _t(pos16))
@@ -110,7 +111,7 @@ def test_encoder_layer_matches_jax():
                              SHAPES)["params"], rng)
     want = jm.apply({"params": params}, src, pos, ref, SHAPES)
 
-    tm = VisualEncoderLayer(_gen(), D, 64, len(SHAPES), HEADS, 4)
+    tm = VisualEncoderLayer(_gen(), D, 64, len(SHAPES), HEADS, 4).eval()
     load_flax_params(tm, params)
     with torch.no_grad():
         got = tm(_t(src), _t(pos), _t(ref), SHAPES)
@@ -135,7 +136,8 @@ def test_decoder_layer_matches_jax(ref_dof):
     params = _jitter(jm.init(jax.random.PRNGKey(0), *args)["params"], rng)
     want = jm.apply({"params": params}, *args, training=False)
 
-    tm = DepthAwareDecoderLayer(_gen(), D, 64, len(SHAPES), HEADS, 4)
+    tm = DepthAwareDecoderLayer(_gen(), D, 64, len(SHAPES), HEADS,
+                                4).eval()
     load_flax_params(tm, params)
     with torch.no_grad():
         got = tm(_t(tgt), _t(qpos), _t(ref), _t(memory), SHAPES,
