@@ -7,13 +7,16 @@ Phases, each printing one JSON line:
 
 1. env    — TF32 off for matmuls and convolutions; the card's name and
             power limit as nvidia-smi reports them.
-2. build  — nvcc builds every kernel of the serve and train paths from
-            ``ops/csrc``, one nvcc per source, all started together.
+2. build  — nvcc builds every kernel of the serve, train and label paths
+            from ``ops/csrc``, one nvcc per source, all started together.
 3. kernel — each kernel against its plain PyTorch version at the paths'
             shapes (MSDA forward: the encoder's B=2, Q=S=10,200 tokens and
             the decoder's Q=50 at serving and Q=550 in training; MSDA
-            backward: the encoder's and the training decoder's), with
-            error, times and the least time the card could take.
+            backward: the encoder's and the training decoder's; the
+            template-fitting coverage counts: the fit's rescore shape,
+            48 cars x 40 poses, and its fine-pass shape, 4 cars x 360
+            poses, of 1000 template points against 2048 scan points),
+            with error, times and the least time the card could take.
 4. serve  — the full-width MonoDETR (ResNet-50, d_model 256, 3+3 layers,
             seeded random weights) answers three requests of two 384x1280
             images through ``run_inference``; the result files are read
@@ -27,7 +30,17 @@ Phases, each printing one JSON line:
             backward with the kernels against one through the plain MSDA
             (loss dict, gradients) and one with the forward kernel and
             the plain backward (gradients: the backward kernel alone).
-6. kernels — one line listing every ported kernel with its numbers.
+6. fit    — ``fit_cars_conv`` at the full grid (41 x 41 translations,
+            40 thetas, 360 fine thetas) on 16 synthetic cars at known
+            poses, standing and moving: x and z within 0.35 m, yaw within
+            6 degrees modulo pi; the coarse grid's rounded cuDNN
+            correlations against the same correlations without cuDNN.
+7. label  — the pseudo-labeller at full width: a synthetic 375x1242
+            sequence (about 460k points a frame), one group of 8 reference
+            frames with windows of +-6 frames through
+            ``PseudoLabeler.label_frames`` (host candidates), one KITTI
+            label file per frame, read back and held against the scene.
+8. kernels — one line listing every ported kernel with its numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and the script exits non-zero without it; so does a machine
@@ -50,9 +63,13 @@ ENC_SHAPES = ((48, 160), (24, 80), (12, 40), (6, 20))   # 384x1280 pyramid
 M_HEADS, D_HEAD, N_POINTS = 8, 32, 4
 IMG_H, IMG_W, BATCH, REQUESTS = 384, 1280, 2, 3
 MSDA_PER_FORWARD = 6          # 3 encoder + 3 decoder layers
-KERNELS = ("msda_fwd", "msda_bwd")
+KERNELS = ("msda_fwd", "msda_bwd", "tfl_counts")
 TRAIN_STEPS = 3
 TRAIN_QUERIES = 50 * 11       # num_queries x group_num
+TFL_T, TFL_S, TFL_RADIUS = 1000, 2048, 0.2   # template, scan, threshold
+TFL_PER_FIT = 3               # rescore, half-pitch refinement, fine pass
+FIT_CARS = 16
+LABEL_FRAMES, LABEL_WINDOW = 8, 6
 
 
 def emit(obj) -> None:
@@ -219,6 +236,321 @@ def check_msda_bwd(rng, q: int, ref, label: str, dev) -> dict:
     # every in-bounds corner reads one value row and adds into one dvalue row
     res["l2_corner_rate_TBps"] = 2 * res["corner_row_bytes"] / res["ms"] / 1e9
     return res
+
+
+def synthetic_car(rng, template, moving: bool, n_ground: int = 740):
+    """One car's scan as the labeller's aggregation hands it to the fit: the
+    template posed at a known pose with 0.02 m noise, plus ground points.
+    A moving car's ground points lie mostly on the camera's side of it, so
+    the median of its scan lies before its center, as the +1 m shift of
+    the moving-car grid expects.  Returns (points (n, 3) float32, pose
+    dict)."""
+    import numpy as np
+
+    theta = rng.uniform(0, 2 * np.pi)
+    c, s = np.cos(theta), np.sin(theta)
+    rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    pose = np.array([rng.uniform(-8, 8), 0.9, rng.uniform(8, 40)])
+    car = template @ rot.T + pose + rng.normal(scale=0.02,
+                                               size=template.shape)
+    z_lo, z_hi = (-12, 2) if moving else (-8, 8)
+    ground = np.stack([pose[0] + rng.uniform(-8, 8, n_ground),
+                       np.full(n_ground, 1.66),
+                       pose[2] + rng.uniform(z_lo, z_hi, n_ground)], 1)
+    return (np.concatenate([car, ground]).astype(np.float32),
+            {"x": pose[0], "z": pose[2], "theta": theta})
+
+
+def tfl_inputs(rng, b: int, p: int, dev, t: int = TFL_T, s: int = TFL_S):
+    """scan (B, S, 3), mask (B, S), posed templates (B, P, T, 3) as the fit
+    makes them: per car a noisy posed template plus ground points, padded
+    to S with a masked tail and a few masked points inside; P poses around
+    the true one (all thetas of a P-step circle at P >= 360, else 5 thetas
+    x P / 5 translations near the truth)."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.sowa.fitting import _pose_template
+    from monosowa_tpu_torch.sowa.templates import TemplateBank
+
+    template = TemplateBank.default(num_points=t).points[0]
+    scan = np.zeros((b, s, 3), np.float32)
+    mask = np.zeros((b, s), bool)
+    thetas = np.zeros((b, p), np.float32)
+    trans = np.zeros((b, p, 3), np.float32)
+    for i in range(b):
+        pts, pose = synthetic_car(rng, template, False,
+                                  n_ground=min(740, s - t))
+        center = np.median(pts, axis=0)
+        scan[i, :len(pts)] = pts - center
+        mask[i, :len(pts)] = True
+        mask[i, 7:len(pts):29] = False
+        true_t = np.array([pose["x"], 0.9, pose["z"]]) - center
+        if p >= 360:
+            thetas[i] = np.linspace(0, 2 * np.pi, p, endpoint=False)
+            trans[i] = true_t
+        else:
+            n_tr = p // 5
+            thetas[i] = np.tile(pose["theta"] + 0.157 * np.arange(-2, 3),
+                                n_tr)
+            trans[i] = np.repeat(true_t + rng.normal(
+                scale=0.1, size=(n_tr, 3)) * [1, 0, 1], 5, axis=0)
+    scan_d, mask_d = torch.from_numpy(scan).to(dev), \
+        torch.from_numpy(mask).to(dev)
+    posed = _pose_template(torch.from_numpy(template).to(dev),
+                           torch.from_numpy(thetas).to(dev)) \
+        + torch.from_numpy(trans).to(dev)[:, :, None, :]
+    return scan_d, mask_d, posed.contiguous()
+
+
+def check_tfl(rng, b: int, p: int, label: str, dev, t: int = TFL_T,
+              s: int = TFL_S) -> dict:
+    """The coverage-count kernel against its plain version: counts of pairs
+    under the same float32 squared distance, so the fractions are equal
+    (the bar is 1e-6, a count of one is 1e-3)."""
+    import torch
+
+    from monosowa_tpu_torch.ops import tfl
+
+    scan, mask, posed = tfl_inputs(rng, b, p, dev, t, s)
+
+    def plain():
+        return tfl._fractions(
+            *tfl.binary_both_way_counts_plain(scan, mask, posed, TFL_RADIUS),
+            mask, t)
+
+    got = tfl.binary_both_way_counts(scan, mask, posed, TFL_RADIUS)
+    want = plain()
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not (all(torch.isfinite(g).all() for g in got) and err <= 1e-6):
+        raise AssertionError(f"tfl_counts {label}: max abs err {err} > 1e-6")
+    if not (float(got[0].max()) > 0.5 and float(got[1].max()) > 0.3):
+        raise AssertionError(f"tfl_counts {label}: the poses around the "
+                             f"truth cover too little: {float(got[0].max())}"
+                             f", {float(got[1].max())}")
+    # templates, scan and mask read once, two (B, P) outputs written once;
+    # per pair of a template point and a VALID scan point 8 float32
+    # operations (3 subtractions, 3 products, 2 sums)
+    nbytes = 4 * (posed.numel() + scan.numel() + 2 * b * p) + mask.numel()
+    pairs = int(mask.sum().item()) * p * t
+    flops = 8 * pairs
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {
+        "shape": f"{label}: B={b} P={p} T={t} S={s} "
+                 f"valid={int(mask.sum().item()) / b:.0f}",
+        "max_abs_err": err, "max_t_frac": float(got[0].max()),
+        "max_s_frac": float(got[1].max()),
+        "ms": cuda_ms(lambda: tfl.binary_both_way_counts(
+            scan, mask, posed, TFL_RADIUS), 20),
+        "plain_ms": cuda_ms(plain, 2, warmup=1),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "compulsory_bytes": nbytes, "pairs": pairs, "flops": flops,
+    }
+
+
+def fit_check(dev, n_cars: int = FIT_CARS, fit_cfg=None) -> dict:
+    """``fit_cars_conv`` through the kernel on cars at known poses, the
+    bars of the JAX package's tests/test_pipeline_e2e.py (x, z within
+    0.35 m, yaw within 6 degrees modulo pi).  Even cars stand; odd cars
+    move, with a trajectory angle 2 degrees off the truth."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.ops import tfl
+    from monosowa_tpu_torch.sowa import fitting
+    from monosowa_tpu_torch.sowa.templates import TemplateBank
+
+    rng = np.random.default_rng(2)
+    cfg = fit_cfg or fitting.FitConfig()
+    template = TemplateBank.default().points[0]
+    t0 = time.perf_counter()
+    spec, occ, memb = fitting.make_conv_kernels(template, cfg, dev)
+    kernels_s = time.perf_counter() - t0
+    pts = np.zeros((n_cars, TFL_S, 3), np.float32)
+    mask = np.zeros((n_cars, TFL_S), bool)
+    moving = np.arange(n_cars) % 2 == 1
+    theta_est = np.zeros(n_cars, np.float32)
+    truth = []
+    for i in range(n_cars):
+        p, pose = synthetic_car(rng, template, bool(moving[i]))
+        pts[i, :len(p)], mask[i, :len(p)] = p, True
+        theta_est[i] = pose["theta"] + np.deg2rad(2.0) if moving[i] else 0
+        truth.append(pose)
+    batch = fitting.CarBatch(pts, mask, moving, theta_est, moving.copy(),
+                             np.ones(n_cars, bool))
+    tmpl = torch.as_tensor(template, device=dev)
+    fitting.fit_cars_conv(batch, tmpl, occ, memb, spec, cfg)     # warm-up
+    torch.cuda.synchronize()
+    before = tfl.launches
+    t0 = time.perf_counter()
+    res = fitting.fit_cars_conv(batch, tmpl, occ, memb, spec, cfg)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    launches = tfl.launches - before
+    if launches != TFL_PER_FIT:
+        raise AssertionError(f"fit_cars_conv launched tfl_counts {launches} "
+                             f"times, not {TFL_PER_FIT}")
+    x, z, theta = (getattr(res, k).cpu().numpy() for k in ("x", "z", "theta"))
+    dx = np.abs(x - [t["x"] for t in truth])
+    dz = np.abs(z - [t["z"] for t in truth])
+    dth = np.abs((theta - [t["theta"] for t in truth] + np.pi)
+                 % (2 * np.pi) - np.pi)
+    dyaw = np.degrees(np.minimum(dth, np.abs(dth - np.pi)))
+    if not (np.isfinite([x, z, theta]).all() and dx.max() < 0.35
+            and dz.max() < 0.35 and dyaw.max() < 6.0):
+        raise AssertionError(f"fit: |dx| {dx.tolist()} |dz| {dz.tolist()} "
+                             f"yaw deg {dyaw.tolist()}")
+
+    # the tie order the rescore relies on, on the card: argmin is the first
+    # minimum, a stable sort lists equal values by index
+    ties = torch.tensor([[3, 1, 2, 1, 5, 1, 2, 0, 0, 4.]], device=dev)
+    first = int(ties.argmin(dim=1))
+    lowest = torch.sort(ties, dim=1, stable=True).indices[0, :6].tolist()
+    if first != 7 or lowest != [7, 8, 1, 3, 5, 2]:
+        raise AssertionError(f"tie order on the card: argmin {first}, "
+                             f"stable sort {lowest}")
+
+    # the coarse grid's counts are whole numbers: the rounded cuDNN
+    # correlations against the same correlations without cuDNN
+    local = torch.as_tensor(pts, device=dev) - res.center[:, None]
+    mask_d = torch.as_tensor(mask, device=dev)
+    got = tfl.grid_pose_counts_conv(local, mask_d, occ, memb, spec)
+    counts_yxz, memb_yxz = tfl._conv_fields(local, mask_d, spec)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        raw = (torch.nn.functional.conv2d(memb_yxz, occ),
+               torch.nn.functional.conv2d(counts_yxz, memb))
+    with torch.backends.cudnn.flags(enabled=False):
+        want = (torch.nn.functional.conv2d(memb_yxz, occ),
+                torch.nn.functional.conv2d(counts_yxz, memb))
+    for name, g, w in zip(("count_t", "count_s"), got, want):
+        if not (torch.equal(w, w.round()) and torch.equal(g, w)):
+            raise AssertionError(
+                f"coarse grid {name}: rounded cuDNN correlation differs "
+                f"from the correlation without cuDNN by "
+                f"{float((g - w).abs().max())}")
+    return {"phase": "fit", "cars": n_cars, "standing": int((~moving).sum()),
+            "moving": int(moving.sum()), "grid": [spec.n_dx, spec.n_dz,
+                                                  spec.n_theta],
+            "fine_thetas": cfg.n_theta_fine, "conv_kernels_s": kernels_s,
+            "fit_ms": fit_ms, "tfl_launches_per_fit": launches,
+            "max_abs_dx_m": float(dx.max()), "max_abs_dz_m": float(dz.max()),
+            "max_yaw_err_deg_standing": float(dyaw[~moving].max()),
+            "max_yaw_err_deg_moving": float(dyaw[moving].max()),
+            "cudnn_conv_max_off_whole": max(
+                float((r - r.round()).abs().max()) for r in raw),
+            "conv_count_max": [float(w.max()) for w in want]}
+
+
+def label(dev, n_frames: int = LABEL_FRAMES, window: int = LABEL_WINDOW,
+          hw=None, cfg=None) -> dict:
+    """One group of reference frames of the synthetic sequence through
+    ``PseudoLabeler.label_frames`` (host candidates: points, masks and
+    frame ids, no depth maps)."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.kittiio import read_label_file
+    from monosowa_tpu_torch.ops import tfl
+    from monosowa_tpu_torch.sowa import fitting, pipeline, sample
+
+    h, w = hw or (sample.H, sample.W)
+    t0 = time.perf_counter()
+    frames, scene_cars = sample.make_sequence(n_frames, window, h=h, w=w)
+    scene_s = time.perf_counter() - t0
+    # the configuration of the JAX package's tools/bench_pipeline.py
+    cfg = cfg or pipeline.PipelineConfig(
+        nscans_before=window, nscans_after=window, max_cars=16,
+        max_points=TFL_S, min_standing_points=400,
+        fit=fitting.FitConfig(fine_chunk=60))
+    labeler = pipeline.PseudoLabeler(cfg)       # on the card: no device given
+    if labeler.device.type != "cuda":
+        raise AssertionError(f"the labeller is on {labeler.device}")
+
+    # every fit_cars_conv call of the run: cars, device ms, kernel launches
+    fits = []
+    fit_cars_conv = pipeline.fit_cars_conv
+
+    def timed_fit(batch, *args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = tfl.launches
+        start.record()
+        res = fit_cars_conv(batch, *args)
+        end.record()
+        fits.append({"cars": len(batch.points), "events": (start, end),
+                     "tfl_launches": tfl.launches - before})
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = sample.make_jobs(frames, window, tmp, h=h, w=w)
+        pipeline.fit_cars_conv = timed_fit
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tfl.launches = 0
+            t0 = time.perf_counter()
+            n_written = labeler.label_frames(jobs)      # the main path
+            torch.cuda.synchronize()
+            label_s = time.perf_counter() - t0
+            launches = tfl.launches
+        finally:
+            pipeline.fit_cars_conv = fit_cars_conv
+        peak = torch.cuda.max_memory_allocated()
+        stages = dict(labeler.stage_seconds)
+        if n_written != n_frames:
+            raise AssertionError(f"{n_written} frames written, not "
+                                 f"{n_frames}")
+        cars_per_frame, worst = [], 0.0
+        for job in jobs:
+            labels = read_label_file(job["out_path"])
+            if labels.names != ["Car"] * len(labels):
+                raise AssertionError(f"{job['out_path']}: {labels.names}")
+            vals = np.concatenate([labels.box2d.ravel(), labels.hwl.ravel(),
+                                   labels.pos.ravel(), labels.ry])
+            if not np.isfinite(vals).all():
+                raise AssertionError(f"{job['out_path']}: non-finite label")
+            cars_per_frame.append(len(labels))
+            # the scene's cars in this reference frame's camera coordinates
+            ego_z = frames[job["frame_index"]]["ego_z"]
+            scene_xz = np.array([[c["x"], c["z"] - ego_z]
+                                 for c in scene_cars])
+            for pos in labels.pos:
+                worst = max(worst, float(np.hypot(
+                    scene_xz[:, 0] - pos[0], scene_xz[:, 1] - pos[2]).min()))
+        mtimes = [os.path.getmtime(j["out_path"]) for j in jobs]
+        again = labeler.label_frames(jobs)              # skip-if-exists
+        if again != 0 or mtimes != [os.path.getmtime(j["out_path"])
+                                    for j in jobs]:
+            raise AssertionError(f"a second label_frames wrote {again} "
+                                 "frames")
+    if sum(cars_per_frame) < n_frames:
+        raise AssertionError(f"cars per frame {cars_per_frame}")
+    if worst > 2.5:
+        raise AssertionError(f"a written car lies {worst} m from every "
+                             "scene car")
+    for f in fits:
+        if f["tfl_launches"] != TFL_PER_FIT:
+            raise AssertionError(f"a fit_cars_conv call launched tfl_counts "
+                                 f"{f['tfl_launches']} times")
+        start, end = f.pop("events")
+        f["device_ms"] = start.elapsed_time(end)
+    # the window is the JAX bench's default; production aggregates +-30
+    # frames (PipelineConfig's default), which multiplies the extraction
+    return {"phase": "label", "frames": n_frames, "window": window,
+            "production_window": pipeline.PipelineConfig().nscans_before,
+            "image_hw": [h, w], "points_per_frame": len(frames[0]["points"]),
+            "distinct_frames": n_frames + 2 * window,
+            "scene_build_s": scene_s, "label_files": n_written,
+            "cars_per_frame": cars_per_frame,
+            "max_dist_to_scene_car_m": worst,
+            "label_ms_per_frame": label_s * 1e3 / n_frames,
+            "stage_seconds": stages,
+            "host_share": (stages["extract"] + stages["track_aggregate"])
+            / label_s,
+            "fits": fits, "tfl_launches": launches,
+            "peak_mem_GB": peak / 1e9}
 
 
 def sample_batch(rng, img_id0: int):
@@ -543,6 +875,13 @@ def main() -> int:
                                            "train decoder", dev)}
     for res in bwd.values():
         emit({"phase": "kernel", "name": "msda_bwd", **res})
+    cov = {"rescore": check_tfl(rng, 48, 40, "rescore", dev),
+           "fine": check_tfl(rng, 4, 360, "fine pass", dev)}
+    for res in cov.values():
+        emit({"phase": "kernel", "name": "tfl_counts", **res})
+    # hand the plain versions' large temporaries back, so the phases below
+    # start from an empty allocator cache
+    torch.cuda.empty_cache()
 
     # 4. serve
     srv = serve(dev)
@@ -552,9 +891,17 @@ def main() -> int:
     trn = train(dev)
     emit(trn)
 
-    # 6. kernels
-    def entry(name, source, replaces, launches, runs):
-        enc = runs["encoder"]
+    # 6. fit
+    emit(fit_check(dev))
+
+    # 7. label
+    lbl = label(dev)
+    emit(lbl)
+
+    # 8. kernels
+    def entry(name, source, replaces, launches, runs, first="encoder",
+              rest="decoder"):
+        enc = runs[first]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches,
@@ -562,10 +909,10 @@ def main() -> int:
                 "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
                 "bound_by": enc["bound_by"], "library_ms": None,
                 "at": enc["shape"],
-                "decoder": [{k: r[k] for k in ("shape", "max_abs_err", "ms",
-                                               "plain_ms", "bound_ms",
-                                               "bound_by")}
-                            for key, r in runs.items() if key != "encoder"]}
+                rest: [{k: r[k] for k in ("shape", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms",
+                                          "bound_by")}
+                       for key, r in runs.items() if key != first]}
 
     emit({"kernels": [
         entry("msda_fwd", "monosowa_tpu_torch/ops/csrc/msda_fwd.cu",
@@ -578,6 +925,10 @@ def main() -> int:
               "monosowa_tpu/ops/msda_mxu.py:306 (K2 msda_gdot_mxu); "
               "monosowa_tpu/ops/msda_mxu.py:544 (K3 msda_dvalue_mxu)",
               {"train": trn["msda_bwd_launches"]}, bwd),
+        entry("tfl_counts", "monosowa_tpu_torch/ops/csrc/tfl_counts.cu",
+              "monosowa_tpu/ops/tfl_pallas.py:67 (K5 "
+              "binary_both_way_counts_pallas)",
+              {"label": lbl["tfl_launches"]}, cov, "rescore", "other_shapes"),
     ]})
     if torch.cuda.device_count() != 1:
         raise AssertionError(f"{torch.cuda.device_count()} cards visible")

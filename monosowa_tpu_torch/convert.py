@@ -16,6 +16,9 @@ Flax's auto-generated submodule names are mapped by the fixed table
 ``AUTO_NAMES``, keyed by the torch module that holds them.  Any Flax key
 left unused, any shape that differs and any port tensor left unfilled
 raises ``ValueError``; nothing is written unless everything matches.
+
+``load_labeler_state`` carries the pseudo-labeller's state across (it has
+no learned weights): the template bank and the conv kernels, as numpy.
 """
 
 from __future__ import annotations
@@ -133,3 +136,28 @@ def load_flax_params(model: nn.Module, params: Mapping,
             t = state[name]
             t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
+
+
+def load_labeler_state(labeler, bank_points: np.ndarray,
+                       occ_kernels: np.ndarray,
+                       memb_kernels: np.ndarray) -> None:
+    """Fill a ``sowa.pipeline.PseudoLabeler`` with the state of another
+    labeller, as numpy arrays: the template bank (4, T, 3) and the conv
+    kernels (NT, Y, K, K) of its first template.  The labeller has no
+    learned weights; these arrays are all that its fit depends on.  Shapes
+    must match the labeller's own (its ``FitConfig`` fixes the grid)."""
+    dev = labeler.device
+    for name, arr, want in (
+            ("bank_points", bank_points, labeler.bank.points.shape),
+            ("occ_kernels", occ_kernels, tuple(labeler.occ_kernels.shape)),
+            ("memb_kernels", memb_kernels,
+             tuple(labeler.memb_kernels.shape))):
+        if tuple(np.shape(arr)) != tuple(want):
+            raise ValueError(f"{name}: shape {np.shape(arr)} != "
+                             f"{tuple(want)}")
+    labeler.bank.points = np.array(bank_points, dtype=np.float32)
+    labeler.template = torch.as_tensor(labeler.bank.points[0], device=dev)
+    labeler.occ_kernels = torch.as_tensor(
+        np.array(occ_kernels, dtype=np.float32), device=dev)
+    labeler.memb_kernels = torch.as_tensor(
+        np.array(memb_kernels, dtype=np.float32), device=dev)

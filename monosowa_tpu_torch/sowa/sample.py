@@ -1,0 +1,118 @@
+"""A synthetic driving sequence at KITTI-realistic sizes, in numpy.
+
+The scene of the JAX package's ``tools/bench_pipeline.py`` ``make_sequence``:
+375x1242 frames, a dense pseudo-LiDAR cloud back-projected from a rendered
+depth image (about 460k points a frame: a ground plane and flat car-sized
+rectangles at one depth each), about ``n_cars`` cars visible per frame, the
+ego camera driving +z at 0.8 m a frame.  ``make_jobs`` turns it into the job
+dicts ``PseudoLabeler.label_frames`` takes (host candidates: points, masks
+and frame ids, no depth maps).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Tuple
+
+import numpy as np
+
+H, W = 375, 1242
+N_CARS = 6
+EGO_STEP = 0.8        # metres the ego camera advances per frame
+
+
+def intrinsics(h: int = H, w: int = W) -> Tuple[float, np.ndarray]:
+    """(fu, P2) of the scene's pinhole camera."""
+    fu = 721.5 * w / 1242
+    return fu, np.array([[fu, 0, w / 2, 0], [0, fu, h / 2, 0], [0, 0, 1, 0]])
+
+
+def make_sequence(n_frames: int = 8, window: int = 6, seed: int = 0,
+                  h: int = H, w: int = W, n_cars: int = N_CARS):
+    """``n_frames + 2 * window`` frames.  Returns (frames, cars): per frame
+    a dict of ``points`` (h * w, 3) float32 in the frame's camera
+    coordinates, ``masks`` (the visible cars' boolean (h, w) masks) and
+    ``ego_z``; ``cars`` are the scene's cars (x, y, z, theta in the
+    coordinates of frame 0)."""
+    rng = np.random.default_rng(seed)
+    fu, _ = intrinsics(h, w)
+
+    total = n_frames + 2 * window
+    # static cars at constant density along the whole driven corridor:
+    # about n_cars visible per frame in the 4-70 m band whatever the
+    # sequence length
+    spacing = 66.0 / max(n_cars, 1)
+    road_end = total * EGO_STEP + 74.0
+    cars = []
+    for z0 in np.arange(8.0, road_end, spacing):
+        cars.append(dict(
+            x=rng.uniform(-8, 8), y=1.1,
+            z=float(z0) + rng.uniform(-0.4 * spacing, 0.4 * spacing),
+            theta=rng.uniform(0, 2 * np.pi)))
+    frames = []
+    ys, xs = np.mgrid[0:h, 0:w]
+    for k in range(total):
+        ego_z = k * EGO_STEP
+        # depth image: ground plane + car boxes
+        depth = np.full((h, w), 300.0, np.float32)
+        # ground: y = 1.65 -> depth = fu * 1.65 / (v - cv) for v > cv
+        v_rel = ys - h / 2
+        ground_d = np.where(v_rel > 1, fu * 1.65 / np.maximum(v_rel, 1),
+                            300.0)
+        depth = np.minimum(depth, ground_d)
+        masks = []
+        for car in cars:
+            z = car["z"] - ego_z
+            if z < 4 or z > 70:
+                continue
+            u = fu * car["x"] / z + w / 2
+            v = fu * car["y"] / z + h / 2
+            wpx = fu * 4.0 / z
+            hpx = fu * 1.6 / z
+            x1, x2 = int(u - wpx / 2), int(u + wpx / 2)
+            y1, y2 = int(v - hpx), int(v)
+            if x2 < 0 or x1 >= w or y2 < 0 or y1 >= h:
+                continue
+            x1, x2 = max(x1, 0), min(x2, w)
+            y1, y2 = max(y1, 0), min(y2, h)
+            m = np.zeros((h, w), bool)
+            m[y1:y2, x1:x2] = True
+            depth[m] = np.minimum(depth[m], z)
+            masks.append(m)
+        # back-project every pixel
+        pts = np.stack([(xs - w / 2) * depth / fu,
+                        (ys - h / 2) * depth / fu,
+                        depth], -1).reshape(-1, 3).astype(np.float32)
+        pts += rng.normal(scale=0.01, size=pts.shape).astype(np.float32)
+        frames.append(dict(points=pts, masks=masks, ego_z=ego_z))
+    return frames, cars
+
+
+def make_jobs(frames: List[dict], window: int, out_dir: str,
+              tag: str = "seq", lo: int = 0, hi: int = None,
+              h: int = H, w: int = W) -> List[dict]:
+    """One ``label_frames`` job per reference frame ``window + lo`` ..
+    ``window + hi`` of ``frames``: the +-``window`` offsets, ego-motion
+    transforms into the reference frame, accessors for points and masks,
+    and global frame ids so overlapping windows share the extraction."""
+    _, p2 = intrinsics(h, w)
+    offsets = list(range(-window, window + 1))
+    if hi is None:
+        hi = len(frames) - 2 * window
+    jobs = []
+    for fi in range(window + lo, window + hi):
+        ref_z = frames[fi]["ego_z"]
+        transforms = []
+        for k in offsets:
+            t = np.eye(4)
+            t[2, 3] = frames[fi + k]["ego_z"] - ref_z
+            transforms.append(t)
+        jobs.append(dict(
+            out_path=os.path.join(out_dir, f"{tag}_{fi:06d}.txt"),
+            frame_index=fi,
+            window_frames=offsets,
+            frame_ids=[(tag, fi - window + k) for k in range(len(offsets))],
+            get_points=(lambda k, fi=fi: frames[fi - window + k]["points"]),
+            get_masks=(lambda k, fi=fi: frames[fi - window + k]["masks"]),
+            transforms=np.stack(transforms), p2=p2, img_hw=(h, w)))
+    return jobs

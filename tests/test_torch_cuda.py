@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from monosowa_tpu_torch.ops import msda
+from monosowa_tpu_torch.ops import msda, tfl
 
 pytestmark = pytest.mark.cuda
 
@@ -124,3 +124,61 @@ def test_msda_bwd_kernel_rejects_other_dtypes(cuda):
         msda.ms_deform_attn(value.double(), shapes, loc.double(),
                             aw.double())
     assert msda.bwd_launches == before
+
+
+def _tfl_inputs(seed, b, s, n_valid, p, t, dev):
+    """Per car a scan near the origin and posed clouds around it, with
+    planted near-coincident points; the scan's tail past ``n_valid[b]`` is
+    masked garbage and a few points inside the valid part are masked too."""
+    rng = np.random.default_rng(seed)
+    scan = rng.normal(scale=1.0, size=(b, s, 3)).astype(np.float32)
+    mask = np.zeros((b, s), bool)
+    for i, nv in enumerate(n_valid):
+        mask[i, :nv] = True
+        mask[i, 3:nv:17] = False
+        scan[i, nv:] = 77.0
+    poses = rng.normal(scale=1.0, size=(b, p, t, 3)).astype(np.float32)
+    k = min(t, s) // 2
+    poses[:, 0, :k] = scan[:, :k] + rng.normal(scale=0.05, size=(b, k, 3))
+    return [torch.from_numpy(a).to(dev) for a in (scan, mask, poses)]
+
+
+# T below, at and above the 1024 template points one block pass holds, and
+# not a multiple of the 256 threads; S with a masked tail; B = 1; an
+# all-masked car (n_valid 0)
+@pytest.mark.parametrize("b,s,n_valid,p,t", [
+    (1, 512, (400,), 4, 100),
+    (3, 2048, (2048, 1500, 0), 7, 1000),
+    (2, 300, (300, 1), 5, 1024),
+    (2, 1000, (999, 64), 3, 1300),
+])
+def test_tfl_counts_kernel_equals_plain(cuda, b, s, n_valid, p, t):
+    scan, mask, poses = _tfl_inputs(8, b, s, n_valid, p, t, cuda)
+    before = tfl.launches
+    t_frac, s_frac = tfl.binary_both_way_counts(scan, mask, poses, 0.2)
+    t_count, s_count = tfl.binary_both_way_counts_plain(scan, mask, poses,
+                                                        0.2)
+    want_t, want_s = tfl._fractions(t_count, s_count, mask, t)
+    torch.cuda.synchronize()
+    assert tfl.launches == before + 1
+    assert t_frac.shape == s_frac.shape == (b, p)
+    # counts of pairs under the same float32 d2: equal, not close
+    assert torch.equal(t_frac, want_t) and torch.equal(s_frac, want_s)
+    assert float(t_frac[0, 0]) > 0
+    for i, nv in enumerate(n_valid):
+        if nv == 0:
+            assert float(t_frac[i].abs().max()) == 0
+            assert float(s_frac[i].abs().max()) == 0
+    # the single-car signature
+    t1, s1 = tfl.binary_both_way_counts(scan[0], mask[0], poses[0], 0.2)
+    assert torch.equal(t1, t_frac[0]) and torch.equal(s1, s_frac[0])
+
+
+def test_tfl_counts_kernel_rejects_other_dtypes(cuda):
+    scan, mask, poses = _tfl_inputs(9, 1, 64, (64,), 2, 50, cuda)
+    before = tfl.launches
+    with pytest.raises(TypeError):
+        tfl.binary_both_way_counts(scan.double(), mask, poses.double(), 0.2)
+    with pytest.raises(ValueError):
+        tfl.binary_both_way_counts(scan, mask, poses.cpu(), 0.2)
+    assert tfl.launches == before

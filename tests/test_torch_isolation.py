@@ -41,7 +41,25 @@ from monosowa_tpu_torch.train.sample import sample_batch
 from monosowa_tpu_torch.train.trainer import make_train_step
 losses = make_train_step(model, None, make_optimizer(model))(
     sample_batch(1, h, w), torch.Generator().manual_seed(0))
+# the pseudo-labeller: one tiny frame of the synthetic sequence
+import tempfile
+from monosowa_tpu_torch.kittiio import read_label_file
+from monosowa_tpu_torch.sowa import pipeline, sample
+from monosowa_tpu_torch.sowa.fitting import FitConfig
+from monosowa_tpu_torch.sowa.templates import TemplateBank
+frames, _ = sample.make_sequence(1, 2, h=94, w=310, n_cars=6)
+labeler = pipeline.PseudoLabeler(
+    pipeline.PipelineConfig(
+        nscans_before=2, nscans_after=2, max_cars=4, max_points=256,
+        min_standing_points=50,
+        fit=FitConfig(n_dx=11, n_dz=11, n_theta=8, n_theta_fine=36)),
+    bank=TemplateBank.default(num_points=100), device="cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    jobs = sample.make_jobs(frames, 2, tmp, h=94, w=310)
+    n_written = labeler.label_frames(jobs)
+    label_rows = len(read_label_file(jobs[0]["out_path"]))
 print(json.dumps({"modules": names, "dets": list(dets.shape),
+                  "frames_written": n_written, "label_rows": label_rows,
                   "finite": bool(np.isfinite(dets.numpy()).all()),
                   "train_finite": bool(np.isfinite(list(losses.values())
                                                    ).all()),
@@ -63,8 +81,9 @@ def _top_imports(path):
 
 
 def test_port_runs_without_jax():
-    """Every module imports, and a tiny CPU forward and train step run, in
-    a fresh interpreter without loading JAX, Flax or the JAX package."""
+    """Every module imports, and a tiny CPU forward, a train step and the
+    labelling of one small frame run, in a fresh interpreter without
+    loading JAX, Flax or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", CHILD, ROOT], env=env,
                           capture_output=True, text=True, timeout=300,
@@ -74,6 +93,9 @@ def test_port_runs_without_jax():
     assert "monosowa_tpu_torch.ops.msda" in res["modules"]
     assert res["dets"] == [1, 5, 37] and res["finite"]
     assert res["train_finite"] and res["grad_norm"] > 0
+    assert "monosowa_tpu_torch.sowa.pipeline" in res["modules"]
+    assert "monosowa_tpu_torch.ops.tfl" in res["modules"]
+    assert res["frames_written"] == 1 and res["label_rows"] >= 1
     assert res["loaded"] == []
 
 
