@@ -7,29 +7,35 @@ Phases, each printing one JSON line:
 
 1. env    — TF32 off for matmuls and convolutions; the card's name and
             power limit as nvidia-smi reports them.
-2. build  — nvcc builds every kernel of the serve, train and label paths
-            from ``ops/csrc``, one nvcc per source, all started together.
+2. build  — nvcc builds every kernel of the serve, train, label and
+            row-fetch paths from ``ops/csrc`` and the host compiler builds
+            the KITTI evaluation's library from ``evalkitti/csrc``, one
+            compiler per source, all started together.
 3. kernel — each kernel against its plain PyTorch version at the paths'
             shapes (MSDA forward: the encoder's B=2, Q=S=10,200 tokens and
             the decoder's Q=50 at serving and Q=550 in training; MSDA
             backward: the encoder's and the training decoder's; the
             template-fitting coverage counts: the fit's rescore shape,
             48 cars x 40 poses, and its fine-pass shape, 4 cars x 360
-            poses, of 1000 template points against 2048 scan points),
-            with error, times and the least time the card could take.
+            poses, of 1000 template points against 2048 scan points; the
+            windowed row fetch, both forms: the micro-benchmark's 10,240
+            rows of a 10,240 x 128 bf16 bank and the 163,200 quad rows one
+            image and head of the encoder reads, difference 0 required),
+            with error, times, the least time the card could take and,
+            where one PyTorch call computes the same function, its time.
 4. serve  — the full-width MonoDETR (ResNet-50, d_model 256, 3+3 layers,
             seeded random weights) answers three requests of two 384x1280
             images through ``run_inference``; the result files are read
             back, each kernel's launch count is checked, and one forward
             with the plain MSDA is compared with the kernel's.
-5. train  — the same model in training mode (50 x 11 Group-DETR queries,
-            dropout 0.1) takes a warm-up step and three timed steps of
-            ``make_train_step`` with AdamW on ``sample_batch(2, 384,
-            1280)``; losses, gradient norm and launch counts are checked.
-            Then, dropout off and from the same weights, one forward and
-            backward with the kernels against one through the plain MSDA
-            (loss dict, gradients) and one with the forward kernel and
-            the plain backward (gradients: the backward kernel alone).
+5. train  — the same model in training mode (50 x 11 Group-DETR queries)
+            on ``sample_batch(2, 384, 1280)``.  First, dropout off and from
+            the seeded weights, one forward and backward with the kernels
+            against one through the plain MSDA (loss dict, gradients) and
+            one with the forward kernel and the plain backward (gradients:
+            the backward kernel alone).  Then, dropout 0.1, a warm-up step
+            and three timed steps of ``make_train_step`` with AdamW;
+            losses, gradient norm and launch counts are checked.
 6. fit    — ``fit_cars_conv`` at the full grid (41 x 41 translations,
             40 thetas, 360 fine thetas) on 16 synthetic cars at known
             poses, standing and moving: x and z within 0.35 m, yaw within
@@ -40,7 +46,18 @@ Phases, each printing one JSON line:
             frames with windows of +-6 frames through
             ``PseudoLabeler.label_frames`` (host candidates), one KITTI
             label file per frame, read back and held against the scene.
-8. kernels — one line listing every ported kernel with its numbers.
+8. bench  — the row-fetch micro-benchmark as a user runs it
+            (``tools/bench_gather_micro_torch.py`` ``run``, both forms at
+            its default shape), against its numpy oracle.
+9. epoch  — the loop of ``tools/train_val_torch.py`` ``run`` at full width
+            on an in-memory KITTI-like dataset (8 training and 4 test
+            images, batch 2): one epoch of 4 train steps, a checkpoint,
+            ``test`` (inference, result files, KITTI AP through the native
+            library), the best-by-Car-moderate-AP checkpoint; then
+            evaluate-only from the checkpoint, which must rewrite the same
+            result files byte for byte; and the AP stack on its own ground
+            truth, which must score 100.
+10. kernels — one line listing every ported kernel with its numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and the script exits non-zero without it; so does a machine
@@ -63,13 +80,20 @@ ENC_SHAPES = ((48, 160), (24, 80), (12, 40), (6, 20))   # 384x1280 pyramid
 M_HEADS, D_HEAD, N_POINTS = 8, 32, 4
 IMG_H, IMG_W, BATCH, REQUESTS = 384, 1280, 2, 3
 MSDA_PER_FORWARD = 6          # 3 encoder + 3 decoder layers
-KERNELS = ("msda_fwd", "msda_bwd", "tfl_counts")
+KERNELS = ("msda_fwd", "msda_bwd", "tfl_counts", "row_fetch")
 TRAIN_STEPS = 3
 TRAIN_QUERIES = 50 * 11       # num_queries x group_num
 TFL_T, TFL_S, TFL_RADIUS = 1000, 2048, 0.2   # template, scan, threshold
 TFL_PER_FIT = 3               # rescore, half-pitch refinement, fine pass
 FIT_CARS = 16
 LABEL_FRAMES, LABEL_WINDOW = 8, 6
+# row fetch: the micro-benchmark's shape and the quad rows (4 levels x 4
+# points per token) that one image and head of the encoder reads
+RF_T, RF_D, RF_BQ = 10240, 128, 256
+RF_ROWS = {"K6": RF_T, "encoder head": 10200 * 16}
+EPOCH_TRAIN, EPOCH_VAL, PERFECT_IMAGES = 8, 4, 16
+AP_KEYS = tuple(f"car_{m}_{s}" for s in ("strict", "loose")
+                for m in ("bbox", "bev", "3d"))
 
 
 def emit(obj) -> None:
@@ -553,6 +577,237 @@ def label(dev, n_frames: int = LABEL_FRAMES, window: int = LABEL_WINDOW,
             "peak_mem_GB": peak / 1e9}
 
 
+def check_row_fetch(form: str, label: str, dev) -> dict:
+    """One form of the row-fetch kernel against its plain version at one
+    shape: a copy with an exact bf16 -> f32 conversion, so the difference
+    must be 0.  Also timed: the one PyTorch call that computes the same
+    function (``index_select``, a cast and a mask; used nowhere in the
+    port)."""
+    import torch
+
+    from monosowa_tpu_torch.ops import row_fetch as rf
+    from tools import bench_gather_micro_torch as bench
+
+    n_rows = RF_ROWS[label]
+    block, k_win = rf.window_params(form)
+    idx_np, bank_np = bench.make_inputs(RF_BQ, RF_D, RF_T, n_rows)
+    bank = torch.from_numpy(bank_np).to(dev).to(torch.bfloat16)
+    idx = torch.from_numpy(idx_np).to(dev)
+
+    def kernel():
+        return rf.row_fetch(bank, idx, RF_BQ, form=form)
+
+    def plain():
+        return rf.row_fetch_plain(bank, idx, RF_BQ, block, k_win)
+
+    keep = rf.in_window(idx, RF_T, RF_BQ, block, k_win)[:, None]
+    safe = idx.clamp(0, RF_T - 1)
+
+    def library():
+        return torch.index_select(bank, 0, safe).float() * keep
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not (torch.isfinite(got).all() and err == 0.0
+            and torch.equal(library(), want)):
+        raise AssertionError(f"row_fetch {form} {label}: max abs err {err}")
+    return {
+        "shape": f"{label}, {form}: N={n_rows} T={RF_T} D={RF_D} bf16 "
+                 f"bq={RF_BQ} block={block} k_win={k_win}",
+        "form": form, "max_abs_err": err,
+        "coverage": float(keep.float().mean()),
+        # a few microseconds a call: timed inside a replayed CUDA graph, or
+        # the host's launch rate would be what is measured
+        "ms": bench.device_ms(kernel, 50),
+        "plain_ms": bench.device_ms(plain, 5),
+        "library_ms": bench.device_ms(library, 20),
+        "ms_launched_from_python": cuda_ms(kernel, 50),
+        # idx and bank read once, out written once; nothing is computed
+        "bound_ms": bench.bound_ms(n_rows, RF_T, RF_D, bank.element_size()),
+        "bound_by": "bytes",
+    }
+
+
+def bench_row_fetch() -> dict:
+    """The micro-benchmark through its own entry point, both forms at its
+    default shape, each held against the tool's numpy oracle."""
+    from monosowa_tpu_torch.ops import row_fetch as rf
+    from tools import bench_gather_micro_torch as bench
+
+    rf.launches = 0
+    runs = [bench.run(form) for form in rf.FORMS]   # the main path
+    launches = rf.launches
+    for r in runs:
+        if not (r["on_card"] and r["max_err"] == 0.0
+                and r["coverage"] == 1.0):
+            raise AssertionError(f"bench_gather_micro_torch: {r}")
+    if launches < 2 * len(runs):
+        raise AssertionError(f"the tool launched row_fetch {launches} times")
+    return {"phase": "bench", "runs": runs, "row_fetch_launches": launches}
+
+
+def detector_config(root: str, h: int, w: int, model=None) -> dict:
+    """The shipped detector's config (configs/monodetr_kitti.yaml) as a
+    dict, with the batch, the epochs and the score threshold of this run."""
+    return {
+        "random_seed": 444,
+        "dataset": {"type": "KITTI", "root_dir": root, "batch_size": BATCH,
+                    "resolution": [w, h], "writelist": ["Car"],
+                    "random_flip": 0.5, "aug_crop": False,
+                    "depth_scale": "normal", "use_canonical_module": True,
+                    "canonical_focal_length": 500.0},
+        "model": model or {
+            "num_classes": 3, "num_feature_levels": 4, "num_depth_bins": 80,
+            "depth_min": 1e-3, "depth_max": 60.0, "enc_layers": 3,
+            "dec_layers": 3, "hidden_dim": 256, "dim_feedforward": 256,
+            "dropout": 0.1, "nheads": 8, "num_queries": 50,
+            "enc_n_points": 4, "dec_n_points": 4},
+        "optimizer": {"type": "adamw", "lr": 2e-4, "weight_decay": 1e-4},
+        "lr_scheduler": {"type": "step", "warmup": False, "decay_rate": 0.1,
+                         "decay_list": [125, 165]},
+        "trainer": {"max_epoch": 1, "save_frequency": 1,
+                    "save_path": os.path.join(root, "outputs")},
+        # 0, so that the random-init model's detections reach the files
+        "tester": {"mode": "all", "threshold": 0.0, "topk": 50},
+    }
+
+
+def epoch(dev, n_train: int = EPOCH_TRAIN, n_val: int = EPOCH_VAL,
+          hw=(IMG_H, IMG_W), model=None, msda_per_forward=MSDA_PER_FORWARD
+          ) -> dict:
+    """Train -> checkpoint -> test -> KITTI AP -> best checkpoint ->
+    evaluate-only with resume, through ``tools/train_val_torch.py``
+    ``run``."""
+    import numpy as np
+
+    from monosowa_tpu_torch.evalkitti import eval as kitti_eval
+    from monosowa_tpu_torch.kittiio import read_label_file
+    from monosowa_tpu_torch.ops import msda
+    from monosowa_tpu_torch.train import checkpoint as ckpt_io
+    from monosowa_tpu_torch.train import tester
+    from monosowa_tpu_torch.train.sample import (SampleDataset,
+                                                 write_sample_labels)
+    from tools import train_val_torch
+
+    h, w = hw
+    quiet = lambda s: None                                   # noqa: E731
+
+    def no_python_route(*args, **kwargs):
+        raise AssertionError("the AP evaluation left the native library for "
+                             "its python route")
+
+    python_route = (kitti_eval.compute_statistics,
+                    kitti_eval._torch_bev_inter)
+    kitti_eval.compute_statistics = no_python_route
+    kitti_eval._torch_bev_inter = no_python_route
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = detector_config(tmp, h, w, model)
+            train_ds = SampleDataset(n_train, cfg["dataset"])
+            val_ds = SampleDataset(n_val, cfg["dataset"], first_id=n_train)
+            label_dir = os.path.join(tmp, "training", "label_2")
+            write_sample_labels(label_dir, val_ds)
+
+            # the main path: one epoch, its checkpoint, its evaluation
+            msda.launches = msda.bwd_launches = 0
+            t0 = time.perf_counter()
+            record = train_val_torch.run(cfg, train_ds, val_ds, dev,
+                                         logger=quiet)
+            run_s = time.perf_counter() - t0
+            fwd_launches, bwd_launches = msda.launches, msda.bwd_launches
+
+            steps = n_train // BATCH
+            val_batches = -(-n_val // BATCH)
+            ep, ev = record["epochs"][0], record["evaluated"][0]
+            if record["device"] != str(dev) or len(record["epochs"]) != 1 \
+                    or len(ep["loss_total"]) != steps \
+                    or not np.isfinite(ep["loss_total"]).all() \
+                    or not np.isfinite(list(ep["losses"].values())).all():
+                raise AssertionError(f"epoch record: {record}")
+            if bwd_launches != msda_per_forward * steps or \
+                    fwd_launches != msda_per_forward * (steps + val_batches):
+                raise AssertionError(
+                    f"{steps} steps and {val_batches} test batches launched "
+                    f"msda_fwd {fwd_launches} and msda_bwd {bwd_launches} "
+                    "times")
+            save_path = cfg["trainer"]["save_path"]
+            ckpt = ckpt_io.latest_checkpoint(save_path)
+            best = ckpt_io.latest_checkpoint(save_path, tag="best")
+            if not (ckpt and ckpt.endswith("checkpoint_epoch_1") and best
+                    and os.path.exists(ckpt + ".meta")
+                    and os.path.exists(best + ".meta")):
+                raise AssertionError(f"checkpoints: {os.listdir(save_path)}")
+            saved = sorted(n for n in os.listdir(save_path) if n != "outputs")
+            data_dir = os.path.join(save_path, "outputs", "data")
+
+            def result_files():
+                out = {}
+                for name in sorted(os.listdir(data_dir)):
+                    with open(os.path.join(data_dir, name), "rb") as f:
+                        out[name] = f.read()
+                return out
+
+            files = result_files()
+            rows = [len(read_label_file(os.path.join(data_dir, n)))
+                    for n in files]
+            if sorted(files) != [f"{i}.txt" for i in val_ds.idx_list] \
+                    or min(rows) < 1:
+                raise AssertionError(f"result files {sorted(files)}, rows "
+                                     f"{rows}")
+            res = ev["results"]
+            aps = [a for k in AP_KEYS for a in res[k]["ap40"] + res[k]["ap11"]]
+            if sorted(res) != sorted(AP_KEYS) or not all(
+                    np.isfinite(a) and 0.0 <= a <= 100.0 for a in aps):
+                raise AssertionError(f"AP dict: {res}")
+
+            # evaluate-only, resumed from the checkpoint: the same files
+            for name in files:
+                os.remove(os.path.join(data_dir, name))
+            t0 = time.perf_counter()
+            again = train_val_torch.run(cfg, train_ds, val_ds, dev,
+                                        evaluate_only=True, ckpt=ckpt,
+                                        logger=quiet)
+            eval_only_s = time.perf_counter() - t0
+            if again["start_epoch"] != 1 or again["epochs"] \
+                    or result_files() != files:
+                raise AssertionError("evaluate-only from the checkpoint did "
+                                     "not reproduce the result files")
+
+            # the AP stack on its own ground truth: 100 (KITTI's AP needs
+            # 41 valid boxes for that, hence a larger set of near cars)
+            perfect_ds = SampleDataset(PERFECT_IMAGES, cfg["dataset"],
+                                       first_id=100, max_depth=20.0)
+            perfect_cfg = {"dataset": {"root_dir": os.path.join(tmp, "p")}}
+            gt_dir = os.path.join(tmp, "p", "training", "label_2")
+            write_sample_labels(gt_dir, perfect_ds)
+            perfect = tester.evaluate_results(perfect_ds, gt_dir, perfect_cfg,
+                                              quiet)
+            if perfect["car_3d_strict"]["ap40"] != [100.0] * 3:
+                raise AssertionError(f"ground truth as detections: {perfect}")
+    finally:
+        kitti_eval.compute_statistics, kitti_eval._torch_bev_inter = \
+            python_route
+    return {"phase": "epoch", "train_images": n_train, "val_images": n_val,
+            "batch": BATCH, "image_hw": [h, w], "steps": steps,
+            "run_s": run_s, "epoch_s": ep["train_s"],
+            "steps_per_s": steps / ep["train_s"],
+            "step_s": ep["step_s"], "loader_wait_s": ep["loader_wait_s"],
+            "loss_total": ep["loss_total"],
+            "checkpoint_ms": ep["checkpoint_s"] * 1e3,
+            "checkpoint_files": saved,
+            "test_ms_per_image": ev["inference"] * 1e3 / n_val,
+            "ap_eval_ms": ev["ap"] * 1e3,
+            "result_files": len(files), "result_rows": rows,
+            "car_3d_strict_ap40": res["car_3d_strict"]["ap40"],
+            "best_ap": record["best_ap"], "ap_route": "native",
+            "evaluate_only_s": eval_only_s,
+            "evaluate_only_files_identical": True,
+            "ap_of_ground_truth": perfect["car_3d_strict"]["ap40"],
+            "msda_fwd_launches": fwd_launches,
+            "msda_bwd_launches": bwd_launches}
+
+
 def sample_batch(rng, img_id0: int):
     """One request: BATCH normalised images with the KITTI-like P2 of the
     JAX package's `__graft_entry__._sample_batch` (f = 700, principal
@@ -678,34 +933,6 @@ def train(dev) -> dict:
 
     model = MonoDETR(device=dev, seed=0)
     batch = train_batch(BATCH, IMG_H, IMG_W)
-    step = make_train_step(model, None, make_optimizer(model, 2e-4, 1e-4))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    t0 = time.perf_counter()
-    step(batch, gen)                                 # warm-up
-    torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
-
-    # the main path: TRAIN_STEPS steps of make_train_step
-    torch.cuda.reset_peak_memory_stats()
-    msda.launches = msda.bwd_launches = 0
-    history, step_ms = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        history.append(step(batch, gen))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-    fwd_launches, bwd_launches = msda.launches, msda.bwd_launches
-    step_peak = torch.cuda.max_memory_allocated()
-    for losses in history:
-        if not all(np.isfinite(v) for v in losses.values()):
-            raise AssertionError(f"non-finite losses: {losses}")
-        if not losses["grad_norm"] > 0:
-            raise AssertionError(f"grad_norm {losses['grad_norm']}")
-    if fwd_launches != bwd_launches or \
-            fwd_launches != MSDA_PER_FORWARD * TRAIN_STEPS:
-        raise AssertionError(f"{TRAIN_STEPS} train steps launched msda_fwd "
-                             f"{fwd_launches} and msda_bwd {bwd_launches} "
-                             "times")
 
     class KernelFwdPlainBwd(torch.autograd.Function):
         """The forward kernel with the plain backward, so that a whole-model
@@ -730,12 +957,19 @@ def train(dev) -> dict:
         return KernelFwdPlainBwd.apply(value.contiguous(), loc.contiguous(),
                                        aw.contiguous(), tuple(shapes))
 
-    # one forward + backward each from the same weights, dropout off: with
-    # the kernels, through the plain MSDA (autograd through its gathers),
-    # and with the forward kernel and the plain backward
-    for mod in model.modules():
-        if isinstance(mod, Dropout):
-            mod.p = 0.0
+    # one forward + backward each from the seeded weights, in training mode
+    # with dropout off: with the kernels, through the plain MSDA (autograd
+    # through its gathers), and with the forward kernel and the plain
+    # backward.  Before any update, so that every run compares at the same
+    # weights: the backward's atomics round dvalue differently in every
+    # run, and after a few updates the weights, and with them which
+    # sampling points lie within rounding of a pixel edge, differ from run
+    # to run
+    model.train()
+    dropouts = [mod for mod in model.modules() if isinstance(mod, Dropout)]
+    dropout_p = [mod.p for mod in dropouts]
+    for mod in dropouts:
+        mod.p = 0.0
     attn = [mod for mod in model.modules()
             if isinstance(mod, MSDeformAttnModule)]
     inputs = [torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
@@ -764,6 +998,9 @@ def train(dev) -> dict:
     losses_kp, grads_kp, _ = grads_with(kernel_fwd_plain_bwd)
     for mod in attn:
         mod.msda = msda.ms_deform_attn
+    for mod, p_drop in zip(dropouts, dropout_p):
+        mod.p = p_drop
+    model.zero_grad(set_to_none=True)
     loss_rel = {k: abs(losses_k[k] - v) / max(abs(v), 1e-12)
                 for k, v in losses_p.items()}
     if max(loss_rel.values()) > 1e-5:
@@ -794,6 +1031,38 @@ def train(dev) -> dict:
     if rel_a > 1e-2:
         raise AssertionError(f"kernels vs plain MSDA, gradient of "
                              f"{worst_a}: {rel_a} of its scale")
+    del grads_k, grads_p, grads_kp
+    torch.cuda.empty_cache()
+
+    step = make_train_step(model, None, make_optimizer(model, 2e-4, 1e-4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    step(batch, gen)                                 # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    # the main path: TRAIN_STEPS steps of make_train_step
+    torch.cuda.reset_peak_memory_stats()
+    msda.launches = msda.bwd_launches = 0
+    history, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        history.append(step(batch, gen))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    fwd_launches, bwd_launches = msda.launches, msda.bwd_launches
+    step_peak = torch.cuda.max_memory_allocated()
+    for losses in history:
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite losses: {losses}")
+        if not losses["grad_norm"] > 0:
+            raise AssertionError(f"grad_norm {losses['grad_norm']}")
+    if fwd_launches != bwd_launches or \
+            fwd_launches != MSDA_PER_FORWARD * TRAIN_STEPS:
+        raise AssertionError(f"{TRAIN_STEPS} train steps launched msda_fwd "
+                             f"{fwd_launches} and msda_bwd {bwd_launches} "
+                             "times")
+
     return {"phase": "train", "batch": BATCH, "image_hw": [IMG_H, IMG_W],
             "queries": TRAIN_QUERIES, "steps": TRAIN_STEPS,
             "warmup_step_s": warmup_s, "train_step_ms": step_ms,
@@ -826,6 +1095,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from monosowa_tpu_torch.evalkitti import native
     from monosowa_tpu_torch.models.transformer import encoder_reference_points
     from monosowa_tpu_torch.ops import _build
 
@@ -843,11 +1113,20 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "allow_tf32": False})
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one compiler per source, all started together (nvcc for
+    # the kernels, the host compiler for the KITTI evaluation's library)
+    def timed_eval_build():
+        t_eval = time.perf_counter()
+        native.build()
+        return time.perf_counter() - t_eval
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        eval_build = pool.submit(timed_eval_build)
         logs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+        eval_build_s = eval_build.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "evalkitti_library_seconds": eval_build_s,
           "ptxas": {k: [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for k, log in logs.items()}})
@@ -879,6 +1158,10 @@ def main() -> int:
            "fine": check_tfl(rng, 4, 360, "fine pass", dev)}
     for res in cov.values():
         emit({"phase": "kernel", "name": "tfl_counts", **res})
+    fetch = {f"{label} {form}": check_row_fetch(form, label, dev)
+             for label in RF_ROWS for form in ("direct", "staged")}
+    for res in fetch.values():
+        emit({"phase": "kernel", "name": "row_fetch", **res})
     # hand the plain versions' large temporaries back, so the phases below
     # start from an empty allocator cache
     torch.cuda.empty_cache()
@@ -898,20 +1181,29 @@ def main() -> int:
     lbl = label(dev)
     emit(lbl)
 
-    # 8. kernels
+    # 8. bench
+    bch = bench_row_fetch()
+    emit(bch)
+
+    # 9. epoch
+    epc = epoch(dev)
+    emit(epc)
+
+    # 10. kernels; library_ms is None where no one PyTorch call computes the
+    # kernel's function (MSDA, its gradient, the two-way coverage)
     def entry(name, source, replaces, launches, runs, first="encoder",
               rest="decoder"):
+        keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")
         enc = runs[first]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches,
                 "max_abs_err": enc["max_abs_err"], "ms": enc["ms"],
                 "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
-                "bound_by": enc["bound_by"], "library_ms": None,
-                "at": enc["shape"],
-                rest: [{k: r[k] for k in ("shape", "max_abs_err", "ms",
-                                          "plain_ms", "bound_ms",
-                                          "bound_by")}
+                "bound_by": enc["bound_by"],
+                "library_ms": enc.get("library_ms"), "at": enc["shape"],
+                rest: [{k: r.get(k) for k in keys}
                        for key, r in runs.items() if key != first]}
 
     emit({"kernels": [
@@ -920,15 +1212,22 @@ def main() -> int:
               "monosowa_tpu/ops/msda_pallas.py:71 (K4 "
               "ms_deform_attn_pallas)",
               {"serve": srv["msda_launches"],
-               "train": trn["msda_fwd_launches"]}, fwd),
+               "train": trn["msda_fwd_launches"],
+               "epoch": epc["msda_fwd_launches"]}, fwd),
         entry("msda_bwd", "monosowa_tpu_torch/ops/csrc/msda_bwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:306 (K2 msda_gdot_mxu); "
               "monosowa_tpu/ops/msda_mxu.py:544 (K3 msda_dvalue_mxu)",
-              {"train": trn["msda_bwd_launches"]}, bwd),
+              {"train": trn["msda_bwd_launches"],
+               "epoch": epc["msda_bwd_launches"]}, bwd),
         entry("tfl_counts", "monosowa_tpu_torch/ops/csrc/tfl_counts.cu",
               "monosowa_tpu/ops/tfl_pallas.py:67 (K5 "
               "binary_both_way_counts_pallas)",
               {"label": lbl["tfl_launches"]}, cov, "rescore", "other_shapes"),
+        entry("row_fetch", "monosowa_tpu_torch/ops/csrc/row_fetch.cu",
+              "tools/bench_gather_micro.py:61 (K6 run; bodies _kernel_gather "
+              ":26, _kernel_onehot :45)",
+              {"bench": bch["row_fetch_launches"]}, fetch, "K6 direct",
+              "other_shapes"),
     ]})
     if torch.cuda.device_count() != 1:
         raise AssertionError(f"{torch.cuda.device_count()} cards visible")

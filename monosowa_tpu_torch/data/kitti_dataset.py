@@ -64,9 +64,25 @@ class KittiDetectionDataset:
 
     def __init__(self, root_dir: str, split: str = "train",
                  cfg: Optional[dict] = None):
-        cfg = cfg or {}
         self.root_dir = root_dir
         self.split = split
+        self._configure(cfg)
+
+        self.data_dir = os.path.join(
+            root_dir, "testing" if split == "test" else "training")
+        split_file = os.path.join(root_dir, "ImageSets", split + ".txt")
+        if os.path.exists(split_file):
+            with open(split_file) as f:
+                self.idx_list = [x.strip() for x in f.readlines() if x.strip()]
+        else:
+            imgs = sorted(os.listdir(os.path.join(self.data_dir, "image_2")))
+            self.idx_list = [os.path.splitext(x)[0] for x in imgs]
+        self.data_augmentation = split in ("train", "trainval")
+
+    def _configure(self, cfg: Optional[dict]) -> None:
+        """The dataset section of the config -> attributes (everything but
+        the files)."""
+        cfg = cfg or {}
         self.resolution = np.array(cfg.get("resolution", [1280, 384]))
         self.max_objs = int(cfg.get("max_objs", 50))
         self.use_3d_center = cfg.get("use_3d_center", True)
@@ -102,17 +118,6 @@ class KittiDetectionDataset:
             raise NotImplementedError(
                 "use_add_data needs the pseudo-label car cache, which the "
                 "torch port does not carry yet")
-
-        self.data_dir = os.path.join(
-            root_dir, "testing" if split == "test" else "training")
-        split_file = os.path.join(root_dir, "ImageSets", split + ".txt")
-        if os.path.exists(split_file):
-            with open(split_file) as f:
-                self.idx_list = [x.strip() for x in f.readlines() if x.strip()]
-        else:
-            imgs = sorted(os.listdir(os.path.join(self.data_dir, "image_2")))
-            self.idx_list = [os.path.splitext(x)[0] for x in imgs]
-        self.data_augmentation = split in ("train", "trainval")
 
     def __len__(self):
         return len(self.idx_list)
@@ -217,6 +222,21 @@ class KittiDetectionDataset:
             d = np.clip(d, 0.0, 150.0) / 75.0 - 1.0    # (:224-230)
             image = np.concatenate([image, d[..., None]], axis=-1)
 
+        sample, canonical_scale = self._encode(
+            idx, image, calib, img_size, center, crop_size, crop_scale, flip,
+            trans, trans_inv)
+        if self.split != "test":
+            self._encode_objects(sample, self.get_label(idx).objects, calib,
+                                 img_size, crop_scale, canonical_scale, flip,
+                                 trans)
+        return sample
+
+    def _encode(self, idx: str, image: np.ndarray, calib: Calibration,
+                img_size: np.ndarray, center, crop_size, crop_scale: float,
+                flip: bool, trans, trans_inv):
+        """(sample, canonical_scale): the sample dict of one warped image,
+        its targets still empty, and the depth scale of the Canonical Object
+        Space in full precision."""
         fu, fv, cu, cv, height_crop = self.adjust_intrinsics(
             calib.fu, calib.fv, calib.cu, calib.cv, img_size, center,
             crop_scale, crop_size, flip)
@@ -249,10 +269,13 @@ class KittiDetectionDataset:
             "mask_2d": np.zeros(m, bool),
             "valid": np.zeros(m, bool),
         })
-        if self.split == "test":
-            return sample
+        return sample, canonical_scale
 
-        objects = self.get_label(idx).objects
+    def _encode_objects(self, sample: Dict[str, np.ndarray], objects,
+                        calib: Calibration, img_size: np.ndarray,
+                        crop_scale: float, canonical_scale: float,
+                        flip: bool, trans) -> None:
+        """Fills ``sample``'s targets from the label rows (:287-394)."""
         if flip:
             if self.aug_calib:
                 calib.flip(img_size)
@@ -342,7 +365,6 @@ class KittiDetectionDataset:
             sample["heading_res"][i] = hr
             sample["mask_2d"][i] = obj.truncation <= 0.5 and obj.occlusion <= 2
             sample["valid"][i] = True
-        return sample
 
     @staticmethod
     def _ry2alpha(calib, ry, u):

@@ -1,21 +1,23 @@
-"""Inference -> one KITTI result file per image.
+"""Tester: inference -> KITTI result files -> AP evaluation.
 
 Behavioral contract (MonoDETR/lib/helpers/tester_helper.py:14-188, the JAX
-package's ``train/tester.py`` ``run_inference``): batch inference with
-decode (canonical-module inversion) and per-image KITTI result txt under
-<save_path>/outputs/data.  AP evaluation and visualisation belong to a
-later slice of the port.
+package's ``train/tester.py``): batch inference with decode
+(canonical-module inversion), per-image KITTI result txt under
+<save_path>/outputs/data, dataset eval via the KITTI AP stack
+(``evalkitti``) and a per-image s/img report.  The prediction / ground-truth
+renders (``visu``, ``tester.visu_predictions``) need ``sowa/visualization.py``,
+which is not ported: asking for them raises.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator, Optional
 
 import numpy as np
 
-from monosowa_tpu_torch.data.kitti_dataset import CLS_MEAN_SIZE
+from monosowa_tpu_torch.data.kitti_dataset import CLS_MEAN_SIZE, collate
 from monosowa_tpu_torch.kittiio import Calibration
 from monosowa_tpu_torch.kittiio.labels import write_detection_file
 from monosowa_tpu_torch.train.decode import decode_detections
@@ -24,10 +26,25 @@ from monosowa_tpu_torch.train.trainer import make_eval_step
 CLASS_NAMES = ("Pedestrian", "Car", "Cyclist")
 
 
+def dataset_batches(dataset, batch_size: int
+                    ) -> Iterator[Dict[str, np.ndarray]]:
+    """The dataset in index order as collated batches of ``batch_size``
+    samples; the last one may be smaller."""
+    for i in range(0, len(dataset), batch_size):
+        yield collate([dataset[j]
+                       for j in range(i, min(i + batch_size, len(dataset)))])
+
+
+def _refuse_visu(cfg: Dict, visu: bool) -> None:
+    if visu or cfg.get("tester", {}).get("visu_predictions", False):
+        raise NotImplementedError("sowa/visualization.py is not ported")
+
+
 def run_inference(model, batches: Iterable[Dict[str, np.ndarray]],
-                  cfg: Dict, logger=print) -> str:
+                  cfg: Dict, logger=print, visu: bool = False) -> str:
     """Runs the model over collated numpy batches (``data.collate``) and
     writes result files; returns the results dir."""
+    _refuse_visu(cfg, visu)
     tester_cfg = cfg.get("tester", {})
     threshold = float(tester_cfg.get("threshold", 0.2))
     out_dir = os.path.join(cfg["trainer"].get("save_path", "outputs"),
@@ -53,3 +70,37 @@ def run_inference(model, batches: Iterable[Dict[str, np.ndarray]],
     logger(f"inference on {n} images, {(time.time() - t0) / max(n, 1):.3f}"
            " s/img")
     return out_dir
+
+
+def evaluate_results(dataset, results_dir: str, cfg: Dict,
+                     logger=print) -> Dict:
+    """KITTI AP of the result files against ``<root_dir>/training/label_2``
+    for the dataset's ids (class Car)."""
+    from monosowa_tpu_torch.evalkitti import (annos_from_label_dir,
+                                              get_official_eval_result)
+
+    gt_dir = os.path.join(cfg["dataset"]["root_dir"], "training", "label_2")
+    ids = [f"{int(i):06d}" for i in dataset.idx_list]
+    res = get_official_eval_result(annos_from_label_dir(gt_dir, ids),
+                                   annos_from_label_dir(results_dir, ids),
+                                   current_classes=(0,))
+    for k, v in res.items():
+        logger(f"{k}: AP40 {['%.2f' % a for a in v['ap40']]}")
+    return res
+
+
+def test(model, dataset, cfg: Dict, logger=print, visu: bool = False,
+         seconds: Optional[Dict[str, float]] = None) -> Dict:
+    """Inference over the whole dataset, then its AP dict.  A ``seconds``
+    dict receives the host seconds of the two stages (``inference``: model,
+    decode and result files; ``ap``: the KITTI evaluation)."""
+    batch_size = int(cfg["dataset"].get("batch_size", 16))
+    t0 = time.perf_counter()
+    out_dir = run_inference(model, dataset_batches(dataset, batch_size), cfg,
+                            logger, visu)
+    t1 = time.perf_counter()
+    res = evaluate_results(dataset, out_dir, cfg, logger)
+    if seconds is not None:
+        seconds["inference"] = t1 - t0
+        seconds["ap"] = time.perf_counter() - t1
+    return res

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from monosowa_tpu_torch.ops import msda, tfl
+from monosowa_tpu_torch.ops import msda, row_fetch, tfl
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +182,56 @@ def test_tfl_counts_kernel_rejects_other_dtypes(cuda):
     with pytest.raises(ValueError):
         tfl.binary_both_way_counts(scan, mask, poses.cpu(), 0.2)
     assert tfl.launches == before
+
+
+# the tool's shape with its clustered indices; rows spread over the whole
+# bank with negatives and indices past T (most miss their window), a ragged
+# last block and D = 64; an f32 bank, whose 512-row chunk would not fit
+# in shared memory (256-row chunks for both forms); a bank smaller than one
+# chunk and a block of 7 rows
+@pytest.mark.parametrize("form", row_fetch.FORMS)
+@pytest.mark.parametrize("t,d,n,bq,block,k_win,dtype,spread", [
+    (10240, 128, 10240, 256, None, None, torch.bfloat16, False),
+    (3000, 64, 1000, 100, 256, 2, torch.bfloat16, True),
+    (4096, 128, 5000, 256, 256, 4, torch.float32, True),
+    (100, 8, 333, 7, 128, 3, torch.bfloat16, True),
+])
+def test_row_fetch_kernels_equal_plain(cuda, form, t, d, n, bq, block, k_win,
+                                       dtype, spread):
+    rng = np.random.default_rng(10)
+    nb = -(-n // bq)
+    if spread:
+        idx = rng.integers(-t // 20, t + t // 20, n)
+    else:
+        centers = rng.integers(0, t - 600, nb)
+        idx = (centers[:, None] + rng.integers(0, 500, (nb, bq))).reshape(
+            -1)[:n]
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    bank = torch.from_numpy(rng.standard_normal((t, d)).astype(
+        np.float32)).to(cuda).to(dtype)
+    blk, k = row_fetch.window_params(form, block, k_win)
+    before = row_fetch.launches
+    got = row_fetch.row_fetch(bank, idx, bq, block, k_win, form)
+    want = row_fetch.row_fetch_plain(bank, idx, bq, blk, k)
+    torch.cuda.synchronize()
+    assert row_fetch.launches == before + 1
+    assert got.shape == (n, d) and got.dtype == torch.float32
+    # a copy and an exact conversion: equal, not close
+    assert torch.equal(got, want)
+    covered = float(row_fetch.in_window(idx, t, bq, blk, k).float().mean())
+    assert covered == 1.0 if not spread else 0.0 < covered < 1.0
+
+
+def test_row_fetch_kernel_refuses_what_it_cannot_take(cuda):
+    bank = torch.zeros(2048, 128, device=cuda, dtype=torch.float32)
+    idx = torch.zeros(256, device=cuda, dtype=torch.int32)
+    before = row_fetch.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        row_fetch.row_fetch(bank, idx, form="staged")   # 512 x 128 x 4 bytes
+    with pytest.raises(ValueError, match="multiple of 8"):
+        row_fetch.row_fetch(bank[:, :12].contiguous(), idx)
+    with pytest.raises(TypeError):
+        row_fetch.row_fetch(bank.half(), idx)
+    with pytest.raises(ValueError):
+        row_fetch.row_fetch(bank, idx.cpu())
+    assert row_fetch.launches == before

@@ -2,11 +2,13 @@
 time, and no quiet CPU fallback when the card is asked for."""
 
 import ast
+import glob
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -58,7 +60,37 @@ with tempfile.TemporaryDirectory() as tmp:
     jobs = sample.make_jobs(frames, 2, tmp, h=94, w=310)
     n_written = labeler.label_frames(jobs)
     label_rows = len(read_label_file(jobs[0]["out_path"]))
+# the AP stack: the native library is built, two files are scored
+from monosowa_tpu_torch.evalkitti import (annos_from_label_dir,
+                                          get_official_eval_result, native)
+from monosowa_tpu_torch.train.sample import (SampleDataset,
+                                             write_sample_labels)
+native.build()
+ds_cfg = {"resolution": [w, h], "max_objs": 4, "batch_size": 1}
+with tempfile.TemporaryDirectory() as tmp:
+    val = SampleDataset(2, ds_cfg, first_id=2)
+    write_sample_labels(tmp + "/training/label_2", val)
+    gt = annos_from_label_dir(tmp + "/training/label_2", val.idx_list)
+    ap = get_official_eval_result(gt, gt)["car_bbox_strict"]["ap40"]
+    # the train / test / AP loop for one step
+    sys.path.insert(0, sys.argv[1] + "/tools")
+    import train_val_torch
+    record = train_val_torch.run(
+        {"dataset": dict(ds_cfg, root_dir=tmp),
+         "model": {"enc_layers": 1, "dec_layers": 1, "hidden_dim": 64,
+                   "dim_feedforward": 64, "nheads": 4, "num_queries": 5,
+                   "num_depth_bins": 8},
+         "trainer": {"max_epoch": 1, "save_path": tmp + "/out"},
+         "tester": {"threshold": 0.0, "topk": 5}},
+        SampleDataset(1, ds_cfg), val, "cpu", logger=lambda s: None)
+    import os
+    saved = sorted(os.listdir(tmp + "/out"))
+    result_files = sorted(os.listdir(tmp + "/out/outputs/data"))
 print(json.dumps({"modules": names, "dets": list(dets.shape),
+                  "ap_of_gt": ap, "saved": saved,
+                  "result_files": result_files,
+                  "epoch_losses": record["epochs"][0]["loss_total"],
+                  "ap_keys": sorted(record["evaluated"][0]["results"]),
                   "frames_written": n_written, "label_rows": label_rows,
                   "finite": bool(np.isfinite(dets.numpy()).all()),
                   "train_finite": bool(np.isfinite(list(losses.values())
@@ -81,9 +113,10 @@ def _top_imports(path):
 
 
 def test_port_runs_without_jax():
-    """Every module imports, and a tiny CPU forward, a train step and the
-    labelling of one small frame run, in a fresh interpreter without
-    loading JAX, Flax or the JAX package."""
+    """Every module imports, and a tiny CPU forward, a train step, the
+    labelling of one small frame, the AP stack with its native library and
+    one step of the train / test / AP loop run, in a fresh interpreter
+    without loading JAX, Flax or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", CHILD, ROOT], env=env,
                           capture_output=True, text=True, timeout=300,
@@ -96,15 +129,31 @@ def test_port_runs_without_jax():
     assert "monosowa_tpu_torch.sowa.pipeline" in res["modules"]
     assert "monosowa_tpu_torch.ops.tfl" in res["modules"]
     assert res["frames_written"] == 1 and res["label_rows"] >= 1
+    assert "monosowa_tpu_torch.evalkitti.native" in res["modules"]
+    assert "monosowa_tpu_torch.ops.row_fetch" in res["modules"]
+    assert max(res["ap_of_gt"]) > 0
+    assert len(res["epoch_losses"]) == 1
+    assert np.isfinite(res["epoch_losses"][0])
+    assert res["saved"] == ["best_epoch_1", "best_epoch_1.meta",
+                            "checkpoint_epoch_1", "checkpoint_epoch_1.meta",
+                            "outputs"]
+    assert res["result_files"] == ["000002.txt", "000003.txt"]
+    assert len(res["ap_keys"]) == 6
     assert res["loaded"] == []
 
 
-@pytest.mark.parametrize("rel", ["chip_smoke.py", "monosowa_tpu_torch"])
+@pytest.mark.parametrize("rel", ["chip_smoke.py", "monosowa_tpu_torch",
+                                 "tools/*_torch*.py"])
 def test_no_jax_imports_in_source(rel):
     path = os.path.join(ROOT, rel)
-    files = [path] if path.endswith(".py") else [
-        os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs
-        if f.endswith(".py")]
+    if "*" in rel:
+        files = glob.glob(path)
+        assert len(files) >= 5            # the two tools and three profilers
+    elif path.endswith(".py"):
+        files = [path]
+    else:
+        files = [os.path.join(d, f) for d, _, fs in os.walk(path) for f in fs
+                 if f.endswith(".py")]
     assert files
     for f in files:
         bad = [m for m in _top_imports(f) if m in FORBIDDEN]
