@@ -12,9 +12,12 @@ Phases, each printing one JSON line:
             the KITTI evaluation's library from ``evalkitti/csrc``, one
             compiler per source, all started together.
 3. kernel — each kernel against its plain PyTorch version at the paths'
-            shapes (MSDA forward: the encoder's B=2, Q=S=10,200 tokens and
-            the decoder's Q=50 at serving and Q=550 in training; MSDA
-            backward: the encoder's and the training decoder's; the
+            shapes (MSDA forward and backward: the encoder's B=2,
+            Q=S=10,200 tokens, with offsets near the reference points and
+            with wide ones, and the decoder's Q=50 at serving and Q=550 in
+            training, each with the kernel's time inside a replayed CUDA
+            graph, its time launched from Python, its block map and the
+            levels it keeps in shared memory; the
             template-fitting coverage counts: the fit's rescore shape,
             48 cars x 40 poses, and its fine-pass shape, 4 cars x 360
             poses, of 1000 template points against 2048 scan points; the
@@ -101,27 +104,50 @@ def emit(obj) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms over ``iters`` back-to-back calls."""
-    import torch
+    """Mean time in ms of ``iters`` calls of fn() launched back to back
+    from Python (the device's time or the host's launch rate)."""
+    from monosowa_tpu_torch.timing import launched_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return launched_ms(fn, iters, warmup)
 
 
-def msda_inputs(rng, q: int, ref, dev):
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of fn() in ms inside a replayed CUDA graph."""
+    from monosowa_tpu_torch.timing import device_ms as graph_ms
+
+    return graph_ms(fn, iters)
+
+
+def ptxas_registers(log: str) -> dict:
+    """Registers and spilled bytes of each kernel in nvcc's ``-Xptxas -v``
+    output, by mangled name (an MSDA kernel's ``ILi4ELi8E`` is its
+    instantiation for 4 channels a lane and 8 lanes a query)."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:
+            name = found.group(1)
+            out[name] = {}
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and name:
+            out[name]["spill_bytes"] = int(spill.group(1)) \
+                + int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            out[name]["registers"] = int(used.group(1))
+    return out
+
+
+def msda_inputs(rng, q: int, ref, dev, wide: bool = False):
     """value, loc, aw for MSDA at the 384x1280 pyramid.  loc sits at the
     reference points plus ring-pattern offsets of the sampling-offset
-    bias, jittered; 2% of the samples are redrawn in [-0.15, 1.15] so
-    out-of-bounds corners are covered."""
+    bias, jittered by half a pixel (an untrained model's offsets), or, with
+    ``wide``, plus offsets with a standard deviation of 4 pixels of each
+    level (far less local); 2% of the samples are redrawn in [-0.15, 1.15]
+    so out-of-bounds corners are covered."""
     import numpy as np
     import torch
 
@@ -130,8 +156,11 @@ def msda_inputs(rng, q: int, ref, dev):
     b, m, d, p, n_lv = BATCH, M_HEADS, D_HEAD, N_POINTS, len(ENC_SHAPES)
     s = sum(h * w for h, w in ENC_SHAPES)
     ring = ring_bias(m, n_lv, p).reshape(1, 1, m, n_lv, p, 2)
-    offs = ring * rng.uniform(0.5, 1.5, (b, q, m, n_lv, p, 1)) \
-        + rng.normal(0, 0.5, (b, q, m, n_lv, p, 2))
+    if wide:
+        offs = rng.normal(0, 4.0, (b, q, m, n_lv, p, 2))
+    else:
+        offs = ring * rng.uniform(0.5, 1.5, (b, q, m, n_lv, p, 1)) \
+            + rng.normal(0, 0.5, (b, q, m, n_lv, p, 2))
     norm = np.array([[w, h] for h, w in ENC_SHAPES], np.float32)
     loc = ref[:, :, None, :, None, :] + offs / norm[:, None, :]
     wild = rng.random((b, q, m, n_lv, p)) < 0.02
@@ -150,7 +179,8 @@ def msda_bound(value, loc, other_elems: int, macs_per_corner: int):
     ``other_elems`` float32 values (the other inputs read once and the
     outputs written once) and of value only the distinct (b, token, head)
     rows that some in-bounds corner of this run's samples reads, once each.
-    Returns (bound_ms, bound_by, bytes, flops, corners, value_rows)."""
+    Returns (bound_ms, bound_by, bytes, flops, corners per level,
+    value_rows)."""
     import torch
 
     from monosowa_tpu_torch.ops.msda import _corner_geometry
@@ -158,28 +188,71 @@ def msda_bound(value, loc, other_elems: int, macs_per_corner: int):
     b, s, m, d = value.shape
     bi = torch.arange(b, device=loc.device).view(b, 1, 1, 1)
     mi = torch.arange(m, device=loc.device).view(1, 1, m, 1)
-    keys, corners, start = [], 0, 0
+    keys, corners, start = [], [], 0
     for lvl, (h, w) in enumerate(ENC_SHAPES):
+        corners.append(0)
         for flat, _, _, _, inb in _corner_geometry(loc[:, :, :, lvl], h, w):
             hit = inb > 0
-            corners += int(hit.sum().item())
+            corners[lvl] += int(hit.sum().item())
             keys.append(((bi * s + start + flat) * m + mi)[hit])
         start += h * w
     value_rows = int(torch.unique(torch.cat(keys)).numel())
     nbytes = 4 * (value_rows * d + other_elems)
-    flops = 2 * macs_per_corner * d * corners
+    flops = 2 * macs_per_corner * d * sum(corners)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     return (max(t_bytes, t_ops) * 1e3, bound_by, nbytes, flops, corners,
             value_rows)
 
 
-def check_msda(rng, q: int, ref, label: str, dev) -> dict:
+def msda_report(label, q, value, loc, err, kernel, plain, bound, rows_moved
+                ) -> dict:
+    """The numbers of one MSDA kernel at one shape: its time inside a
+    replayed CUDA graph and launched from Python, the plain version's time,
+    the bound, the block map, and the rate at which corner rows are
+    consumed: all of them, and those of the levels that are not resident in
+    shared memory (the most that L2 can have served; what L1 serves lowers
+    it further).  ``rows_moved`` is 1 for the forward (a row read) and 2
+    for the backward (a row read and a row of adds)."""
+    from monosowa_tpu_torch.ops import msda
+
+    bound_ms, bound_by, nbytes, flops, corners, value_rows = bound
+    plan = msda.msda_plan(ENC_SHAPES, q, N_POINTS, D_HEAD, value.device)
+    row = D_HEAD * 4
+    res = {
+        "shape": f"{label}: B={BATCH} Q={q} S={value.shape[1]} "
+                 f"M={M_HEADS} D={D_HEAD} L={len(ENC_SHAPES)} P={N_POINTS}",
+        **err,
+        "ms": device_ms(kernel, 50),
+        "ms_launched_from_python": cuda_ms(kernel, 50),
+        "plain_ms": cuda_ms(plain, 5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "compulsory_bytes": nbytes, "flops": flops,
+        "value_row_bytes": value_rows * row,
+        "corner_row_bytes": sum(corners) * row,
+        "corner_row_bytes_resident": sum(corners[lvl]
+                                         for lvl in plan.resident) * row,
+        "blocks": plan.n_runs * BATCH * M_HEADS, "runs": plan.n_runs,
+        "longest_run": plan.max_run, "tiled_order": not plan.identity,
+        "resident_levels": list(plan.resident),
+        "resident_bytes": plan.resident_bytes,
+        "grad_levels_in_shared": list(plan.grad),
+        "grad_bytes": plan.grad_bytes,
+    }
+    res["corner_rate_TBps"] = rows_moved * res["corner_row_bytes"] \
+        / res["ms"] / 1e9
+    res["l2_corner_rate_TBps"] = rows_moved * (
+        res["corner_row_bytes"] - res["corner_row_bytes_resident"]) \
+        / res["ms"] / 1e9
+    return res
+
+
+def check_msda(rng, q: int, ref, label: str, dev, wide: bool = False) -> dict:
     import torch
 
     from monosowa_tpu_torch.ops import msda
 
-    value, loc, aw = msda_inputs(rng, q, ref, dev)
+    value, loc, aw = msda_inputs(rng, q, ref, dev, wide)
     out_k = msda.ms_deform_attn(value, ENC_SHAPES, loc, aw)
     out_p = msda.ms_deform_attn_plain(value, ENC_SHAPES, loc, aw)
     torch.cuda.synchronize()
@@ -190,34 +263,24 @@ def check_msda(rng, q: int, ref, label: str, dev) -> dict:
         raise AssertionError(f"msda_fwd {label}: max abs err {err} > "
                              f"1e-5 * {scale}")
     # loc and aw read once, out written once; one multiply-add per channel
-    bound_ms, bound_by, nbytes, flops, corners, value_rows = msda_bound(
-        value, loc, loc.numel() + aw.numel() + out_k.numel(), 1)
-    res = {
-        "shape": f"{label}: B={BATCH} Q={q} S={value.shape[1]} "
-                 f"M={M_HEADS} D={D_HEAD} L={len(ENC_SHAPES)} P={N_POINTS}",
-        "max_abs_err": err, "max_abs_out": scale,
-        "ms": cuda_ms(lambda: msda.ms_deform_attn(value, ENC_SHAPES, loc, aw),
-                      50),
-        "plain_ms": cuda_ms(
-            lambda: msda.ms_deform_attn_plain(value, ENC_SHAPES, loc, aw), 5),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "compulsory_bytes": nbytes, "flops": flops,
-        "value_row_bytes": value_rows * D_HEAD * 4,
-        "corner_row_bytes": corners * D_HEAD * 4,
-    }
-    res["l2_corner_rate_TBps"] = res["corner_row_bytes"] / res["ms"] / 1e9
-    return res
+    return msda_report(
+        label, q, value, loc, {"max_abs_err": err, "max_abs_out": scale},
+        lambda: msda.ms_deform_attn(value, ENC_SHAPES, loc, aw),
+        lambda: msda.ms_deform_attn_plain(value, ENC_SHAPES, loc, aw),
+        msda_bound(value, loc, loc.numel() + aw.numel() + out_k.numel(), 1),
+        1)
 
 
-def check_msda_bwd(rng, q: int, ref, label: str, dev) -> dict:
-    """The backward kernel (dvalue, dloc, daw in one launch) against the
+def check_msda_bwd(rng, q: int, ref, label: str, dev, wide: bool = False
+                   ) -> dict:
+    """The backward kernel (dvalue, dloc, daw in one call) against the
     plain backward on the same inputs and a random incoming gradient."""
     import numpy as np
     import torch
 
     from monosowa_tpu_torch.ops import msda
 
-    value, loc, aw = msda_inputs(rng, q, ref, dev)
+    value, loc, aw = msda_inputs(rng, q, ref, dev, wide)
     dout = torch.from_numpy(rng.normal(
         size=(BATCH, q, M_HEADS * D_HEAD)).astype(np.float32)).to(dev)
 
@@ -242,24 +305,13 @@ def check_msda_bwd(rng, q: int, ref, label: str, dev) -> dict:
     # loc, aw and dout read once; dvalue, dloc and daw written once; two
     # multiply-adds per channel and in-bounds corner (the dot for dloc and
     # daw, the scatter for dvalue)
-    bound_ms, bound_by, nbytes, flops, corners, value_rows = msda_bound(
-        value, loc, 2 * (loc.numel() + aw.numel()) + dout.numel()
-        + value.numel(), 2)
-    res = {
-        "shape": f"{label}: B={BATCH} Q={q} S={value.shape[1]} "
-                 f"M={M_HEADS} D={D_HEAD} L={len(ENC_SHAPES)} P={N_POINTS}",
-        "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-        "outputs": errs,
-        "ms": cuda_ms(lambda: msda._launch_bwd(value, ENC_SHAPES, loc, aw,
-                                               dout), 50),
-        "plain_ms": cuda_ms(plain, 5),
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "compulsory_bytes": nbytes, "flops": flops,
-        "corner_row_bytes": corners * D_HEAD * 4,
-    }
-    # every in-bounds corner reads one value row and adds into one dvalue row
-    res["l2_corner_rate_TBps"] = 2 * res["corner_row_bytes"] / res["ms"] / 1e9
-    return res
+    return msda_report(
+        label, q, value, loc,
+        {"max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+         "outputs": errs},
+        lambda: msda._launch_bwd(value, ENC_SHAPES, loc, aw, dout), plain,
+        msda_bound(value, loc, 2 * (loc.numel() + aw.numel()) + dout.numel()
+                   + value.numel(), 2), 2)
 
 
 def synthetic_car(rng, template, moving: bool, n_ground: int = 740):
@@ -619,9 +671,9 @@ def check_row_fetch(form: str, label: str, dev) -> dict:
         "coverage": float(keep.float().mean()),
         # a few microseconds a call: timed inside a replayed CUDA graph, or
         # the host's launch rate would be what is measured
-        "ms": bench.device_ms(kernel, 50),
-        "plain_ms": bench.device_ms(plain, 5),
-        "library_ms": bench.device_ms(library, 20),
+        "ms": device_ms(kernel, 50),
+        "plain_ms": device_ms(plain, 5),
+        "library_ms": device_ms(library, 20),
         "ms_launched_from_python": cuda_ms(kernel, 50),
         # idx and bank read once, out written once; nothing is computed
         "bound_ms": bench.bound_ms(n_rows, RF_T, RF_D, bank.element_size()),
@@ -1125,11 +1177,10 @@ def main() -> int:
         eval_build = pool.submit(timed_eval_build)
         logs = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
         eval_build_s = eval_build.result()
+    registers = {k: ptxas_registers(log) for k, log in logs.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "evalkitti_library_seconds": eval_build_s,
-          "ptxas": {k: [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for k, log in logs.items()}})
+          "registers": registers})
 
     # 3. kernel vs plain at the serve and train paths' shapes
     rng = np.random.default_rng(0)
@@ -1141,19 +1192,23 @@ def main() -> int:
         return np.broadcast_to(rng.uniform(0.05, 0.95, (BATCH, q, 1, 2)),
                                (BATCH, q, len(ENC_SHAPES), 2))
 
-    fwd = {"encoder": check_msda(rng, s, enc_ref, "encoder", dev),
-           "decoder": check_msda(rng, 50, dec_ref(50), "decoder", dev),
-           "train decoder": check_msda(rng, TRAIN_QUERIES,
+    def msda_cases(check):
+        return {"encoder": check(rng, s, enc_ref, "encoder", dev),
+                "encoder wide": check(rng, s, enc_ref, "encoder wide", dev,
+                                      wide=True),
+                "decoder": check(rng, 50, dec_ref(50), "decoder", dev),
+                "train decoder": check(rng, TRAIN_QUERIES,
                                        dec_ref(TRAIN_QUERIES),
                                        "train decoder", dev)}
+
+    fwd = msda_cases(check_msda)
     for res in fwd.values():
-        emit({"phase": "kernel", "name": "msda_fwd", **res})
-    bwd = {"encoder": check_msda_bwd(rng, s, enc_ref, "encoder", dev),
-           "train decoder": check_msda_bwd(rng, TRAIN_QUERIES,
-                                           dec_ref(TRAIN_QUERIES),
-                                           "train decoder", dev)}
+        emit({"phase": "kernel", "name": "msda_fwd",
+              "registers": registers["msda_fwd"], **res})
+    bwd = msda_cases(check_msda_bwd)
     for res in bwd.values():
-        emit({"phase": "kernel", "name": "msda_bwd", **res})
+        emit({"phase": "kernel", "name": "msda_bwd",
+              "registers": registers["msda_bwd"], **res})
     cov = {"rescore": check_tfl(rng, 48, 40, "rescore", dev),
            "fine": check_tfl(rng, 4, 360, "fine pass", dev)}
     for res in cov.values():
@@ -1191,10 +1246,9 @@ def main() -> int:
 
     # 10. kernels; library_ms is None where no one PyTorch call computes the
     # kernel's function (MSDA, its gradient, the two-way coverage)
-    def entry(name, source, replaces, launches, runs, first="encoder",
-              rest="decoder"):
-        keys = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms")
+    def entry(name, source, replaces, launches, runs, first="encoder"):
+        keys = ("shape", "max_abs_err", "ms", "ms_launched_from_python",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")
         enc = runs[first]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(launches.values()),
@@ -1202,9 +1256,11 @@ def main() -> int:
                 "max_abs_err": enc["max_abs_err"], "ms": enc["ms"],
                 "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
                 "bound_by": enc["bound_by"],
-                "library_ms": enc.get("library_ms"), "at": enc["shape"],
-                rest: [{k: r.get(k) for k in keys}
-                       for key, r in runs.items() if key != first]}
+                "library_ms": enc.get("library_ms"),
+                "ms_launched_from_python": enc.get("ms_launched_from_python"),
+                "at": enc["shape"],
+                "other_shapes": [{k: r.get(k) for k in keys}
+                                 for key, r in runs.items() if key != first]}
 
     emit({"kernels": [
         entry("msda_fwd", "monosowa_tpu_torch/ops/csrc/msda_fwd.cu",
@@ -1222,12 +1278,11 @@ def main() -> int:
         entry("tfl_counts", "monosowa_tpu_torch/ops/csrc/tfl_counts.cu",
               "monosowa_tpu/ops/tfl_pallas.py:67 (K5 "
               "binary_both_way_counts_pallas)",
-              {"label": lbl["tfl_launches"]}, cov, "rescore", "other_shapes"),
+              {"label": lbl["tfl_launches"]}, cov, "rescore"),
         entry("row_fetch", "monosowa_tpu_torch/ops/csrc/row_fetch.cu",
               "tools/bench_gather_micro.py:61 (K6 run; bodies _kernel_gather "
               ":26, _kernel_onehot :45)",
-              {"bench": bch["row_fetch_launches"]}, fetch, "K6 direct",
-              "other_shapes"),
+              {"bench": bch["row_fetch_launches"]}, fetch, "K6 direct"),
     ]})
     if torch.cuda.device_count() != 1:
         raise AssertionError(f"{torch.cuda.device_count()} cards visible")

@@ -3,7 +3,9 @@ two compilers.
 
 A source has a plain C interface and compiles alone into
 ``build/monosowa_tpu_torch/<name>-<hash>.so`` under the checkout (the hash
-covers the source and the flags, so an edited source is rebuilt):
+covers the source, the headers beside it that it includes with
+``#include "..."``, and the flags, so an edited source or header is
+rebuilt):
 
 * ``<src_dir>/<name>.cu``, a CUDA kernel, with nvcc for sm_90a;
 * ``<src_dir>/<name>.cpp``, host C++ (the KITTI evaluation's kernels), with
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Dict, Tuple
@@ -59,10 +62,26 @@ def _source(name: str, src_dir: str) -> Tuple[str, Tuple[str, ...]]:
     raise FileNotFoundError(f"no {name}.cu or {name}.cpp in {src_dir}")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _with_headers(path: str, seen: set) -> bytes:
+    """The file's bytes followed by those of every header it includes by a
+    quoted name that exists beside it, headers of headers too."""
+    seen.add(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    for header in _INCLUDE.findall(data):
+        inc = os.path.join(os.path.dirname(path), header.decode())
+        if inc not in seen and os.path.isfile(inc):
+            data += _with_headers(inc, seen)
+    return data
+
+
 def _lib_path(name: str, src_dir: str) -> str:
     src, flags = _source(name, src_dir)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    digest = hashlib.sha256(_with_headers(src, set())
+                            + " ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -18,14 +18,21 @@ tensors its forward launches ``csrc/msda_fwd.cu`` and its backward
 (``ms_deform_attn_plain``, ``msda_grad_loc_aw_plain``,
 ``msda_grad_value_plain``).  There is no other path.  ``launches`` counts
 forward kernel launches and ``bwd_launches`` backward ones.
+
+The kernels take their block map from ``msda_plan``: the order in which
+queries are walked (image tiles where the queries are the pyramid's own
+tokens), each block's run of it, and the coarse levels a block keeps whole
+in shared memory.  It is built once per shape and device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 SpatialShapes = Sequence[Tuple[int, int]]
@@ -222,6 +229,133 @@ def ms_deform_attn(value: torch.Tensor, spatial_shapes: SpatialShapes,
 
 
 # ---------------------------------------------------------------------------
+# the block map of the CUDA kernels: which queries a block takes, in which
+# order, and which levels it keeps in shared memory.  Plain Python and numpy,
+# so the CPU tests reach it; csrc/msda_common.cuh says how the kernels read it
+# ---------------------------------------------------------------------------
+
+# where the queries are the pyramid's own tokens (Q == S) they are walked in
+# tiles of TILE_H x TILE_W tokens of their level, and a block takes RUN_TILES
+# consecutive tiles of one level; other queries go in index order,
+# RUN_QUERIES a block
+TILE_H, TILE_W = 8, 8
+RUN_TILES = 2
+RUN_QUERIES = 16
+# whole levels, coarsest first, are resident in shared memory while they fit
+# RESIDENT_BUDGET bytes (two forward blocks share an SM's 227 KB; the
+# backward's block adds a copy of the grad levels below for dvalue) and while a
+# block's longest run reads at least RESIDENT_MIN_READS corner rows of the
+# level for each row it would copy
+RESIDENT_BUDGET = 100 * 1024
+RESIDENT_MIN_READS = 12
+# the backward sums dvalue of a resident level in shared memory too where a
+# launch adds into each of its rows at least GRAD_MIN_ADDS times (per image
+# and head), and by vector atomics in global memory otherwise: measured,
+# shared-memory atomics pay only for the hottest rows
+GRAD_MIN_ADDS = 512
+
+
+def query_order(spatial_shapes: SpatialShapes, q: int
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    """(order (Q,) int32, runs (R, 2) int32): a permutation of the queries
+    and, per block, the first place and the length of its run in it.
+
+    Any order gives the same result; this one decides locality.  Where Q is
+    the pyramid's token count the queries are taken for its tokens
+    (level-major, row-major, as the encoder's reference points): tile after
+    tile of each level, row-major inside a tile, and no run crosses from one
+    level into the next.  Otherwise the order is the identity."""
+    if q != sum(h * w for h, w in spatial_shapes):
+        order = np.arange(q, dtype=np.int32)
+        first = np.arange(0, q, RUN_QUERIES, dtype=np.int32)
+        return order, np.stack([first, np.minimum(RUN_QUERIES, q - first)],
+                               1).astype(np.int32)
+    order, runs, at = [], [], 0
+    for _, h, w, start in _levels(spatial_shapes):
+        ys, xs = np.divmod(np.arange(h * w), w)
+        tile = (ys // TILE_H) * -(-w // TILE_W) + xs // TILE_W
+        order.append(start + np.lexsort((xs, ys, tile)))
+        lengths = np.bincount(tile // RUN_TILES)
+        runs.append(np.stack([at + np.cumsum(lengths) - lengths, lengths], 1))
+        at += h * w
+    return (np.concatenate(order).astype(np.int32),
+            np.concatenate(runs).astype(np.int32))
+
+
+def resident_levels(spatial_shapes: SpatialShapes, run_len: int,
+                    n_points: int, d: int) -> Tuple[int, ...]:
+    """The levels a block keeps whole in shared memory, a function of the
+    shapes alone: coarsest first while the rows (float32, ``d`` channels of
+    one head) fit RESIDENT_BUDGET, each only where a run of ``run_len``
+    queries, four corners to each of its ``n_points`` samples of the level,
+    reads RESIDENT_MIN_READS corner rows for each row copied."""
+    taken, nbytes = [], 0
+    by_size = sorted(enumerate(spatial_shapes),
+                     key=lambda it: (it[1][0] * it[1][1], -it[0]))
+    for lvl, (h, w) in by_size:
+        nbytes += h * w * d * 4
+        if nbytes > RESIDENT_BUDGET or \
+                h * w * RESIDENT_MIN_READS > run_len * n_points * 4:
+            break
+        taken.append(lvl)
+    return tuple(sorted(taken))
+
+
+def grad_levels(spatial_shapes: SpatialShapes, resident: Sequence[int],
+                q: int, n_points: int) -> Tuple[int, ...]:
+    """The resident levels whose share of dvalue the backward sums in shared
+    memory: those whose rows get GRAD_MIN_ADDS adds or more (``q`` queries,
+    four corners to each of ``n_points`` samples, over the level's rows)."""
+    return tuple(lvl for lvl in resident if q * n_points * 4 >= GRAD_MIN_ADDS
+                 * spatial_shapes[lvl][0] * spatial_shapes[lvl][1])
+
+
+@dataclasses.dataclass(frozen=True)
+class MSDAPlan:
+    """What a launch hands the kernels beside the tensors."""
+    order: torch.Tensor           # (Q,) int32 on the device
+    runs: torch.Tensor            # (R, 2) int32 on the device
+    n_runs: int
+    max_run: int                  # the longest run's length
+    identity: bool                # index order in runs of max_run
+    resident: Tuple[int, ...]     # levels kept in shared memory
+    resident_mask: int            # the same as bits
+    resident_bytes: int
+    grad: Tuple[int, ...]         # of those, dvalue in shared memory too
+    grad_mask: int
+    grad_bytes: int
+    level_hw: ctypes.Array        # host array of (H, W) pairs
+
+
+@functools.lru_cache(maxsize=None)
+def msda_plan(spatial_shapes: Tuple[Tuple[int, int], ...], q: int,
+              n_points: int, d: int, device: torch.device) -> MSDAPlan:
+    """The block map for one shape on one device, built once."""
+    order, runs = query_order(spatial_shapes, q)
+    run_len = int(runs[:, 1].max()) if len(runs) else 0
+    resident = resident_levels(spatial_shapes, run_len, n_points, d)
+    grad = grad_levels(spatial_shapes, resident, q, n_points)
+    hw = (ctypes.c_int * (2 * len(spatial_shapes)))(
+        *[int(v) for hw_l in spatial_shapes for v in hw_l])
+
+    def mask(levels):
+        return sum(1 << lvl for lvl in levels)
+
+    def nbytes(levels):
+        return sum(spatial_shapes[lvl][0] * spatial_shapes[lvl][1]
+                   for lvl in levels) * d * 4
+
+    return MSDAPlan(
+        order=torch.from_numpy(order).to(device),
+        runs=torch.from_numpy(runs).to(device), n_runs=len(runs),
+        max_run=run_len,
+        identity=q != sum(h * w for h, w in spatial_shapes),
+        resident=resident, resident_mask=mask(resident),
+        resident_bytes=nbytes(resident), grad=grad, grad_mask=mask(grad),
+        grad_bytes=nbytes(grad), level_hw=hw)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels (csrc/msda_fwd.cu, csrc/msda_bwd.cu), bound with ctypes
 # ---------------------------------------------------------------------------
 
@@ -232,63 +366,61 @@ def _kernel(name: str):
 
     fn = getattr(load_library(name), name)
     p, i = ctypes.c_void_p, ctypes.c_int
-    if name == "msda_fwd":
-        # value, loc, aw, out, level_hw (host), n_levels, B, S, Q, M, D, P,
-        # stream
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
-    else:
-        # value, loc, aw, dout, dvalue, dloc, daw, level_hw (host),
-        # n_levels, B, S, Q, M, D, P, stream
-        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+    # the tensors (value, loc, aw, out for the forward; value, loc, aw,
+    # dout, dvalue, dloc, daw for the backward), then order, runs, level_hw
+    # (host), n_levels, n_runs, max_run, resident_mask, (the backward:
+    # grad_mask,) B, S, Q, M, D, P, stream
+    n_tensors, n_ints = (4, 10) if name == "msda_fwd" else (7, 11)
+    fn.argtypes = [p] * (n_tensors + 3) + [i] * n_ints + [p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _cuda_args(tensors, spatial_shapes):
+def _launch(name: str, tensors, out_tensors, spatial_shapes):
+    """One call of a kernel's entry point on the tensors' device and
+    PyTorch's current stream; raises where the launch is refused."""
+    value, loc = tensors[0], tensors[1]
     for t in tensors:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise TypeError(f"the MSDA kernels take contiguous float32, got "
                             f"{t.dtype}, contiguous={t.is_contiguous()}")
-    hw = (ctypes.c_int * (2 * len(spatial_shapes)))(
-        *[int(v) for hw_l in spatial_shapes for v in hw_l])
-    return hw
+    b, s, m, d = value.shape
+    q, n_levels, p = loc.shape[1], loc.shape[3], loc.shape[4]
+    plan = msda_plan(tuple((int(h), int(w)) for h, w in spatial_shapes), q,
+                     p, d, value.device)
+    kernel = _kernel(name)
+    # index order needs no arrays: the kernels then count for themselves
+    order_runs = (None, None) if plan.identity else \
+        (plan.order.data_ptr(), plan.runs.data_ptr())
+    masks = (plan.resident_mask,) if name == "msda_fwd" else \
+        (plan.resident_mask, plan.grad_mask)
+    with torch.cuda.device(value.device):
+        err = kernel(*[t.data_ptr() for t in (*tensors, *out_tensors)],
+                     *order_runs,
+                     ctypes.addressof(plan.level_hw), n_levels, plan.n_runs,
+                     plan.max_run, *masks, b, s, q, m, d, p,
+                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def _launch_fwd(value, spatial_shapes, loc, aw):
     global launches
-    hw = _cuda_args((value, loc, aw), spatial_shapes)
-    kernel = _kernel("msda_fwd")
-    b, s, m, d = value.shape
-    q, n_levels, p = loc.shape[1], loc.shape[3], loc.shape[4]
-    out = torch.empty(b, q, m * d, device=value.device, dtype=torch.float32)
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(value.data_ptr(), loc.data_ptr(), aw.data_ptr(),
-                     out.data_ptr(), ctypes.addressof(hw), n_levels,
-                     b, s, q, m, d, p, stream)
-    if err != 0:
-        raise RuntimeError(f"msda_fwd launch failed: CUDA error {err}")
+    b, _, m, d = value.shape
+    out = torch.empty(b, loc.shape[1], m * d, device=value.device,
+                      dtype=torch.float32)
+    _launch("msda_fwd", (value, loc, aw), (out,), spatial_shapes)
     launches += 1
     return out
 
 
 def _launch_bwd(value, spatial_shapes, loc, aw, dout):
-    """dvalue, dloc, daw from one launch of ``csrc/msda_bwd.cu``."""
+    """dvalue, dloc, daw from one call of ``csrc/msda_bwd.cu``."""
     global bwd_launches
-    hw = _cuda_args((value, loc, aw, dout), spatial_shapes)
-    kernel = _kernel("msda_bwd")
-    b, s, m, d = value.shape
-    q, n_levels, p = loc.shape[1], loc.shape[3], loc.shape[4]
-    dvalue = torch.empty_like(value)      # zeroed by the launch
+    dvalue = torch.empty_like(value)      # zeroed by the call
     dloc = torch.empty_like(loc)
     daw = torch.empty_like(aw)
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(value.data_ptr(), loc.data_ptr(), aw.data_ptr(),
-                     dout.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),
-                     daw.data_ptr(), ctypes.addressof(hw), n_levels,
-                     b, s, q, m, d, p, stream)
-    if err != 0:
-        raise RuntimeError(f"msda_bwd launch failed: CUDA error {err}")
+    _launch("msda_bwd", (value, loc, aw, dout), (dvalue, dloc, daw),
+            spatial_shapes)
     bwd_launches += 1
     return dvalue, dloc, daw

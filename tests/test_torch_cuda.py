@@ -33,8 +33,9 @@ def _inputs(seed, shapes, q, b, m, d, p, dev):
     return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
 
 
-# D=8 leaves lanes idle, D=32 fills the warp, D=48 takes two channel passes;
-# a 1-row level and P=3 (12 samples) cover the loop edges
+# D=8 leaves lanes idle, D=32 fills its 8 lanes, D=48 takes 16 lanes; a
+# 1-row level and P=3 (12 samples) cover the loop edges; Q != S, so the
+# queries go in index order
 @pytest.mark.parametrize("shapes,q,m,d,p", [
     (((12, 20), (6, 10), (3, 5), (2, 3)), 130, 4, 8, 4),
     (((48, 160), (24, 80), (12, 40), (6, 20)), 257, 8, 32, 4),
@@ -68,12 +69,14 @@ def _dout(seed, q, b, m, d, dev):
         np.float32)).to(dev)
 
 
-# the forward's shapes: lanes idle, a full warp, two channel passes, a
+# the forward's shapes: lanes idle, full lane groups, 16 lanes a query, a
 # 1-row level and P=3; float32 sums in another order (dvalue's atomics in
-# an order that changes from run to run): 1e-5 of each output's magnitude
+# an order that changes from run to run): 1e-5 of each output's magnitude.
+# Small launches give a query's samples to 4 warps, Q=300 to 2, Q=550 to 1
 @pytest.mark.parametrize("shapes,q,m,d,p", [
     (((12, 20), (6, 10), (3, 5), (2, 3)), 130, 4, 8, 4),
     (((48, 160), (24, 80), (12, 40), (6, 20)), 550, 8, 32, 4),
+    (((48, 160), (24, 80), (12, 40), (6, 20)), 300, 8, 32, 4),
     (((7, 9), (1, 5)), 33, 2, 48, 3),
 ])
 def test_msda_bwd_kernel_matches_plain(cuda, shapes, q, m, d, p):
@@ -124,6 +127,115 @@ def test_msda_bwd_kernel_rejects_other_dtypes(cuda):
         msda.ms_deform_attn(value.double(), shapes, loc.double(),
                             aw.double())
     assert msda.bwd_launches == before
+
+
+RAGGED = ((13, 21), (7, 11), (4, 6), (2, 3))
+SHIPPED = ((48, 160), (24, 80), (12, 40), (6, 20))
+
+
+def _tokens(shapes):
+    return sum(h * w for h, w in shapes)
+
+
+def _check_fwd_bwd(shapes, value, loc, aw, dout):
+    """Both kernels against their plain versions, 1e-5 of each output's
+    magnitude (float32 sums in another order; dvalue's atomics in an order
+    that changes from run to run); an output whose plain version is all
+    zeros must be all zeros."""
+    got = (msda.ms_deform_attn(value, shapes, loc, aw),
+           *msda._launch_bwd(value, shapes, loc, aw, dout))
+    dloc, daw = msda.msda_grad_loc_aw_plain(value, shapes, loc, aw, dout)
+    want = (msda.ms_deform_attn_plain(value, shapes, loc, aw),
+            msda.msda_grad_value_plain(value.shape, shapes, loc, aw, dout),
+            dloc, daw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out", "dvalue", "dloc", "daw"), got, want):
+        assert g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max()), \
+            name
+    return got
+
+
+# the queries are the pyramid's own tokens (walked in tiles, with ragged
+# tiles and runs) on a ragged pyramid, at D = 8 (two of eight lanes idle),
+# 32 and 48 (16 lanes a query, 12 of them busy); P = 3 (12 samples: a ragged
+# chunk of lanes); B = 1 and M = 1; a 1-row level; D = 6 (one float a lane);
+# the shipped pyramid, where levels 2 and 3 are resident
+@pytest.mark.parametrize("shapes,b,m,d,p", [
+    (RAGGED, 2, 4, 8, 4),
+    (RAGGED, 2, 4, 32, 4),
+    (RAGGED, 2, 2, 48, 3),
+    (RAGGED, 1, 1, 32, 3),
+    (((7, 9), (1, 5)), 2, 2, 32, 4),
+    (RAGGED, 2, 3, 6, 4),
+    (SHIPPED, 1, 2, 32, 4),
+])
+def test_msda_kernels_on_the_pyramids_own_tokens(cuda, shapes, b, m, d, p):
+    q = _tokens(shapes)
+    value, loc, aw = _inputs(11, shapes, q, b, m, d, p, cuda)
+    plan = msda.msda_plan(shapes, q, p, d, value.device)
+    assert sorted(plan.order.tolist()) == list(range(q))
+    assert plan.resident, "some level is resident at these shapes"
+    _check_fwd_bwd(shapes, value, loc, aw, _dout(12, q, b, m, d, cuda))
+
+
+def test_msda_kernels_with_nothing_resident(cuda):
+    # the coarsest level alone (40 x 40 rows of 128 bytes) exceeds the budget
+    shapes = ((80, 80), (40, 40))
+    q = _tokens(shapes)
+    value, loc, aw = _inputs(13, shapes, q, 1, 2, 32, 2, cuda)
+    assert msda.msda_plan(shapes, q, 2, 32, value.device).resident == ()
+    _check_fwd_bwd(shapes, value, loc, aw, _dout(14, q, 1, 2, 32, cuda))
+
+
+def test_msda_kernels_all_samples_out_of_bounds(cuda):
+    q = _tokens(RAGGED)
+    value, loc, aw = _inputs(15, RAGGED, q, 2, 2, 32, 4, cuda)
+    loc = torch.where(loc < 0.5, loc - 2.0, loc + 2.0)
+    got = _check_fwd_bwd(RAGGED, value, loc, aw, _dout(16, q, 2, 2, 32, cuda))
+    for g in got:
+        assert float(g.abs().max()) == 0.0
+
+
+def test_msda_kernels_all_samples_on_one_token(cuda):
+    # every sample of every query at the centre of one token of each level:
+    # all adds of a level land on one row of dvalue
+    q = _tokens(RAGGED)
+    value, _, aw = _inputs(17, RAGGED, q, 2, 2, 32, 4, cuda)
+    centre = torch.tensor([[(1 + 0.5) / w, (1 + 0.5) / h] for h, w in RAGGED],
+                          device=cuda)
+    loc = centre.view(1, 1, 1, 4, 1, 2).expand(2, q, 2, 4, 4, 2).contiguous()
+    got = _check_fwd_bwd(RAGGED, value, loc, aw, _dout(18, q, 2, 2, 32, cuda))
+    touched = (got[1].abs().sum((0, 2, 3)) > 0).sum()
+    # a centre that rounds off the grid brings in a neighbouring token
+    assert len(RAGGED) <= int(touched) <= 4 * len(RAGGED)
+
+
+def test_msda_kernels_loc_on_the_pixel_grid(cuda):
+    # loc * W - 0.5 exactly integer or half-integer: kernel and plain version
+    # must pick the same corners (no fused multiply-add in either)
+    shapes = ((16, 32), (8, 16), (4, 8), (2, 4))
+    q = _tokens(shapes)
+    rng = np.random.default_rng(19)
+    value, _, aw = _inputs(19, shapes, q, 2, 2, 32, 4, cuda)
+    loc = np.zeros((2, q, 2, 4, 4, 2), np.float32)
+    for lvl, (h, w) in enumerate(shapes):
+        loc[:, :, :, lvl, :, 0] = rng.integers(-1, 2 * w + 2,
+                                               (2, q, 2, 4)) / (2 * w)
+        loc[:, :, :, lvl, :, 1] = rng.integers(-1, 2 * h + 2,
+                                               (2, q, 2, 4)) / (2 * h)
+    _check_fwd_bwd(shapes, value, torch.from_numpy(loc).to(cuda), aw,
+                   _dout(20, q, 2, 2, 32, cuda))
+
+
+def test_msda_kernels_take_tensors_off_16_bytes(cuda):
+    # a value that starts 4 bytes into its storage: one float a lane
+    value, loc, aw = _inputs(21, RAGGED, 40, 2, 2, 32, 4, cuda)
+    shifted = torch.empty(value.numel() + 1, device=cuda)[1:].view_as(value)
+    shifted.copy_(value)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    _check_fwd_bwd(RAGGED, shifted, loc, aw, _dout(22, 40, 2, 2, 32, cuda))
 
 
 def _tfl_inputs(seed, b, s, n_valid, p, t, dev):

@@ -34,6 +34,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import numpy as np
 
+from monosowa_tpu_torch.timing import device_ms  # noqa: E402
+
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 
 
@@ -74,30 +76,6 @@ def bound_ms(n_rows: int, t_total: int, d4: int, itemsize: int) -> float:
     """idx and bank read once, out written once, at the memory rate."""
     nbytes = n_rows * 4 + t_total * d4 * itemsize + n_rows * d4 * 4
     return nbytes / HBM_BYTES_PER_S * 1e3
-
-
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` in ms: ``reps`` calls captured into one
-    CUDA graph and replayed, between two events.  A call of a few
-    microseconds enqueued from Python is bounded by the host's launch rate,
-    not by the device; a replayed graph is not."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()                              # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def host_ms(fn, reps: int) -> float:
