@@ -112,12 +112,16 @@ class KittiDetectionDataset:
         self.use_depth = bool(cfg.get("use_depth", False))
         self.depth_path = cfg.get("depth_path", "")
         # use_add_data: pseudo-label cars for the TFL/mask aux losses
-        # (reference kitti_dataset.py:421-449), a training input that the
-        # port's inference slice does not load
+        # (reference kitti_dataset.py:421-449).  The car cache itself is
+        # ported (sowa/cache.py); what reads it into training is not
         if cfg.get("use_add_data", False):
             raise NotImplementedError(
-                "use_add_data needs the pseudo-label car cache, which the "
-                "torch port does not carry yet")
+                "use_add_data: the torch port has the pseudo-label car cache "
+                "(sowa/cache.py) but not what trains on it: the dataset's "
+                "_load_add_data (monosowa_tpu/data/kitti_dataset.py), "
+                "add_data_from_batch and _tfl_templates "
+                "(monosowa_tpu/train/trainer.py), models/tfl_aux.py and "
+                "models/mask_aux.py")
 
     def __len__(self):
         return len(self.idx_list)

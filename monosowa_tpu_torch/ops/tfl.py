@@ -187,6 +187,204 @@ def tfl_loss(scan, scan_mask, templates, kind: str, radius: float = 0.2,
 
 
 # ---------------------------------------------------------------------------
+# The cell list of the CUDA kernel: its launch numbers, and a numpy mirror
+# of its grid rule and its walk
+# ---------------------------------------------------------------------------
+
+CELL_EPS = 2.0 ** -9          # cell edge >= sqrt(r2) (1 + CELL_EPS)
+CELL_MARGIN = 1.5             # grid origin lo = min - 1.5 c
+CELL_GROW = 1.25              # c grows by this factor until the grid fits
+CELL_MAG = 2.0 ** -18         # c >= M * CELL_MAG: lo's rounding <= c / 64
+CELL_MAG_LIMIT = 2.0 ** 100   # a template box beyond: one cell, all pairs
+CELL_AXIS_MAX = 1024          # cells along one axis (the rounding bound)
+CELL_CAP = 8192               # cells a block holds at most
+SMEM_LIMIT = 227 * 1024       # shared memory a Hopper block may have
+SMEM_STATIC = 1024            # the kernel's static shared memory, rounded up
+# scan points a launch takes: 16 bytes of point and one of flag each, the
+# limit of the all-pairs kernel this one replaced
+S_MAX = SMEM_LIMIT // 17
+
+
+class TflCellPlan(ctypes.Structure):
+    """The launch numbers of ``csrc/tfl_counts.cu`` (its ``TflCellPlan``,
+    the same fields in the same order), passed by value: float32 values as
+    the kernel receives them."""
+
+    _fields_ = [("r2", ctypes.c_float), ("c_min", ctypes.c_float),
+                ("margin", ctypes.c_float), ("grow", ctypes.c_float),
+                ("mag", ctypes.c_float), ("mag_limit", ctypes.c_float),
+                ("cell_cap", ctypes.c_int), ("axis_max", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=None)
+def tfl_cell_plan(s: int, radius: float) -> TflCellPlan:
+    """The kernel's numbers for scans of ``s`` points: r2, the least cell
+    edge sqrt(r2) (1 + CELL_EPS) rounded up to float32, and as many cells
+    as the shared memory beside ``s`` float4 points holds, at most
+    CELL_CAP.  Raises beyond S_MAX points."""
+    if not 0 <= s <= S_MAX:
+        raise ValueError(f"S = {s} scan points: the coverage kernel takes "
+                         f"at most {S_MAX}")
+    r2 = np.float32(_radius_sq(radius))
+    want = float(np.sqrt(np.float64(r2))) * (1.0 + CELL_EPS)
+    c_min = np.float32(want)
+    if float(c_min) < want:
+        c_min = np.nextafter(c_min, np.float32(np.inf))
+    # the kernel's dynamic shared memory: s float4 points, cap + 2 ints
+    cap = min(CELL_CAP, (SMEM_LIMIT - SMEM_STATIC - 16 * s) // 4 - 2)
+    return TflCellPlan(float(r2), float(c_min), CELL_MARGIN, CELL_GROW,
+                       CELL_MAG, CELL_MAG_LIMIT, cap, CELL_AXIS_MAX)
+
+
+def cell_grid(templates: np.ndarray, plan: TflCellPlan):
+    """The grid the kernel builds for each block, bit for bit: templates
+    (..., T, 3) float32 -> (mode (...,) 0 no finite point / 1 cell grid /
+    2 one cell, lo (..., 3) float32, inv (...,) float32 = fl(1 / c),
+    n (..., 3) int64 cells per axis).  ``csrc/tfl_counts.cu`` states the
+    rule and why it loses no pair."""
+    f32 = np.float32
+    t = np.asarray(templates, f32)
+    fin = np.isfinite(t).all(-1)[..., None]
+    mn = np.where(fin, t, f32(np.inf)).min(-2)
+    mx = np.where(fin, t, f32(-np.inf)).max(-2)
+    anyf = mn[..., 0] <= mx[..., 0]
+    mn = np.where(anyf[..., None], mn, f32(0))
+    mx = np.where(anyf[..., None], mx, f32(0))
+    m = np.maximum(np.abs(mn), np.abs(mx)).max(-1)
+    grid = anyf & (m <= f32(plan.mag_limit))
+    mode = np.where(grid, 1, np.where(anyf, 2, 0))
+    lo = np.zeros(mn.shape, f32)
+    inv = np.zeros(m.shape, f32)
+    n = np.ones(mn.shape, np.int64)
+    mn_g, mx_g = mn[grid], mx[grid]
+    c = np.maximum(f32(plan.c_min), m[grid] * f32(plan.mag))
+    c = np.maximum(c, (mx_g - mn_g).max(-1) / f32(plan.axis_max - 4))
+    lo_g, inv_g = np.zeros_like(mn_g), np.zeros_like(c)
+    n_g = np.ones(mn_g.shape, np.int64)
+    todo = np.ones(c.shape, bool)
+    while todo.any():
+        off = c[todo] * f32(plan.margin)
+        iv = f32(1) / c[todo]
+        lo_k = mn_g[todo] - off[:, None]
+        n_k = ((mx_g[todo] - lo_k) * iv[:, None]).astype(np.int64) + 2
+        fits = (n_k <= plan.axis_max).all(-1) \
+            & (n_k.prod(-1) <= plan.cell_cap)
+        rows = np.nonzero(todo)[0]
+        lo_g[rows], inv_g[rows], n_g[rows] = lo_k, iv, n_k
+        c[rows[~fits]] *= f32(plan.grow)
+        todo[rows[fits]] = False
+    lo[grid], inv[grid], n[grid] = lo_g, inv_g, n_g
+    return mode, lo, inv, n
+
+
+def cell_coords(points: np.ndarray, lo: np.ndarray, inv) -> np.ndarray:
+    """u = fl(fl(x - lo) * inv) per axis, the kernel's cell coordinate:
+    points (N, 3), lo (3,), inv a float32 scalar -> (N, 3) float32."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        return (np.asarray(points, np.float32) - lo) * np.float32(inv)
+
+
+def scan_cells(points: np.ndarray, mode, lo, inv, n) -> np.ndarray:
+    """The flat cell of each point as the kernel stages scan points, -1
+    outside the grid, not finite, or in a grid of mode 0: points (N, 3) and
+    the grids of ``cell_grid`` (mode (...,), lo (..., 3), inv (...,), n
+    (..., 3)) -> (..., N)."""
+    mode = np.asarray(mode)[..., None]
+    n = np.asarray(n)[..., None, :]
+    u = cell_coords(points, np.asarray(lo, np.float32)[..., None, :],
+                    np.asarray(inv, np.float32)[..., None, None])
+    with np.errstate(invalid="ignore"):
+        inside = ((u >= 0) & (u < n)).all(-1)
+    iu = np.where(inside[..., None], u, 0).astype(np.int64)
+    flat = (iu[..., 0] * n[..., 1] + iu[..., 1]) * n[..., 2] + iu[..., 2]
+    one = np.where(np.isfinite(points).all(-1), 0, -1)
+    return np.where(mode == 2, one,
+                    np.where((mode == 1) & inside, flat, -1))
+
+
+def template_cells(points: np.ndarray, mode, lo, inv) -> np.ndarray:
+    """(..., T, 3) the cell of each template point as the kernel walks it,
+    points (..., T, 3) under the grids of ``cell_grid`` (rows that are not
+    finite are not walked; their value means nothing)."""
+    mode = np.asarray(mode)[..., None, None]
+    u = cell_coords(points, np.asarray(lo, np.float32)[..., None, :],
+                    np.asarray(inv, np.float32)[..., None, None])
+    cells = np.where(np.isfinite(u), u, 0).astype(np.int64)
+    return np.where(mode == 2, 0, cells)
+
+
+def cell_walk(scan: np.ndarray, scan_mask: np.ndarray,
+              templates: np.ndarray, radius: float, hits: bool = True):
+    """The kernel's algorithm in numpy, car by car with all poses of a car
+    at once: scan (B, S, 3), scan_mask (B, S), templates (B, P, T, 3) ->
+    (t_count, s_count, cell_pairs), each (B, P) int64.  cell_pairs counts
+    the pairs the walk tests (template point x staged scan point in its
+    3 x 3 x 3 cells); with ``hits`` False only those are counted and the
+    counts are zero.  As in the plain version's minima, a NaN template
+    coordinate zeroes its pose's s_count and a valid NaN scan coordinate
+    its car's t_count."""
+    scan = np.asarray(scan, np.float32)
+    scan_mask = np.asarray(scan_mask, bool)
+    templates = np.asarray(templates, np.float32)
+    b_n, p_n, t_n, _ = templates.shape
+    s_n = scan.shape[1]
+    plan = tfl_cell_plan(s_n, radius)
+    r2 = np.float32(plan.r2)
+    modes, los, invs, ns = cell_grid(templates, plan)
+    out = np.zeros((3, b_n, p_n), np.int64)
+    for b in range(b_n):
+        n = ns[b]
+        cells = np.where(scan_mask[b],
+                         scan_cells(scan[b], modes[b], los[b], invs[b], n),
+                         -1)
+        # the poses' sorted slots one after another: key = pose * width +
+        # cell, ends[key] the first slot of the key, ends[-1] the count
+        width = int(n.prod(-1).max())
+        pose, point = np.nonzero(cells >= 0)
+        key = pose * width + cells[pose, point]
+        src = point[np.argsort(key, kind="stable")]
+        ends = np.concatenate([[0], np.cumsum(np.bincount(
+            key, minlength=p_n * width))])
+        tmpl = templates[b]
+        fin = np.isfinite(tmpl).all(-1)
+        tc = np.where(fin[..., None],
+                      template_cells(tmpl, modes[b], los[b], invs[b]), 0)
+        base = (np.arange(p_n) * width)[:, None]
+        ny, nz = n[:, 1:2], n[:, 2:3]
+        z0 = np.maximum(tc[..., 2] - 1, 0)
+        z1 = np.minimum(tc[..., 2] + 1, nz - 1)
+        t_hit = np.zeros(p_n * t_n, bool)
+        s_hit = np.zeros(p_n * s_n, bool)
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                cx, cy = tc[..., 0] + dx, tc[..., 1] + dy
+                ok = fin & (cx >= 0) & (cx < n[:, :1]) & (cy >= 0) \
+                    & (cy < ny)
+                row = base + np.where(ok, (cx * ny + cy) * nz, 0)
+                j0 = ends[row + z0]
+                lens = np.where(ok, ends[row + z1 + 1] - j0, 0)
+                out[2, b] += lens.sum(-1)
+                if not hits or not lens.any():
+                    continue
+                lens, j0 = lens.ravel(), j0.ravel()
+                ti = np.repeat(np.arange(p_n * t_n), lens)
+                first = np.repeat(np.cumsum(lens) - lens, lens)
+                qi = src[np.arange(len(ti)) - first + np.repeat(j0, lens)]
+                with np.errstate(over="ignore", invalid="ignore"):
+                    d = tmpl.reshape(-1, 3)[ti] - scan[b, qi]
+                    d2 = (d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]) \
+                        + d[:, 2] * d[:, 2]
+                hit = d2 < r2
+                t_hit[ti[hit]] = True
+                s_hit[ti[hit] // t_n * s_n + qi[hit]] = True
+        nan_t = np.isnan(tmpl).any((1, 2))
+        nan_s = (np.isnan(scan[b]).any(-1) & scan_mask[b]).any()
+        out[0, b] = 0 if nan_s else t_hit.reshape(p_n, t_n).sum(1)
+        out[1, b] = np.where(nan_t, 0, s_hit.reshape(p_n, s_n).sum(1))
+    return out[0], out[1], out[2]
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernel (csrc/tfl_counts.cu), bound with ctypes
 # ---------------------------------------------------------------------------
 
@@ -198,8 +396,8 @@ def _kernel():
 
     fn = load_library("tfl_counts").tfl_counts
     p, i = ctypes.c_void_p, ctypes.c_int
-    # scan, mask, templates, t_count, s_count, B, S, P, T, r2, stream
-    fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    # scan, mask, templates, t_count, s_count, B, S, P, T, plan, stream
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, TflCellPlan, p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -210,6 +408,9 @@ def _launch_counts(scan, scan_mask, templates, radius):
     global launches
     b, p, t, _ = templates.shape
     s = scan.shape[1]
+    plan = tfl_cell_plan(s, radius)
+    if b > 65535:
+        raise ValueError(f"B = {b} cars: the kernel takes at most 65,535")
     kernel = _kernel()
     t_count = torch.empty(b, p, device=scan.device, dtype=torch.float32)
     s_count = torch.empty(b, p, device=scan.device, dtype=torch.float32)
@@ -219,7 +420,7 @@ def _launch_counts(scan, scan_mask, templates, radius):
         stream = torch.cuda.current_stream().cuda_stream
         err = kernel(scan.data_ptr(), scan_mask.data_ptr(),
                      templates.data_ptr(), t_count.data_ptr(),
-                     s_count.data_ptr(), b, s, p, t, _radius_sq(radius),
+                     s_count.data_ptr(), b, s, p, t, plan,
                      stream)
     if err != 0:
         raise RuntimeError(f"tfl_counts launch failed: CUDA error {err}")

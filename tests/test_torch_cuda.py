@@ -296,6 +296,125 @@ def test_tfl_counts_kernel_rejects_other_dtypes(cuda):
     assert tfl.launches == before
 
 
+def _tfl_equal_plain(scan, mask, poses, radius=0.2):
+    """One launch; fractions equal to the plain version's, bit for bit."""
+    before = tfl.launches
+    got = tfl.binary_both_way_counts(scan, mask, poses, radius)
+    want = tfl._fractions(*tfl.binary_both_way_counts_plain(
+        scan, mask, poses, radius), mask, poses.shape[2])
+    torch.cuda.synchronize()
+    assert tfl.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g - w).abs().max()
+    return got
+
+
+def _tfl_car(seed, b=2, s=1024, p=10, t=1000):
+    """Cars as the fit sees them (chip_smoke.py's inputs): a noisy posed
+    template with ground points, poses around the truth."""
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    return chip_smoke.tfl_inputs(rng, b, p, torch.device("cuda"), t=t, s=s)
+
+
+# The cell list's cases: points on the grid's cell faces and at exactly r;
+# every scan point in one cell; NaN and infinite template and scan points
+# (a NaN zeroes a count, as in the plain version's minima); a template far
+# from its scan; a box that reaches the cell cap; a template beyond the
+# magnitude limit (one cell, all pairs); T of 1 and 513 (one past the
+# block's 512 threads: the last round holds one point)
+@pytest.mark.parametrize("case", ["faces and r", "one cell", "nan and inf",
+                                  "far away", "cell cap", "magnitude",
+                                  "t=1", "t=513"])
+def test_tfl_counts_cell_list_cases(cuda, case):
+    t = {"t=1": 1, "t=513": 513}.get(case, 1000)
+    scan, mask, poses = (x.cpu().numpy() for x in _tfl_car(11, t=t))
+    rng = np.random.default_rng(12)
+    plan = tfl.tfl_cell_plan(scan.shape[1], 0.2)
+    if case == "faces and r":
+        _, lo, inv, _ = tfl.cell_grid(poses, plan)
+        c = np.float32(1) / inv[0, 0]
+        faces = (lo[0, 0] + rng.integers(1, 6, (300, 3)) * c).astype(
+            np.float32)
+        scan[0, :300], mask[0, :300] = faces, True
+        poses[0, 0, :150] = faces[:150]
+        poses[0, 1, :300] = faces
+        poses[0, 1, :300, 0] += np.float32(0.2)      # at r along x
+        poses[0, 2, :300] = faces
+        poses[0, 2, :300, 2] = np.nextafter(poses[0, 2, :300, 2] + np.float32(
+            0.2), np.float32(0))                     # a step inside r
+    elif case == "one cell":
+        scan[1] = poses[1, 0, 5] + rng.uniform(-0.04, 0.04, scan[1].shape)
+        mask[1] = True
+    elif case == "nan and inf":
+        poses[0, 0, ::9] = np.nan
+        poses[0, 1, 4, 2] = np.inf
+        poses[1, 2, 7] = -np.inf
+        scan[1, 3] = np.nan                          # valid: zeroes t_count
+        scan[0, 4] = np.inf
+        mask[1, 3] = mask[0, 4] = True
+    elif case == "far away":
+        poses[0, :2] += np.float32(500.0)
+        poses[1, 3] = np.float32(1e9)
+    elif case == "cell cap":
+        poses[0, 0] = rng.uniform(-25, 25, poses.shape[2:])
+        scan[0, :400] = poses[0, 0, :400] + rng.normal(scale=0.1,
+                                                       size=(400, 3))
+    elif case == "magnitude":
+        poses[0, 0, :4] = np.float32(1e35) * np.arange(1, 5)[:, None]
+        scan[0, :2], mask[0, :2] = poses[0, 0, :2], True
+    dev = torch.device("cuda")
+    got = _tfl_equal_plain(*(torch.from_numpy(np.ascontiguousarray(x)).to(
+        dev) for x in (scan, mask, poses)))
+    modes = tfl.cell_grid(poses, plan)[0]
+    if case == "cell cap":
+        assert 1 / tfl.cell_grid(poses, plan)[2][0, 0] > plan.c_min
+    if case == "magnitude":
+        assert modes[0, 0] == 2 and float(got[0][0, 0]) > 0
+    if case == "nan and inf":
+        assert float(got[1][0, 0]) == 0 and float(got[0][1].abs().max()) == 0
+    if case not in ("nan and inf", "far away"):
+        assert float(got[0].max()) > 0
+
+
+def test_tfl_counts_at_the_largest_scan_and_past_it(cuda):
+    """S at the limit the all-pairs kernel had (16 + 1 bytes a point in
+    227 KB): the cell list takes it with fewer cells; one more point
+    raises, as before."""
+    s = tfl.S_MAX
+    scan, mask, poses = _tfl_car(13, b=2, s=s, p=5)
+    assert tfl.tfl_cell_plan(s, 0.2).cell_cap < tfl.CELL_CAP
+    _tfl_equal_plain(scan, mask, poses)
+    pad = torch.zeros(2, 1, 3, device=scan.device)
+    before = tfl.launches
+    with pytest.raises(ValueError, match="at most"):
+        tfl.binary_both_way_counts(
+            torch.cat([scan, pad], 1),
+            torch.cat([mask, mask[:, :1]], 1), poses, 0.2)
+    assert tfl.launches == before
+
+
+def test_tfl_counts_car_limit(cuda):
+    """B up to 65,535 cars (the grid's y dimension); more raises."""
+    scan = torch.zeros(65535, 4, 3, device=cuda)
+    mask = torch.ones(65535, 4, dtype=torch.bool, device=cuda)
+    poses = torch.zeros(65535, 1, 1, 3, device=cuda)
+    poses[-1, 0, 0, 0] = 5.0
+    before = tfl.launches
+    t_frac, s_frac = tfl.binary_both_way_counts(scan, mask, poses, 0.2)
+    assert tfl.launches == before + 1
+    want = torch.ones(65535, 1, device=cuda)
+    want[-1] = 0
+    assert torch.equal(t_frac, want) and torch.equal(s_frac, want)
+    before = tfl.launches
+    with pytest.raises(ValueError, match="65,535"):
+        tfl.binary_both_way_counts(torch.cat([scan, scan[:1]]),
+                                   torch.cat([mask, mask[:1]]),
+                                   torch.cat([poses, poses[:1]]), 0.2)
+    assert tfl.launches == before
+
+
 # the tool's shape with its clustered indices; rows spread over the whole
 # bank with negatives and indices past T (most miss their window), a ragged
 # last block and D = 64; an f32 bank, whose 512-row chunk would not fit
@@ -332,6 +451,35 @@ def test_row_fetch_kernels_equal_plain(cuda, form, t, d, n, bq, block, k_win,
     assert torch.equal(got, want)
     covered = float(row_fetch.in_window(idx, t, bq, blk, k).float().mean())
     assert covered == 1.0 if not spread else 0.0 < covered < 1.0
+
+
+# every index out of its window (all past T, or all negative: base is the
+# last window), and a group split unevenly over CTAs (bq 100: 7 CTAs, of
+# 15 rows and the last of 10)
+@pytest.mark.parametrize("form", row_fetch.FORMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fill", ["past T", "negative", "bq 100"])
+def test_row_fetch_kernels_out_of_window_and_uneven_split(cuda, form, dtype,
+                                                          fill):
+    rng = np.random.default_rng(14)
+    t, d, n, bq = 2048, 64, 1111, 256
+    idx = {"past T": rng.integers(t, 2 * t, n),
+           "negative": -rng.integers(1, 100, n),
+           "bq 100": rng.integers(0, t, n)}[fill]
+    if fill == "bq 100":
+        bq = 100
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    bank = torch.from_numpy(rng.standard_normal((t, d)).astype(
+        np.float32)).to(cuda).to(dtype)
+    blk, k = row_fetch.window_params(form, 256, 2)
+    before = row_fetch.launches
+    got = row_fetch.row_fetch(bank, idx, bq, blk, k, form)
+    want = row_fetch.row_fetch_plain(bank, idx, bq, blk, k)
+    torch.cuda.synchronize()
+    assert row_fetch.launches == before + 1
+    assert torch.equal(got, want)
+    if fill != "bq 100":
+        assert float(got.abs().max()) == 0
 
 
 def test_row_fetch_kernel_refuses_what_it_cannot_take(cuda):

@@ -131,3 +131,15 @@ def test_collated_batch_feeds_the_train_step(kitti_dir):
         batch, torch.Generator().manual_seed(0))
     assert all(np.isfinite(v) for v in losses.values())
     assert losses["loss_center"] > 0 and losses["grad_norm"] > 0
+
+
+def test_use_add_data_names_what_the_port_lacks(kitti_dir):
+    """The car cache is ported; the message names the modules that train
+    on it, which are not."""
+    with pytest.raises(NotImplementedError) as info:
+        KittiDetectionDataset(kitti_dir, "train", {"use_add_data": True})
+    msg = str(info.value)
+    for name in ("sowa/cache.py", "_load_add_data", "add_data_from_batch",
+                 "_tfl_templates", "models/tfl_aux.py", "models/mask_aux.py"):
+        assert name in msg, name
+    assert "does not carry" not in msg

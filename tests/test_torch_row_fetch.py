@@ -189,3 +189,30 @@ def test_tool_runs_the_plain_version_on_the_cpu(capsys):
     assert res["bound_ms"] == pytest.approx(
         (2048 * 4 + 2048 * 128 * 2 + 2048 * 128 * 4) / 3.35e12 * 1e3)
     assert "staged: max err 0.0" in out and "host time" in out
+
+
+@pytest.mark.parametrize("n,bq", [(10240, 256), (163200, 256), (1000, 100),
+                                  (333, 7), (5, 256), (257, 256)])
+def test_each_group_of_bq_rows_takes_its_own_window(n, bq):
+    """``in_window`` and the CPU route of both forms at N that is and is
+    not a multiple of bq: each group's window is reduced from that group's
+    indices alone, as a loop over the groups computes it, and the rows are
+    the numpy oracle's."""
+    rng = np.random.default_rng(n)
+    t_total, block, k_win = 4096, 256, 4
+    idx = rng.integers(-50, t_total + 50, n).astype(np.int32)
+    keep = np.zeros(n, bool)
+    for g0 in range(0, n, bq):
+        g = idx[g0:g0 + bq]
+        lo = g[g >= 0].min() if (g >= 0).any() else rf.NO_INDEX
+        base = min(max(lo // block, 0), max(t_total // block - k_win, 0))
+        keep[g0:g0 + bq] = (g >= base * block) & (
+            g < min((base + k_win) * block, t_total))
+    want = rf.in_window(torch.from_numpy(idx), t_total, bq, block, k_win)
+    np.testing.assert_array_equal(keep, want.numpy())
+    bank = rng.standard_normal((t_total, 8)).astype(np.float32)
+    oracle, _ = tool.oracle(idx, bank, bq, block, k_win)
+    for form in rf.FORMS:
+        got = rf.row_fetch(torch.from_numpy(bank), torch.from_numpy(idx), bq,
+                           block, k_win, form)
+        np.testing.assert_array_equal(got.numpy(), oracle)

@@ -19,11 +19,17 @@ Usage: python tools/bench_gather_micro_torch.py [direct|staged]
 
 ``--rows`` fetches N rows from the same bank (default: ``t_total``, the JAX
 tool's shape); ``--cpu`` runs the plain version and reports the host's time.
+The last line is the result as one JSON object.  ``run`` uses only
+``row_fetch``, ``window_params`` and ``timing.device_ms``, so it also times
+an older checkout of the port: copy this file into that checkout and run it
+there, on the same machine one after the other, to compare two versions of
+the kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -155,8 +161,10 @@ def main(argv=None) -> Dict[str, Any]:
     p.add_argument("--cpu", action="store_true",
                    help="run the plain version on the CPU")
     a = p.parse_args(argv)
-    return run(a.form, a.bq, a.d4, a.t_total, a.block, a.k_win, a.reps,
-               a.rows, a.f32, "cpu" if a.cpu else None)
+    res = run(a.form, a.bq, a.d4, a.t_total, a.block, a.k_win, a.reps,
+              a.rows, a.f32, "cpu" if a.cpu else None)
+    print(json.dumps(res))
+    return res
 
 
 if __name__ == "__main__":
