@@ -51,6 +51,16 @@ Phases, each printing one JSON line:
             frames with windows of +-6 frames through
             ``PseudoLabeler.label_frames`` (host candidates), one KITTI
             label file per frame, read back and held against the scene.
+   label_bank — the same group with depth maps (bank mode: device
+            extraction, the point bank, one fit + NMS + re-fit), asserted
+            to take the bank path and held against the scene and the label
+            phase's files; ``label_frames_stream`` over 3 groups against
+            per-group calls, byte for byte, with stage A of a group run
+            under torch's sync debug mode; one group at the production
+            window of +-30 frames; the device extraction without the bank
+            against the banked one on one chunk.  Prints
+            ``label_ms_per_frame``, ``host_share``, ``stage_seconds``, each
+            fit's device ms, K5 launches and ``peak_mem_GB``.
 8. bench  — the row-fetch micro-benchmark as a user runs it
             (``tools/bench_gather_micro_torch.py`` ``run``, both forms at
             its default shape), against its numpy oracle.
@@ -75,6 +85,7 @@ import json
 import os
 import subprocess
 import sys
+import contextlib
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -90,8 +101,10 @@ TRAIN_STEPS = 3
 TRAIN_QUERIES = 50 * 11       # num_queries x group_num
 TFL_T, TFL_S, TFL_RADIUS = 1000, 2048, 0.2   # template, scan, threshold
 TFL_PER_FIT = 3               # rescore, half-pitch refinement, fine pass
+BANK_S = 10 * (TFL_S // 10)   # bank mode's scan: 10 slots x 204 points
 FIT_CARS = 16
 LABEL_FRAMES, LABEL_WINDOW = 8, 6
+LABEL_STREAM_GROUPS, PRODUCTION_WINDOW = 3, 30
 # row fetch: the micro-benchmark's shape and the quad rows (4 levels x 4
 # points per token) that one image and head of the encoder reads
 RF_T, RF_D, RF_BQ = 10240, 128, 256
@@ -409,15 +422,19 @@ def tfl_work(scan, mask, posed) -> dict:
 
 
 def check_tfl(rng, b: int, p: int, label: str, dev, t: int = TFL_T,
-              s: int = TFL_S) -> dict:
+              s: int = TFL_S, masked_rows: int = 0) -> dict:
     """The coverage-count kernel against its plain version: counts of pairs
     under the same float32 squared distance, so the fractions are equal
-    (the bar is 1e-6, a count of one is 1e-3)."""
+    (the bar is 1e-6, a count of one is 1e-3).  The last ``masked_rows``
+    cars have every scan point masked, as the bank's re-fit rows without
+    a target do."""
     import torch
 
     from monosowa_tpu_torch.ops import tfl
 
     scan, mask, posed = tfl_inputs(rng, b, p, dev, t, s)
+    if masked_rows:
+        mask[b - masked_rows:] = False
 
     def kernel():
         return tfl.binary_both_way_counts(scan, mask, posed, TFL_RADIUS)
@@ -442,7 +459,8 @@ def check_tfl(rng, b: int, p: int, label: str, dev, t: int = TFL_T,
                              f", {float(got[1].max())}")
     return {
         "shape": f"{label}: B={b} P={p} T={t} S={s} "
-                 f"valid={int(mask.sum().item()) / b:.0f}",
+                 f"valid={int(mask.sum().item()) / b:.0f}"
+                 + (f" all-masked rows={masked_rows}" if masked_rows else ""),
         "max_abs_err": err, "max_t_frac": float(got[0].max()),
         "max_s_frac": float(got[1].max()),
         # a replayed CUDA graph cannot hold the wrapper's divisions (they
@@ -547,114 +565,407 @@ def fit_check(dev, n_cars: int = FIT_CARS, fit_cfg=None) -> dict:
             "conv_count_max": [float(w.max()) for w in want]}
 
 
-def label(dev, n_frames: int = LABEL_FRAMES, window: int = LABEL_WINDOW,
-          hw=None, cfg=None) -> dict:
-    """One group of reference frames of the synthetic sequence through
-    ``PseudoLabeler.label_frames`` (host candidates: points, masks and
-    frame ids, no depth maps)."""
-    import numpy as np
+@contextlib.contextmanager
+def timed_fits(module, record: bool = False):
+    """Wrap ``module.fit_cars_conv`` (the name the pipeline or the bank
+    calls): every call's cars, device time (CUDA events) and
+    ``tfl_counts`` launches.  With ``record``, also a copy of the inputs of
+    each of its ``tfl_counts`` launches (the copies fall inside the fit's
+    device time), for ``check_recorded_launches``."""
     import torch
 
-    from monosowa_tpu_torch.kittiio import read_label_file
     from monosowa_tpu_torch.ops import tfl
-    from monosowa_tpu_torch.sowa import fitting, pipeline, sample
 
-    h, w = hw or (sample.H, sample.W)
-    t0 = time.perf_counter()
-    frames, scene_cars = sample.make_sequence(n_frames, window, h=h, w=w)
-    scene_s = time.perf_counter() - t0
-    # the configuration of the JAX package's tools/bench_pipeline.py
-    cfg = cfg or pipeline.PipelineConfig(
-        nscans_before=window, nscans_after=window, max_cars=16,
-        max_points=TFL_S, min_standing_points=400,
-        fit=fitting.FitConfig(fine_chunk=60))
-    labeler = pipeline.PseudoLabeler(cfg)       # on the card: no device given
-    if labeler.device.type != "cuda":
-        raise AssertionError(f"the labeller is on {labeler.device}")
-
-    # every fit_cars_conv call of the run: cars, device ms, kernel launches
     fits = []
-    fit_cars_conv = pipeline.fit_cars_conv
+    inner = module.fit_cars_conv
+    launch = tfl._launch_counts
+    recorded = []
+
+    def recording_launch(scan, scan_mask, templates, radius):
+        recorded.append((scan.clone(), scan_mask.clone(), templates.clone(),
+                         radius))
+        return launch(scan, scan_mask, templates, radius)
 
     def timed_fit(batch, *args):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         before = tfl.launches
+        recorded.clear()
         start.record()
-        res = fit_cars_conv(batch, *args)
+        res = inner(batch, *args)
         end.record()
         fits.append({"cars": len(batch.points), "events": (start, end),
-                     "tfl_launches": tfl.launches - before})
+                     "tfl_launches": tfl.launches - before,
+                     "tfl_inputs": list(recorded)})
         return res
 
-    with tempfile.TemporaryDirectory() as tmp:
-        jobs = sample.make_jobs(frames, window, tmp, h=h, w=w)
-        pipeline.fit_cars_conv = timed_fit
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            tfl.launches = 0
-            t0 = time.perf_counter()
-            n_written = labeler.label_frames(jobs)      # the main path
-            torch.cuda.synchronize()
-            label_s = time.perf_counter() - t0
-            launches = tfl.launches
-        finally:
-            pipeline.fit_cars_conv = fit_cars_conv
-        peak = torch.cuda.max_memory_allocated()
-        stages = dict(labeler.stage_seconds)
-        if n_written != n_frames:
-            raise AssertionError(f"{n_written} frames written, not "
-                                 f"{n_frames}")
-        cars_per_frame, worst = [], 0.0
-        for job in jobs:
-            labels = read_label_file(job["out_path"])
-            if labels.names != ["Car"] * len(labels):
-                raise AssertionError(f"{job['out_path']}: {labels.names}")
-            vals = np.concatenate([labels.box2d.ravel(), labels.hwl.ravel(),
-                                   labels.pos.ravel(), labels.ry])
-            if not np.isfinite(vals).all():
-                raise AssertionError(f"{job['out_path']}: non-finite label")
-            cars_per_frame.append(len(labels))
-            # the scene's cars in this reference frame's camera coordinates
-            ego_z = frames[job["frame_index"]]["ego_z"]
-            scene_xz = np.array([[c["x"], c["z"] - ego_z]
-                                 for c in scene_cars])
-            for pos in labels.pos:
-                worst = max(worst, float(np.hypot(
-                    scene_xz[:, 0] - pos[0], scene_xz[:, 1] - pos[2]).min()))
-        mtimes = [os.path.getmtime(j["out_path"]) for j in jobs]
-        again = labeler.label_frames(jobs)              # skip-if-exists
-        if again != 0 or mtimes != [os.path.getmtime(j["out_path"])
-                                    for j in jobs]:
-            raise AssertionError(f"a second label_frames wrote {again} "
-                                 "frames")
-    if sum(cars_per_frame) < n_frames:
-        raise AssertionError(f"cars per frame {cars_per_frame}")
-    if worst > 2.5:
-        raise AssertionError(f"a written car lies {worst} m from every "
-                             "scene car")
+    module.fit_cars_conv = timed_fit
+    if record:
+        tfl._launch_counts = recording_launch
+    try:
+        yield fits
+    finally:
+        module.fit_cars_conv = inner
+        tfl._launch_counts = launch
+
+
+def fit_report(fits) -> list:
+    """The fits' device ms (after a synchronize); 3 launches each."""
     for f in fits:
         if f["tfl_launches"] != TFL_PER_FIT:
             raise AssertionError(f"a fit_cars_conv call launched tfl_counts "
                                  f"{f['tfl_launches']} times")
         start, end = f.pop("events")
         f["device_ms"] = start.elapsed_time(end)
+    return fits
+
+
+def check_recorded_launches(fits) -> None:
+    """Each recorded ``tfl_counts`` launch of the fits again, against the
+    plain version on the same card tensors: the fractions must agree to
+    1e-6, as in ``check_tfl``.  Replaces each fit's ``tfl_inputs`` by the
+    result (shape, all-masked rows, max abs err)."""
+    import torch
+
+    from monosowa_tpu_torch.ops import tfl
+
+    for f in fits:
+        inputs = f.pop("tfl_inputs")
+        if len(inputs) != f["tfl_launches"]:
+            raise AssertionError(f"{len(inputs)} tfl_counts launches "
+                                 f"recorded, {f['tfl_launches']} counted")
+        checked = []
+        for scan, mask, posed, radius in inputs:
+            b, p, t, _ = posed.shape
+            got = tfl._fractions(*tfl._launch_counts(scan, mask, posed,
+                                                     radius), mask, t)
+            want = tfl._fractions(*tfl.binary_both_way_counts_plain(
+                scan, mask, posed, radius), mask, t)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            if not (all(torch.isfinite(g).all() for g in got)
+                    and err <= 1e-6):
+                raise AssertionError(
+                    f"tfl_counts on the path, B={b} P={p} T={t} "
+                    f"S={scan.shape[1]}: max abs err {err} > 1e-6")
+            checked.append({"shape": f"B={b} P={p} T={t} S={scan.shape[1]}",
+                            "all_masked_rows": int((~mask.any(1)).sum()),
+                            "max_abs_err": err})
+        f["tfl_checked"] = checked
+
+
+def check_label_files(jobs, frames, scene_cars, n_frames: int):
+    """Each job's label file: only finite Car rows, every car within 2.5 m
+    of a scene car, at least one car a frame on average.  Returns (cars
+    per frame, largest distance to a scene car, the label sets)."""
+    import numpy as np
+
+    from monosowa_tpu_torch.kittiio import read_label_file
+
+    cars_per_frame, worst, sets = [], 0.0, []
+    for job in jobs:
+        labels = read_label_file(job["out_path"])
+        sets.append(labels)
+        if labels.names != ["Car"] * len(labels):
+            raise AssertionError(f"{job['out_path']}: {labels.names}")
+        vals = np.concatenate([labels.box2d.ravel(), labels.hwl.ravel(),
+                               labels.pos.ravel(), labels.ry])
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{job['out_path']}: non-finite label")
+        cars_per_frame.append(len(labels))
+        # the scene's cars in this reference frame's camera coordinates
+        ego_z = frames[job["frame_index"]]["ego_z"]
+        scene_xz = np.array([[c["x"], c["z"] - ego_z] for c in scene_cars])
+        for pos in labels.pos:
+            worst = max(worst, float(np.hypot(
+                scene_xz[:, 0] - pos[0], scene_xz[:, 1] - pos[2]).min()))
+    if len(jobs) != n_frames or sum(cars_per_frame) < n_frames:
+        raise AssertionError(f"cars per frame {cars_per_frame}")
+    if worst > 2.5:
+        raise AssertionError(f"a written car lies {worst} m from every "
+                             "scene car")
+    return cars_per_frame, worst, sets
+
+
+def run_group(labeler, jobs, fit_module, check_launches: bool = False
+              ) -> dict:
+    """One ``label_frames`` call with its fits timed, the K5 launch count
+    zeroed just before and read just after, and the peak memory.  With
+    ``check_launches``, every K5 launch of its fits is held against the
+    plain version afterwards, on its own inputs."""
+    import torch
+
+    from monosowa_tpu_torch.ops import tfl
+
+    with timed_fits(fit_module, record=check_launches) as fits:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tfl.launches = 0
+        t0 = time.perf_counter()
+        n_written = labeler.label_frames(jobs)          # the main path
+        torch.cuda.synchronize()
+        label_s = time.perf_counter() - t0
+        launches = tfl.launches
+    if n_written != len(jobs):
+        raise AssertionError(f"{n_written} frames written, not {len(jobs)}")
+    stages = dict(labeler.stage_seconds)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    fit_report(fits)
+    if check_launches:
+        check_recorded_launches(fits)
+    else:
+        for f in fits:
+            del f["tfl_inputs"]
+    return {"label_ms_per_frame": label_s * 1e3 / len(jobs),
+            "stage_seconds": stages,
+            "host_share": (stages["extract"] + stages["track_aggregate"])
+            / label_s,
+            "fits": fits, "tfl_launches": launches, "peak_mem_GB": peak}
+
+
+def label_config(window: int):
+    """The configuration of the JAX package's tools/bench_pipeline.py."""
+    from monosowa_tpu_torch.sowa import fitting, pipeline
+
+    return pipeline.PipelineConfig(
+        nscans_before=window, nscans_after=window, max_cars=16,
+        max_points=TFL_S, min_standing_points=400,
+        fit=fitting.FitConfig(fine_chunk=60))
+
+
+def label(dev, n_frames: int = LABEL_FRAMES, window: int = LABEL_WINDOW,
+          hw=None, cfg=None) -> dict:
+    """One group of reference frames of the synthetic sequence through
+    ``PseudoLabeler.label_frames`` (host candidates: points, masks and
+    frame ids, no depth maps).  The result's ``_labels`` (the label sets,
+    for ``label_bank``) is not printed."""
+    from monosowa_tpu_torch.sowa import pipeline, sample
+
+    h, w = hw or (sample.H, sample.W)
+    t0 = time.perf_counter()
+    frames, scene_cars = sample.make_sequence(n_frames, window, h=h, w=w)
+    scene_s = time.perf_counter() - t0
+    labeler = pipeline.PseudoLabeler(cfg or label_config(window))
+    if labeler.device.type != "cuda":            # on the card: none given
+        raise AssertionError(f"the labeller is on {labeler.device}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = sample.make_jobs(frames, window, tmp, h=h, w=w)
+        run = run_group(labeler, jobs, pipeline)
+        if run["stage_seconds"]["bank_path"] != 0.0:
+            raise AssertionError("jobs without depth took bank mode")
+        cars_per_frame, worst, sets = check_label_files(
+            jobs, frames, scene_cars, n_frames)
+        mtimes = [os.path.getmtime(j["out_path"]) for j in jobs]
+        again = labeler.label_frames(jobs)              # skip-if-exists
+        if again != 0 or mtimes != [os.path.getmtime(j["out_path"])
+                                    for j in jobs]:
+            raise AssertionError(f"a second label_frames wrote {again} "
+                                 "frames")
     # the window is the JAX bench's default; production aggregates +-30
-    # frames (PipelineConfig's default), which multiplies the extraction
+    # frames (PipelineConfig's default): label_bank measures it
     return {"phase": "label", "frames": n_frames, "window": window,
             "production_window": pipeline.PipelineConfig().nscans_before,
             "image_hw": [h, w], "points_per_frame": len(frames[0]["points"]),
             "distinct_frames": n_frames + 2 * window,
-            "scene_build_s": scene_s, "label_files": n_written,
+            "scene_build_s": scene_s, "label_files": n_frames,
             "cars_per_frame": cars_per_frame,
-            "max_dist_to_scene_car_m": worst,
-            "label_ms_per_frame": label_s * 1e3 / n_frames,
-            "stage_seconds": stages,
-            "host_share": (stages["extract"] + stages["track_aggregate"])
-            / label_s,
-            "fits": fits, "tfl_launches": launches,
-            "peak_mem_GB": peak / 1e9}
+            "max_dist_to_scene_car_m": worst, **run, "_labels": sets}
+
+
+def stage_a_enqueues_only(labeler, jobs) -> None:
+    """Stage A of a bank-mode group under torch's sync debug mode "error":
+    any operation that waits for the card raises.  Then the group is
+    finished normally."""
+    import torch
+
+    gen = labeler._label_frames_staged(jobs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        next(gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    next(gen)
+    labeler.evict_extractions()
+
+
+def label_bank(dev, host_labels, n_frames: int = LABEL_FRAMES,
+               window: int = LABEL_WINDOW, hw=None, cfg_for=None,
+               groups: int = LABEL_STREAM_GROUPS,
+               production_window: int = PRODUCTION_WINDOW) -> dict:
+    """Bank mode (``make_jobs(with_depth=True)``: device extraction, the
+    point bank, one fit + NMS + re-fit a group):
+    (a) the ``label`` phase's group through ``label_frames``, the bank path
+        asserted, held against the scene and the host path's files;
+    (b) ``label_frames_stream`` over ``groups`` groups against per-group
+        ``label_frames``, byte for byte; stage A of a group enqueues only;
+    (c) one group at the production window, timed;
+    (d) ``DeviceExtractor.extract_frames`` against ``extract_frames_banked``
+        on one chunk, both on float depth: the same surviving masks,
+        centres within 2e-3 m."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.sowa import bank, pipeline, sample
+    from monosowa_tpu_torch.sowa.candidates_device import DeviceExtractor
+
+    h, w = hw or (sample.H, sample.W)
+    cfg_for = cfg_for or label_config
+    out = {"phase": "label_bank", "frames": n_frames, "image_hw": [h, w]}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the label phase's frames
+        frames, scene_cars = sample.make_sequence(n_frames, window, h=h,
+                                                  w=w)
+        labeler = pipeline.PseudoLabeler(cfg_for(window))
+        if labeler.device.type != "cuda":
+            raise AssertionError(f"the labeller is on {labeler.device}")
+        jobs = sample.make_jobs(frames, window, tmp + "/a", h=h, w=w,
+                                with_depth=True)
+        # the peak memory includes the copies of K5's inputs held for the
+        # check of every launch on its own scan (S = 2,040, the re-fit's
+        # rows without a target all masked)
+        run = run_group(labeler, jobs, bank, check_launches=True)
+        if run["stage_seconds"]["bank_path"] != 1.0:
+            raise AssertionError("jobs with depth maps did not take bank "
+                                 "mode")
+        bank_s = labeler.cfg.bank_slots * (labeler.cfg.max_points
+                                           // labeler.cfg.bank_slots)
+        scans = {c["shape"].split("S=")[1] for f in run["fits"]
+                 for c in f["tfl_checked"]}
+        if scans - {str(bank_s)}:
+            raise AssertionError(f"K5 ran on scans of {scans} points, not "
+                                 f"the bank's {bank_s}")
+        cars_per_frame, worst, sets = check_label_files(
+            jobs, frames, scene_cars, n_frames)
+        # the host path's files (the label phase's) against the bank's: the
+        # checks of tests/test_candidates_device.py:175-180 where their
+        # premise holds.  The bank keeps a mask's first max_points member
+        # pixels in raster order (the JAX package's _compact_bank_packed),
+        # so a car whose mask is larger is fitted on its top rows (y, z
+        # move) and the NMS may keep a car the host path suppresses
+        # (ROADMAP Queue 3): every host car must be a bank car with the same
+        # 2D box and a position within 2.0 m, and within 0.1 m in y where
+        # its reference mask (a rectangle) fits in the bank
+        cmp = {"host_cars": 0, "bank_cars": 0, "max_pos_diff_m": 0.0,
+               "max_y_diff_m_uncapped": 0.0, "max_y_diff_m_capped": 0.0}
+        cap = labeler.cfg.max_points
+        for fi, (lb, lh) in enumerate(zip(sets, host_labels)):
+            cmp["host_cars"] += len(lh.names)
+            cmp["bank_cars"] += len(lb.names)
+            for i, box in enumerate(lh.box2d):
+                d = (np.abs(lb.box2d - box).max(1) if len(lb.names)
+                     else np.array([np.inf]))
+                j = int(np.argmin(d))
+                if d[j] > 0.5:
+                    raise AssertionError(f"frame {fi}: the host car at "
+                                         f"{lh.pos[i]} is no bank car")
+                dpos = np.abs(lb.pos[j] - lh.pos[i])
+                area = (box[2] - box[0] + 1) * (box[3] - box[1] + 1)
+                key = ("max_y_diff_m_uncapped" if area <= cap
+                       else "max_y_diff_m_capped")
+                cmp["max_pos_diff_m"] = max(cmp["max_pos_diff_m"],
+                                            float(dpos.max()))
+                cmp[key] = max(cmp[key], float(dpos[1]))
+                if dpos.max() > 2.0 or (area <= cap and dpos[1] > 0.1):
+                    raise AssertionError(f"frame {fi}: bank {lb.pos[j]} vs "
+                                         f"host {lh.pos[i]}")
+        out["a"] = {"window": window, "distinct_frames": n_frames + 2 * window,
+                    "cars_per_frame": cars_per_frame, "vs_host_path": cmp,
+                    "max_dist_to_scene_car_m": worst, **run}
+
+        # (b) the stream against per-group calls
+        n_b = groups * n_frames
+        frames_b, _ = sample.make_sequence(n_b, window, h=h, w=w)
+        jobs_x = sample.make_jobs(frames_b, window, tmp + "/x", h=h, w=w,
+                                  with_depth=True)
+        stage_a_enqueues_only(labeler, jobs_x[:n_frames])
+        jobs_s = sample.make_jobs(frames_b, window, tmp + "/s", h=h, w=w,
+                                  with_depth=True)
+        jobs_g = sample.make_jobs(frames_b, window, tmp + "/g", h=h, w=w,
+                                  with_depth=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_s = labeler.label_frames_stream(jobs_s, group_size=n_frames)
+        torch.cuda.synchronize()
+        stream_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_g = sum(labeler.label_frames(jobs_g[g0:g0 + n_frames])
+                  for g0 in range(0, n_b, n_frames))
+        torch.cuda.synchronize()
+        groups_s = time.perf_counter() - t0
+        if n_s != n_b or n_g != n_b:
+            raise AssertionError(f"stream wrote {n_s}, groups {n_g}")
+        for js, jg in zip(jobs_s, jobs_g):
+            with open(js["out_path"]) as a, open(jg["out_path"]) as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"{js['out_path']}: the stream's "
+                                         "file differs from its group's")
+        out["b"] = {"groups": groups, "stage_a_syncs": 0,
+                    "stream_ms_per_frame": stream_s * 1e3 / n_b,
+                    "per_group_ms_per_frame": groups_s * 1e3 / n_b}
+        del frames_b, jobs_x, jobs_s, jobs_g
+
+        # (c) the production window
+        frames_c, scene_c = sample.make_sequence(n_frames, production_window,
+                                                 h=h, w=w)
+        labeler_c = pipeline.PseudoLabeler(cfg_for(production_window))
+        jobs_c = sample.make_jobs(frames_c, production_window, tmp + "/c",
+                                  h=h, w=w, with_depth=True)
+        run_c = run_group(labeler_c, jobs_c, bank)
+        if run_c["stage_seconds"]["bank_path"] != 1.0:
+            raise AssertionError("the production window left bank mode")
+        cars_c, worst_c, _ = check_label_files(jobs_c, frames_c, scene_c,
+                                               n_frames)
+        out["c"] = {"window": production_window,
+                    "distinct_frames": n_frames + 2 * production_window,
+                    "cars_per_frame": cars_c,
+                    "max_dist_to_scene_car_m": worst_c, **run_c}
+        del frames_c, jobs_c
+
+    # (d) the two device routes on one chunk of float depth
+    ext = DeviceExtractor(sample.intrinsics(h, w)[1].astype(np.float32),
+                          (h, w), labeler.cfg.candidate,
+                          max_masks=labeler.cfg.max_cars, depth_u16=False)
+    chunk = frames[:ext.frame_bucket]
+    depths = [f["depth"] for f in chunk]
+    masks = [f["masks"] for f in chunk]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = ext.extract_frames(depths, masks)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cands, bank_dev = ext.extract_frames_banked(depths, masks,
+                                                cap=labeler.cfg.max_points)
+    torch.cuda.synchronize()
+    banked_s = time.perf_counter() - t0
+    worst_c, worst_p, n_masks = 0.0, 0.0, 0
+    for p, c in zip(plain, cands):
+        if p is None or c is None:
+            if (p is None) != (c is None):
+                raise AssertionError("one route dropped a frame")
+            continue
+        if len(p["masks"]) != len(c["masks"]) or any(
+                a is not b for a, b in zip(p["masks"], c["masks"])):
+            raise AssertionError("the two routes kept other masks")
+        n_masks += len(c["masks"])
+        if len(c["masks"]):
+            worst_c = max(worst_c, float(np.abs(
+                p["locations"] - c["locations"]).max()))
+        for ref, pts in zip(c["points"], p["points"]):
+            got = bank_dev[ref.row, ref.mi, :ref.count].cpu().numpy()
+            worst_p = max(worst_p, float(np.abs(got - pts[:ref.count]).max()))
+    if worst_c > 2e-3 or n_masks == 0:
+        raise AssertionError(f"centres differ by {worst_c} m ({n_masks} "
+                             "masks)")
+    if worst_p > 1e-5:
+        raise AssertionError(f"bank points differ by {worst_p} m")
+    out["d"] = {"chunk_frames": len(chunk), "masks_kept": n_masks,
+                "max_centre_diff_m": worst_c,
+                "max_bank_point_diff_m": worst_p,
+                "extract_frames_s": plain_s,
+                "extract_frames_banked_s": banked_s}
+    out["tfl_launches"] = run["tfl_launches"]
+    return out
 
 
 def check_row_fetch(form: str, label: str, dev) -> dict:
@@ -1237,8 +1548,14 @@ def main() -> int:
     for res in bwd.values():
         emit({"phase": "kernel", "name": "msda_bwd",
               "registers": registers["msda_bwd"], **res})
+    # the label path's scans of 2,048 points and the bank path's of
+    # 10 slots x 204 (its re-fit: 8 rows, those without a target masked)
     cov = {"rescore": check_tfl(rng, 48, 40, "rescore", dev),
-           "fine": check_tfl(rng, 4, 360, "fine pass", dev)}
+           "fine": check_tfl(rng, 4, 360, "fine pass", dev),
+           "bank rescore": check_tfl(rng, 48, 40, "bank rescore", dev,
+                                     s=BANK_S),
+           "bank re-fit": check_tfl(rng, 8, 360, "bank re-fit fine pass",
+                                    dev, s=BANK_S, masked_rows=4)}
     for res in cov.values():
         emit({"phase": "kernel", "name": "tfl_counts", **res})
     fetch = {f"{label} {form}": check_row_fetch(form, label, dev)
@@ -1262,7 +1579,12 @@ def main() -> int:
 
     # 7. label
     lbl = label(dev)
+    host_labels = lbl.pop("_labels")
     emit(lbl)
+
+    # 7b. label_bank
+    lbk = label_bank(dev, host_labels)
+    emit(lbk)
 
     # 8. bench
     bch = bench_row_fetch()
@@ -1306,7 +1628,8 @@ def main() -> int:
         entry("tfl_counts", "monosowa_tpu_torch/ops/csrc/tfl_counts.cu",
               "monosowa_tpu/ops/tfl_pallas.py:67 (K5 "
               "binary_both_way_counts_pallas)",
-              {"label": lbl["tfl_launches"]}, cov, "rescore"),
+              {"label": lbl["tfl_launches"],
+               "label_bank": lbk["tfl_launches"]}, cov, "rescore"),
         entry("row_fetch", "monosowa_tpu_torch/ops/csrc/row_fetch.cu",
               "tools/bench_gather_micro.py:61 (K6 run; bodies _kernel_gather "
               ":26, _kernel_onehot :45)",

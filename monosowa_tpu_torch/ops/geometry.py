@@ -1,9 +1,9 @@
 """Batched 3D geometry primitives on torch tensors.
 
 Counterparts of the JAX package's ``ops/geometry.py``: yaw rotations, rigid
-transforms, pinhole projection, the masked median and 3D box corners.  Point
-sets are padded to fixed shapes with a validity mask; batch dimensions are
-explicit (leading ``...``).
+transforms, pinhole projection, depth back-projection, the masked median
+and 3D box corners.  Point sets are padded to fixed shapes with a validity
+mask; batch dimensions are explicit (leading ``...``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,20 @@ def project_to_image(pts: torch.Tensor, p2: torch.Tensor):
     hom = pts @ p2[:3, :3].T + p2[:3, 3]
     uv = hom[..., :2] / hom[..., 2:3].clamp_min(1e-6)
     return uv, hom[..., 2]
+
+
+def backproject_depth(depth: torch.Tensor, fu, fv, cu, cv) -> torch.Tensor:
+    """Depth map (H, W) -> (H*W, 3) camera-frame points.
+
+    Equivalent of the meshgrid back-projection in metric3d.py:330-341.
+    Give the intrinsics as tensors on the depth's device: a division by a
+    host scalar may become a product with the reciprocal on the card."""
+    h, w = depth.shape
+    v = torch.arange(h, dtype=depth.dtype, device=depth.device)[:, None]
+    u = torch.arange(w, dtype=depth.dtype, device=depth.device)
+    x = (u - cu) * depth / fu
+    y = (v - cv) * depth / fv
+    return torch.stack([x, y, depth], -1).reshape(-1, 3)
 
 
 def masked_median(pts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

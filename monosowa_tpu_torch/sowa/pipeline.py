@@ -9,17 +9,21 @@ IoU > 0.1 merging the loser's points into the winner and re-optimizing the
 winner (:227-235), then write the KITTI label txt (output.py:12-91), with
 skip-if-output-exists resumability (:180-184).
 
-Counterpart of the host-candidate path of the JAX package's
-``sowa/pipeline.py``: candidate extraction, tracking and aggregation run on
-the host in numpy (``candidates``, ``lomm``, ``aggregation``); all cars of a
-frame, or of a group of frames (``label_frames``), are fitted in one
-``fit_cars_conv`` call on the labeller's device, the NMS of all frames is
-one batched call, and the merge re-fit is a second, smaller fit.  What the
-JAX package has and this module does not yet (the device-resident bank mode
-for jobs with ``get_depth``, the ensemble filter, the scale detector, the
-dimension estimator, the robust optimisation, pedestrians, the strict
-hidden-standing check on real LiDAR) raises ``NotImplementedError`` naming
-the missing module.
+Counterpart of the JAX package's ``sowa/pipeline.py``.  Jobs that give
+points (``get_points``) take the host-candidate path: candidate
+extraction, tracking and aggregation run on the host in numpy
+(``candidates``, ``lomm``, ``aggregation``); all cars of a frame, or of a
+group of frames (``label_frames``), are fitted in one ``fit_cars_conv``
+call on the labeller's device, the NMS of all frames is one batched call,
+and the merge re-fit is a second, smaller fit.  Jobs that give depth maps
+(``get_depth``) take the device extraction (``candidates_device``) and,
+under the JAX package's condition, bank mode (``bank``): the points stay
+on the card, the host tracks candidate centres only, and one device
+function fits, suppresses and re-fits a whole group before one copy to the
+host.  What the JAX package has and this module does not yet (the
+ensemble filter, the scale detector, the dimension estimator, the robust
+optimisation, pedestrians, the strict hidden-standing check on real LiDAR)
+raises ``NotImplementedError`` naming the missing module.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from monosowa_tpu_torch.device import resolve_device
 from monosowa_tpu_torch.kittiio.labels import write_pseudo_label_file
 from monosowa_tpu_torch.ops import box3d
 from monosowa_tpu_torch.sowa import aggregation, candidates, lomm
+from monosowa_tpu_torch.sowa import bank as bank_mod
 from monosowa_tpu_torch.sowa.fitting import (FitConfig, fit_cars_conv,
                                              make_conv_kernels)
 from monosowa_tpu_torch.sowa.templates import TemplateBank
@@ -86,6 +91,22 @@ class PipelineConfig:
     # when set the template bank is built from them exactly like the
     # reference (loader.py:3465-3840) instead of the procedural profiles
     template_mesh_dir: Optional[str] = None
+    # device-resident window aggregation (sowa/bank.py): when jobs supply
+    # per-frame depth maps, keep every candidate's points ON THE DEVICE as
+    # a compacted bank and fit straight from it; the host only tracks
+    # candidate centres.  Slot geometry: n_slots observations x
+    # (max_points // n_slots) evenly-subsampled points each.
+    device_bank: bool = True
+    bank_slots: int = 10
+    # NMS-merge re-fit slots carried INSIDE the fused bank function (one
+    # copy to the host for fit + NMS + re-fit); groups with more merge
+    # targets than this fit the overflow in one more call
+    bank_refit_cap: int = 8
+
+
+# sentinel marking a frame whose device extraction is dispatched but not
+# yet collected (see _label_frames_staged / label_frames_stream)
+_EXT_PENDING = object()
 
 
 # config flag -> the module of the JAX package that the flag needs
@@ -134,6 +155,25 @@ class PseudoLabeler:
             make_conv_kernels(self.bank.points[0], cfg.fit, self.device)
         # host-clock seconds of the last label_frames group, by stage
         self.stage_seconds: Dict[str, float] = {}
+        # cross-group device-extraction cache (bank mode): fid -> bank
+        # candidates, plus the arena holding their points; the stream
+        # evicts finished fids, plain label_frames clears it per call
+        self._ext_cache = None
+
+    def evict_extractions(self, keep_fids=None) -> None:
+        """Drop cached per-frame extractions and release their arena rows
+        (a block frees once its whole chunk is dead).  keep_fids=None
+        clears every entry but keeps the arena buffer."""
+        if self._ext_cache is None:
+            return
+        cands = self._ext_cache["cands"]
+        arena = self._ext_cache.get("arena")
+        drop = (list(cands) if keep_fids is None
+                else [f for f in cands if f not in keep_fids])
+        for fid in drop:
+            del cands[fid]
+            if arena is not None:
+                arena.release(fid)
 
     def _fit(self, batch):
         return fit_cars_conv(batch, self.template, self.occ_kernels,
@@ -314,61 +354,90 @@ class PseudoLabeler:
     # ------------------------------------------------------------------
     def label_frames(self, frame_jobs: Sequence[dict],
                      overwrite: bool = False) -> int:
-        """Whole-group batched labelling: aggregate all frames' cars on the
-        host, fit them in ONE fit_cars_conv call, then run NMS, re-fit and
-        writing.  Each job dict needs the label_frame arguments plus
-        ``out_path``; an optional ``frame_ids`` list (one global id per
-        window index) lets overlapping windows SHARE each frame's
-        camera-space candidate extraction, the dominant host cost, instead
-        of recomputing it per window.
+        """Whole-group batched labelling: aggregate all frames' cars, fit
+        them in ONE call, then run NMS, re-fit and writing.  Each job dict
+        needs the label_frame arguments plus ``out_path``; an optional
+        ``frame_ids`` list (one global id per window index) lets
+        overlapping windows SHARE each frame's camera-space candidate
+        extraction instead of recomputing it per window; jobs that also
+        give ``get_depth`` (one depth map a window index) extract on the
+        device, in bank mode where the config allows it.
 
         Returns the number of frames written."""
         todo = [j for j in frame_jobs
                 if overwrite or not os.path.exists(j["out_path"])]
         gen = self._label_frames_staged(todo)
         next(gen)
-        return next(gen)
+        try:
+            return next(gen)
+        finally:
+            self.evict_extractions()
 
     def label_frames_stream(self, frame_jobs: Sequence[dict],
                             group_size: int = 8,
                             overwrite: bool = False) -> int:
-        """Labelling of a long job list in groups of ``group_size`` frames:
-        group k+1's host extraction runs before group k's fit results are
-        pulled.  Output is identical to per-group :meth:`label_frames`
-        calls."""
+        """Labelling of a long job list in groups of ``group_size`` frames,
+        two deep: group k+1's extraction is dispatched before group k's
+        results are collected, so the card extracts while the host tracks
+        (bank mode), and overlapping windows of consecutive groups share
+        cached extractions.  Output is identical to per-group
+        :meth:`label_frames` calls; only the dispatch order changes."""
         todo = [j for j in frame_jobs
                 if overwrite or not os.path.exists(j["out_path"])]
+        groups = [todo[g0:g0 + group_size]
+                  for g0 in range(0, len(todo), group_size)]
+        # fids still needed AFTER group gi finishes (groups > gi + the one
+        # already dispatched); everything else is evicted as we go
+        needed_after = [set() for _ in groups]
+        for gi in range(len(groups) - 2, -1, -1):
+            needed_after[gi] = set(needed_after[gi + 1])
+            for j in groups[gi + 1]:
+                needed_after[gi].update(j.get("frame_ids", ()))
         n = 0
         prev = None
-        for g0 in range(0, len(todo), group_size):
-            cur = self._label_frames_staged(todo[g0:g0 + group_size])
-            next(cur)                   # stage A: extraction
+        try:
+            for gi, group in enumerate(groups):
+                cur = self._label_frames_staged(group)
+                next(cur)                   # stage A: dispatch extraction
+                if prev is not None:
+                    n += next(prev)         # stages B + C of the previous
+                    # keep = the dispatched group + everything later
+                    self.evict_extractions(needed_after[gi - 1])
+                prev = cur
             if prev is not None:
-                n += next(prev)         # stages B + C of the previous group
-            prev = cur
-        if prev is not None:
-            n += next(prev)
+                n += next(prev)
+        finally:
+            self.evict_extractions()
         return n
 
-    def _label_frames_staged(self, todo: Sequence[dict]):
-        """Generator body of label_frames: yields once after the candidate
-        extraction (stage A), then runs track/fit/write and yields the
-        number of frames written.  Worker threads run numpy and scipy
-        only; every torch call is made from the calling thread."""
+    def _use_bank(self, todo) -> bool:
+        """The JAX package's condition for bank mode."""
         cfg = self.cfg
-        for j in todo:
-            if "get_depth" in j:
-                raise NotImplementedError(
-                    "a job with get_depth takes the device extraction and "
-                    "bank mode: sowa/candidates_device.py and sowa/bank.py "
-                    "are not ported; give get_points, get_masks and "
-                    "frame_ids only")
+        return (cfg.device_bank and cfg.use_pseudo_lidar
+                and cfg.use_clever_aggregation
+                and all("get_depth" in j for j in todo)
+                and cfg.cars_cache_dir is None
+                and not cfg.use_ensemble_filter
+                and not cfg.use_scale_detector
+                and not cfg.use_dimensions_estimation)
 
+    def _label_frames_staged(self, todo: Sequence[dict]):
+        """Generator body of label_frames: yields once after stage A (host
+        extraction, or the device extraction's dispatch), then runs
+        collect/track/fit/write and yields the number of frames written.
+        Worker threads run numpy and scipy only; every torch call is made
+        from the calling thread.  Stage A of bank mode only enqueues work
+        on the card: nothing in it waits for the device."""
+        cfg = self.cfg
         stages = self.stage_seconds = {}
         clock = time.perf_counter
         t0 = clock()
         # stage A: camera-frame candidates, once per DISTINCT frame
         cam_cache = {}
+        use_bank = False
+        ext = ext_state = None
+        new_fids = []
+        arena_rows = {}     # chunk bank id -> its arena row0
         have_ids = bool(todo) and all("frame_ids" in j for j in todo)
         if have_ids:
             tasks = {}
@@ -376,20 +445,107 @@ class PseudoLabeler:
                 for k, fid in enumerate(j["frame_ids"]):
                     tasks.setdefault(fid, (j, k))
             fids = list(tasks)
+            use_bank = self._use_bank(todo)
+            if all("get_depth" in j for j in todo):
+                from monosowa_tpu_torch.sowa.candidates_device import \
+                    DeviceExtractor
+                j0 = todo[0]
+                p2 = np.asarray(j0["p2"], np.float32)
+                ext = DeviceExtractor(p2, tuple(j0["img_hw"]), cfg.candidate,
+                                      max_masks=cfg.max_cars,
+                                      device=self.device)
+                if use_bank:
+                    # overlapping windows of CONSECUTIVE stream groups
+                    # share most frames: only fids never extracted (under
+                    # this calibration) are dispatched
+                    sig = (p2.tobytes(), tuple(j0["img_hw"]),
+                           cfg.max_points)
+                    if not (self._ext_cache
+                            and self._ext_cache["sig"] == sig):
+                        self._ext_cache = {"sig": sig, "cands": {}}
+                    cached = self._ext_cache["cands"]
+                    new_fids = [f for f in fids if f not in cached]
+                    # mark in-flight fids so the NEXT group's stage A (which
+                    # runs before this group's collect in the stream) does
+                    # not dispatch them again; this group's stage B runs
+                    # first and replaces the sentinel
+                    for f in new_fids:
+                        cached[f] = _EXT_PENDING
+                else:
+                    new_fids = list(fids)
+                depths, masks_pf = [], []
+                for fid in new_fids:
+                    j, k = tasks[fid]
+                    depths.append(j["get_depth"](k))
+                    mk = j["get_masks"](k)
+                    masks_pf.append(list(mk) if mk else [])
+                if use_bank:
+                    ext_state = ext.extract_frames_banked_begin(
+                        depths, masks_pf, cap=cfg.max_points)
+                    # copy each chunk into the persistent arena now (still
+                    # stage A): BankRef rows become global arena rows
+                    pending = ext_state[1]
+                    if pending is not None:
+                        arena = self._ext_cache.get("arena")
+                        if arena is None:
+                            nb = 2 * (-(-len(fids) // ext.frame_bucket)) + 4
+                            arena = bank_mod.BankArena(
+                                ext.frame_bucket, ext.max_masks,
+                                cfg.max_points, nb, device=self.device)
+                            self._ext_cache["arena"] = arena
+                        arena_rows = {
+                            id(bank_dev): arena.write(
+                                bank_dev, [new_fids[fi] for fi in chunk])
+                            for (chunk, _m, bank_dev) in pending}
+                else:
+                    for fid, c in zip(new_fids,
+                                      ext.extract_frames(depths, masks_pf)):
+                        cam_cache[fid] = c
+            else:
+                use_bank = False
 
-            def extract_one(fid):
-                j, k = tasks[fid]
-                pts = j["get_points"](k)
-                masks_k = j["get_masks"](k)
-                if pts is None or masks_k is None or len(masks_k) == 0:
-                    return fid, None
-                return fid, candidates.extract_candidates_cam(
-                    pts, j["p2"], j["img_hw"], masks_k, cfg.candidate)
+                def extract_one(fid):
+                    j, k = tasks[fid]
+                    pts = j["get_points"](k)
+                    masks_k = j["get_masks"](k)
+                    if pts is None or masks_k is None or len(masks_k) == 0:
+                        return fid, None
+                    return fid, candidates.extract_candidates_cam(
+                        pts, j["p2"], j["img_hw"], masks_k, cfg.candidate)
 
-            cam_cache = dict(_map_threads(extract_one, fids))
+                cam_cache = dict(_map_threads(extract_one, fids))
         stages["extract"] = clock() - t0
 
-        yield None          # --- stage boundary: extraction done ---
+        yield None          # --- stage boundary: extraction dispatched ---
+
+        bank = None
+        if ext_state is not None:
+            t0 = clock()
+            BankRef = bank_mod.BankRef
+            new_res, _ = ext.extract_frames_banked_finish_chunks(ext_state)
+            cached = self._ext_cache["cands"]
+            # cached entries carry FINAL BankRefs: rows are global arena
+            # rows (chunk row0 from stage A's arena.write + in-chunk k),
+            # valid for the frame's whole cache lifetime
+            for fid, c in zip(new_fids, new_res):
+                if c is not None:
+                    c = {"locations": c["locations"], "masks": c["masks"],
+                         "points": [BankRef(row=arena_rows[id(bdev)] + k,
+                                            mi=mi, count=cnt, trunc=tr)
+                                    for (bdev, k, mi, cnt, tr)
+                                    in c["chunk_refs"]]}
+                cached[fid] = c
+            arena = self._ext_cache.get("arena")
+            bank = arena.buf if arena is not None else None
+            for fid in fids:
+                c = cached.get(fid)
+                assert c is not _EXT_PENDING, fid
+                cam_cache[fid] = c
+            use_bank = bank is not None
+            stages["meta_pull"] = clock() - t0
+        stages["bank_path"] = float(use_bank)
+
+        quota = cfg.max_points // cfg.bank_slots
 
         def prep(job):
             window_frames = job["window_frames"]
@@ -397,10 +553,15 @@ class PseudoLabeler:
             for k in range(len(window_frames)):
                 if have_ids:
                     cand_cam = cam_cache[job["frame_ids"][k]]
-                    cands.append(None if cand_cam is None else
-                                 candidates.transform_candidates(
-                                     cand_cam, job["transforms"][k],
-                                     cfg.candidate))
+                    if use_bank:
+                        cands.append(bank_mod.transform_candidates_bank(
+                            cand_cam, job["transforms"][k],
+                            cfg.candidate.moving_detection_threshold))
+                    else:
+                        cands.append(None if cand_cam is None else
+                                     candidates.transform_candidates(
+                                         cand_cam, job["transforms"][k],
+                                         cfg.candidate))
                     continue
                 pts = job["get_points"](k)
                 masks_k = job["get_masks"](k)
@@ -410,24 +571,41 @@ class PseudoLabeler:
                 cands.append(candidates.extract_candidates(
                     pts, job["p2"], job["img_hw"], masks_k,
                     job["transforms"][k], cfg.candidate))
+            if use_bank:
+                tracks = lomm.greedy_track(cands, window_frames,
+                                           cfg.dist_threshold_tracking)
+                lomm.classify_all(tracks, method=cfg.moving_method)
+                kept, ref_masks, slots = bank_mod.select_car_slots(
+                    tracks, job["transforms"], window_frames,
+                    cfg.keep_k_frames, cfg.min_standing_points,
+                    cfg.bank_slots, quota,
+                    use_pseudo_lidar=cfg.use_pseudo_lidar,
+                    max_distance=cfg.candidate.max_distance_pseudo_lidar)
+                return dict(job=job, kept=kept, points=None,
+                            ref_masks=ref_masks, window=window_frames,
+                            slots=slots, npts=[s.npts for s in slots])
             kept, points, ref_masks = self._track_and_aggregate(
                 cands, window_frames, job["transforms"])
             return dict(job=job, kept=kept, points=points,
                         ref_masks=ref_masks, window=window_frames,
-                        npts=[p.shape[0] for p in points])
+                        slots=None, npts=[p.shape[0] for p in points])
 
-        # host prep (tracking / aggregation: numpy + scipy) in threads
-        # across frames, ahead of the one big device fit
+        # host prep (tracking / aggregation or slot selection: numpy +
+        # scipy) in threads across frames, ahead of the one big device fit
         t0 = clock()
         prepared = _map_threads(prep, todo)
         stages["track_aggregate"] = clock() - t0
 
         # one cross-frame batched fit for every prepared car
-        all_tracks, all_points, all_windows, owners = [], [], [], []
+        all_tracks, all_points, all_slots, all_windows, owners = \
+            [], [], [], [], []
         for fi, item in enumerate(prepared):
             n_i = min(len(item["kept"]), cfg.max_cars)
             all_tracks.extend(item["kept"][:n_i])
-            all_points.extend(item["points"][:n_i])
+            if use_bank:
+                all_slots.extend(item["slots"][:n_i])
+            else:
+                all_points.extend(item["points"][:n_i])
             # each track's frame offsets are relative to its OWN frame's
             # window: edge frames have truncated/shifted windows, so the
             # moving-car trajectory theta must index with the right base
@@ -436,8 +614,30 @@ class PseudoLabeler:
         owners = np.asarray(owners, np.int64)
         nms_by_frame = {}
         refit_by_frame = {fi: {} for fi in range(len(prepared))}
-        t0 = clock()
-        if all_tracks:
+        bank_refits = {}
+        bank_targets = 0
+        if all_tracks and use_bank:
+            # fit + NMS + the first bank_refit_cap merge re-fits on the
+            # card, one copy to the host
+            t0 = clock()
+            (centers, thetas, nms_by_frame, bank_targets,
+             bank_refits) = bank_mod.fit_and_nms_slots(
+                bank, all_slots, all_tracks, all_windows, owners,
+                len(prepared), cfg.max_cars,
+                np.asarray(cfg.template_dims_lwh, np.float32), cfg.nms_iou,
+                self.template, self.occ_kernels, self.memb_kernels,
+                self.conv_spec, cfg.fit, quota,
+                refit_cap=cfg.bank_refit_cap)
+            stages["fused_fit"] = clock() - t0
+            # the re-fits' batch order is frame-major = the group order
+            frame_first = {}
+            for b_idx, fi in enumerate(owners):
+                frame_first.setdefault(int(fi), b_idx)
+            for b_idx, val in bank_refits.items():
+                fi = int(owners[b_idx])
+                refit_by_frame[fi][b_idx - frame_first[fi]] = val
+        elif all_tracks:
+            t0 = clock()
             big = aggregation.build_car_batch(
                 all_tracks, all_points, prepared[0]["window"],
                 max_cars=len(all_tracks), max_points=cfg.max_points,
@@ -464,25 +664,48 @@ class PseudoLabeler:
             for fi in range(f_n):
                 nms_by_frame[fi] = (keep_f[fi], merged_f[fi])
             stages["nms"] = clock() - t0
-            t0 = clock()
 
-            # cross-frame batched merge re-fit: every frame's merge
-            # targets in ONE fit
-            groups = []   # (fi, t, merged_points, track, window)
+        # cross-frame batched merge re-fit: every frame's merge targets in
+        # ONE fit.  Bank mode re-fit the first bank_refit_cap targets in
+        # its fused call; only the overflow is fitted here.
+        need_refit = ((not use_bank) or cfg.bank_refit_cap == 0
+                      or bank_targets > cfg.bank_refit_cap)
+        if all_tracks and need_refit:
+            t0 = clock()
+            groups = []   # (fi, t, merged points | slots, track, window)
             for fi, item in enumerate(prepared):
                 keep_i, merged_i = nms_by_frame[fi]
                 n_i = min(len(item["kept"]), cfg.max_cars)
                 for t in _refit_targets(keep_i, merged_i, n_i):
-                    groups.append((fi, t, _merged_points(
-                        item["points"], keep_i, merged_i, n_i, t),
-                        item["kept"][t], item["window"]))
+                    if use_bank:
+                        payload = item["slots"][t]
+                        for i in range(n_i):
+                            if not keep_i[i] and merged_i[i] == t:
+                                payload = bank_mod.merge_slots(
+                                    payload, item["slots"][i])
+                    else:
+                        payload = _merged_points(item["points"], keep_i,
+                                                 merged_i, n_i, t)
+                    groups.append((fi, t, payload, item["kept"][t],
+                                   item["window"]))
+            if use_bank:
+                # the fused call covered the first bank_refit_cap targets
+                # in this exact order
+                groups = groups[cfg.bank_refit_cap:]
             if groups:
-                rbatch = aggregation.build_car_batch(
-                    [g[3] for g in groups], [g[2] for g in groups],
-                    prepared[0]["window"], max_cars=len(groups),
-                    max_points=cfg.max_points,
-                    per_track_windows=[g[4] for g in groups])
-                rcenters, rthetas = _pull_fit(self._fit(rbatch))
+                if use_bank:
+                    rres = bank_mod.fit_slots(
+                        bank, [g[2] for g in groups], [g[3] for g in groups],
+                        [g[4] for g in groups], self.template,
+                        self.occ_kernels, self.memb_kernels, self.conv_spec,
+                        cfg.fit, quota)
+                else:
+                    rres = self._fit(aggregation.build_car_batch(
+                        [g[3] for g in groups], [g[2] for g in groups],
+                        prepared[0]["window"], max_cars=len(groups),
+                        max_points=cfg.max_points,
+                        per_track_windows=[g[4] for g in groups]))
+                rcenters, rthetas = _pull_fit(rres)
                 for gi, (fi, t, _, _, _) in enumerate(groups):
                     refit_by_frame[fi][t] = (rcenters[gi],
                                              float(rthetas[gi]))

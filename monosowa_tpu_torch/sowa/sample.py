@@ -5,8 +5,9 @@ The scene of the JAX package's ``tools/bench_pipeline.py`` ``make_sequence``:
 depth image (about 460k points a frame: a ground plane and flat car-sized
 rectangles at one depth each), about ``n_cars`` cars visible per frame, the
 ego camera driving +z at 0.8 m a frame.  ``make_jobs`` turns it into the job
-dicts ``PseudoLabeler.label_frames`` takes (host candidates: points, masks
-and frame ids, no depth maps).
+dicts ``PseudoLabeler.label_frames`` takes: points, masks and frame ids
+(host candidates), and with ``with_depth`` each frame's depth map too
+(device extraction and bank mode).
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ def make_sequence(n_frames: int = 8, window: int = 6, seed: int = 0,
                   h: int = H, w: int = W, n_cars: int = N_CARS):
     """``n_frames + 2 * window`` frames.  Returns (frames, cars): per frame
     a dict of ``points`` (h * w, 3) float32 in the frame's camera
-    coordinates, ``masks`` (the visible cars' boolean (h, w) masks) and
-    ``ego_z``; ``cars`` are the scene's cars (x, y, z, theta in the
+    coordinates, ``depth`` (h, w) float32 (the rendered depth before the
+    points' noise, as ``tools/bench_pipeline.py`` keeps it), ``masks`` (the
+    visible cars' boolean (h, w) masks) and ``ego_z``; ``cars`` are the scene's cars (x, y, z, theta in the
     coordinates of frame 0)."""
     rng = np.random.default_rng(seed)
     fu, _ = intrinsics(h, w)
@@ -84,17 +86,21 @@ def make_sequence(n_frames: int = 8, window: int = 6, seed: int = 0,
                         (ys - h / 2) * depth / fu,
                         depth], -1).reshape(-1, 3).astype(np.float32)
         pts += rng.normal(scale=0.01, size=pts.shape).astype(np.float32)
-        frames.append(dict(points=pts, masks=masks, ego_z=ego_z))
+        frames.append(dict(points=pts, depth=depth.astype(np.float32),
+                           masks=masks, ego_z=ego_z))
     return frames, cars
 
 
 def make_jobs(frames: List[dict], window: int, out_dir: str,
               tag: str = "seq", lo: int = 0, hi: int = None,
-              h: int = H, w: int = W) -> List[dict]:
+              h: int = H, w: int = W, with_depth: bool = False
+              ) -> List[dict]:
     """One ``label_frames`` job per reference frame ``window + lo`` ..
     ``window + hi`` of ``frames``: the +-``window`` offsets, ego-motion
     transforms into the reference frame, accessors for points and masks,
-    and global frame ids so overlapping windows share the extraction."""
+    and global frame ids so overlapping windows share the extraction.
+    ``with_depth`` adds ``get_depth``, which sends the jobs through the
+    device extraction (bank mode under the default config)."""
     _, p2 = intrinsics(h, w)
     offsets = list(range(-window, window + 1))
     if hi is None:
@@ -115,4 +121,7 @@ def make_jobs(frames: List[dict], window: int, out_dir: str,
             get_points=(lambda k, fi=fi: frames[fi - window + k]["points"]),
             get_masks=(lambda k, fi=fi: frames[fi - window + k]["masks"]),
             transforms=np.stack(transforms), p2=p2, img_hw=(h, w)))
+        if with_depth:
+            jobs[-1]["get_depth"] = (
+                lambda k, fi=fi: frames[fi - window + k]["depth"])
     return jobs

@@ -495,3 +495,53 @@ def test_row_fetch_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         row_fetch.row_fetch(bank, idx.cpu())
     assert row_fetch.launches == before
+
+
+@pytest.mark.parametrize("w", [160, 1242])
+def test_extract_frames_banked_on_the_card_matches_the_cpu(cuda, w):
+    """Bank-mode extraction on the card against the port on the CPU: the
+    same surviving masks, counts and truncation flags, centres within
+    2e-3 m, and stage A (the dispatch) waits for nothing on the card."""
+    from monosowa_tpu_torch.sowa.candidates import CandidateConfig
+    from monosowa_tpu_torch.sowa.candidates_device import DeviceExtractor
+
+    rng = np.random.default_rng(w)
+    h, fu = 96, 120.0
+    p2 = np.array([[fu, 0, w / 2, 0], [0, fu, h / 2, 0], [0, 0, 1, 0]],
+                  np.float32)
+    depths, masks = [], []
+    for f in range(3):
+        d = np.minimum(np.full((h, w), 300.0, np.float32),
+                       (fu * 1.6 / np.maximum(np.arange(h)[:, None] - h / 2,
+                                              1)).astype(np.float32)
+                       * np.ones((h, w), np.float32))
+        ms = []
+        for (x1, y1, bw, bh, z) in ((40, 20, 30, 14, 12.0),
+                                    (0, 40, 40, 22, 7.0 + f),
+                                    (w - 20, 30, 20, 10, 200.0)):
+            m = np.zeros((h, w), bool)
+            m[y1:y1 + bh, x1:x1 + bw] = True
+            d[m] = z + rng.normal(scale=0.01, size=int(m.sum()))
+            ms.append(m)
+        depths.append(d)
+        masks.append(ms)
+    cfg = CandidateConfig(moving_detection_threshold=2, filter_diameter=4.0)
+    got_ext = DeviceExtractor(p2, (h, w), cfg, frame_bucket=2, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = got_ext.extract_frames_banked_begin(depths, masks, cap=512)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got, bank_got = got_ext.extract_frames_banked_finish(state)
+    want, bank_want = DeviceExtractor(p2, (h, w), cfg, frame_bucket=2,
+                                      device="cpu").extract_frames_banked(
+        depths, masks, cap=512)
+    assert bank_got.is_cuda and bank_got.shape == bank_want.shape
+    for a, b in zip(got, want):
+        assert a["points"] == b["points"] and len(b["points"]) == 2
+        np.testing.assert_allclose(a["locations"], b["locations"], atol=2e-3)
+        for ref in a["points"]:
+            np.testing.assert_allclose(
+                bank_got[ref.row, ref.mi, :ref.count].cpu().numpy(),
+                bank_want[ref.row, ref.mi, :ref.count].numpy(), atol=1e-4)

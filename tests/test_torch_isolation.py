@@ -60,6 +60,11 @@ with tempfile.TemporaryDirectory() as tmp:
     jobs = sample.make_jobs(frames, 2, tmp, h=94, w=310)
     n_written = labeler.label_frames(jobs)
     label_rows = len(read_label_file(jobs[0]["out_path"]))
+    # the same frame in bank mode (depth maps, device extraction)
+    jobs = sample.make_jobs(frames, 2, tmp + "/bank", h=94, w=310,
+                            with_depth=True)
+    n_written += labeler.label_frames(jobs)
+    bank_path = labeler.stage_seconds["bank_path"]
 # the AP stack: the native library is built, two files are scored
 from monosowa_tpu_torch.evalkitti import (annos_from_label_dir,
                                           get_official_eval_result, native)
@@ -92,6 +97,7 @@ print(json.dumps({"modules": names, "dets": list(dets.shape),
                   "epoch_losses": record["epochs"][0]["loss_total"],
                   "ap_keys": sorted(record["evaluated"][0]["results"]),
                   "frames_written": n_written, "label_rows": label_rows,
+                  "bank_path": bank_path,
                   "finite": bool(np.isfinite(dets.numpy()).all()),
                   "train_finite": bool(np.isfinite(list(losses.values())
                                                    ).all()),
@@ -114,7 +120,8 @@ def _top_imports(path):
 
 def test_port_runs_without_jax():
     """Every module imports, and a tiny CPU forward, a train step, the
-    labelling of one small frame, the AP stack with its native library and
+    labelling of one small frame (host candidates, then bank mode), the
+    AP stack with its native library and
     one step of the train / test / AP loop run, in a fresh interpreter
     without loading JAX, Flax or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -128,7 +135,8 @@ def test_port_runs_without_jax():
     assert res["train_finite"] and res["grad_norm"] > 0
     assert "monosowa_tpu_torch.sowa.pipeline" in res["modules"]
     assert "monosowa_tpu_torch.ops.tfl" in res["modules"]
-    assert res["frames_written"] == 1 and res["label_rows"] >= 1
+    assert res["frames_written"] == 2 and res["label_rows"] >= 1
+    assert res["bank_path"] == 1.0
     assert "monosowa_tpu_torch.evalkitti.native" in res["modules"]
     assert "monosowa_tpu_torch.ops.row_fetch" in res["modules"]
     assert max(res["ap_of_gt"]) > 0

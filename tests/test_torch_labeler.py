@@ -295,10 +295,6 @@ def test_other_left_out_paths_raise(labelers, tmp_path):
         pipeline.PseudoLabeler(_configs(use_pseudo_lidar=False,
                                         strict_hidden_standing=True)[1],
                                device="cpu")
-    jobs = _jobs(tmp_path, True)
-    jobs[0]["get_depth"] = lambda k: np.zeros((H, W), np.float32)
-    with pytest.raises(NotImplementedError, match="candidates_device"):
-        lab_t.label_frames(jobs)
     cfg = dataclasses.replace(
         lab_t.cfg, fit=FitConfig(**GRID, loss_function="chamfer"))
     other = pipeline.PseudoLabeler(

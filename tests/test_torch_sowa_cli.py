@@ -1,0 +1,242 @@
+"""The port's ``optimization`` CLI (``sowa/cli.py``) and the modules it
+reads caches with (``sowa/depth.py``, ``sowa/masks.py``,
+``sowa/transforms.py``, ``ops/geometry.backproject_depth``) against the JAX
+package's, on the CPU.
+
+The CLI case builds a KITTI-layout directory (images, calib, ``masks_raw/``,
+``transformations/``, ``depth_maps/<frame>/<offset>.npz``) of the
+synthetic 96 x 160 scene and runs both CLIs over it: the label files must
+agree (names equal, x, y, z and theta within 1e-4).  Depth functions on
+random depth maps: equal."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+import yaml
+from PIL import Image
+
+import jax.numpy as jnp
+
+from monosowa_tpu.ops import geometry as jgeometry
+from monosowa_tpu.sowa import cli as jcli
+from monosowa_tpu.sowa import depth as jdepth
+from monosowa_tpu.sowa import masks as jmasks
+from monosowa_tpu.sowa import transforms as jtransforms
+from monosowa_tpu_torch.kittiio import read_label_file
+from monosowa_tpu_torch.ops import geometry
+from monosowa_tpu_torch.sowa import cli, depth, masks, transforms
+
+torch.set_num_threads(1)    # the suite runs six worker processes at once
+
+H, W = 96, 160
+FU = 120.0
+P2 = np.array([[FU, 0, W / 2, 0], [0, FU, H / 2, 0], [0, 0, 1, 0]])
+WINDOW = 2
+FIDS = ["000010", "000011"]
+
+
+def _random_depth(seed):
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.5, 80.0, (H, W)).astype(np.float32)
+    d[rng.random((H, W)) < 0.1] = 0.0
+    return d
+
+
+def test_depth_functions_match_jax(tmp_path):
+    d = _random_depth(0)
+    f = [np.float32(v) for v in (P2[0, 0], P2[1, 1], P2[0, 2], P2[1, 2])]
+    np.testing.assert_array_equal(
+        geometry.backproject_depth(torch.from_numpy(d),
+                                   *map(torch.tensor, f)).numpy(),
+        np.asarray(jgeometry.backproject_depth(jnp.asarray(d), *f)))
+    np.testing.assert_array_equal(
+        depth.lift_depth_to_points(
+            torch.from_numpy(d), *map(torch.tensor, f),
+            torch.tensor(np.float32(0.12))).numpy(),
+        np.asarray(jdepth.lift_depth_to_points(
+            jnp.asarray(d), *f, jnp.float32(0.12))))
+    for canonical in (True, False):
+        got = depth.pseudo_lidar_from_depth(d, P2, canonical, device="cpu")
+        want = jdepth.pseudo_lidar_from_depth(d, P2, canonical)
+        assert got.dtype == np.float32 and (got[:, 2] > 0).all()
+        np.testing.assert_array_equal(got, want)
+    # the cache: written by the port, read by both; skip-if-exists
+    frames = ["a", "b"]
+    maps = [d, _random_depth(1)]
+    assert depth.generate_pseudo_lidar_cache(frames, maps, P2,
+                                             str(tmp_path), device="cpu") == 2
+    assert depth.generate_pseudo_lidar_cache(frames, maps, P2,
+                                             str(tmp_path), device="cpu") == 0
+    for fr in frames:
+        p = str(tmp_path / f"{fr}.npz")
+        np.testing.assert_array_equal(depth.load_pseudo_lidar(p),
+                                      jdepth.load_pseudo_lidar(p))
+    assert depth.load_pseudo_lidar(str(tmp_path / "none.npz")) is None
+    with pytest.raises(NotImplementedError, match="zoo"):
+        depth.generate_pseudo_lidar_cache(["c"], [d], P2, str(tmp_path),
+                                          backend=object(), device="cpu")
+    np.savez_compressed(tmp_path / "m.npz", depth=d)
+    np.testing.assert_array_equal(
+        depth.CachedDepthBackend(str(tmp_path)).predict_depth_for("m"),
+        jdepth.CachedDepthBackend(str(tmp_path)).predict_depth_for("m"))
+    assert depth.CachedDepthBackend(str(tmp_path)).predict_depth_for(
+        "none") is None
+    assert (depth.MAX_DEPTH, depth.CANONICAL_FOCAL) == (
+        jdepth.MAX_DEPTH, jdepth.CANONICAL_FOCAL)
+
+
+def test_cache_io_matches_jax(tmp_path):
+    rng = np.random.default_rng(2)
+    ms = [rng.random((H, W)) < 0.3 for _ in range(3)]
+    masks.save_masks(str(tmp_path / "t"), "f", ms, (H, W))
+    jmasks.save_masks(str(tmp_path / "j"), "f", ms, (H, W))
+    masks.save_masks(str(tmp_path / "t"), "empty", [], (H, W))
+    for a, b in zip(masks.load_masks(str(tmp_path / "j"), "f"),
+                    jmasks.load_masks(str(tmp_path / "t"), "f")):
+        np.testing.assert_array_equal(a, b)
+    assert masks.load_masks(str(tmp_path / "t"), "empty") == []
+    assert masks.load_masks(str(tmp_path / "t"), "none") is None
+    for m in ms + [np.zeros((H, W), bool)]:
+        np.testing.assert_array_equal(masks.mask_box(m), jmasks.mask_box(m))
+    t = rng.normal(size=(9, 4, 4))
+    transforms.save_window_transforms(str(tmp_path / "tf"), "f", t)
+    assert transforms.transforms_cache_path("c", "f") == \
+        jtransforms.transforms_cache_path("c", "f")
+    back = jtransforms.load_window_transforms(str(tmp_path / "tf"), "f")
+    np.testing.assert_array_equal(back, t)
+    np.testing.assert_array_equal(
+        transforms.slice_window(t, 4, 2, 1),
+        jtransforms.slice_window(t, 4, 2, 1))
+    assert transforms.load_window_transforms(str(tmp_path), "x") is None
+
+
+def _scene_depth(global_frame):
+    """Metric depth and one mask of a car box that drifts by a pixel a
+    frame."""
+    rng = np.random.default_rng(global_frame)
+    d = np.full((H, W), 300.0, np.float32)
+    vrel = np.maximum(np.arange(H)[:, None] - H / 2, 1)
+    d = np.minimum(d, (FU * 1.6 / vrel).astype(np.float32)
+                   * np.ones((H, W), np.float32))
+    x1 = 40 + global_frame % 3
+    m = np.zeros((H, W), bool)
+    m[20:34, x1:x1 + 30] = True
+    d[m] = 12.0 + rng.normal(scale=0.01, size=int(m.sum())).astype(
+        np.float32)
+    return d, [m]
+
+
+@pytest.fixture(scope="module")
+def kitti_dir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("kitti")
+    kitti, cache = root / "kitti", root / "cache"
+    (kitti / "training" / "image_2").mkdir(parents=True)
+    (kitti / "training" / "calib").mkdir(parents=True)
+    p2_line = " ".join(str(v) for v in P2.reshape(-1))
+    calib = "\n".join([f"P{i}: {p2_line}" for i in range(4)]
+                      + ["R0_rect: 1 0 0 0 1 0 0 0 1",
+                         "Tr_velo_to_cam: 1 0 0 0 0 1 0 0 0 0 1 0",
+                         "Tr_imu_to_velo: 1 0 0 0 0 1 0 0 0 0 1 0"]) + "\n"
+    rng_full = 4
+    for fid in FIDS:
+        Image.fromarray(np.zeros((H, W, 3), np.uint8)).save(
+            kitti / "training" / "image_2" / f"{fid}.png")
+        (kitti / "training" / "calib" / f"{fid}.txt").write_text(calib)
+        full = np.tile(np.eye(4), (2 * rng_full + 1, 1, 1))
+        full[:, 2, 3] = np.arange(-rng_full, rng_full + 1) * 0.002
+        transforms.save_window_transforms(str(cache / "transformations"),
+                                          fid, full)
+        for k in range(-WINDOW, WINDOW + 1):
+            d, ms = _scene_depth(int(fid) + k)
+            name = fid if k == 0 else f"{fid}{k:+d}"
+            masks.save_masks(str(cache / "masks_raw"), name, ms, (H, W))
+            dm = cache / "depth_maps" / fid
+            dm.mkdir(parents=True, exist_ok=True)
+            # canonical depth: metric * 1000 / fx
+            np.savez_compressed(dm / f"{k:+d}.npz",
+                                depth=d * (depth.CANONICAL_FOCAL / FU))
+    return root
+
+
+def _config(root, tag):
+    cfg = {"paths": {"kitti_path": str(root / "kitti"),
+                     "merged_frames_path": str(root / "cache"),
+                     "labels_path": str(root / tag)},
+           "general": {"frames_per_batch": 2},
+           "frames_creation": {"nscans_before": WINDOW,
+                               "nscans_after": WINDOW},
+           "optimization": {"opt_param1_iters": 12, "opt_param2_iters": 12,
+                            "opt_param3_iters": 8, "opt_fine_iters": 24,
+                            "max_cars_per_frame": 8},
+           "filtering": {"lidar_threshold_during_optim": 150,
+                         "max_points_per_car": 512}}
+    path = root / f"{tag}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def test_optimization_matches_jax_cli(kitti_dir):
+    """Both CLIs over one cache with depth_maps/: the port on the CPU in
+    bank mode; the same label files."""
+    assert jcli.main(["--config", _config(kitti_dir, "jax"),
+                      "--action", "optimization"]) == 0
+    assert cli.main(["--config", _config(kitti_dir, "torch"),
+                     "--action", "optimization", "--device", "cpu"]) == 0
+    n_cars = 0
+    for fid in FIDS:
+        a = read_label_file(str(kitti_dir / "torch" / f"{fid}.txt"))
+        b = read_label_file(str(kitti_dir / "jax" / f"{fid}.txt"))
+        assert a.names == b.names
+        n_cars += len(a.names)
+        if len(a.names):
+            np.testing.assert_allclose(a.pos, b.pos, atol=1e-4)
+            np.testing.assert_allclose(a.ry, b.ry, atol=1e-4)
+    assert n_cars == len(FIDS)
+    # skip-if-exists: a second run writes nothing
+    mtime = os.path.getmtime(kitti_dir / "torch" / f"{FIDS[0]}.txt")
+    drv = cli.KittiObjectDriver(
+        cli.load_config(_config(kitti_dir, "torch")),
+        cli.PipelineFlags("optimization"), device="cpu")
+    assert drv.run(None, None) == 0
+    assert mtime == os.path.getmtime(kitti_dir / "torch" / f"{FIDS[0]}.txt")
+    job = drv._optimize_job(FIDS[0])
+    assert job["frame_ids"] == [int(FIDS[0]) + k
+                                for k in range(-WINDOW, WINDOW + 1)]
+    d, _ = _scene_depth(int(FIDS[0]) - 1)
+    np.testing.assert_allclose(job["get_depth"](1), d, rtol=1e-6)
+    assert drv._image_hw(FIDS[0]) == (H, W)
+
+
+def test_config_and_arguments_match_jax(kitti_dir):
+    conf = cli.load_config(_config(kitti_dir, "args"))
+    got = cli.pipeline_config_from(conf)
+    want = jcli.pipeline_config_from(jcli.load_config(
+        _config(kitti_dir, "args")))
+    for f in ("nscans_before", "max_cars", "max_points",
+              "min_standing_points", "nms_iou", "use_pseudo_lidar",
+              "device_bank", "bank_slots", "bank_refit_cap"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert got.fit.n_theta_fine == want.fit.n_theta_fine == 24
+    args = cli.parse_args(["--config", "c", "--action", "optimization"])
+    assert args.device is None and args.dataset == "kitti"
+    assert cli.parse_args(["--config", "c", "--action", "optimization",
+                           "--device", "cpu"]).device == "cpu"
+
+
+@pytest.mark.parametrize("action", ["lidar_scans", "transformations",
+                                    "homographies", "mask_tracking",
+                                    "candidates", "frames_aggregation",
+                                    "dimensions_output", "demo"])
+def test_other_actions_raise(kitti_dir, action):
+    with pytest.raises(NotImplementedError, match=r"sowa/"):
+        cli.main(["--config", _config(kitti_dir, "other"), "--action",
+                  action, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("dataset", ["waymo", "kitti360"])
+def test_other_datasets_raise(kitti_dir, dataset):
+    with pytest.raises(NotImplementedError, match="sowa/"):
+        cli.main(["--config", _config(kitti_dir, "other"), "--action",
+                  "optimization", "--dataset", dataset, "--device", "cpu"])
