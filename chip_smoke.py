@@ -8,7 +8,8 @@ Phases, each printing one JSON line:
 1. env    — TF32 off for matmuls and convolutions; the card's name and
             power limit as nvidia-smi reports them.
 2. build  — nvcc builds every kernel of the serve, train, label and
-            row-fetch paths from ``ops/csrc`` and the host compiler builds
+            row-fetch paths from ``ops/csrc`` (the LAP solvers of the
+            matcher included) and the host compiler builds
             the KITTI evaluation's library from ``evalkitti/csrc``, one
             compiler per source, all started together.
 3. kernel — each kernel against its plain PyTorch version at the paths'
@@ -39,8 +40,30 @@ Phases, each printing one JSON line:
             against one through the plain MSDA (loss dict, gradients) and
             one with the forward kernel and the plain backward (gradients:
             the backward kernel alone).  Then, dropout 0.1, a warm-up step
-            and three timed steps of ``make_train_step`` with AdamW;
-            losses, gradient norm and launch counts are checked.
+            and three timed steps of ``make_train_step`` with AdamW and the
+            JV matcher on the card (3 ``lap_jv`` launches a step); losses,
+            gradient norm and launch counts are checked.  Three more steps
+            with the host matcher (scipy) for comparison, and one with the
+            auction matcher (3 ``lap_auction`` launches).
+   train_add — the same model trained on pseudo-label cars
+            (``SampleDataset`` with ``use_add_data``, its cars written as
+            the labeller's ``optimized_cars`` cache; ``use_tfl`` and
+            ``use_mask_loss``; 512 points and 16 cars a frame, masks at
+            stride 8, templates of 256 points, 32 gathered queries): from
+            the seeded weights, dropout off, the kernels (MSDA, JV)
+            against the plain MSDA and the plain JV (loss dict, the
+            TFL / mask losses of every layer, gradients), and the
+            gradient of ``loss_tfl`` alone in the 3D heads; then a
+            warm-up step and three timed steps, with launch counts.
+   lap    — both LAP kernels (``lap_jv``, ``lap_auction``) against their
+            plain versions on the card, assignment for assignment, on 22
+            problems of 50 x 50 from a generator (n_valid 0..50, padding
+            columns, ties) and on the three cost batches a train_add step
+            solved; against scipy (JV at the optimum within rel 1e-6 /
+            abs 1e-5, the auction within 5% where no column is padding
+            and within its guarantee elsewhere); the kernels' times, the
+            plain versions', the host route's and the bound; and the
+            device match under torch's sync debug mode.
 6. fit    — ``fit_cars_conv`` at the full grid (41 x 41 translations,
             40 thetas, 360 fine thetas) on 16 synthetic cars at known
             poses, standing and moving: x and z within 0.35 m, yaw within
@@ -71,7 +94,8 @@ Phases, each printing one JSON line:
             library), the best-by-Car-moderate-AP checkpoint; then
             evaluate-only from the checkpoint, which must rewrite the same
             result files byte for byte; and the AP stack on its own ground
-            truth, which must score 100.
+            truth, which must score 100.  The steps match with the JV
+            kernel, as ``criterion_config_from_yaml`` says.
 10. kernels — one line listing every ported kernel with its numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -96,9 +120,16 @@ ENC_SHAPES = ((48, 160), (24, 80), (12, 40), (6, 20))   # 384x1280 pyramid
 M_HEADS, D_HEAD, N_POINTS = 8, 32, 4
 IMG_H, IMG_W, BATCH, REQUESTS = 384, 1280, 2, 3
 MSDA_PER_FORWARD = 6          # 3 encoder + 3 decoder layers
-KERNELS = ("msda_fwd", "msda_bwd", "tfl_counts", "row_fetch")
+KERNELS = ("msda_fwd", "msda_bwd", "tfl_counts", "row_fetch", "lap")
 TRAIN_STEPS = 3
 TRAIN_QUERIES = 50 * 11       # num_queries x group_num
+LAP_PER_STEP = 3              # matches a step: the final and 2 aux layers
+LAP_Q = LAP_M = 50            # queries a group; padded targets (max_objs)
+LAP_PROBLEMS = BATCH * 11     # one per (image, Group-DETR group)
+MATCH_BIG = 1e6               # the matcher's cost of a padding column
+# use_add_data at the shipped config's widths
+ADD_DATA = {"add_data_points": 512, "max_add_cars": 16, "add_mask_stride": 8}
+TFL_GATHER_K = 32
 TFL_T, TFL_S, TFL_RADIUS = 1000, 2048, 0.2   # template, scan, threshold
 TFL_PER_FIT = 3               # rescore, half-pitch refinement, fine pass
 BANK_S = 10 * (TFL_S // 10)   # bank mode's scan: 10 slots x 204 points
@@ -1038,6 +1069,178 @@ def bench_row_fetch() -> dict:
     return {"phase": "bench", "runs": runs, "row_fetch_launches": launches}
 
 
+@contextlib.contextmanager
+def recording_lap():
+    """Wrap ``lap._launch_jv``: a copy of every JV launch's (cost,
+    n_valid), for checking the kernel on the costs of a real step."""
+    from monosowa_tpu_torch.ops import lap
+
+    recorded = []
+    launch = lap._launch_jv
+
+    def recording_launch(cost, n_valid):
+        recorded.append((cost.clone(), n_valid.clone()))
+        return launch(cost, n_valid)
+
+    lap._launch_jv = recording_launch
+    try:
+        yield recorded
+    finally:
+        lap._launch_jv = launch
+
+
+def lap_problems(rng, dev):
+    """LAP_PROBLEMS problems of 50 x 50 as the matcher makes them: costs
+    of random scales, n_valid in 0..50 (0 and 50 included) with the
+    columns past it at the matcher's padding cost, and ties (duplicated
+    columns and rows, a constant problem, two equal groups)."""
+    import numpy as np
+    import torch
+
+    n = LAP_PROBLEMS
+    cost = (rng.normal(size=(n, LAP_Q, LAP_M))
+            * 10 ** rng.uniform(-2, 2, (n, 1, 1))).astype(np.float32)
+    m = rng.integers(0, LAP_M + 1, n)
+    m[:4] = (0, LAP_M, 1, 12)
+    cost[4, :, 7] = cost[4, :, 2]
+    cost[4, 30] = cost[4, 3]
+    cost[5] = 1.0
+    cost[6] = np.round(cost[6], 0)
+    cost[8] = cost[7]
+    m[8] = m[7]
+    for k in range(n):
+        cost[k, :, m[k]:] = MATCH_BIG
+    return (torch.from_numpy(cost).to(dev),
+            torch.from_numpy(m.astype(np.int64)).to(dev))
+
+
+def check_lap(label, cost, n_valid) -> dict:
+    """Both LAP kernels on one batch of problems against their plain
+    versions on the card (assignments equal) and scipy (JV's total cost at
+    the optimum within rel 1e-6 / abs 1e-5; the auction's within 5% where
+    no column is padding, else within its guarantee), with
+    their times, the plain versions', the host route's (copy to the host,
+    a scipy solve per problem, copy back) and the bound."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.ops import lap
+
+    n, q, mmax = cost.shape
+    host = lap.solve_lap_host(cost, n_valid)
+    costs, counts = cost.cpu().numpy().astype(np.float64), n_valid.cpu()
+    # bytes: cost in, the counts (int32) in, the assignment (int64) out
+    bound_ms = (cost.numel() * 4 + n * 4 + n * q * 8) / HBM_BYTES_PER_S * 1e3
+
+    def total(assign):
+        a = assign.cpu().numpy()
+        return np.array([costs[k, a[k] >= 0, a[k][a[k] >= 0]].sum()
+                         for k in range(n)])
+
+    def host_clock_ms(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    opt = total(host)
+    out = {}
+    for name, kernel, plain, reps in (
+            ("lap_jv", lap.lap_jv, lap.solve_lap_jv, 50),
+            ("lap_auction", lap.lap_auction, lap.solve_lap_auction, 10)):
+        got = kernel(cost, n_valid)
+        want = plain(cost, n_valid)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        if differ:
+            raise AssertionError(f"{name} {label}: {differ} assignments "
+                                 "differ from the plain version's")
+        if not ((got >= 0).sum(1).cpu() == counts.clamp(max=min(q, mmax))
+                ).all():
+            raise AssertionError(f"{name} {label}: a valid column is "
+                                 "unassigned")
+        val = total(got)
+        if name == "lap_jv":
+            ok = np.abs(val - opt) <= 1e-5 + 1e-6 * np.abs(opt)
+        else:
+            # within 5% where no column is padding (the JAX package's test
+            # matrices); everywhere within Q times the last epsilon, the
+            # auction's own guarantee: padding at MATCH_BIG makes that
+            # epsilon 1e-4 of 1e6
+            eps = lap.auction_eps(cost)[:, -1].double().cpu().numpy()
+            ok = val <= opt + q * eps + 1e-5 * np.abs(opt)
+            full = counts.numpy() == mmax
+            ok &= ~full | (val <= opt + 0.05 * np.maximum(1.0, np.abs(opt)))
+        if not ok.all():
+            raise AssertionError(f"{name} {label}: total cost {val[~ok]} "
+                                 f"against scipy's {opt[~ok]}")
+        out[name] = {
+            "label": label, "shape": f"N={n} Q={q} M={mmax}",
+            "n_valid": counts.tolist(), "assignments_differing": differ,
+            "max_abs_err": 0.0,
+            "max_rel_cost_over_optimum": float(np.max(
+                (val - opt) / np.maximum(np.abs(opt), 1e-12))),
+            "max_rel_cost_over_optimum_unpadded": float(np.max(
+                ((val - opt) / np.maximum(np.abs(opt), 1e-12))[
+                    counts.numpy() == mmax], initial=0.0)),
+            "ms": device_ms(lambda: kernel(cost, n_valid), reps),
+            "ms_launched_from_python": cuda_ms(lambda: kernel(cost, n_valid),
+                                               reps),
+            "plain_ms": host_clock_ms(lambda: plain(cost, n_valid), 1),
+            "host_route_ms": host_clock_ms(
+                lambda: lap.solve_lap_host(cost, n_valid), 5),
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    return out
+
+
+def check_match_syncs_nothing(dev) -> None:
+    """hungarian_match with the device backends under torch's sync debug
+    mode: the match never waits for the card."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.models.matcher import (MatcherConfig,
+                                                   hungarian_match)
+
+    rng = np.random.default_rng(3)
+    valid = np.arange(LAP_M)[None, :] < np.array([[5], [17]])
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.normal(size=(BATCH, TRAIN_QUERIES, 3)).astype(np.float32),
+        rng.uniform(0.1, 0.9, (BATCH, TRAIN_QUERIES, 6)).astype(np.float32),
+        rng.integers(0, 3, (BATCH, LAP_M)),
+        rng.uniform(0.1, 0.9, (BATCH, LAP_M, 6)).astype(np.float32), valid)]
+    for backend in ("jv", "auction"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            idx = hungarian_match(*args, MatcherConfig(backend=backend), 50)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if (idx >= 0).sum(1).tolist() != [5 * 11, 17 * 11]:
+            raise AssertionError(f"hungarian_match {backend}: matches "
+                                 f"{(idx >= 0).sum(1).tolist()}")
+
+
+def lap_phase(dev, recorded) -> dict:
+    """The LAP kernels on the generator's problems and on the three cost
+    batches recorded from a train step; the device match's sync check."""
+    import numpy as np
+
+    if len(recorded) != LAP_PER_STEP:
+        raise AssertionError(f"{len(recorded)} JV launches recorded in a "
+                             "train step")
+    runs = {"generator": check_lap("generator", *lap_problems(
+        np.random.default_rng(8), dev))}
+    for i, (cost, n_valid) in enumerate(recorded):
+        layer = "final layer" if i == 0 else f"aux layer {i - 1}"
+        runs[f"train step, {layer}"] = check_lap(f"train step, {layer}",
+                                                 cost, n_valid)
+    check_match_syncs_nothing(dev)
+    return runs
+
+
 def detector_config(root: str, h: int, w: int, model=None) -> dict:
     """The shipped detector's config (configs/monodetr_kitti.yaml) as a
     dict, with the batch, the epochs and the score threshold of this run."""
@@ -1074,7 +1277,7 @@ def epoch(dev, n_train: int = EPOCH_TRAIN, n_val: int = EPOCH_VAL,
 
     from monosowa_tpu_torch.evalkitti import eval as kitti_eval
     from monosowa_tpu_torch.kittiio import read_label_file
-    from monosowa_tpu_torch.ops import msda
+    from monosowa_tpu_torch.ops import lap, msda
     from monosowa_tpu_torch.train import checkpoint as ckpt_io
     from monosowa_tpu_torch.train import tester
     from monosowa_tpu_torch.train.sample import (SampleDataset,
@@ -1102,11 +1305,13 @@ def epoch(dev, n_train: int = EPOCH_TRAIN, n_val: int = EPOCH_VAL,
 
             # the main path: one epoch, its checkpoint, its evaluation
             msda.launches = msda.bwd_launches = 0
+            lap.jv_launches = lap.auction_launches = 0
             t0 = time.perf_counter()
             record = train_val_torch.run(cfg, train_ds, val_ds, dev,
                                          logger=quiet)
             run_s = time.perf_counter() - t0
             fwd_launches, bwd_launches = msda.launches, msda.bwd_launches
+            jv_launches = lap.jv_launches
 
             steps = n_train // BATCH
             val_batches = -(-n_val // BATCH)
@@ -1122,6 +1327,11 @@ def epoch(dev, n_train: int = EPOCH_TRAIN, n_val: int = EPOCH_VAL,
                     f"{steps} steps and {val_batches} test batches launched "
                     f"msda_fwd {fwd_launches} and msda_bwd {bwd_launches} "
                     "times")
+            # one match a decoder layer and step
+            if jv_launches != int(cfg["model"]["dec_layers"]) * steps \
+                    or lap.auction_launches:
+                raise AssertionError(f"{steps} steps launched lap_jv "
+                                     f"{jv_launches} times")
             save_path = cfg["trainer"]["save_path"]
             ckpt = ckpt_io.latest_checkpoint(save_path)
             best = ckpt_io.latest_checkpoint(save_path, tag="best")
@@ -1196,7 +1406,8 @@ def epoch(dev, n_train: int = EPOCH_TRAIN, n_val: int = EPOCH_VAL,
             "evaluate_only_files_identical": True,
             "ap_of_ground_truth": perfect["car_3d_strict"]["ap40"],
             "msda_fwd_launches": fwd_launches,
-            "msda_bwd_launches": bwd_launches}
+            "msda_bwd_launches": bwd_launches,
+            "lap_jv_launches": jv_launches}
 
 
 def sample_batch(rng, img_id0: int):
@@ -1313,9 +1524,10 @@ def train(dev) -> dict:
 
     from monosowa_tpu_torch.models.criterion import CriterionConfig, criterion
     from monosowa_tpu_torch.models.layers import Dropout
+    from monosowa_tpu_torch.models.matcher import MatcherConfig
     from monosowa_tpu_torch.models.monodetr import MonoDETR
     from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
-    from monosowa_tpu_torch.ops import msda
+    from monosowa_tpu_torch.ops import lap, msda
     from monosowa_tpu_torch.train.optim import make_optimizer
     from monosowa_tpu_torch.train.sample import sample_batch as train_batch
     from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
@@ -1432,9 +1644,11 @@ def train(dev) -> dict:
     torch.cuda.synchronize()
     warmup_s = time.perf_counter() - t0
 
-    # the main path: TRAIN_STEPS steps of make_train_step
+    # the main path: TRAIN_STEPS steps of make_train_step (the JV matcher
+    # on the card, as the JAX trainer's)
     torch.cuda.reset_peak_memory_stats()
     msda.launches = msda.bwd_launches = 0
+    lap.jv_launches = lap.auction_launches = 0
     history, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1442,7 +1656,39 @@ def train(dev) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     fwd_launches, bwd_launches = msda.launches, msda.bwd_launches
+    jv_launches, auction_launches = lap.jv_launches, lap.auction_launches
     step_peak = torch.cuda.max_memory_allocated()
+    if (jv_launches, auction_launches) != (LAP_PER_STEP * TRAIN_STEPS, 0):
+        raise AssertionError(f"{TRAIN_STEPS} train steps launched lap_jv "
+                             f"{jv_launches} and lap_auction "
+                             f"{auction_launches} times")
+
+    # the same steps with the host matcher (scipy, PR 7's route), and one
+    # with the auction matcher on the card
+    def steps_with(backend, n):
+        ccfg_b = CriterionConfig(group_num=model.group_num,
+                                 num_queries=model.num_queries,
+                                 num_classes=model.num_classes,
+                                 matcher=MatcherConfig(backend=backend))
+        step_b = make_train_step(model, ccfg_b,
+                                 make_optimizer(model, 2e-4, 1e-4))
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            losses_b = step_b(batch, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(losses_b["loss_total"]):
+                raise AssertionError(f"{backend} matcher: {losses_b}")
+        return times
+
+    host_ms = steps_with("host", TRAIN_STEPS)
+    lap.auction_launches = 0
+    auction_ms = steps_with("auction", 1)
+    auction_path = lap.auction_launches
+    if auction_path != LAP_PER_STEP:
+        raise AssertionError(f"a step with the auction matcher launched "
+                             f"lap_auction {auction_path} times")
     for losses in history:
         if not all(np.isfinite(v) for v in losses.values()):
             raise AssertionError(f"non-finite losses: {losses}")
@@ -1462,6 +1708,11 @@ def train(dev) -> dict:
             "grad_norm": [h["grad_norm"] for h in history],
             "msda_fwd_launches": fwd_launches,
             "msda_bwd_launches": bwd_launches,
+            "lap_jv_launches": jv_launches,
+            "train_step_ms_host_matcher": host_ms,
+            "train_step_ms_host_matcher_mean": sum(host_ms) / len(host_ms),
+            "train_step_ms_auction_matcher": auction_ms,
+            "lap_auction_launches_auction_step": auction_path,
             "peak_mem_GB": step_peak / 1e9,
             "kernel_vs_plain_loss_max_rel": max(loss_rel.values()),
             "kernel_vs_plain_grad_max_rel": rel_a,
@@ -1470,6 +1721,224 @@ def train(dev) -> dict:
             "bwd_kernel_vs_plain_bwd_grad_worst": worst_b,
             "kernel_step_peak_mem_GB": peak_k / 1e9,
             "plain_step_peak_mem_GB": peak_p / 1e9}
+
+
+def live_add_data(model, inputs, targets, add, ccfg, per_layer: int = 4):
+    """The payload with cars moved onto the model's own boxes: for each
+    decoder layer and image, a canonical car (the first template, 256
+    points) 0.3 m off the centre of each of the layer's first
+    ``per_layer`` matched queries (decoded as the criterion decodes them),
+    its mask the union of the image's own car masks.  A random model's
+    boxes lie far from the dataset's cars (no query within
+    ``tfl_match_dist``: the TFL and mask losses are 0 there), so the aux
+    losses and their gradients are live only on such a payload."""
+    import torch
+
+    from monosowa_tpu_torch.models import tfl_aux
+    from monosowa_tpu_torch.models.matcher import hungarian_match
+
+    with torch.no_grad():
+        out = model(*inputs)
+    layers = [out] + out["aux_outputs"]
+    pts, pmask = add.car_points.clone(), add.car_pmask.clone()
+    valid, masks = add.car_valid.clone(), add.car_masks.clone()
+    tmpl = add.templates[0]
+    for lid, o in enumerate(layers):
+        idx = hungarian_match(o["pred_logits"], o["pred_boxes"],
+                              targets.labels, targets.boxes_3d,
+                              targets.valid, ccfg.matcher, ccfg.num_queries)
+        for b in range(pts.shape[0]):
+            qidx, _ = tfl_aux.gather_matched_queries(idx[b], per_layer)
+            boxes7 = tfl_aux.decode_pred_boxes7(
+                o["pred_boxes"][b, qidx], o["pred_depth"][b, qidx],
+                o["pred_3d_dim"][b, qidx], o["pred_angle"][b, qidx],
+                add.calib[b], add.resolution, add.canonical_scale[b],
+                add.calib.new_zeros(3), add.trans_inv[b], add.flip[b],
+                add.img_w[b])
+            for k in range(per_layer):
+                c = lid * per_layer + k
+                pts[b, c] = 0.0
+                pts[b, c, :tmpl.shape[0]] = tmpl + boxes7[k, :3] + 0.3
+                pmask[b, c] = False
+                pmask[b, c, :tmpl.shape[0]] = True
+                valid[b, c] = True
+                masks[b, c] = add.car_masks[b].amax(0)
+    return add._replace(car_points=pts, car_pmask=pmask, car_valid=valid,
+                        car_masks=masks)
+
+
+def train_add(dev) -> dict:
+    """The train step with pseudo-label cars: SampleDataset with
+    use_add_data (its cars written as the labeller's optimized_cars cache
+    by write_sample_cars), use_tfl and use_mask_loss, the JV matcher."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.data.kitti_dataset import collate
+    from monosowa_tpu_torch.models.criterion import CriterionConfig, criterion
+    from monosowa_tpu_torch.models.layers import Dropout
+    from monosowa_tpu_torch.models.matcher import MatcherConfig
+    from monosowa_tpu_torch.models.monodetr import MonoDETR
+    from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
+    from monosowa_tpu_torch.ops import lap, msda
+    from monosowa_tpu_torch.train.optim import make_optimizer
+    from monosowa_tpu_torch.train.sample import (SampleDataset,
+                                                 write_sample_cars)
+    from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
+                                                  _tfl_templates,
+                                                  add_data_from_batch,
+                                                  make_train_step,
+                                                  targets_from_batch)
+
+    model = MonoDETR(device=dev, seed=0)
+    ccfg = CriterionConfig(group_num=model.group_num,
+                           num_queries=model.num_queries,
+                           num_classes=model.num_classes,
+                           matcher=MatcherConfig(backend="jv"),
+                           use_tfl=True, use_mask_loss=True,
+                           tfl_gather_k=TFL_GATHER_K)
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = SampleDataset(BATCH, {"resolution": [IMG_W, IMG_H],
+                                   "use_add_data": True,
+                                   "add_data_path": tmp, **ADD_DATA})
+        write_sample_cars(tmp, ds)
+        t0 = time.perf_counter()
+        batch = collate([ds[i] for i in range(BATCH)])
+        load_ms = (time.perf_counter() - t0) * 1e3 / BATCH
+    n_cars = int(batch["car_valid"].sum())
+    if n_cars < BATCH or not batch["car_masks"].any():
+        raise AssertionError(f"{n_cars} cars with masks "
+                             f"{batch['car_masks'].any()} in the payload")
+
+    # one forward + backward each from the seeded weights, dropout off, on
+    # the live payload: the kernels (MSDA, JV) against the plain MSDA and
+    # the plain JV
+    model.train()
+    dropouts = [mod for mod in model.modules() if isinstance(mod, Dropout)]
+    dropout_p = [mod.p for mod in dropouts]
+    for mod in dropouts:
+        mod.p = 0.0
+    attn = [mod for mod in model.modules()
+            if isinstance(mod, MSDeformAttnModule)]
+    inputs = [torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
+              for k in MODEL_INPUTS]
+    targets = targets_from_batch(batch, dev)
+    add = add_data_from_batch(batch, *_tfl_templates(dev), dev)
+    live = live_add_data(model, inputs, targets, add, ccfg)
+    heads = [p for n, p in model.named_parameters()
+             if n.startswith(("depth_embed", "dim_embed", "angle_embed",
+                              "bbox_embed"))]
+    jv_kernel = lap.lap_jv
+
+    def grads_with(msda_fn, jv_fn):
+        for mod in attn:
+            mod.msda = msda_fn
+        lap.lap_jv = jv_fn
+        model.zero_grad(set_to_none=True)
+        try:
+            losses = criterion(model(*inputs), targets, ccfg, add_data=live)
+            g_tfl = torch.autograd.grad(losses["loss_tfl"], heads,
+                                        retain_graph=True, allow_unused=True)
+            losses["loss_total"].backward()
+        finally:
+            lap.lap_jv = jv_kernel
+        torch.cuda.synchronize()
+        tfl_norm = float(torch.linalg.vector_norm(torch.stack(
+            [g.norm() for g in g_tfl if g is not None])))
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}, tfl_norm)
+
+    jv0 = lap.jv_launches
+    losses_k, grads_k, tfl_norm = grads_with(msda.ms_deform_attn, jv_kernel)
+    if lap.jv_launches - jv0 != LAP_PER_STEP:
+        raise AssertionError(f"the kernel step launched lap_jv "
+                             f"{lap.jv_launches - jv0} times")
+    losses_p, grads_p, _ = grads_with(msda.ms_deform_attn_plain,
+                                      lap.solve_lap_jv)
+    for mod in attn:
+        mod.msda = msda.ms_deform_attn
+    for mod, p_drop in zip(dropouts, dropout_p):
+        mod.p = p_drop
+    model.zero_grad(set_to_none=True)
+    aux_keys = [k for k in losses_k if k.startswith(("loss_tfl",
+                                                      "loss_mask"))]
+    if sorted(aux_keys) != ["loss_mask", "loss_mask_0", "loss_mask_1",
+                            "loss_tfl", "loss_tfl_0", "loss_tfl_1"]:
+        raise AssertionError(f"aux-loss keys {aux_keys}")
+    for k in aux_keys:
+        if not (np.isfinite(losses_k[k]) and losses_k[k] > 0):
+            raise AssertionError(f"{k} = {losses_k[k]}")
+    if not tfl_norm > 0:
+        raise AssertionError("loss_tfl alone has no gradient in the 3D "
+                             "heads")
+    loss_rel = {k: abs(losses_k[k] - v) / max(abs(v), 1e-12)
+                for k, v in losses_p.items()}
+    if max(loss_rel.values()) > 1e-5:
+        raise AssertionError(f"kernels vs plain, loss dict: {loss_rel}")
+    floor = 1e-4 * max(float(g.abs().max()) for g in grads_p.values())
+    grad_rel = {n: float((grads_k[n] - g).abs().max())
+                / max(float(g.abs().max()), floor)
+                for n, g in grads_p.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    if grad_rel[worst] > 1e-2:
+        raise AssertionError(f"kernels vs plain, gradient of {worst}: "
+                             f"{grad_rel[worst]} of its scale")
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    step = make_train_step(model, ccfg, make_optimizer(model, 2e-4, 1e-4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    with recording_lap() as recorded:                # the matches' costs
+        step(batch, gen)                             # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    # the main path: TRAIN_STEPS steps of make_train_step with add data
+    torch.cuda.reset_peak_memory_stats()
+    msda.launches = msda.bwd_launches = 0
+    lap.jv_launches = lap.auction_launches = 0
+    history, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        history.append(step(batch, gen))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"msda_fwd": msda.launches, "msda_bwd": msda.bwd_launches,
+                "lap_jv": lap.jv_launches,
+                "lap_auction": lap.auction_launches}
+    peak = torch.cuda.max_memory_allocated()
+    for losses in history:
+        if not all(np.isfinite(v) for v in losses.values()) \
+                or not losses["grad_norm"] > 0 \
+                or not all(losses[k] >= 0 for k in aux_keys):
+            raise AssertionError(f"train_add losses: {losses}")
+    want = {"msda_fwd": MSDA_PER_FORWARD * TRAIN_STEPS,
+            "msda_bwd": MSDA_PER_FORWARD * TRAIN_STEPS,
+            "lap_jv": LAP_PER_STEP * TRAIN_STEPS, "lap_auction": 0}
+    if launches != want:
+        raise AssertionError(f"{TRAIN_STEPS} train steps with add data "
+                             f"launched {launches}, want {want}")
+    return {"phase": "train_add", "batch": BATCH, "image_hw": [IMG_H, IMG_W],
+            "queries": TRAIN_QUERIES, "steps": TRAIN_STEPS, **ADD_DATA,
+            "template_points": int(add.templates.shape[1]),
+            "tfl_gather_k": TFL_GATHER_K, "cars": n_cars,
+            "payload_ms_per_image": load_ms, "warmup_step_s": warmup_s,
+            "train_step_ms": step_ms,
+            "train_step_ms_mean": sum(step_ms) / len(step_ms),
+            "loss_total": [h["loss_total"] for h in history],
+            "aux_losses": {k: [h[k] for h in history] for k in aux_keys},
+            "live_payload_aux_losses": {k: losses_k[k] for k in aux_keys},
+            "grad_norm": [h["grad_norm"] for h in history],
+            "loss_tfl_grad_norm_3d_heads": tfl_norm,
+            "launches": launches, "peak_mem_GB": peak / 1e9,
+            "_lap_costs": recorded,
+            "kernel_vs_plain_loss_max_rel": max(loss_rel.values()),
+            "kernel_vs_plain_aux_loss_rel": {k: loss_rel[k]
+                                             for k in aux_keys},
+            "kernel_vs_plain_grad_max_rel": grad_rel[worst],
+            "kernel_vs_plain_grad_worst": worst}
 
 
 def main() -> int:
@@ -1574,6 +2043,21 @@ def main() -> int:
     trn = train(dev)
     emit(trn)
 
+    # 5b. train_add
+    tra = train_add(dev)
+    recorded = tra.pop("_lap_costs")
+    tra["train_phase_step_ms_mean"] = trn["train_step_ms_mean"]
+    emit(tra)
+
+    # 5c. the LAP kernels on the generator's problems and on the costs a
+    # train_add step solved
+    lap_runs = lap_phase(dev, recorded)
+    del recorded
+    for res in lap_runs.values():
+        for name in ("lap_jv", "lap_auction"):
+            emit({"phase": "kernel", "name": name, **res[name]})
+    torch.cuda.empty_cache()
+
     # 6. fit
     emit(fit_check(dev))
 
@@ -1612,6 +2096,14 @@ def main() -> int:
                 "other_shapes": [{k: r.get(k) for k in keys}
                                  for key, r in runs.items() if key != first]}
 
+    def lap_entry(name, replaces, launches):
+        runs = {key: res[name] for key, res in lap_runs.items()}
+        out = entry(name, "monosowa_tpu_torch/ops/csrc/lap.cu", replaces,
+                    launches, runs, "train step, final layer")
+        out["host_route_ms"] = runs["train step, final layer"][
+            "host_route_ms"]
+        return out
+
     emit({"kernels": [
         entry("msda_fwd", "monosowa_tpu_torch/ops/csrc/msda_fwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:378 (K1 ms_deform_attn_mxu); "
@@ -1619,11 +2111,13 @@ def main() -> int:
               "ms_deform_attn_pallas)",
               {"serve": srv["msda_launches"],
                "train": trn["msda_fwd_launches"],
+               "train_add": tra["launches"]["msda_fwd"],
                "epoch": epc["msda_fwd_launches"]}, fwd),
         entry("msda_bwd", "monosowa_tpu_torch/ops/csrc/msda_bwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:306 (K2 msda_gdot_mxu); "
               "monosowa_tpu/ops/msda_mxu.py:544 (K3 msda_dvalue_mxu)",
               {"train": trn["msda_bwd_launches"],
+               "train_add": tra["launches"]["msda_bwd"],
                "epoch": epc["msda_bwd_launches"]}, bwd),
         entry("tfl_counts", "monosowa_tpu_torch/ops/csrc/tfl_counts.cu",
               "monosowa_tpu/ops/tfl_pallas.py:67 (K5 "
@@ -1634,6 +2128,15 @@ def main() -> int:
               "tools/bench_gather_micro.py:61 (K6 run; bodies _kernel_gather "
               ":26, _kernel_onehot :45)",
               {"bench": bch["row_fetch_launches"]}, fetch, "K6 direct"),
+        lap_entry("lap_jv", "monosowa_tpu/ops/lap.py:54 solve_lap_jv "
+                  "(XLA, not Pallas)",
+                  {"train": trn["lap_jv_launches"],
+                   "train_add": tra["launches"]["lap_jv"],
+                   "epoch": epc["lap_jv_launches"]}),
+        lap_entry("lap_auction", "monosowa_tpu/ops/lap.py:219 "
+                  "solve_lap_auction (XLA, not Pallas)",
+                  {"train (auction matcher)":
+                   trn["lap_auction_launches_auction_step"]}),
     ]})
     if torch.cuda.device_count() != 1:
         raise AssertionError(f"{torch.cuda.device_count()} cards visible")

@@ -67,3 +67,81 @@ def get_affine_transform(center, scale, rot, output_size,
 def affine_transform(pt, t):
     p = np.array([pt[0], pt[1], 1.0], np.float64)
     return (t @ p)[:2]
+
+
+def _fix16(v: float) -> int:
+    """16.16 fixed point of v, rounded half up (FLOOR(v * 65536 + 0.5))."""
+    return int(np.floor(v * 65536.0 + 0.5))
+
+
+def _coord(v: np.ndarray) -> np.ndarray:
+    """A source coordinate's pixel: truncated, -1 below zero."""
+    return np.where(v < 0.0, -1, np.floor(np.clip(v, -1.0, 2.0 ** 31 - 1))
+                    ).astype(np.int64)
+
+
+def _running(start: float, step: float, n: int) -> np.ndarray:
+    """start, start + step, (start + step) + step, ... in float64: n values
+    summed one step at a time."""
+    seq = np.full(n, step, np.float64)
+    if n:
+        seq[0] = start
+    return np.add.accumulate(seq)
+
+
+def warp_affine_nearest(img: np.ndarray, size, coeffs) -> np.ndarray:
+    """PIL's ``Image.transform(size, Image.AFFINE, coeffs,
+    resample=Image.NEAREST)`` of a 2-D array, in numpy: output pixel (x, y)
+    takes the source pixel under (a x' + b y' + c, d x' + e y' + f) at its
+    centre (x' = x + 0.5, y' = y + 0.5), 0 outside the source.
+
+    The pixel arithmetic is PIL's own (libImaging/Geometry.c), so that the
+    result equals PIL's pixel for pixel: without rotation or shear (b = d =
+    0) the centres are running float64 sums from the first pixel's; else,
+    where every corner fits 16.16 fixed point, running sums of the fixed
+    point coefficients, shifted down (per row and per column where b and d
+    round to 0 there); else running float64 sums in both directions."""
+    w, h = (int(v) for v in size)
+    a = [float(v) for v in coeffs]
+    src_h, src_w = img.shape[:2]
+    out = np.zeros((h, w) + img.shape[2:], img.dtype)
+    if a[1] == 0 and a[3] == 0:
+        xin = _coord(_running(a[2] + a[0] * 0.5, a[0], w))
+        yin = _coord(_running(a[5] + a[4] * 0.5, a[4], h))
+        xs = (xin >= 0) & (xin < src_w)
+        ys = (yin >= 0) & (yin < src_h)
+        out[np.ix_(ys, xs)] = img[np.ix_(yin[ys], xin[xs])]
+        return out
+
+    def fits(x, y):
+        return (abs(x * a[0] + y * a[1] + a[2]) < 32768.0
+                and abs(x * a[3] + y * a[4] + a[5]) < 32768.0)
+
+    if all(fits(x, y) for x, y in ((0, 0), (w, h), (0, h), (w, 0))):
+        a0, a1, a3, a4 = (_fix16(a[k]) for k in (0, 1, 3, 4))
+        a2 = _fix16(a[2] + a[0] * 0.5 + a[1] * 0.5)
+        a5 = _fix16(a[5] + a[3] * 0.5 + a[4] * 0.5)
+        x = np.arange(w, dtype=np.int64)[None, :]
+        y = np.arange(h, dtype=np.int64)[:, None]
+        if a1 == 0 and a3 == 0:
+            # the dataset's affines: a shear below 2^-17 vanishes in fixed
+            # point, so rows and columns map on their own
+            xin = ((a2 + x[0] * a0) >> 16)
+            yin = ((a5 + y[:, 0] * a4) >> 16)
+            xs = (xin >= 0) & (xin < src_w)
+            ys = (yin >= 0) & (yin < src_h)
+            out[np.ix_(ys, xs)] = img[np.ix_(yin[ys], xin[xs])]
+            return out
+        xin = (a2 + y * a1 + x * a0) >> 16
+        yin = (a5 + y * a4 + x * a3) >> 16
+    else:
+        xo = _running(a[2] + a[1] * 0.5 + a[0] * 0.5, a[1], h)
+        yo = _running(a[5] + a[4] * 0.5 + a[3] * 0.5, a[4], h)
+        steps_x = np.full((h, w), a[0], np.float64)
+        steps_y = np.full((h, w), a[3], np.float64)
+        steps_x[:, 0], steps_y[:, 0] = xo, yo
+        xin = _coord(np.add.accumulate(steps_x, axis=1))
+        yin = _coord(np.add.accumulate(steps_y, axis=1))
+    inside = (xin >= 0) & (xin < src_w) & (yin >= 0) & (yin < src_h)
+    out[inside] = img[yin[inside], xin[inside]]
+    return out

@@ -26,7 +26,8 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from monosowa_tpu_torch.data.affine import (affine_transform,
-                                            get_affine_transform)
+                                            get_affine_transform,
+                                            warp_affine_nearest)
 from monosowa_tpu_torch.kittiio import Calibration, read_label_file
 
 MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -112,16 +113,12 @@ class KittiDetectionDataset:
         self.use_depth = bool(cfg.get("use_depth", False))
         self.depth_path = cfg.get("depth_path", "")
         # use_add_data: pseudo-label cars for the TFL/mask aux losses
-        # (reference kitti_dataset.py:421-449).  The car cache itself is
-        # ported (sowa/cache.py); what reads it into training is not
-        if cfg.get("use_add_data", False):
-            raise NotImplementedError(
-                "use_add_data: the torch port has the pseudo-label car cache "
-                "(sowa/cache.py) but not what trains on it: the dataset's "
-                "_load_add_data (monosowa_tpu/data/kitti_dataset.py), "
-                "add_data_from_batch and _tfl_templates "
-                "(monosowa_tpu/train/trainer.py), models/tfl_aux.py and "
-                "models/mask_aux.py")
+        # (reference kitti_dataset.py:421-449 -> fixed-shape SoA)
+        self.use_add_data = bool(cfg.get("use_add_data", False))
+        self.add_data_path = cfg.get("add_data_path", "")
+        self.add_data_points = int(cfg.get("add_data_points", 512))
+        self.max_add_cars = int(cfg.get("max_add_cars", 16))
+        self.add_mask_stride = int(cfg.get("add_mask_stride", 8))
 
     def __len__(self):
         return len(self.idx_list)
@@ -229,6 +226,8 @@ class KittiDetectionDataset:
         sample, canonical_scale = self._encode(
             idx, image, calib, img_size, center, crop_size, crop_scale, flip,
             trans, trans_inv)
+        if self.use_add_data:
+            sample.update(self._load_add_data(idx, trans_inv))
         if self.split != "test":
             self._encode_objects(sample, self.get_label(idx).objects, calib,
                                  img_size, crop_scale, canonical_scale, flip,
@@ -369,6 +368,57 @@ class KittiDetectionDataset:
             sample["heading_res"][i] = hr
             sample["mask_2d"][i] = obj.truncation <= 0.5 and obj.occlusion <= 2
             sample["valid"][i] = True
+
+    # -- use_add_data -------------------------------------------------------
+    def _load_add_data(self, idx: str, trans_inv: np.ndarray
+                       ) -> Dict[str, np.ndarray]:
+        """Fixed-shape pseudo-label car payload for the TFL/mask aux losses.
+
+        Reads the pipeline's optimized_cars cache (sowa.cache), downsamples
+        each car cloud to ``add_data_points``, and warps each instance mask
+        through the sample's augmentation affine into the network resolution
+        (nearest neighbour, PIL's pixel rule in numpy) then max-pools it by
+        ``add_mask_stride`` (reference loads 10k-pt clouds + full masks,
+        kitti_dataset.py:421-449; the caps keep the shapes static and
+        small).  The subsample draws from ``abs(hash(idx))``, which Python
+        salts per process, as the JAX package does."""
+        from monosowa_tpu_torch.sowa.cache import load_optimized_cars
+
+        c, p, s = self.max_add_cars, self.add_data_points, self.add_mask_stride
+        res_w, res_h = int(self.resolution[0]), int(self.resolution[1])
+        mh, mw = res_h // s, res_w // s
+        out = {
+            "car_points": np.zeros((c, p, 3), np.float32),
+            "car_pmask": np.zeros((c, p), bool),
+            "car_valid": np.zeros(c, bool),
+            "car_moving": np.zeros(c, bool),
+            "car_theta": np.zeros(c, np.float32),
+            "car_masks": np.zeros((c, mh, mw), np.float32),
+        }
+        cars = load_optimized_cars(
+            os.path.join(self.add_data_path, "optimized_cars"), idx)
+        if not cars:
+            return out
+        rng = np.random.default_rng(abs(hash(idx)) % (2 ** 31))
+        for i, car in enumerate(cars[:c]):
+            pts = np.asarray(car["points"], np.float32).reshape(-1, 3)
+            if pts.shape[0] == 0:
+                continue
+            if pts.shape[0] > p:
+                pts = pts[rng.choice(pts.shape[0], p, replace=False)]
+            out["car_points"][i, :pts.shape[0]] = pts
+            out["car_pmask"][i, :pts.shape[0]] = True
+            out["car_valid"][i] = True
+            out["car_moving"][i] = bool(car.get("moving", False))
+            out["car_theta"][i] = float(car.get("theta", 0.0))
+            m = car.get("mask")
+            if m is not None and np.any(m):
+                mt = warp_affine_nearest(m.astype(np.uint8) * 255,
+                                         (res_w, res_h),
+                                         trans_inv.reshape(-1).tolist())
+                out["car_masks"][i] = (mt > 127).reshape(
+                    mh, s, mw, s).max(axis=(1, 3)).astype(np.float32)
+        return out
 
     @staticmethod
     def _ry2alpha(calib, ry, u):

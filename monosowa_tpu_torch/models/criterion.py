@@ -14,10 +14,13 @@ depth_predictor/ddn_loss/*; the JAX package's ``models/criterion.py``):
 * all losses normalized by num_boxes = total valid targets x group_num
   (:1201-1206);
 * aux decoder layers re-matched and re-supervised, minus depth_map
-  (:1216-1229).
+  (:1216-1229);
+* with pseudo-label cars (``add_data``, use_add_data), the Template-Fitting
+  and silhouette-mask auxiliary losses (``use_tfl``, ``use_mask_loss``,
+  monodetr.py:538-575) on the final layer and, with ``tfl_on_aux``, on each
+  aux layer.
 
-Targets are padded tensors with a validity mask.  The TFL and mask
-auxiliary losses (``use_tfl``, ``use_mask_loss``), the two-stage encoder
+Targets are padded tensors with a validity mask.  The two-stage encoder
 losses and DN-DETR are not in the port yet and raise
 ``NotImplementedError``.
 """
@@ -25,15 +28,37 @@ losses and DN-DETR are not in the port yet and raise
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
+from monosowa_tpu_torch.models import mask_aux, tfl_aux
 from monosowa_tpu_torch.models.matcher import (MatcherConfig,
                                                box_cxcylrtb_to_xyxy,
                                                generalized_box_iou,
                                                hungarian_match)
+
+
+class AddData(NamedTuple):
+    """Pseudo-label car payload for the TFL / silhouette auxiliary losses —
+    the reference's ``info`` side-channel (kitti_dataset.py:421-449 loads
+    optimized_cars blobs; monodetr.py:967-1157 consumes them)."""
+
+    car_points: torch.Tensor        # (B, C, P, 3) aggregated car clouds
+    car_pmask: torch.Tensor         # (B, C, P) point validity
+    car_valid: torch.Tensor         # (B, C)
+    car_moving: torch.Tensor        # (B, C)
+    car_masks: torch.Tensor         # (B, C, Hm, Wm) instance masks (0/1)
+    calib: torch.Tensor             # (B, 3, 4) P2
+    resolution: torch.Tensor        # (2,) network input (w, h)
+    canonical_scale: torch.Tensor   # (B,)
+    trans: torch.Tensor             # (B, 2, 3) original -> resolution affine
+    trans_inv: torch.Tensor         # (B, 2, 3) inverse affine
+    flip: torch.Tensor              # (B,) bool random-flip flags
+    img_w: torch.Tensor             # (B,) original image width
+    templates: torch.Tensor         # (4, T, 3) canonical template clouds
+    template_dims_hwl: torch.Tensor  # (3,)
 
 
 class Targets(NamedTuple):
@@ -72,15 +97,26 @@ class CriterionConfig:
     depth_min: float = 1e-3
     depth_max: float = 60.0
     num_depth_bins: int = 80
-    # TFL / silhouette auxiliary losses: not in the port yet
+    # TFL / silhouette auxiliary losses against pseudo-label cars
+    # (use_tfl / use_mask_loss, monodetr.py:538-575; off by default like
+    # configs/monodetr.yaml:113-115)
     use_tfl: bool = False
     use_mask_loss: bool = False
+    w_tfl: float = 1.0             # tfl_loss_coef
+    w_mask: float = 1.0            # mask_loss_coef
+    mask_kind: str = "BCE"         # mask_loss: BCE | DICE
+    tfl_on_aux: bool = True        # reference runs tfl on aux layers too
+    tfl_gather_k: int = 32         # fixed matched-query slots
+    tfl_steepness: float = 10.0
+    tfl_match_dist: float = 5.0
+    mask_sigma_px: float = 1.5
 
 
 WEIGHT_OF = {"loss_ce": "w_cls", "loss_center": "w_center",
              "loss_bbox": "w_bbox", "loss_giou": "w_giou",
              "loss_depth": "w_depth", "loss_dim": "w_dim",
-             "loss_angle": "w_angle", "loss_depth_map": "w_depth_map"}
+             "loss_angle": "w_angle", "loss_depth_map": "w_depth_map",
+             "loss_tfl": "w_tfl", "loss_mask": "w_mask"}
 
 
 def _gather_targets(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -209,15 +245,73 @@ def ddn_depth_map_loss(depth_logits: torch.Tensor, targets: Targets,
     return (focal * weights).sum() / float(b * h * w)
 
 
+def _add_data_losses(out: Dict[str, torch.Tensor], match_idx: torch.Tensor,
+                     add: AddData, cfg: CriterionConfig
+                     ) -> Dict[str, torch.Tensor]:
+    """TFL + silhouette mask losses of one decoder layer against the
+    pseudo-label cars (loss_tfl, monodetr.py:538-575).
+
+    Matched queries are gathered into ``tfl_gather_k`` fixed slots per image
+    so the pairwise (K, 4, T, P) tensors stay small instead of scaling with
+    queries x groups; summed over the batch like compute_tfl_loss
+    (:806-815)."""
+    k = cfg.tfl_gather_k
+    hm, wm = add.car_masks.shape[2], add.car_masks.shape[3]
+    mean_size = add.car_points.new_zeros(3)   # meanshape False: dims absolute
+    tfl_b, mask_b = [], []
+    for b in range(match_idx.shape[0]):
+        qidx, qvalid = tfl_aux.gather_matched_queries(match_idx[b], k)
+        calib = add.calib[b]
+        boxes7 = tfl_aux.decode_pred_boxes7(
+            out["pred_boxes"][b, qidx], out["pred_depth"][b, qidx],
+            out["pred_3d_dim"][b, qidx], out["pred_angle"][b, qidx], calib,
+            add.resolution, add.canonical_scale[b], mean_size,
+            add.trans_inv[b], add.flip[b], add.img_w[b])
+        pts, pmask = add.car_points[b], add.car_pmask[b]
+        cvalid, cmoving = add.car_valid[b], add.car_moving[b]
+        if cfg.use_tfl:
+            tfl_b.append(tfl_aux.loss_tfl_aux(
+                boxes7, qvalid, pts, pmask, cvalid, cmoving, add.templates,
+                add.template_dims_hwl, steepness=cfg.tfl_steepness,
+                match_dist=cfg.tfl_match_dist))
+        if not cfg.use_mask_loss:
+            continue
+        # per-query matched car (same nearest-center rule as the TFL)
+        cmasks = add.car_masks[b]
+        centers = tfl_aux.masked_median(pts, pmask)
+        d = torch.linalg.vector_norm(
+            boxes7[:, None, :3].detach() - centers[None], dim=-1)
+        d = torch.where(cvalid[None, :], d, tfl_aux.BIG)
+        match = d.argmin(1)
+        has_mask = (cmasks > 0.5).any(2).any(1)
+        ok = qvalid & (d.amin(1) < cfg.tfl_match_dist) & has_mask[match]
+        posed = tfl_aux.pose_templates(
+            boxes7, add.templates[:1], add.template_dims_hwl,
+            cmoving[match])[:, 0]                        # (K, T, 3)
+        # original-image px -> mask grid: augmentation affine / stride
+        stride = torch.stack([add.resolution[0] / wm,
+                              add.resolution[1] / hm])
+        grid_affine = add.trans[b] / stride[:, None]
+        sil = mask_aux.splat_silhouette(posed, calib, grid_affine, hm, wm,
+                                        sigma_px=cfg.mask_sigma_px)
+        mask_b.append(mask_aux.mask_loss(sil, cmasks[match], ok,
+                                         kind=cfg.mask_kind))
+    losses = {}
+    if cfg.use_tfl:
+        losses["loss_tfl"] = torch.stack(tfl_b).sum()
+    if cfg.use_mask_loss:
+        losses["loss_mask"] = torch.stack(mask_b).sum()
+    return losses
+
+
 def criterion(outputs: Dict[str, Any], targets: Targets,
               cfg: CriterionConfig = CriterionConfig(),
               training: bool = True,
-              add_data: Any = None) -> Dict[str, torch.Tensor]:
+              add_data: Optional[AddData] = None
+              ) -> Dict[str, torch.Tensor]:
     """Full loss dict; 'loss_total' is the weighted sum the trainer steps
-    on."""
-    if add_data is not None or cfg.use_tfl or cfg.use_mask_loss:
-        raise NotImplementedError("the TFL / mask auxiliary losses are not "
-                                  "in the port yet")
+    on.  The auxiliary losses against pseudo-label cars are added when
+    ``add_data`` is given and ``use_tfl`` or ``use_mask_loss`` is set."""
     for key in ("enc_outputs", "dn_outputs"):
         if key in outputs:
             raise NotImplementedError(f"{key} (two_stage / DN-DETR) is not "
@@ -231,12 +325,20 @@ def criterion(outputs: Dict[str, Any], targets: Targets,
                                targets.labels, targets.boxes_3d,
                                targets.valid, cfg.matcher, cfg.num_queries)
 
-    losses = _layer_losses(outputs, targets, match(outputs), num_boxes, cfg)
+    use_add = add_data is not None and (cfg.use_tfl or cfg.use_mask_loss)
+
+    idx_final = match(outputs)
+    losses = _layer_losses(outputs, targets, idx_final, num_boxes, cfg)
     losses["loss_depth_map"] = ddn_depth_map_loss(
         outputs["pred_depth_map_logits"], targets, cfg)
+    if use_add:
+        losses.update(_add_data_losses(outputs, idx_final, add_data, cfg))
     for i, aux in enumerate(outputs.get("aux_outputs", [])):
-        for k, v in _layer_losses(aux, targets, match(aux), num_boxes,
-                                  cfg).items():
+        idx_aux = match(aux)
+        aux_l = _layer_losses(aux, targets, idx_aux, num_boxes, cfg)
+        if use_add and cfg.tfl_on_aux:
+            aux_l.update(_add_data_losses(aux, idx_aux, add_data, cfg))
+        for k, v in aux_l.items():
             losses[f"{k}_{i}"] = v
 
     total = 0.0

@@ -7,10 +7,13 @@ independently against all targets of its image (matcher.py:95-108).
 
 Targets arrive as padded tensors (B, M, ...) with a validity mask, as in the
 JAX package.  The cost matrices are computed on the predictions' device
-without a gradient and copied to the host once; each (image, group) block
-is solved there with scipy's ``linear_sum_assignment`` over the first
-``sum(valid)`` target columns, exactly as the JAX package's exact solvers
-(``ops/lap.py`` ``solve_lap_host`` / ``solve_lap_jv``) do.  Output is a
+without a gradient, reshaped to one (Q, M) problem per (image, group) and
+solved by ``MatcherConfig.backend`` over the first ``sum(valid)`` target
+columns (``ops/lap.py``): ``host`` copies them to the host once and solves
+each with scipy's ``linear_sum_assignment`` (the default, as in the JAX
+package); ``jv`` (exact) and ``auction`` (near-optimal) solve the whole
+batch in one launch of a hand-written kernel on the card, with no copy to
+the host, or with their plain versions for CPU tensors.  Output is a
 per-query target index (B, G * Q) with -1 for unmatched queries.
 """
 
@@ -18,10 +21,12 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
+from monosowa_tpu_torch.ops import lap
+
 BIG = 1e6
+BACKENDS = ("host", "jv", "auction")
 
 
 def box_cxcylrtb_to_xyxy(b: torch.Tensor) -> torch.Tensor:
@@ -56,6 +61,13 @@ class MatcherConfig:
     cost_giou: float = 2.0
     focal_alpha: float = 0.25
     focal_gamma: float = 2.0
+    backend: str = "host"  # "host" (scipy on the host), "jv" (exact, on the
+    #                        card), "auction" (eps-scaled, near-optimal)
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(f"matcher backend {self.backend!r}: want one of "
+                             f"{BACKENDS}")
 
 
 def cost_matrix(logits, boxes, tgt_labels, tgt_boxes, tgt_valid,
@@ -80,18 +92,6 @@ def cost_matrix(logits, boxes, tgt_labels, tgt_boxes, tgt_valid,
                        torch.full_like(cost, BIG))
 
 
-def solve_assignment(cost: np.ndarray, n_valid: int) -> np.ndarray:
-    """(Q, M) cost, the number of valid target columns -> (Q,) assigned
-    column or -1 (the JAX package's ``ops/lap.py`` ``_scipy_solve``)."""
-    from scipy.optimize import linear_sum_assignment
-
-    out = np.full(cost.shape[0], -1, np.int64)
-    if n_valid > 0:
-        rows, cols = linear_sum_assignment(cost[:, :n_valid])
-        out[rows] = cols
-    return out
-
-
 @torch.no_grad()
 def hungarian_match(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
                     tgt_labels: torch.Tensor, tgt_boxes: torch.Tensor,
@@ -106,10 +106,8 @@ def hungarian_match(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     m = tgt_valid.shape[1]
     cost = cost_matrix(pred_logits.float(), pred_boxes.float(), tgt_labels,
                        tgt_boxes.float(), tgt_valid.bool(), cfg)
-    cost = cost.reshape(b, g, num_queries, m).cpu().numpy()
-    n_valid = tgt_valid.sum(1).cpu().numpy()
-    idx = np.stack([np.concatenate([solve_assignment(cost[i, k],
-                                                     int(n_valid[i]))
-                                    for k in range(g)])
-                    for i in range(b)])
-    return torch.from_numpy(idx).to(pred_logits.device)
+    n_valid = tgt_valid.sum(1)[:, None].expand(b, g).reshape(-1)
+    solve = {"host": lap.solve_lap_host, "jv": lap.lap_jv,
+             "auction": lap.lap_auction}[cfg.backend]
+    idx = solve(cost.reshape(b * g, num_queries, m), n_valid)
+    return idx.reshape(b, gq)

@@ -1,7 +1,8 @@
 """Synthetic detector data: a training batch (the JAX package's
-``__graft_entry__._sample_batch``, the same numpy draws, numpy out) and an
-in-memory dataset with KITTI labels, for driving the train / test / AP loop
-on a machine that has neither KITTI nor PIL."""
+``__graft_entry__._sample_batch``, the same numpy draws, numpy out), an
+in-memory dataset with KITTI labels and a pseudo-label car cache for it,
+for driving the train / test / AP loop, with or without the TFL and mask
+losses, on a machine that has neither KITTI nor PIL."""
 
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from monosowa_tpu_torch.data.kitti_dataset import (CLS_MEAN_SIZE,
                                                    KittiDetectionDataset)
 from monosowa_tpu_torch.kittiio import Calibration
 from monosowa_tpu_torch.kittiio.labels import KittiObject
+from monosowa_tpu_torch.sowa.cache import save_optimized_cars
+from monosowa_tpu_torch.sowa.templates import TemplateBank
 
 
 def sample_batch(b: int, h: int, w: int, max_objs: int = 8,
@@ -57,9 +60,12 @@ class SampleDataset(KittiDetectionDataset):
     noise images at the network resolution, each with ``n_cars`` cars
     standing on the ground before a KITTI-like camera.  ``__getitem__``
     returns the keys and encodings of the file-backed dataset (its own
-    label encoder, no augmentation, no image warp); ``idx_list`` holds the
-    ids, ``first_id`` and up.  ``write_sample_labels`` writes the cars as
-    KITTI ``label_2`` files, the ground truth of the AP evaluation.  Cars
+    label encoder, no augmentation, no image warp; with ``use_add_data``
+    the car payload of ``_load_add_data``, through the identity affine);
+    ``idx_list`` holds the ids, ``first_id`` and up.
+    ``write_sample_labels`` writes the cars as KITTI ``label_2`` files, the
+    ground truth of the AP evaluation; ``write_sample_cars`` writes them as
+    the pseudo-labeller's ``optimized_cars`` cache.  Cars
     lie between 8 m and ``max_depth`` at KITTI's resolution (nearer in a
     narrower image); up to 20 m a car is Easy there (KITTI's AP needs 41
     valid boxes to reach 100)."""
@@ -128,6 +134,8 @@ class SampleDataset(KittiDetectionDataset):
         sample, canonical_scale = self._encode(
             idx, self.get_image(idx), calib, img_size, center, crop_size,
             1.0, False, trans, trans_inv)
+        if self.use_add_data:
+            sample.update(self._load_add_data(idx, trans_inv))
         self._encode_objects(sample, self.objects[item], calib, img_size,
                              1.0, canonical_scale, False, trans)
         return sample
@@ -141,3 +149,35 @@ def write_sample_labels(label_dir: str, dataset: SampleDataset) -> None:
         with open(os.path.join(label_dir, f"{idx}.txt"), "w") as f:
             for obj in dataset.objects[item]:
                 f.write(obj.to_kitti_line() + "\n")
+
+
+def write_sample_cars(add_data_path: str, dataset: SampleDataset,
+                      noise: float = 0.02, seed: int = 0) -> None:
+    """The pseudo-labeller's cache of fitted cars for every image of
+    ``dataset``, in ``add_data_path/optimized_cars`` (``save_optimized_cars``,
+    what ``use_add_data`` reads): for each car a template cloud (the
+    default bank's, cycling through its four shapes) scaled to the car's
+    dimensions, turned by ry + pi/2 about y and centred on the box, with
+    gaussian noise of ``noise`` m; every second car ``moving``; its mask
+    the car's 2D box at the image's resolution."""
+    bank = TemplateBank.default()
+    l_t, w_t, h_t = (float(v) for v in bank.dims_lwh)
+    w, h = (int(v) for v in dataset.resolution)
+    rng = np.random.default_rng([seed, 2])
+    cache_dir = os.path.join(add_data_path, "optimized_cars")
+    for item, idx in enumerate(dataset.idx_list):
+        cars = []
+        for k, obj in enumerate(dataset.objects[item]):
+            tmpl = bank.points[k % len(bank.points)].astype(np.float64)
+            pts = tmpl * np.array([obj.w / w_t, obj.h / h_t, obj.l / l_t])
+            c, s = np.cos(obj.ry + np.pi / 2), np.sin(obj.ry + np.pi / 2)
+            rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+            center = obj.pos + np.array([0.0, -obj.h / 2, 0.0])
+            pts = pts @ rot.T + center + rng.normal(0, noise, pts.shape)
+            x1, y1, x2, y2 = obj.box2d
+            mask = np.zeros((h, w), bool)
+            mask[int(np.floor(y1)):int(np.ceil(y2)) + 1,
+                 int(np.floor(x1)):int(np.ceil(x2)) + 1] = True
+            cars.append({"points": pts.astype(np.float32), "mask": mask,
+                         "moving": k % 2 == 1, "theta": float(obj.ry)})
+        save_optimized_cars(cache_dir, idx, cars)

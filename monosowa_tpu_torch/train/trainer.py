@@ -4,7 +4,12 @@ Behavioral contract (MonoDETR/lib/helpers/trainer_helper.py:15-191,
 tester_helper.py:80-108; the JAX package's ``train/trainer.py``): targets
 filtered by mask_2d before the criterion (prepare_targets :180-191); loss =
 weighted sum of the criterion dict; one AdamW update per step; the eval step
-is the forward, then detection extraction.
+is the forward, then detection extraction.  The matcher is the exact JV
+solver on the card (``MatcherConfig(backend="jv")``) unless a criterion
+config says otherwise, as in the JAX trainer.  When the config uses the TFL
+or the silhouette-mask loss and the batch carries pseudo-label cars
+(use_add_data), the step moves them to the device with the canonical
+templates and passes them to the criterion.
 """
 
 from __future__ import annotations
@@ -14,8 +19,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from monosowa_tpu_torch.models.criterion import (CriterionConfig, Targets,
-                                                 criterion)
+from monosowa_tpu_torch.models.criterion import (AddData, CriterionConfig,
+                                                 Targets, criterion)
 from monosowa_tpu_torch.models.matcher import MatcherConfig
 from monosowa_tpu_torch.models.monodetr import MonoDETR
 from monosowa_tpu_torch.train.decode import extract_dets
@@ -45,6 +50,48 @@ def targets_from_batch(batch: Dict[str, Any], dev: torch.device) -> Targets:
                    valid=t("valid", torch.bool) & t("mask_2d", torch.bool))
 
 
+def add_data_from_batch(batch: Dict[str, Any], templates: torch.Tensor,
+                        template_dims_hwl: torch.Tensor,
+                        dev: torch.device) -> Optional[AddData]:
+    """The TFL / mask auxiliary payload on ``dev`` when the dataset emitted
+    pseudo-label cars (use_add_data, kitti_dataset.py:421-449), else
+    None."""
+    if "car_points" not in batch:
+        return None
+
+    def t(key, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(batch[key]), dtype=dtype,
+                               device=dev)
+
+    img = batch["image"]
+    return AddData(
+        car_points=t("car_points"), car_pmask=t("car_pmask", torch.bool),
+        car_valid=t("car_valid", torch.bool),
+        car_moving=t("car_moving", torch.bool), car_masks=t("car_masks"),
+        calib=t("calib"),
+        resolution=torch.tensor([img.shape[2], img.shape[1]],
+                                dtype=torch.float32, device=dev),
+        canonical_scale=t("canonical_scale"), trans=t("trans"),
+        trans_inv=t("trans_inv"), flip=t("flip_flag", torch.bool),
+        img_w=t("img_size")[:, 0], templates=templates,
+        template_dims_hwl=template_dims_hwl)
+
+
+def _tfl_templates(dev: torch.device, n_points: int = 256):
+    """Canonical template clouds for the aux losses, subsampled to a fixed
+    small point count (the TFL pairwise tensor is K x 4T x P), and their
+    (h, w, l), on ``dev``."""
+    from monosowa_tpu_torch.sowa.templates import TemplateBank
+
+    bank = TemplateBank.default()
+    pts = np.asarray(bank.points)                      # (4, T, 3)
+    stride = max(1, pts.shape[1] // n_points)
+    l, w, h = (float(v) for v in bank.dims_lwh)
+    return (torch.as_tensor(pts[:, ::stride][:, :n_points],
+                            dtype=torch.float32, device=dev),
+            torch.tensor([h, w, l], dtype=torch.float32, device=dev))
+
+
 def criterion_config_from_yaml(model: MonoDETR,
                                mcfg: Dict[str, Any]) -> CriterionConfig:
     """Reference-format model yaml keys -> CriterionConfig
@@ -52,7 +99,7 @@ def criterion_config_from_yaml(model: MonoDETR,
     return CriterionConfig(
         group_num=model.group_num, num_queries=model.num_queries,
         num_classes=model.num_classes,
-        matcher=MatcherConfig(),
+        matcher=MatcherConfig(backend="jv"),
         focal_alpha=float(mcfg.get("focal_alpha", 0.25)),
         w_cls=float(mcfg.get("cls_loss_coef", 2)),
         w_bbox=float(mcfg.get("bbox_loss_coef", 5)),
@@ -66,7 +113,10 @@ def criterion_config_from_yaml(model: MonoDETR,
         depth_min=float(mcfg.get("depth_min", 1e-3)),
         depth_max=float(mcfg.get("depth_max", 60.0)),
         use_tfl=bool(mcfg.get("use_tfl", False)),
-        use_mask_loss=bool(mcfg.get("use_mask_loss", False)))
+        use_mask_loss=bool(mcfg.get("use_mask_loss", False)),
+        w_tfl=float(mcfg.get("tfl_loss_coef", 1)),
+        w_mask=float(mcfg.get("mask_loss_coef", 1)),
+        mask_kind=str(mcfg.get("mask_loss", "BCE")))
 
 
 def make_train_step(model: MonoDETR, ccfg: Optional[CriterionConfig],
@@ -83,19 +133,26 @@ def make_train_step(model: MonoDETR, ccfg: Optional[CriterionConfig],
     the optimizer keeps its own.  Dropout draws from ``generator`` (a
     ``torch.Generator`` on the model's device) or, when it is None, from
     the device's default generator.  ccfg None means the reference loss
-    weights."""
+    weights with the exact JV matcher on the model's device."""
     if ccfg is None:
         ccfg = CriterionConfig(group_num=model.group_num,
                                num_queries=model.num_queries,
-                               num_classes=model.num_classes)
+                               num_classes=model.num_classes,
+                               matcher=MatcherConfig(backend="jv"))
+    templates = None
+    if ccfg.use_tfl or ccfg.use_mask_loss:
+        templates = _tfl_templates(model.device)
+
     def train_step(batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None
                    ) -> Dict[str, float]:
         model.train()
         dev = model.device
+        add_data = (add_data_from_batch(batch, *templates, dev)
+                    if templates is not None else None)
         out = model(*_inputs(batch, dev), generator=generator)
         losses = criterion(out, targets_from_batch(batch, dev), ccfg,
-                           training=True)
+                           training=True, add_data=add_data)
         optimizer.zero_grad(set_to_none=True)
         losses["loss_total"].backward()
         grad_norm = torch.nn.utils.get_total_norm(

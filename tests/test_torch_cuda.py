@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from monosowa_tpu_torch.ops import msda, row_fetch, tfl
+from monosowa_tpu_torch.ops import lap, msda, row_fetch, tfl
 
 pytestmark = pytest.mark.cuda
 
@@ -545,3 +545,80 @@ def test_extract_frames_banked_on_the_card_matches_the_cpu(cuda, w):
             np.testing.assert_allclose(
                 bank_got[ref.row, ref.mi, :ref.count].cpu().numpy(),
                 bank_want[ref.row, ref.mi, :ref.count].numpy(), atol=1e-4)
+
+
+def _lap_problems(seed, n, q, mmax):
+    """n problems of q x mmax: random scales, n_valid in 0..mmax with the
+    columns past it at the matcher's padding cost, and ties (duplicated
+    columns and rows, constant problems)."""
+    rng = np.random.default_rng(seed)
+    cost = (rng.normal(size=(n, q, mmax))
+            * 10 ** rng.uniform(-2, 2, (n, 1, 1))).astype(np.float32)
+    m = rng.integers(0, mmax + 1, n)
+    m[:2] = (0, mmax)
+    if n > 3 and mmax > 5:
+        cost[2, :, 5] = cost[2, :, 1]
+        cost[2, 9] = cost[2, 4]
+        cost[3] = 1.0
+    for k in range(n):
+        cost[k, :, m[k]:] = 1e6
+    return torch.from_numpy(cost), torch.from_numpy(m)
+
+
+@pytest.mark.parametrize("n,q,mmax", [(22, 50, 50), (7, 20, 8), (3, 33, 1),
+                                      (4, 100, 90)])
+def test_lap_jv_kernel_equals_plain(cuda, n, q, mmax):
+    cost, m = _lap_problems(n, n, q, mmax)
+    before = lap.jv_launches
+    got = lap.lap_jv(cost.to(cuda), m.to(cuda))
+    torch.cuda.synchronize()
+    assert lap.jv_launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (n, q)
+    torch.testing.assert_close(got.cpu(), lap.solve_lap_jv(cost, m),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,q,mmax", [(22, 50, 50), (7, 20, 8), (3, 33, 1)])
+def test_lap_auction_kernel_equals_plain(cuda, n, q, mmax):
+    cost, m = _lap_problems(n + 100, n, q, mmax)
+    before = lap.auction_launches
+    got = lap.lap_auction(cost.to(cuda), m.to(cuda))
+    torch.cuda.synchronize()
+    assert lap.auction_launches == before + 1
+    torch.testing.assert_close(
+        got.cpu(), lap.solve_lap_auction(cost.to(cuda), m.to(cuda)).cpu(),
+        rtol=0, atol=0)
+
+
+def test_device_match_syncs_nothing(cuda):
+    """hungarian_match with the device backends never waits for the card."""
+    from monosowa_tpu_torch.models.matcher import (MatcherConfig,
+                                                   hungarian_match)
+
+    rng = np.random.default_rng(0)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        rng.normal(size=(2, 110, 3)).astype(np.float32),
+        rng.uniform(0.1, 0.9, (2, 110, 6)).astype(np.float32),
+        rng.integers(0, 3, (2, 8)), rng.uniform(0.1, 0.9, (2, 8, 6)).astype(
+            np.float32), np.arange(8)[None, :] < np.array([[3], [5]]))]
+    for backend in ("jv", "auction"):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = hungarian_match(*args, MatcherConfig(backend=backend), 10)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert ((got >= 0).sum(1).cpu() == torch.tensor([33, 55])).all()
+
+
+def test_lap_kernels_refuse_what_they_cannot_take(cuda):
+    cost = torch.zeros(2, 4, 6, device=cuda)
+    m = torch.zeros(2, dtype=torch.int64, device=cuda)
+    before = lap.auction_launches
+    with pytest.raises(ValueError):
+        lap.lap_auction(cost, m)
+    with pytest.raises(ValueError):
+        lap.lap_jv(cost, m.cpu())
+    with pytest.raises(ValueError):
+        lap.lap_jv(torch.zeros(1, 300, 300, device=cuda), m[:1])
+    assert lap.auction_launches == before

@@ -133,13 +133,17 @@ def test_collated_batch_feeds_the_train_step(kitti_dir):
     assert losses["loss_center"] > 0 and losses["grad_norm"] > 0
 
 
-def test_use_add_data_names_what_the_port_lacks(kitti_dir):
-    """The car cache is ported; the message names the modules that train
-    on it, which are not."""
-    with pytest.raises(NotImplementedError) as info:
-        KittiDetectionDataset(kitti_dir, "train", {"use_add_data": True})
-    msg = str(info.value)
-    for name in ("sowa/cache.py", "_load_add_data", "add_data_from_batch",
-                 "_tfl_templates", "models/tfl_aux.py", "models/mask_aux.py"):
-        assert name in msg, name
-    assert "does not carry" not in msg
+def test_use_add_data_names_what_the_port_lacks(kitti_dir, tmp_path):
+    """use_add_data is ported (the port lacks nothing of it any more): the
+    dataset builds, and frames without a cached car carry the JAX
+    dataset's empty payload, key for key (tests/test_torch_add_data.py
+    holds frames with cars)."""
+    cfg = {"use_add_data": True, "add_data_path": str(tmp_path),
+           "add_data_points": 64, "max_add_cars": 3, "add_mask_stride": 8}
+    for t, j in _both(kitti_dir, cfg, seeds=(0, 1, 2)):
+        assert sorted(t) == sorted(j)
+        assert {"car_points", "car_masks", "car_valid"} <= set(t)
+        for k in j:
+            np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+        assert t["car_masks"].shape == (3, 48, 160)
+        assert not t["car_valid"].any()

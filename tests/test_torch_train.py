@@ -231,11 +231,18 @@ def test_criterion_config_from_yaml_matches_jax():
 
 
 def test_criterion_rejects_what_the_port_lacks():
+    """two_stage / DN-DETR outputs raise.  The TFL and mask losses are
+    ported: without a car payload they add nothing, as in the JAX package
+    (tests/test_torch_add_data.py holds them with one)."""
     out = jax.tree_util.tree_map(
         torch.from_numpy, _random_outputs(np.random.default_rng(5), 20))
     targets = targets_from_batch(sample_batch(B, H, W), torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        crit.criterion(out, targets, crit.CriterionConfig(use_tfl=True))
+    with_flags = crit.criterion(out, targets, crit.CriterionConfig(
+        use_tfl=True, use_mask_loss=True, group_num=2, num_queries=10))
+    plain = crit.criterion(out, targets, crit.CriterionConfig(
+        group_num=2, num_queries=10))
+    assert sorted(with_flags) == sorted(plain)
+    assert float(with_flags["loss_total"]) == float(plain["loss_total"])
     with pytest.raises(NotImplementedError):
         crit.criterion({**out, "enc_outputs": {}}, targets, _port_ccfg())
 
