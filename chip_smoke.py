@@ -29,12 +29,25 @@ Phases, each printing one JSON line:
             image and head of the encoder reads, difference 0 required),
             with error, times, the least time the card could take and,
             where one PyTorch call computes the same function, its time.
+   msda_bf16 — the MSDA kernels' bf16 forms (bf16 value rows, float32
+            sums) against their plain versions on the same bf16 value at
+            the encoder's shape and the decoder's Q=50 and 550 (out, dloc,
+            daw within 1e-5 of their magnitude; dvalue within one bf16
+            step plus that), with both clocks, the bound at 2-byte rows
+            and the float32 forms' numbers of this run beside them.
 4. serve  — the full-width MonoDETR (ResNet-50, d_model 256, 3+3 layers,
-            seeded random weights) answers three requests of two 384x1280
-            images through ``run_inference``; the result files are read
-            back, each kernel's launch count is checked, and one forward
-            with the plain MSDA is compared with the kernel's.
-5. train  — the same model in training mode (50 x 11 Group-DETR queries)
+            seeded random weights, ``compute_dtype="float32"``) answers
+            three requests of two 384x1280 images through
+            ``run_inference``; the result files are read back, each
+            kernel's launch count is checked, and one forward with the
+            plain MSDA is compared with the kernel's.
+   serve_bf16 — the same with configs/monodetr_kitti.yaml's model
+            through ``build_monodetr``, ``compute_dtype`` left at "auto"
+            (bf16 activations on the card, asserted on ``value_proj`` and
+            the backbone's C5); the bf16 kernels' forward against the plain
+            MSDA's on the JAX package's bf16 bars, and the float32 serve's
+            numbers beside its own.
+5. train  — the float32 model in training mode (50 x 11 Group-DETR queries)
             on ``sample_batch(2, 384, 1280)``.  First, dropout off and from
             the seeded weights, one forward and backward with the kernels
             against one through the plain MSDA (loss dict, gradients) and
@@ -45,6 +58,12 @@ Phases, each printing one JSON line:
             gradient norm and launch counts are checked.  Three more steps
             with the host matcher (scipy) for comparison, and one with the
             auction matcher (3 ``lap_auction`` launches).
+   train_bf16 — ``make_train_step`` under "auto" (bf16 on the card):
+            from the seeded weights, dropout off, the kernels' step against
+            the plain-MSDA step (loss dict on the JAX package's bf16 bar,
+            gradients within 5e-2 of their scale: the float32 bar plus ten
+            bf16 steps), then a warm-up and three timed steps: launch counts,
+            finite losses, float32 params, gradients and AdamW moments.
    train_add — the same model trained on pseudo-label cars
             (``SampleDataset`` with ``use_add_data``, its cars written as
             the labeller's ``optimized_cars`` cache; ``use_tfl`` and
@@ -218,15 +237,15 @@ def msda_inputs(rng, q: int, ref, dev, wide: bool = False):
                  for a in (value, loc, aw.reshape(b, q, m, n_lv, p)))
 
 
-def msda_bound(value, loc, other_elems: int, macs_per_corner: int):
+def msda_bound(value, loc, other_bytes: int, macs_per_corner: int):
     """Least time for the work: compulsory bytes over the memory rate, and
     the operations the in-bounds corners need (``macs_per_corner``
-    multiply-adds per channel) over the float32 rate.  The bytes are
-    ``other_elems`` float32 values (the other inputs read once and the
-    outputs written once) and of value only the distinct (b, token, head)
-    rows that some in-bounds corner of this run's samples reads, once each.
-    Returns (bound_ms, bound_by, bytes, flops, corners per level,
-    value_rows)."""
+    multiply-adds per channel, float32 whatever value's type) over the
+    float32 rate.  The bytes are ``other_bytes`` (the other inputs read once
+    and the outputs written once) and of value only the distinct (b, token,
+    head) rows that some in-bounds corner of this run's samples reads, once
+    each, in value's own type (2 bytes a channel in bf16).  Returns
+    (bound_ms, bound_by, bytes, flops, corners per level, value_rows)."""
     import torch
 
     from monosowa_tpu_torch.ops.msda import _corner_geometry
@@ -243,7 +262,7 @@ def msda_bound(value, loc, other_elems: int, macs_per_corner: int):
             keys.append(((bi * s + start + flat) * m + mi)[hit])
         start += h * w
     value_rows = int(torch.unique(torch.cat(keys)).numel())
-    nbytes = 4 * (value_rows * d + other_elems)
+    nbytes = value_rows * d * value.element_size() + other_bytes
     flops = 2 * macs_per_corner * d * sum(corners)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
@@ -263,8 +282,9 @@ def msda_report(label, q, value, loc, err, kernel, plain, bound, rows_moved
     from monosowa_tpu_torch.ops import msda
 
     bound_ms, bound_by, nbytes, flops, corners, value_rows = bound
-    plan = msda.msda_plan(ENC_SHAPES, q, N_POINTS, D_HEAD, value.device)
-    row = D_HEAD * 4
+    plan = msda.msda_plan(ENC_SHAPES, q, N_POINTS, D_HEAD, value.device,
+                          value.element_size())
+    row = D_HEAD * value.element_size()
     res = {
         "shape": f"{label}: B={BATCH} Q={q} S={value.shape[1]} "
                  f"M={M_HEADS} D={D_HEAD} L={len(ENC_SHAPES)} P={N_POINTS}",
@@ -293,40 +313,61 @@ def msda_report(label, q, value, loc, err, kernel, plain, bound, rows_moved
     return res
 
 
-def check_msda(rng, q: int, ref, label: str, dev, wide: bool = False) -> dict:
+def check_msda(rng, q: int, ref, label: str, dev, wide: bool = False,
+               bf16: bool = False) -> dict:
+    """The forward kernel against the plain forward on the same inputs,
+    with a float32 value or, with ``bf16``, the same value rounded to
+    bfloat16 (the kernel's bf16 form; out float32 in both)."""
     import torch
 
     from monosowa_tpu_torch.ops import msda
 
     value, loc, aw = msda_inputs(rng, q, ref, dev, wide)
+    if bf16:
+        value = value.to(torch.bfloat16)
     out_k = msda.ms_deform_attn(value, ENC_SHAPES, loc, aw)
     out_p = msda.ms_deform_attn_plain(value, ENC_SHAPES, loc, aw)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
     scale = float(out_p.abs().max())
-    # float32 sums in another order: 1e-5 of the output's magnitude
-    if not (torch.isfinite(out_k).all() and err <= 1e-5 * scale):
+    # float32 sums in another order (of the same bf16 rows in the bf16
+    # form): 1e-5 of the output's magnitude
+    if not (out_k.dtype == torch.float32 and torch.isfinite(out_k).all()
+            and err <= 1e-5 * scale):
         raise AssertionError(f"msda_fwd {label}: max abs err {err} > "
-                             f"1e-5 * {scale}")
+                             f"1e-5 * {scale}, {out_k.dtype}")
     # loc and aw read once, out written once; one multiply-add per channel
     return msda_report(
         label, q, value, loc, {"max_abs_err": err, "max_abs_out": scale},
         lambda: msda.ms_deform_attn(value, ENC_SHAPES, loc, aw),
         lambda: msda.ms_deform_attn_plain(value, ENC_SHAPES, loc, aw),
-        msda_bound(value, loc, loc.numel() + aw.numel() + out_k.numel(), 1),
-        1)
+        msda_bound(value, loc, 4 * (loc.numel() + aw.numel()
+                                    + out_k.numel()), 1), 1)
 
 
-def check_msda_bwd(rng, q: int, ref, label: str, dev, wide: bool = False
-                   ) -> dict:
+def bf16_step(x):
+    """One bfloat16 step (unit in the last place) at each element's
+    magnitude: 2**-7 of the power of two at or below it."""
+    import torch
+
+    mag = x.float().abs().clamp(min=1e-30)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_msda_bwd(rng, q: int, ref, label: str, dev, wide: bool = False,
+                   bf16: bool = False) -> dict:
     """The backward kernel (dvalue, dloc, daw in one call) against the
-    plain backward on the same inputs and a random incoming gradient."""
+    plain backward on the same inputs and a random incoming gradient; with
+    ``bf16`` on the same value rounded to bfloat16 (dvalue then bf16, the
+    float32 sum rounded once, as the plain version rounds its own)."""
     import numpy as np
     import torch
 
     from monosowa_tpu_torch.ops import msda
 
     value, loc, aw = msda_inputs(rng, q, ref, dev, wide)
+    if bf16:
+        value = value.to(torch.bfloat16)
     dout = torch.from_numpy(rng.normal(
         size=(BATCH, q, M_HEADS * D_HEAD)).astype(np.float32)).to(dev)
 
@@ -334,30 +375,39 @@ def check_msda_bwd(rng, q: int, ref, label: str, dev, wide: bool = False
         dloc, daw = msda.msda_grad_loc_aw_plain(value, ENC_SHAPES, loc, aw,
                                                 dout)
         return (msda.msda_grad_value_plain(value.shape, ENC_SHAPES, loc, aw,
-                                           dout), dloc, daw)
+                                           dout, value.dtype), dloc, daw)
 
     got = msda._launch_bwd(value, ENC_SHAPES, loc, aw, dout)
     want = plain()
     torch.cuda.synchronize()
     errs = {}
     for name, g, w in zip(("dvalue", "dloc", "daw"), got, want):
-        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        diff = (g.float() - w.float()).abs()
+        err, scale = float(diff.max()), float(w.float().abs().max())
         errs[name] = {"max_abs_err": err, "max_abs": scale}
         # float32 sums in another order (dvalue's atomics in a different
-        # order in every run): 1e-5 of the output's magnitude
-        if not (torch.isfinite(g).all() and err <= 1e-5 * scale):
+        # order in every run): 1e-5 of the output's magnitude; a bf16
+        # dvalue, those sums rounded once, one bf16 step more
+        bar = torch.full_like(diff, 1e-5 * scale)
+        if bf16 and name == "dvalue":
+            step = bf16_step(torch.maximum(g.float().abs(), w.float().abs()))
+            bar = bar + step
+            errs[name]["max_bf16_steps"] = float((diff / step).max())
+        if not (g.dtype == w.dtype and torch.isfinite(g).all()
+                and bool((diff <= bar).all())):
             raise AssertionError(f"msda_bwd {label} {name}: max abs err "
-                                 f"{err} > 1e-5 * {scale}")
-    # loc, aw and dout read once; dvalue, dloc and daw written once; two
-    # multiply-adds per channel and in-bounds corner (the dot for dloc and
-    # daw, the scatter for dvalue)
+                                 f"{err}, max abs {scale}, {g.dtype}")
+    # loc, aw and dout read once; dvalue (value's type), dloc and daw
+    # written once; two multiply-adds per channel and in-bounds corner (the
+    # dot for dloc and daw, the scatter for dvalue)
     return msda_report(
         label, q, value, loc,
         {"max_abs_err": max(e["max_abs_err"] for e in errs.values()),
          "outputs": errs},
         lambda: msda._launch_bwd(value, ENC_SHAPES, loc, aw, dout), plain,
-        msda_bound(value, loc, 2 * (loc.numel() + aw.numel()) + dout.numel()
-                   + value.numel(), 2), 2)
+        msda_bound(value, loc, 4 * (2 * (loc.numel() + aw.numel())
+                                    + dout.numel())
+                   + value.numel() * value.element_size(), 2), 2)
 
 
 def synthetic_car(rng, template, moving: bool, n_ground: int = 740):
@@ -1256,7 +1306,8 @@ def detector_config(root: str, h: int, w: int, model=None) -> dict:
             "depth_min": 1e-3, "depth_max": 60.0, "enc_layers": 3,
             "dec_layers": 3, "hidden_dim": 256, "dim_feedforward": 256,
             "dropout": 0.1, "nheads": 8, "num_queries": 50,
-            "enc_n_points": 4, "dec_n_points": 4},
+            "enc_n_points": 4, "dec_n_points": 4,
+            "compute_dtype": "float32"},
         "optimizer": {"type": "adamw", "lr": 2e-4, "weight_decay": 1e-4},
         "lr_scheduler": {"type": "step", "warmup": False, "decay_rate": 0.1,
                          "decay_list": [125, 165]},
@@ -1429,19 +1480,108 @@ def sample_batch(rng, img_id0: int):
     }
 
 
-def serve(dev) -> dict:
+def shipped_model_config() -> dict:
+    """The ``model`` section of configs/monodetr_kitti.yaml, read line by
+    line (the card's machine has no PyYAML); its values are scalars."""
+    def scalar(text):
+        for cast in (int, float):
+            try:
+                return cast(text)
+            except ValueError:
+                pass
+        return {"True": True, "False": False}.get(text, text.strip("'\""))
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "configs", "monodetr_kitti.yaml")
+    out, inside = {}, False
+    with open(path) as f:
+        for line in f:
+            text = line.split("#", 1)[0].rstrip()
+            if not text.strip():
+                continue
+            if not text.startswith(" "):
+                inside = text == "model:"
+            elif inside:
+                key, _, val = text.strip().partition(":")
+                out[key] = scalar(val.strip())
+    return out
+
+
+@contextlib.contextmanager
+def policy_dtypes(model):
+    """Records the dtypes of the first encoder layer's ``value_proj``
+    output and of the backbone's C5 while the block runs."""
+    seen = {"value_proj": set(), "backbone_c5": set()}
+    hooks = [
+        model.encoder.layer0.self_attn.value_proj.register_forward_hook(
+            lambda m, a, out: seen["value_proj"].add(str(out.dtype))),
+        model.backbone.register_forward_hook(
+            lambda m, a, out: seen["backbone_c5"].add(str(out[2].dtype)))]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def check_policy(seen, want: str, where: str) -> None:
+    if seen != {"value_proj": {want}, "backbone_c5": {want}}:
+        raise AssertionError(f"{where}: activations {seen}, want {want}")
+
+
+def bf16_head_errors(out_p, out_k) -> dict:
+    """The JAX package's whole-model bf16 statistics
+    (tests/test_mixed_precision.py:46-51) of out_k against out_p:
+    |a - b| / (|a| + 1), its max, for depth also its 0.9 quantile; raises
+    outside that test's bars (max 0.15; depth: 0.9 quantile 0.1, max
+    0.6)."""
+    import torch
+
+    errs = {}
+    for k in ("pred_logits", "pred_boxes", "pred_depth"):
+        a, b = out_p[k].float(), out_k[k].float()
+        if out_k[k].dtype != torch.float32 or not torch.isfinite(b).all():
+            raise AssertionError(f"{k}: {out_k[k].dtype}, finite "
+                                 f"{bool(torch.isfinite(b).all())}")
+        err = ((a - b).abs() / (a.abs() + 1.0)).flatten()
+        errs[k] = {"max": float(err.max())}
+        if k == "pred_depth":
+            errs[k]["q90"] = float(torch.quantile(err, 0.9))
+    ok = (errs["pred_logits"]["max"] < 0.15
+          and errs["pred_boxes"]["max"] < 0.15
+          and errs["pred_depth"]["q90"] < 0.1
+          and errs["pred_depth"]["max"] < 0.6)
+    if not ok:
+        raise AssertionError(f"outside the bf16 bars: {errs}")
+    return errs
+
+
+def serve(dev, bf16: bool = False) -> dict:
+    """Three requests through ``run_inference``.  Float32: ``MonoDETR`` at
+    ``compute_dtype="float32"``.  ``bf16``: the shipped config
+    (configs/monodetr_kitti.yaml, ``compute_dtype`` left at "auto", bf16
+    on the card) through ``build_monodetr``."""
     import numpy as np
     import torch
 
     from monosowa_tpu_torch.kittiio import read_label_file
-    from monosowa_tpu_torch.models.monodetr import MonoDETR
+    from monosowa_tpu_torch.models.layers import resolve_dtype
+    from monosowa_tpu_torch.models.monodetr import MonoDETR, build_monodetr
     from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
     from monosowa_tpu_torch.ops import msda
     from monosowa_tpu_torch.train.tester import run_inference
     from monosowa_tpu_torch.train.trainer import MODEL_INPUTS, make_eval_step
 
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = MonoDETR(device=dev, seed=0)
+    if bf16:
+        model = build_monodetr(shipped_model_config(), device=dev, seed=0)
+        if model.compute_dtype != "auto" or \
+                resolve_dtype(model.compute_dtype, dev) != torch.bfloat16:
+            raise AssertionError(f"the shipped config resolves to "
+                                 f"{model.compute_dtype}")
+    else:
+        model = MonoDETR(device=dev, seed=0, compute_dtype="float32")
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(1)
     batches = [sample_batch(rng, 2 * i) for i in range(REQUESTS)]
@@ -1450,15 +1590,17 @@ def serve(dev) -> dict:
     torch.cuda.synchronize()
 
     # the main path: three requests through run_inference
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            policy_dtypes(model) as seen:
         cfg = {"tester": {"threshold": 0.0, "topk": 50},
                "trainer": {"save_path": tmp}, "dataset": {}}
-        msda.launches = 0
+        msda.launches = msda.launches_bf16 = 0
         t0 = time.perf_counter()
         out_dir = run_inference(model, batches, cfg, logger=lambda s: None)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        launches = msda.launches
+        launches = {"msda_fwd": msda.launches,
+                    "msda_fwd_bf16": msda.launches_bf16}
         files = sorted(os.listdir(out_dir))
         n_rows = 0
         for f in files:
@@ -1470,11 +1612,14 @@ def serve(dev) -> dict:
                 raise AssertionError(f"{f}: {len(labels)} rows, finite "
                                      f"{np.isfinite(vals).all()}")
             n_rows += len(labels)
+    check_policy(seen, "torch.bfloat16" if bf16 else "torch.float32",
+                 "serve_bf16" if bf16 else "serve")
     if len(files) != REQUESTS * BATCH:
         raise AssertionError(f"{len(files)} result files")
-    if launches != MSDA_PER_FORWARD * REQUESTS:
-        raise AssertionError(f"msda_fwd launched {launches} times in "
-                             f"{REQUESTS} forwards")
+    form, other = ("msda_fwd_bf16", "msda_fwd") if bf16 else \
+        ("msda_fwd", "msda_fwd_bf16")
+    if launches[form] != MSDA_PER_FORWARD * REQUESTS or launches[other]:
+        raise AssertionError(f"{REQUESTS} forwards launched {launches}")
 
     # forward + top-k alone, per image
     def forward_all():
@@ -1490,6 +1635,7 @@ def serve(dev) -> dict:
     forward_all()
     torch.cuda.synchronize()
     fwd_ms_per_image = (time.perf_counter() - t0) * 1e3 / (REQUESTS * BATCH)
+    peak = torch.cuda.max_memory_allocated()
 
     # the same forward with the plain MSDA, called by name
     args = [torch.as_tensor(batches[0][k], device=dev) for k in MODEL_INPUTS]
@@ -1502,20 +1648,30 @@ def serve(dev) -> dict:
         out_p = model(*args)
         for mod in attn:
             mod.msda = msda.ms_deform_attn
-    rel = {}
-    for k in ("pred_boxes", "pred_logits", "pred_depth"):
-        rel[k] = float((out_k[k] - out_p[k]).abs().max()
-                       / out_p[k].abs().max())
-    if max(rel.values()) > 1e-3:
-        raise AssertionError(f"kernel forward vs plain forward: {rel}")
-    return {"phase": "serve", "model_build_s": build_s,
+    if bf16:
+        # every bf16 cast after an MSDA rounds the two float32 sums apart
+        # by a bf16 step where they straddle one: the JAX package's bf16
+        # bars for whole models
+        rel = bf16_head_errors(out_p, out_k)
+    else:
+        rel = {}
+        for k in ("pred_boxes", "pred_logits", "pred_depth"):
+            rel[k] = float((out_k[k] - out_p[k]).abs().max()
+                           / out_p[k].abs().max())
+        if max(rel.values()) > 1e-3:
+            raise AssertionError(f"kernel forward vs plain forward: {rel}")
+    return {"phase": "serve_bf16" if bf16 else "serve",
+            "compute_dtype": model.compute_dtype, "activations": {
+                k: sorted(v) for k, v in seen.items()},
+            "model_build_s": build_s,
             "requests": REQUESTS, "images_per_request": BATCH,
             "image_hw": [IMG_H, IMG_W], "result_files": len(files),
-            "rows": n_rows, "msda_launches": launches,
+            "rows": n_rows, "msda_launches": launches[form],
             "serve_ms_per_image": serve_s * 1e3 / (REQUESTS * BATCH),
             "forward_ms_per_image": fwd_ms_per_image,
-            "kernel_vs_plain_forward_max_rel": rel,
-            "peak_mem_GB": torch.cuda.max_memory_allocated() / 1e9}
+            "kernel_vs_plain_forward_max_rel" if not bf16 else
+            "kernel_vs_plain_forward_bf16_errors": rel,
+            "peak_mem_GB": peak / 1e9}
 
 
 def train(dev) -> dict:
@@ -1534,7 +1690,7 @@ def train(dev) -> dict:
                                                   make_train_step,
                                                   targets_from_batch)
 
-    model = MonoDETR(device=dev, seed=0)
+    model = MonoDETR(device=dev, seed=0, compute_dtype="float32")
     batch = train_batch(BATCH, IMG_H, IMG_W)
 
     class KernelFwdPlainBwd(torch.autograd.Function):
@@ -1648,6 +1804,7 @@ def train(dev) -> dict:
     # on the card, as the JAX trainer's)
     torch.cuda.reset_peak_memory_stats()
     msda.launches = msda.bwd_launches = 0
+    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
     lap.jv_launches = lap.auction_launches = 0
     history, step_ms = [], []
     for _ in range(TRAIN_STEPS):
@@ -1658,6 +1815,8 @@ def train(dev) -> dict:
     fwd_launches, bwd_launches = msda.launches, msda.bwd_launches
     jv_launches, auction_launches = lap.jv_launches, lap.auction_launches
     step_peak = torch.cuda.max_memory_allocated()
+    if msda.launches_bf16 or msda.bwd_launches_bf16:
+        raise AssertionError("the float32 train step launched a bf16 form")
     if (jv_launches, auction_launches) != (LAP_PER_STEP * TRAIN_STEPS, 0):
         raise AssertionError(f"{TRAIN_STEPS} train steps launched lap_jv "
                              f"{jv_launches} and lap_auction "
@@ -1721,6 +1880,228 @@ def train(dev) -> dict:
             "bwd_kernel_vs_plain_bwd_grad_worst": worst_b,
             "kernel_step_peak_mem_GB": peak_k / 1e9,
             "plain_step_peak_mem_GB": peak_p / 1e9}
+
+
+# bars of train_bf16, which compares the kernels' step with two others from
+# the seeded weights.  Against the plain-MSDA step (the plain versions of all
+# three kernels): the forwards differ in float32 sum order, and every bf16
+# cast after an MSDA turns that into a bf16 step (2**-8) wherever a value
+# straddles one, over 3 + 3 layers.  The loss dict is held on the JAX
+# package's statistic and bar for whole models in bf16, |a - b| / (|a| + 1)
+# < 0.15 (tests/test_mixed_precision.py:51), as
+# tests/test_torch_mixed_precision.py holds the port's bf16 step against
+# JAX's (the depth head amplifies those steps through 1/sigmoid).  Its
+# gradients are reported, not held: so many sampling points move by a bf16
+# step's worth that some cross a pixel edge, where dLoc jumps (the float32
+# train phase's 1e-2 bar is set by the same jumps at float32's last bit).
+# Against the kernel forward with the plain backward (the backward kernel
+# alone, as the float32 train phase's 1e-3): the forwards are the same bits;
+# dvalue, the one output the two backwards round apart, differs by a bf16
+# step where a float32 sum straddles one, and every bf16 gradient product
+# below it may round one step apart too: 1e-3 plus BF16_STEPS such steps of
+# each gradient's scale, its floor 1e-2 of the largest gradient (the float32
+# floor, 1e-4, times the ratio of bf16's rounding noise on an exactly zero
+# gradient to float32's is above 1)
+BF16_LOSS_BAR = 0.15
+BF16_STEPS = 4
+BF16_BWD_GRAD_BAR = 1e-3 + BF16_STEPS * 2.0 ** -8
+BF16_GRAD_FLOOR = 1e-2
+
+
+def bf16_step_comparison(model, inputs, targets, ccfg, floor_rel: float):
+    """Loss dicts and gradients of one forward and backward from the current
+    weights, dropout off: the kernels ("k"), the plain MSDA ("p"), the
+    forward kernel with the plain backward ("kp").  Returns the loss
+    statistic |a - b| / (|a| + 1) of k against p, and each parameter's
+    max |difference| over its scale (floored at ``floor_rel`` of the largest
+    gradient) of k against p and against kp."""
+    import torch
+
+    from monosowa_tpu_torch.models.criterion import criterion
+    from monosowa_tpu_torch.models.layers import Dropout
+    from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
+    from monosowa_tpu_torch.ops import msda
+
+    class Plain(torch.autograd.Function):
+        """The MSDA forward kernel or its plain version, with the plain
+        backward of K2 and K3 (dvalue in value's dtype, its float32 sum
+        rounded once)."""
+
+        @staticmethod
+        def forward(ctx, value, loc, aw, shapes, kernel_fwd):
+            ctx.shapes = shapes
+            ctx.save_for_backward(value, loc, aw)
+            if kernel_fwd:
+                return msda._launch_fwd(value, shapes, loc, aw)
+            return msda.ms_deform_attn_plain(value, shapes, loc, aw)
+
+        @staticmethod
+        def backward(ctx, dout):
+            value, loc, aw = ctx.saved_tensors
+            dout = dout.contiguous()
+            dloc, daw = msda.msda_grad_loc_aw_plain(value, ctx.shapes, loc,
+                                                    aw, dout)
+            return (msda.msda_grad_value_plain(value.shape, ctx.shapes, loc,
+                                               aw, dout, value.dtype),
+                    dloc, daw, None, None)
+
+    def plain(kernel_fwd):
+        return lambda value, shapes, loc, aw: Plain.apply(
+            value.contiguous(), loc.contiguous(), aw.contiguous(),
+            tuple(shapes), kernel_fwd)
+
+    model.train()
+    dropouts = [mod for mod in model.modules() if isinstance(mod, Dropout)]
+    dropout_p = [mod.p for mod in dropouts]
+    for mod in dropouts:
+        mod.p = 0.0
+    attn = [mod for mod in model.modules()
+            if isinstance(mod, MSDeformAttnModule)]
+
+    def grads_with(fn):
+        for mod in attn:
+            mod.msda = fn
+        model.zero_grad(set_to_none=True)
+        losses = criterion(model(*inputs), targets, ccfg)
+        losses["loss_total"].backward()
+        torch.cuda.synchronize()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()})
+
+    try:
+        runs = {"k": grads_with(msda.ms_deform_attn),
+                "p": grads_with(plain(False)),
+                "kp": grads_with(plain(True))}
+    finally:
+        for mod in attn:
+            mod.msda = msda.ms_deform_attn
+        for mod, p_drop in zip(dropouts, dropout_p):
+            mod.p = p_drop
+        model.zero_grad(set_to_none=True)
+    losses_k, grads_k = runs["k"]
+
+    def rel(want):
+        floor = floor_rel * max(float(g.abs().max()) for g in want.values())
+        return {n: float((grads_k[n] - g).abs().max())
+                / max(float(g.abs().max()), floor) for n, g in want.items()}
+
+    if not all(g.dtype == torch.float32 for g in grads_k.values()):
+        raise AssertionError("a gradient left float32")
+    loss = {k: abs(losses_k[k] - v) / (abs(v) + 1.0)
+            for k, v in runs["p"][0].items()}
+    return loss, rel(runs["p"][1]), rel(runs["kp"][1])
+
+
+def train_bf16(dev) -> dict:
+    """``make_train_step`` on the shipped config under "auto" (bf16 on the
+    card): batch 2, 50 x 11 queries, the JV matcher.  First, from the seeded
+    weights, ``bf16_step_comparison`` (bars above); then a warm-up and three
+    timed steps, with launch counts, finite losses and float32 params,
+    gradients and AdamW moments."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.models.criterion import CriterionConfig
+    from monosowa_tpu_torch.models.monodetr import build_monodetr
+    from monosowa_tpu_torch.ops import lap, msda
+    from monosowa_tpu_torch.train.optim import make_optimizer
+    from monosowa_tpu_torch.train.sample import sample_batch as train_batch
+    from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
+                                                  make_train_step,
+                                                  targets_from_batch)
+
+    torch.cuda.reset_peak_memory_stats()
+    model = build_monodetr(shipped_model_config(), device=dev, seed=0)
+    batch = train_batch(BATCH, IMG_H, IMG_W)
+    inputs = [torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
+              for k in MODEL_INPUTS]
+    ccfg = CriterionConfig(group_num=model.group_num,
+                           num_queries=model.num_queries,
+                           num_classes=model.num_classes)
+    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
+    loss, grad_p, grad_kp = bf16_step_comparison(
+        model, inputs, targets_from_batch(batch, dev), ccfg, BF16_GRAD_FLOOR)
+    # the kernels' step and the forward kernel of the kernel-plain step
+    if (msda.launches_bf16, msda.bwd_launches_bf16) != (
+            2 * MSDA_PER_FORWARD, MSDA_PER_FORWARD):
+        raise AssertionError("the kernels' step did not go through the bf16 "
+                             "kernels")
+    worst_loss = max(loss, key=loss.get)
+    worst_p = max(grad_p, key=grad_p.get)
+    worst_kp = max(grad_kp, key=grad_kp.get)
+    if loss[worst_loss] >= BF16_LOSS_BAR:
+        raise AssertionError(f"bf16 kernels vs plain MSDA, {worst_loss}: "
+                             f"{loss[worst_loss]}")
+    if grad_kp[worst_kp] > BF16_BWD_GRAD_BAR:
+        raise AssertionError(f"bf16 backward kernel vs plain backward, "
+                             f"gradient of {worst_kp}: {grad_kp[worst_kp]} "
+                             f"of its scale")
+    torch.cuda.empty_cache()
+
+    opt = make_optimizer(model, 2e-4, 1e-4)
+    step = make_train_step(model, None, opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    step(batch, gen)                                 # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    # the main path: TRAIN_STEPS steps of make_train_step under "auto"
+    torch.cuda.reset_peak_memory_stats()
+    msda.launches = msda.bwd_launches = 0
+    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
+    lap.jv_launches = lap.auction_launches = 0
+    history, step_ms = [], []
+    with policy_dtypes(model) as seen:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            history.append(step(batch, gen))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"msda_fwd_bf16": msda.launches_bf16,
+                "msda_bwd_bf16": msda.bwd_launches_bf16,
+                "msda_fwd": msda.launches, "msda_bwd": msda.bwd_launches,
+                "lap_jv": lap.jv_launches}
+    step_peak = torch.cuda.max_memory_allocated()
+    check_policy(seen, "torch.bfloat16", "train_bf16")
+    want = {"msda_fwd_bf16": MSDA_PER_FORWARD * TRAIN_STEPS,
+            "msda_bwd_bf16": MSDA_PER_FORWARD * TRAIN_STEPS,
+            "msda_fwd": 0, "msda_bwd": 0,
+            "lap_jv": LAP_PER_STEP * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"{TRAIN_STEPS} bf16 steps launched {launches}, "
+                             f"want {want}")
+    for losses in history:
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite losses: {losses}")
+        if not losses["grad_norm"] > 0:
+            raise AssertionError(f"grad_norm {losses['grad_norm']}")
+    moments = [t for st in opt.state.values() for t in st.values()
+               if torch.is_tensor(t) and t.dim()]
+    kept = {str(t.dtype) for t in [*model.parameters(), *moments]} | {
+        str(p.grad.dtype) for p in model.parameters() if p.grad is not None}
+    if kept != {"torch.float32"}:
+        raise AssertionError(f"params, gradients and moments in {kept}")
+    return {"phase": "train_bf16", "compute_dtype": model.compute_dtype,
+            "activations": {k: sorted(v) for k, v in seen.items()},
+            "batch": BATCH, "image_hw": [IMG_H, IMG_W],
+            "queries": TRAIN_QUERIES, "steps": TRAIN_STEPS,
+            "warmup_step_s": warmup_s, "train_step_ms": step_ms,
+            "train_step_ms_mean": sum(step_ms) / len(step_ms),
+            "loss_total": [h["loss_total"] for h in history],
+            "grad_norm": [h["grad_norm"] for h in history],
+            "launches": launches, "params_grads_moments": sorted(kept),
+            "peak_mem_GB": step_peak / 1e9,
+            "kernel_vs_plain_loss_max_err": loss[worst_loss],
+            "kernel_vs_plain_loss_worst": worst_loss,
+            "kernel_vs_plain_grad_max_rel_reported": grad_p[worst_p],
+            "kernel_vs_plain_grad_worst": worst_p,
+            "bwd_kernel_vs_plain_bwd_grad_max_rel": grad_kp[worst_kp],
+            "bwd_kernel_vs_plain_bwd_grad_worst": worst_kp,
+            "bars": {"loss_abs_over_abs_plus_1": BF16_LOSS_BAR,
+                     "bwd_grad_rel": BF16_BWD_GRAD_BAR,
+                     "grad_floor_of_largest": BF16_GRAD_FLOOR}}
 
 
 def live_add_data(model, inputs, targets, add, ccfg, per_layer: int = 4):
@@ -1790,7 +2171,7 @@ def train_add(dev) -> dict:
                                                   make_train_step,
                                                   targets_from_batch)
 
-    model = MonoDETR(device=dev, seed=0)
+    model = MonoDETR(device=dev, seed=0, compute_dtype="float32")
     ccfg = CriterionConfig(group_num=model.group_num,
                            num_queries=model.num_queries,
                            num_classes=model.num_classes,
@@ -1898,6 +2279,7 @@ def train_add(dev) -> dict:
     # the main path: TRAIN_STEPS steps of make_train_step with add data
     torch.cuda.reset_peak_memory_stats()
     msda.launches = msda.bwd_launches = 0
+    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
     lap.jv_launches = lap.auction_launches = 0
     history, step_ms = [], []
     for _ in range(TRAIN_STEPS):
@@ -2031,17 +2413,47 @@ def main() -> int:
              for label in RF_ROWS for form in ("direct", "staged")}
     for res in fetch.values():
         emit({"phase": "kernel", "name": "row_fetch", **res})
+    # 3b. msda_bf16: the kernels' bf16 forms (bf16 value rows, float32
+    # sums) against their plain versions on the same bf16 value, at the
+    # encoder's shape and the decoder's Q = 50 and 550, beside the float32
+    # forms' times of this run
+    def bf16_cases(check):
+        return {"encoder": check(rng, s, enc_ref, "encoder", dev,
+                                 bf16=True),
+                "decoder": check(rng, 50, dec_ref(50), "decoder", dev,
+                                 bf16=True),
+                "train decoder": check(rng, TRAIN_QUERIES,
+                                       dec_ref(TRAIN_QUERIES),
+                                       "train decoder", dev, bf16=True)}
+
+    fwd16, bwd16 = bf16_cases(check_msda), bf16_cases(check_msda_bwd)
+    for name, runs16, runs32 in (("msda_fwd", fwd16, fwd),
+                                 ("msda_bwd", bwd16, bwd)):
+        for key, res in runs16.items():
+            emit({"phase": "msda_bf16", "name": name + "_bf16",
+                  "registers": registers[name], **res,
+                  "float32": {k: runs32[key][k] for k in (
+                      "ms", "ms_launched_from_python", "bound_ms",
+                      "compulsory_bytes")}})
     # hand the plain versions' large temporaries back, so the phases below
     # start from an empty allocator cache
     torch.cuda.empty_cache()
 
-    # 4. serve
+    # 4. serve, float32 and under the shipped config's "auto" (bf16)
     srv = serve(dev)
     emit(srv)
+    srv16 = serve(dev, bf16=True)
+    srv16["float32_serve"] = {k: srv[k] for k in (
+        "forward_ms_per_image", "serve_ms_per_image", "peak_mem_GB")}
+    emit(srv16)
 
-    # 5. train
+    # 5. train, float32 and bf16
     trn = train(dev)
     emit(trn)
+    trn16 = train_bf16(dev)
+    trn16["float32_train"] = {k: trn[k] for k in (
+        "train_step_ms_mean", "peak_mem_GB")}
+    emit(trn16)
 
     # 5b. train_add
     tra = train_add(dev)
@@ -2104,7 +2516,7 @@ def main() -> int:
             "host_route_ms"]
         return out
 
-    emit({"kernels": [
+    kernels = [
         entry("msda_fwd", "monosowa_tpu_torch/ops/csrc/msda_fwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:378 (K1 ms_deform_attn_mxu); "
               "monosowa_tpu/ops/msda_pallas.py:71 (K4 "
@@ -2119,6 +2531,17 @@ def main() -> int:
               {"train": trn["msda_bwd_launches"],
                "train_add": tra["launches"]["msda_bwd"],
                "epoch": epc["msda_bwd_launches"]}, bwd),
+        entry("msda_fwd_bf16", "monosowa_tpu_torch/ops/csrc/msda_fwd.cu",
+              "monosowa_tpu/ops/msda_mxu.py:378 (K1 ms_deform_attn_mxu, "
+              "bf16 quad rows :235); monosowa_tpu/ops/msda_pallas.py:71 (K4 "
+              "ms_deform_attn_pallas, bf16 value :98)",
+              {"serve_bf16": srv16["msda_launches"],
+               "train_bf16": trn16["launches"]["msda_fwd_bf16"]}, fwd16),
+        entry("msda_bwd_bf16", "monosowa_tpu_torch/ops/csrc/msda_bwd.cu",
+              "monosowa_tpu/ops/msda_mxu.py:306 (K2 msda_gdot_mxu, bf16 quad "
+              "rows :331); monosowa_tpu/ops/msda_mxu.py:544 (K3 "
+              "msda_dvalue_mxu, cast to value's dtype :635)",
+              {"train_bf16": trn16["launches"]["msda_bwd_bf16"]}, bwd16),
         entry("tfl_counts", "monosowa_tpu_torch/ops/csrc/tfl_counts.cu",
               "monosowa_tpu/ops/tfl_pallas.py:67 (K5 "
               "binary_both_way_counts_pallas)",
@@ -2137,7 +2560,11 @@ def main() -> int:
                   "solve_lap_auction (XLA, not Pallas)",
                   {"train (auction matcher)":
                    trn["lap_auction_launches_auction_step"]}),
-    ]})
+    ]
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if idle:
+        raise AssertionError(f"kernels the main paths never launched: {idle}")
+    emit({"kernels": kernels})
     if torch.cuda.device_count() != 1:
         raise AssertionError(f"{torch.cuda.device_count()} cards visible")
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,12 +4,13 @@ Behavioral contract (MonoDETR/lib/models/monodetr/backbone.py:68-144):
 torchvision ResNet-50 with FrozenBatchNorm2d, returning layer2/3/4 features
 (strides 8/16/32, channels 512/1024/2048).  Module names match the JAX
 package's (``layer{stage}_{block}``, ``down_conv``/``down_bn``) so the
-weight bridge maps them one to one.
+weight bridge maps them one to one.  Every convolution computes in
+``compute_dtype`` (the JAX package's backbone.py:28-90).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -22,20 +23,24 @@ BACKBONE_STRIDES = (8, 16, 32)
 
 class Bottleneck(nn.Module):
     def __init__(self, c_in: int, features: int, gen: torch.Generator,
-                 stride: int = 1, downsample: bool = False):
+                 stride: int = 1, downsample: bool = False,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         out_ch = features * 4
-        self.conv1 = conv(c_in, features, 1, gen, bias=False)
+        cd = compute_dtype
+        self.conv1 = conv(c_in, features, 1, gen, bias=False,
+                          compute_dtype=cd)
         self.bn1 = FrozenBatchNorm(features)
         self.conv2 = conv(features, features, 3, gen, stride=stride,
-                          padding=1, bias=False)
+                          padding=1, bias=False, compute_dtype=cd)
         self.bn2 = FrozenBatchNorm(features)
-        self.conv3 = conv(features, out_ch, 1, gen, bias=False)
+        self.conv3 = conv(features, out_ch, 1, gen, bias=False,
+                          compute_dtype=cd)
         self.bn3 = FrozenBatchNorm(out_ch)
         self.downsample = downsample
         if downsample:
             self.down_conv = conv(c_in, out_ch, 1, gen, stride=stride,
-                                  bias=False)
+                                  bias=False, compute_dtype=cd)
             self.down_bn = FrozenBatchNorm(out_ch)
 
     def forward(self, x):
@@ -51,9 +56,11 @@ class ResNet50(nn.Module):
     512/1024/2048."""
 
     def __init__(self, gen: torch.Generator,
-                 stage_sizes: Sequence[int] = (3, 4, 6, 3)):
+                 stage_sizes: Sequence[int] = (3, 4, 6, 3),
+                 compute_dtype: Optional[str] = None):
         super().__init__()
-        self.conv1 = conv(3, 64, 7, gen, stride=2, padding=3, bias=False)
+        self.conv1 = conv(3, 64, 7, gen, stride=2, padding=3, bias=False,
+                          compute_dtype=compute_dtype)
         self.bn1 = FrozenBatchNorm(64)
         self.pool = nn.MaxPool2d(3, 2, 1)
         self.stage_sizes = tuple(stage_sizes)
@@ -65,7 +72,8 @@ class ResNet50(nn.Module):
                 self.add_module(
                     f"layer{stage + 1}_{b}",
                     Bottleneck(c_in, w, gen, stride=stride if b == 0 else 1,
-                               downsample=(b == 0)))
+                               downsample=(b == 0),
+                               compute_dtype=compute_dtype))
                 c_in = w * 4
 
     def forward(self, x) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -304,6 +304,9 @@ def _add_data_losses(out: Dict[str, torch.Tensor], match_idx: torch.Tensor,
     return losses
 
 
+FLOAT_HEADS = (torch.float32, torch.float64)
+
+
 def criterion(outputs: Dict[str, Any], targets: Targets,
               cfg: CriterionConfig = CriterionConfig(),
               training: bool = True,
@@ -316,6 +319,13 @@ def criterion(outputs: Dict[str, Any], targets: Targets,
         if key in outputs:
             raise NotImplementedError(f"{key} (two_stage / DN-DETR) is not "
                                       "in the port yet")
+    # the heads stay float32 under the bf16 policy (the JAX package's
+    # tests/test_mixed_precision.py:40): no bf16 tensor reaches a loss
+    for out in [outputs] + list(outputs.get("aux_outputs", [])):
+        for key, val in out.items():
+            if key.startswith("pred_") and val.dtype not in FLOAT_HEADS:
+                raise TypeError(f"{key} is {val.dtype}: the losses take "
+                                f"heads in {FLOAT_HEADS}")
     group_num = cfg.group_num if training else 1
     num_boxes = (targets.valid.sum().to(torch.float32) * group_num).clamp(
         min=1.0)

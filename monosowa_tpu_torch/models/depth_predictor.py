@@ -9,9 +9,14 @@ embedding sampled by linear interpolation at the predicted depth
 (interpolate_depth_embed, :93-104).
 
 Convolutions run NCHW; the outputs keep the JAX package's NHWC layout.
+Mixed precision as in the JAX package (depth_predictor.py:53-125): the
+encoder layer and the convolutions compute in ``compute_dtype``, the
+GroupNorms promote to float32, the classifier and its softmax are float32.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,15 +45,19 @@ class DepthEncoderLayer(nn.Module):
     ``linear1``/``linear2`` are Flax's ``Dense_0``/``Dense_1``."""
 
     def __init__(self, d_model: int, gen: torch.Generator, nhead: int = 8,
-                 dim_feedforward: int = 256):
+                 dim_feedforward: int = 256,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         dropout = DEPTH_ENCODER_DROPOUT
-        self.self_attn = MultiHeadAttention(d_model, nhead, gen, dropout)
+        self.self_attn = MultiHeadAttention(d_model, nhead, gen, dropout,
+                                            compute_dtype)
         self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = dense(d_model, dim_feedforward, gen)
+        self.linear1 = dense(d_model, dim_feedforward, gen,
+                             compute_dtype=compute_dtype)
         self.dropout2 = Dropout(dropout)
-        self.linear2 = dense(dim_feedforward, d_model, gen)
+        self.linear2 = dense(dim_feedforward, d_model, gen,
+                             compute_dtype=compute_dtype)
         self.dropout3 = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
@@ -62,25 +71,30 @@ class DepthEncoderLayer(nn.Module):
 class DepthPredictor(nn.Module):
     def __init__(self, gen: torch.Generator, d_model: int = 256,
                  num_depth_bins: int = 80, depth_min: float = 1e-3,
-                 depth_max: float = 60.0):
+                 depth_max: float = 60.0,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         self.depth_max = depth_max
-        self.proj = conv(d_model, d_model, 1, gen)
-        self.upsample = conv(d_model, d_model, 1, gen)
-        self.downsample = conv(d_model, d_model, 3, gen, stride=2, padding=1)
+        cd = compute_dtype
+        self.proj = conv(d_model, d_model, 1, gen, compute_dtype=cd)
+        self.upsample = conv(d_model, d_model, 1, gen, compute_dtype=cd)
+        self.downsample = conv(d_model, d_model, 3, gen, stride=2, padding=1,
+                               compute_dtype=cd)
         # Flax's GroupNorm_0..4, in call order
         self.proj_norm = group_norm(d_model)
         self.upsample_norm = group_norm(d_model)
         self.downsample_norm = group_norm(d_model)
-        self.head1 = conv(d_model, d_model, 3, gen, padding=1)
+        self.head1 = conv(d_model, d_model, 3, gen, padding=1,
+                          compute_dtype=cd)
         self.head1_norm = group_norm(d_model)
-        self.head2 = conv(d_model, d_model, 3, gen, padding=1)
+        self.head2 = conv(d_model, d_model, 3, gen, padding=1,
+                          compute_dtype=cd)
         self.head2_norm = group_norm(d_model)
         self.classifier = conv(d_model, num_depth_bins + 1, 1, gen)
         self.register_buffer("bin_values", torch.from_numpy(
             lid_bin_values(num_depth_bins, depth_min, depth_max)),
             persistent=False)
-        self.encoder = DepthEncoderLayer(d_model, gen)
+        self.encoder = DepthEncoderLayer(d_model, gen, compute_dtype=cd)
         self.depth_pos_embed = nn.Parameter(torch.empty(
             int(depth_max) + 1, d_model).normal_(0.0, 1.0, generator=gen))
 

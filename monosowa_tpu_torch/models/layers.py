@@ -1,20 +1,72 @@
-"""Shared model building blocks (torch, float32).
+"""Shared model building blocks (torch).
 
 Initialisers follow Flax's in distribution (not in bits): lecun-normal
 (truncated at two standard deviations) for convolutions and dense layers,
 zero biases, unit norm scales.  Every initialiser draws from an explicit
 ``torch.Generator`` so a seed fixes the whole model.
+
+Mixed precision follows the JAX package's policy (its ``models/layers.py``):
+the params stay float32; a dense or convolution layer built with a
+``compute_dtype`` casts its input, weight and bias to that dtype and returns
+its output in it, as ``flax.linen.Dense(dtype=...)`` does; a layer built
+without one (Flax's ``dtype=None``: the norms, the heads) promotes its input
+with its params, so a bfloat16 activation comes out float32.  The policy
+string is resolved from the input's device at every call (``resolve_dtype``),
+as the JAX package resolves it at trace time.  A resolved float32 casts
+nothing: the layer computes in its params' own dtype, so a ``.double()``
+model on the CPU stays float64.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # std of a unit normal truncated to [-2, 2] (flax variance_scaling)
 _TRUNC_STD = 0.87962566103423978
+
+
+COMPUTE_DTYPES = ("auto", "float32", "bfloat16", "float64")
+
+
+def check_compute_dtype(compute_dtype: str, device=None) -> str:
+    """Raises ``ValueError`` for a policy outside ``COMPUTE_DTYPES`` and for
+    float64 on a device other than the CPU; returns the policy."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {compute_dtype!r}; the port has "
+                         f"{COMPUTE_DTYPES} (float64 on the CPU only)")
+    if compute_dtype == "float64" and device is not None \
+            and torch.device(device).type != "cpu":
+        raise ValueError(f"compute_dtype 'float64' runs on the CPU only, "
+                         f"not on {device}")
+    return compute_dtype
+
+
+def resolve_dtype(compute_dtype: str, device) -> torch.dtype:
+    """Model-level policy string -> torch dtype for tensors on ``device``.
+    "auto" = bfloat16 on a CUDA device, float32 on the CPU (the JAX
+    package's: bfloat16 on the TPU, float32 elsewhere)."""
+    check_compute_dtype(compute_dtype, device)
+    if compute_dtype == "auto":
+        return torch.bfloat16 if torch.device(device).type == "cuda" \
+            else torch.float32
+    return getattr(torch, compute_dtype)
+
+
+def layer_dtype(compute_dtype: Optional[str], x: torch.Tensor,
+                param: torch.Tensor) -> torch.dtype:
+    """The dtype a layer with params like ``param`` computes in on ``x``:
+    without a policy, the promotion of the two dtypes (Flax's
+    ``dtype=None``); with one, its resolved dtype, where float32 means the
+    params' own dtype."""
+    if compute_dtype is None:
+        return torch.promote_types(x.dtype, param.dtype)
+    dt = resolve_dtype(compute_dtype, x.device)
+    return param.dtype if dt == torch.float32 else dt
 
 
 def _fans(w: torch.Tensor):
@@ -34,10 +86,41 @@ def xavier_uniform_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     return nn.init.uniform_(w, -limit, limit, generator=gen)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` as ``flax.linen.Dense`` computes: in ``compute_dtype``
+    (a policy string), or, with None, in the input's dtype promoted with the
+    params'."""
+
+    def __init__(self, d_in: int, d_out: int,
+                 compute_dtype: Optional[str] = None):
+        super().__init__(d_in, d_out)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = layer_dtype(self.compute_dtype, x, self.weight)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` as ``flax.linen.Conv`` computes (see ``Dense``)."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int,
+                 padding: int, bias: bool, compute_dtype: Optional[str]):
+        super().__init__(c_in, c_out, k, stride=stride, padding=padding,
+                         bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = layer_dtype(self.compute_dtype, x, self.weight)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
 def dense(d_in: int, d_out: int, gen: torch.Generator,
-          kernel_init=lecun_normal_) -> nn.Linear:
-    """``nn.Linear`` initialised like ``flax.linen.Dense``."""
-    lin = nn.Linear(d_in, d_out)
+          kernel_init=lecun_normal_,
+          compute_dtype: Optional[str] = None) -> Dense:
+    """``Dense`` initialised like ``flax.linen.Dense``."""
+    lin = Dense(d_in, d_out, compute_dtype)
     with torch.no_grad():
         if kernel_init is None:
             lin.weight.zero_()
@@ -48,9 +131,10 @@ def dense(d_in: int, d_out: int, gen: torch.Generator,
 
 
 def conv(c_in: int, c_out: int, k: int, gen: torch.Generator,
-         stride: int = 1, padding: int = 0, bias: bool = True) -> nn.Conv2d:
-    """``nn.Conv2d`` initialised like ``flax.linen.Conv``."""
-    c = nn.Conv2d(c_in, c_out, k, stride=stride, padding=padding, bias=bias)
+         stride: int = 1, padding: int = 0, bias: bool = True,
+         compute_dtype: Optional[str] = None) -> Conv:
+    """``Conv`` initialised like ``flax.linen.Conv``."""
+    c = Conv(c_in, c_out, k, stride, padding, bias, compute_dtype)
     with torch.no_grad():
         lecun_normal_(c.weight, gen)
         if bias:
@@ -58,8 +142,18 @@ def conv(c_in: int, c_out: int, k: int, gen: torch.Generator,
     return c
 
 
-def group_norm(channels: int) -> nn.GroupNorm:
-    return nn.GroupNorm(32, channels, eps=1e-5)
+class GroupNorm(nn.GroupNorm):
+    """``flax.linen.GroupNorm`` (dtype None): the input is promoted with the
+    params, so a bfloat16 activation is normalised and returned in
+    float32."""
+
+    def forward(self, x):
+        return super().forward(
+            x.to(torch.promote_types(x.dtype, self.weight.dtype)))
+
+
+def group_norm(channels: int) -> GroupNorm:
+    return GroupNorm(32, channels, eps=1e-5)
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -76,11 +170,13 @@ class MLP(nn.Module):
     monodetr.py MLP).  ``layers[i]`` is Flax's ``Dense_i``."""
 
     def __init__(self, d_in: int, hidden_dim: int, output_dim: int,
-                 num_layers: int, gen: torch.Generator):
+                 num_layers: int, gen: torch.Generator,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         dims = [d_in] + [hidden_dim] * (num_layers - 1) + [output_dim]
         self.layers = nn.ModuleList(
-            dense(a, b, gen) for a, b in zip(dims[:-1], dims[1:]))
+            dense(a, b, gen, compute_dtype=compute_dtype)
+            for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
@@ -92,7 +188,9 @@ class MLP(nn.Module):
 
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with all four tensors frozen (reference backbone.py:28-65),
-    NCHW.  The tensors are buffers, so no optimizer sees them."""
+    NCHW.  The tensors are buffers, so no optimizer sees them.  Scale and
+    shift are folded in the buffers' dtype, then cast to the activation's,
+    so a bfloat16 backbone stays bfloat16 (JAX package layers.py:73-77)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -105,7 +203,8 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x):
         w = self.scale * torch.rsqrt(self.var + self.eps)
         b = self.bias - self.mean * w
-        return x * w[:, None, None] + b[:, None, None]
+        return (x * w.to(x.dtype)[:, None, None]
+                + b.to(x.dtype)[:, None, None])
 
 
 class Dropout(nn.Module):
@@ -124,8 +223,11 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
+        # the uniforms in float32 at the least: a bfloat16 activation gets
+        # the mask a float32 one would
         keep = torch.rand(x.shape, generator=self.generator, device=x.device,
-                          dtype=x.dtype) >= self.p
+                          dtype=torch.promote_types(x.dtype, torch.float32)
+                          ) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 
@@ -135,16 +237,20 @@ class MultiHeadAttention(nn.Module):
 
     Separate q/k/v/out projections and the softmax written out, one-to-one
     with the JAX package's module (not ``nn.MultiheadAttention``, whose
-    packed in-projection has other weights)."""
+    packed in-projection has other weights).  The projections compute in
+    ``compute_dtype``; the logits and the softmax in float32 at the least
+    (JAX's ``preferred_element_type``), the weights then cast to v's
+    dtype."""
 
     def __init__(self, d_model: int, num_heads: int, gen: torch.Generator,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, compute_dtype: Optional[str] = None):
         super().__init__()
         self.num_heads = num_heads
-        self.q_proj = dense(d_model, d_model, gen)
-        self.k_proj = dense(d_model, d_model, gen)
-        self.v_proj = dense(d_model, d_model, gen)
-        self.out_proj = dense(d_model, d_model, gen)
+        self.q_proj = dense(d_model, d_model, gen, compute_dtype=compute_dtype)
+        self.k_proj = dense(d_model, d_model, gen, compute_dtype=compute_dtype)
+        self.v_proj = dense(d_model, d_model, gen, compute_dtype=compute_dtype)
+        self.out_proj = dense(d_model, d_model, gen,
+                              compute_dtype=compute_dtype)
         self.attn_dropout = Dropout(dropout)
 
     def forward(self, query, key, value):
@@ -157,7 +263,9 @@ class MultiHeadAttention(nn.Module):
         q = split(self.q_proj(query))
         k = split(self.k_proj(key))
         v = split(self.v_proj(value))
-        logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
-        attn = self.attn_dropout(torch.softmax(logits, dim=-1))
+        acc = torch.promote_types(q.dtype, torch.float32)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) \
+            / math.sqrt(dh)
+        attn = self.attn_dropout(torch.softmax(logits, dim=-1).to(v.dtype))
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return self.out_proj(out.reshape(query.shape[:-1] + (d,)))

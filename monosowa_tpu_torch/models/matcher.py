@@ -101,6 +101,10 @@ def hungarian_match(pred_logits: torch.Tensor, pred_boxes: torch.Tensor,
     """pred_logits (B, G*Q, C); pred_boxes (B, G*Q, 6); targets padded
     (B, M, ...).  Returns (B, G*Q) matched target index or -1, on the
     predictions' device."""
+    for t in (pred_logits, pred_boxes):
+        if t.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the matcher's cost takes float32 heads, got "
+                            f"{t.dtype}")
     b, gq, _ = pred_logits.shape
     g = gq // num_queries
     m = tgt_valid.shape[1]

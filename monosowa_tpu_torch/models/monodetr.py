@@ -18,7 +18,12 @@ box refinement on; two_stage, use_dab, use_dn and use_depth off):
 * aux outputs per intermediate decoder layer (:289-297).
 
 ``forward`` takes NHWC images like the JAX package and returns its output
-dict with the same layouts.  ``model.train()`` / ``model.eval()`` play the
+dict with the same layouts.  ``compute_dtype`` is the JAX package's
+mixed-precision policy (monodetr.py:93-95): "auto" (bfloat16 on a CUDA
+device, float32 on the CPU), "float32", "bfloat16", or "float64" on the
+CPU; images are cast to it at entry, the backbone, the input projections
+and the transformer's dense layers compute in it, and the params, norms,
+softmax logits and heads stay float32 (``models/layers.py``).  ``model.train()`` / ``model.eval()`` play the
 JAX package's ``training`` flag: all groups of queries and dropout in
 training mode, the first group and no dropout in eval mode.
 """
@@ -34,8 +39,10 @@ from torch import nn
 from monosowa_tpu_torch.device import resolve_device
 from monosowa_tpu_torch.models.backbone import BACKBONE_CHANNELS, ResNet50
 from monosowa_tpu_torch.models.depth_predictor import DepthPredictor
-from monosowa_tpu_torch.models.layers import (MLP, Dropout, conv, dense,
-                                              group_norm, inverse_sigmoid)
+from monosowa_tpu_torch.models.layers import (MLP, Dropout,
+                                              check_compute_dtype, conv,
+                                              dense, group_norm,
+                                              inverse_sigmoid, layer_dtype)
 from monosowa_tpu_torch.models.position_encoding import sine_position_encoding
 from monosowa_tpu_torch.models.transformer import (MSDA_BACKENDS,
                                                    DepthAwareDecoderLayer,
@@ -78,11 +85,13 @@ class MonoDETR(nn.Module):
                  msda_backend: str = "auto", dropout: float = 0.1,
                  two_stage: bool = False,
                  position_embedding: str = "sine", use_depth: bool = False,
-                 use_dab: bool = False,
+                 use_dab: bool = False, compute_dtype: str = "auto",
                  device: Union[str, torch.device, None] = None,
                  seed: int = 0):
         """Weights are drawn on the host from ``torch.Generator`` seeded
-        with ``seed``, then moved to ``device`` (default ``cuda``)."""
+        with ``seed``, then moved to ``device`` (default ``cuda``).  A
+        ``compute_dtype`` outside ``layers.COMPUTE_DTYPES``, or "float64"
+        off the CPU, raises ``ValueError``."""
         super().__init__()
         for flag, on in (("two_stage", two_stage), ("use_dab", use_dab),
                          ("use_depth", use_depth),
@@ -98,6 +107,7 @@ class MonoDETR(nn.Module):
             raise NotImplementedError(f"msda_backend {msda_backend!r}; the "
                                       f"port has {MSDA_BACKENDS}")
         dev = resolve_device(device)
+        self.compute_dtype = cd = check_compute_dtype(compute_dtype, dev)
         gen = torch.Generator().manual_seed(seed)
 
         self.num_classes, self.num_queries = num_classes, num_queries
@@ -106,27 +116,28 @@ class MonoDETR(nn.Module):
         self.num_feature_levels = num_feature_levels
         self._pos_cache: Dict[Tuple[int, int, str], torch.Tensor] = {}
 
-        self.backbone = ResNet50(gen)
+        self.backbone = ResNet50(gen, compute_dtype=cd)
         for i, c in enumerate(BACKBONE_CHANNELS):
-            self.add_module(f"input_proj{i}", conv(c, d_model, 1, gen))
+            self.add_module(f"input_proj{i}",
+                            conv(c, d_model, 1, gen, compute_dtype=cd))
         self.input_proj3 = conv(BACKBONE_CHANNELS[-1], d_model, 3, gen,
-                                stride=2, padding=1)
+                                stride=2, padding=1, compute_dtype=cd)
         # Flax's GroupNorm_0..3
         for i in range(num_feature_levels):
             self.add_module(f"input_norm{i}", group_norm(d_model))
         self.level_embed = _normal((num_feature_levels, d_model), gen)
         self.depth_predictor = DepthPredictor(gen, d_model, num_depth_bins,
-                                              depth_min, depth_max)
+                                              depth_min, depth_max, cd)
         self.encoder = VisualEncoder(gen, enc_layers, d_model, d_ffn,
                                      num_feature_levels, nheads, enc_n_points,
-                                     msda_backend, dropout)
+                                     msda_backend, dropout, cd)
         self.query_embed = _normal((num_queries * group_num, 2 * d_model),
                                    gen)
         self.reference_points = dense(d_model, 2, gen)
         for i in range(dec_layers):
             self.add_module(f"decoder_layer{i}", DepthAwareDecoderLayer(
                 gen, d_model, d_ffn, num_feature_levels, nheads,
-                dec_n_points, msda_backend, dropout, group_num))
+                dec_n_points, msda_backend, dropout, group_num, cd))
             cls = dense(d_model, num_classes, gen)
             with torch.no_grad():
                 cls.bias.fill_(FOCAL_BIAS)
@@ -167,6 +178,9 @@ class MonoDETR(nn.Module):
         for mod in self.modules():
             if isinstance(mod, Dropout):
                 mod.generator = generator
+        # images in the compute dtype (JAX package monodetr.py:108-109)
+        images = images.to(layer_dtype(self.compute_dtype, images,
+                                       self.level_embed))
         c3, c4, c5 = self.backbone(images.permute(0, 3, 1, 2))
 
         srcs = [getattr(self, f"input_norm{i}")(
@@ -313,4 +327,5 @@ def build_monodetr(cfg: Dict[str, Any],
         position_embedding=cfg.get("position_embedding", "sine"),
         use_depth=bool(cfg.get("use_depth", False)),
         use_dab=bool(cfg.get("use_dab", False)),
+        compute_dtype=str(cfg.get("compute_dtype", "auto")),
         device=device, seed=seed)

@@ -21,11 +21,19 @@ Behavioral contract (MonoDETR/lib/models/monodetr/depthaware_transformer.py):
 All sequences are batch-first; padding masks are dropped because the
 reference runs fixed 1280x384 inputs where masks are always all-valid.
 Dropout (``layers.Dropout``) acts in training mode only.
+
+Mixed precision as in the JAX package (transformer.py:64-140, :151-164,
+:192-290): ``value_proj``, ``output_proj``, the FFNs and the decoder's self-
+and cross-attention compute in ``compute_dtype``; the sampling offsets and
+attention weights are float32 dense layers on the float32 query, so the
+locations keep their mantissa; MSDA returns float32 (it reads bfloat16 value
+rows and sums in float32), which ``output_proj`` casts back; the residual
+sums and LayerNorms stay float32.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,14 +63,15 @@ def ring_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
 class MSDeformAttnModule(nn.Module):
     def __init__(self, gen: torch.Generator, d_model: int = 256,
                  n_levels: int = 4, n_heads: int = 8, n_points: int = 4,
-                 backend: str = "auto"):
+                 backend: str = "auto", compute_dtype: Optional[str] = None):
         super().__init__()
         if backend not in MSDA_BACKENDS:
             raise NotImplementedError(f"msda_backend {backend!r}; the port "
                                       f"has {MSDA_BACKENDS}")
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, \
             n_points
-        self.value_proj = dense(d_model, d_model, gen, xavier_uniform_)
+        self.value_proj = dense(d_model, d_model, gen, xavier_uniform_,
+                                compute_dtype)
         self.sampling_offsets = dense(d_model, n_heads * n_levels * n_points
                                       * 2, gen, kernel_init=None)
         with torch.no_grad():
@@ -70,7 +79,8 @@ class MSDeformAttnModule(nn.Module):
                 ring_bias(n_heads, n_levels, n_points)))
         self.attention_weights = dense(d_model, n_heads * n_levels * n_points,
                                        gen, kernel_init=None)
-        self.output_proj = dense(d_model, d_model, gen, xavier_uniform_)
+        self.output_proj = dense(d_model, d_model, gen, xavier_uniform_,
+                                 compute_dtype)
         # the MSDA function this module calls
         self.msda = ms_deform_attn
 
@@ -108,15 +118,18 @@ class VisualEncoderLayer(nn.Module):
     def __init__(self, gen: torch.Generator, d_model: int = 256,
                  d_ffn: int = 256, n_levels: int = 4, n_heads: int = 8,
                  n_points: int = 4, msda_backend: str = "auto",
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, compute_dtype: Optional[str] = None):
         super().__init__()
         self.self_attn = MSDeformAttnModule(gen, d_model, n_levels, n_heads,
-                                            n_points, msda_backend)
+                                            n_points, msda_backend,
+                                            compute_dtype)
         self.dropout1 = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = dense(d_model, d_ffn, gen)
+        self.linear1 = dense(d_model, d_ffn, gen,
+                             compute_dtype=compute_dtype)
         self.dropout2 = Dropout(dropout)
-        self.linear2 = dense(d_ffn, d_model, gen)
+        self.linear2 = dense(d_ffn, d_model, gen,
+                             compute_dtype=compute_dtype)
         self.dropout3 = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
@@ -146,12 +159,13 @@ class VisualEncoder(nn.Module):
     def __init__(self, gen: torch.Generator, num_layers: int = 3,
                  d_model: int = 256, d_ffn: int = 256, n_levels: int = 4,
                  n_heads: int = 8, n_points: int = 4,
-                 msda_backend: str = "auto", dropout: float = 0.1):
+                 msda_backend: str = "auto", dropout: float = 0.1,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
         for i in range(num_layers):
             self.add_module(f"layer{i}", VisualEncoderLayer(
                 gen, d_model, d_ffn, n_levels, n_heads, n_points,
-                msda_backend, dropout))
+                msda_backend, dropout, compute_dtype))
         self.num_layers = num_layers
 
     def forward(self, src, pos, spatial_shapes):
@@ -167,27 +181,30 @@ class DepthAwareDecoderLayer(nn.Module):
     def __init__(self, gen: torch.Generator, d_model: int = 256,
                  d_ffn: int = 256, n_levels: int = 4, n_heads: int = 8,
                  n_points: int = 4, msda_backend: str = "auto",
-                 dropout: float = 0.1, group_num: int = 11):
+                 dropout: float = 0.1, group_num: int = 11,
+                 compute_dtype: Optional[str] = None):
         super().__init__()
+        cd = compute_dtype
         self.group_num = group_num
         self.cross_attn_depth = MultiHeadAttention(d_model, n_heads, gen,
-                                                   dropout)
+                                                   dropout, cd)
         self.dropout_depth = Dropout(dropout)
         self.norm_depth = nn.LayerNorm(d_model, eps=1e-5)
-        self.sa_qcontent_proj = dense(d_model, d_model, gen)
-        self.sa_qpos_proj = dense(d_model, d_model, gen)
-        self.sa_kcontent_proj = dense(d_model, d_model, gen)
-        self.sa_kpos_proj = dense(d_model, d_model, gen)
-        self.self_attn = MultiHeadAttention(d_model, n_heads, gen, dropout)
+        self.sa_qcontent_proj = dense(d_model, d_model, gen, compute_dtype=cd)
+        self.sa_qpos_proj = dense(d_model, d_model, gen, compute_dtype=cd)
+        self.sa_kcontent_proj = dense(d_model, d_model, gen, compute_dtype=cd)
+        self.sa_kpos_proj = dense(d_model, d_model, gen, compute_dtype=cd)
+        self.self_attn = MultiHeadAttention(d_model, n_heads, gen, dropout,
+                                            cd)
         self.dropout_sa = Dropout(dropout)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.cross_attn = MSDeformAttnModule(gen, d_model, n_levels, n_heads,
-                                             n_points, msda_backend)
+                                             n_points, msda_backend, cd)
         self.dropout_ca = Dropout(dropout)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.linear1 = dense(d_model, d_ffn, gen)
+        self.linear1 = dense(d_model, d_ffn, gen, compute_dtype=cd)
         self.dropout_ffn = Dropout(dropout)
-        self.linear2 = dense(d_ffn, d_model, gen)
+        self.linear2 = dense(d_ffn, d_model, gen, compute_dtype=cd)
         self.dropout_out = Dropout(dropout)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 

@@ -13,8 +13,16 @@
 //   dloc[.., 0]           = aw * W_l * sum over corners of dw/dx * gdot;
 //   dloc[.., 1]           = aw * H_l * sum over corners of dw/dy * gdot.
 //
-// value (B, S, M, D), loc (B, Q, M, L, P, 2), aw (B, Q, M, L, P), dout,
-// dvalue (B, S, M, D), dloc, daw: float32 and contiguous.
+// value (B, S, M, D) float32 (entry point msda_bwd) or bfloat16
+// (msda_bwd_bf16); loc (B, Q, M, L, P, 2), aw (B, Q, M, L, P), dout,
+// dvalue (B, S, M, D), dloc, daw float32; all contiguous.  dvalue is the
+// float32 sum for either value type: the wrapper (ops/msda.py) rounds it to
+// bf16 once, as the JAX package casts K3's float32 sums to value's dtype
+// outside the kernel (msda_mxu.py:635).  The bf16 form keeps the float32
+// form's lanes (four channels a lane: 8 bytes of value, 16 of dout and of
+// dvalue's atomics) and computes dloc and daw in float32, as K2 dots bf16
+// quad rows with float32 dout (msda_mxu.py:331); its adds into dvalue and
+// its shared-memory grad levels stay float32.
 //
 // Replaces two TPU kernels: msda_gdot_mxu (monosowa_tpu/ops/msda_mxu.py:306,
 // kernel _gdot_kernel :269), whose per-slot dots the JAX package folds into
@@ -59,8 +67,8 @@
 //   dots, and log2(G) butterfly steps
 //   within the group sum them (3 for D = 32).
 //   The lane that owns a sample keeps its totals until one coalesced write
-//   of daw and dloc.  D that is no multiple of 4, or a pointer off 16
-//   bytes, takes the same kernel with one float a lane.
+//   of daw and dloc.  D that is no multiple of the lane's channels, or a
+//   pointer off 16 bytes, takes the same kernel with one element a lane.
 // * A launch too small to fill the card (the decoder at serving) gives each
 //   query to 2 or 4 warps, which share its samples: the time of such a
 //   launch is the length of one lane group's sample loop.
@@ -109,15 +117,16 @@ __device__ __forceinline__ void add_shared(float* p, const Row<VEC>& d) {
 // One sample's corners: the lane's share of the three folded dots into
 // (pw, px, py), and aj * w_corner * g added into dvalue's rows.  `rows` and
 // `drows` point at the lane's channels of the level's first row.
-template <int VEC, int G, Mode MODE>
+template <typename T, int VEC, int G, Mode MODE>
 __device__ __forceinline__ void bwd_sample(
     float& pw, float& px, float& py, const Corners& cn, float aj,
-    const float (&g)[VEC], const float* __restrict__ rows, int row_stride,
+    const float (&g)[VEC], const T* __restrict__ rows, int row_stride,
     float* drows, int drow_stride) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     if (cn.inb[k]) {
-      Row<VEC> r, d;
+      ValueRow<T, VEC> r;
+      Row<VEC> d;
       if (MODE == DIRECT)
         r.load_global(rows + (size_t)cn.tok[k] * row_stride);
       else
@@ -140,9 +149,9 @@ __device__ __forceinline__ void bwd_sample(
   }
 }
 
-template <int VEC, int G>
+template <typename T, int VEC, int G>
 __global__ void __launch_bounds__(MSDA_BWD_THREADS, 1)
-msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
+msda_bwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                 const float* __restrict__ aw, const float* __restrict__ dout,
                 float* __restrict__ dvalue, float* __restrict__ dloc,
                 float* __restrict__ daw, const int* __restrict__ order,
@@ -150,8 +159,9 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
                 int n_points, int n_runs, int max_run, int split, int S,
                 int Q, int M, int D) {
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);  // value's resident levels
-  float* smd = sm + lv.resident_floats;         // dvalue's grad levels
+  T* sm = reinterpret_cast<T*>(smem4);  // value's resident levels
+  float* smd = reinterpret_cast<float*>(  // dvalue's grad levels
+      reinterpret_cast<char*>(smem4) + msda_grad_start<T>(lv));
 
   const int run = blockIdx.x % n_runs;
   const int bm = blockIdx.x / n_runs;
@@ -161,11 +171,11 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
   const int count = runs ? runs[2 * run + 1] : min(max_run, Q - first);
   const int n_samples = n_levels * n_points;
   const size_t bm_off = ((size_t)b * S * M + m) * D;
-  const float* v_bm = value + bm_off;
+  const T* v_bm = value + bm_off;
   float* dv_bm = dvalue + bm_off;
 
   if (lv.resident_mask) {
-    msda_stage_levels<VEC>(sm, value, lv, n_levels, S, M, D, b, m);
+    msda_stage_levels<T, VEC>(sm, value, lv, n_levels, S, M, D, b, m);
     for (int i = threadIdx.x; i < lv.grad_floats; i += blockDim.x)
       smd[i] = 0.f;
     __syncthreads();
@@ -228,15 +238,15 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
             const Corners cn(dx, dy, code, lv.w[l]);
             const size_t lvl_off = (size_t)lv.start[l] * M * D + c;
             if ((lv.grad_mask >> l) & 1)
-              bwd_sample<VEC, G, RES_GRAD>(pw, px, py, cn, aj, g,
+              bwd_sample<T, VEC, G, RES_GRAD>(pw, px, py, cn, aj, g,
                                            sm + lv.sm_off[l] + c, D,
                                            smd + lv.grad_off[l] + c, D);
             else if ((lv.resident_mask >> l) & 1)
-              bwd_sample<VEC, G, RES>(pw, px, py, cn, aj, g,
+              bwd_sample<T, VEC, G, RES>(pw, px, py, cn, aj, g,
                                       sm + lv.sm_off[l] + c, D,
                                       dv_bm + lvl_off, M * D);
             else
-              bwd_sample<VEC, G, DIRECT>(pw, px, py, cn, aj, g,
+              bwd_sample<T, VEC, G, DIRECT>(pw, px, py, cn, aj, g,
                                          v_bm + lvl_off, M * D,
                                          dv_bm + lvl_off, M * D);
           }
@@ -283,17 +293,19 @@ msda_bwd_kernel(const float* __restrict__ value, const float* __restrict__ loc,
   }
 }
 
-template <int VEC, int G>
-static int launch_bwd(const float* value, const float* loc, const float* aw,
+template <typename T, int VEC, int G>
+static int launch_bwd(const T* value, const float* loc, const float* aw,
                       const float* dout, float* dvalue, float* dloc,
                       float* daw, const int* order, const int* runs,
                       const Levels& lv, int n_levels, int P, int n_runs,
                       int max_run, int B, int S, int Q, int M, int D,
                       cudaStream_t st) {
   static size_t granted = 48 * 1024;
-  const size_t smem =
-      ((size_t)lv.resident_floats + lv.grad_floats) * sizeof(float);
-  cudaError_t err = msda_grant_smem(msda_bwd_kernel<VEC, G>, smem, &granted);
+  const size_t smem = (lv.grad_mask ? msda_grad_start<T>(lv)
+                                    : (size_t)lv.resident_elems * sizeof(T)) +
+                      (size_t)lv.grad_floats * sizeof(float);
+  cudaError_t err =
+      msda_grant_smem(msda_bwd_kernel<T, VEC, G>, smem, &granted);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (long long)B * M * n_runs;
   // 4 or 2 warps to a query where all of the launch's lane groups, so
@@ -314,19 +326,14 @@ static int launch_bwd(const float* value, const float* loc, const float* aw,
   const int threads = min(
       MSDA_BWD_THREADS,
       msda_block_threads(max_run, G, MSDA_BWD_THREADS / split) * split);
-  msda_bwd_kernel<VEC, G><<<(unsigned)blocks, threads, smem, st>>>(
+  msda_bwd_kernel<T, VEC, G><<<(unsigned)blocks, threads, smem, st>>>(
       value, loc, aw, dout, dvalue, dloc, daw, order, runs, lv, n_levels, P,
       n_runs, max_run, split, S, Q, M, D);
   return (int)cudaGetLastError();
 }
 
-// Zeroes dvalue and launches on `stream`; returns the first CUDA error
-// (0 on success).  level_hw is a host array of n_levels (H, W) pairs; order
-// (Q,) and runs (n_runs, 2) are int32 device arrays, the block map of
-// msda_common.cuh, and max_run the longest run's length; bit l of
-// resident_mask puts level l of value into shared memory, bit l of grad_mask
-// (resident levels only) its share of dvalue.
-extern "C" int msda_bwd(const void* value, const void* loc, const void* aw,
+template <typename T>
+static int msda_bwd_any(const void* value, const void* loc, const void* aw,
                         const void* dout, void* dvalue, void* dloc, void* daw,
                         const void* order, const void* runs,
                         const void* level_hw, int n_levels, int n_runs,
@@ -349,7 +356,7 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* aw,
   // loc and dloc move as float2: rows of 2 * L * P floats from 8-byte bases
   if ((reinterpret_cast<size_t>(loc) | reinterpret_cast<size_t>(dloc)) & 7)
     return (int)cudaErrorInvalidValue;
-  const float* v = static_cast<const float*>(value);
+  const T* v = static_cast<const T*>(value);
   const float* lo = static_cast<const float*>(loc);
   const float* a = static_cast<const float*>(aw);
   const float* g = static_cast<const float*>(dout);
@@ -358,6 +365,11 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* aw,
   float* da = static_cast<float*>(daw);
   const int* ord = static_cast<const int*>(order);
   const int* rn = static_cast<const int*>(runs);
+  // four channels a lane (a float4 of dout and of dvalue's atomics; 16 or
+  // 8 bytes of value) where the rows allow them, else one element.  Measured
+  // on an H100 at the encoder's shape: 16-byte lanes of eight bf16 channels
+  // took 0.714 ms (they spill at this kernel's 64 registers), four-channel
+  // lanes 0.390, the float32 form 0.380
   const int vec = (D % 4 == 0 && msda_aligned16(value) &&
                    msda_aligned16(dout) && msda_aligned16(dvalue))
                       ? 4
@@ -365,8 +377,9 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* aw,
   const int gw = msda_group_lanes(D, vec);
 #define MSDA_BWD_CASE(V, G_)                                                 \
   if (vec == V && gw == G_)                                                  \
-    return launch_bwd<V, G_>(v, lo, a, g, dv, dl, da, ord, rn, lv, n_levels, \
-                             P, n_runs, max_run, B, S, Q, M, D, st);
+    return launch_bwd<T, V, G_>(v, lo, a, g, dv, dl, da, ord, rn, lv,        \
+                                n_levels, P, n_runs, max_run, B, S, Q, M, D, \
+                                st);
   MSDA_BWD_CASE(4, 8)
   MSDA_BWD_CASE(4, 16)
   MSDA_BWD_CASE(4, 32)
@@ -375,4 +388,36 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* aw,
   MSDA_BWD_CASE(1, 32)
 #undef MSDA_BWD_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// Zeroes dvalue and launches on `stream`; returns the first CUDA error
+// (0 on success).  level_hw is a host array of n_levels (H, W) pairs; order
+// (Q,) and runs (n_runs, 2) are int32 device arrays, the block map of
+// msda_common.cuh, and max_run the longest run's length; bit l of
+// resident_mask puts level l of value into shared memory, bit l of grad_mask
+// (resident levels only) its share of dvalue.  msda_bwd takes a float32
+// value, msda_bwd_bf16 a bfloat16 one; every other tensor is float32.
+extern "C" int msda_bwd(const void* value, const void* loc, const void* aw,
+                        const void* dout, void* dvalue, void* dloc, void* daw,
+                        const void* order, const void* runs,
+                        const void* level_hw, int n_levels, int n_runs,
+                        int max_run, int resident_mask, int grad_mask, int B,
+                        int S, int Q, int M, int D, int P, void* stream) {
+  return msda_bwd_any<float>(value, loc, aw, dout, dvalue, dloc, daw, order,
+                             runs, level_hw, n_levels, n_runs, max_run,
+                             resident_mask, grad_mask, B, S, Q, M, D, P,
+                             stream);
+}
+
+extern "C" int msda_bwd_bf16(const void* value, const void* loc,
+                             const void* aw, const void* dout, void* dvalue,
+                             void* dloc, void* daw, const void* order,
+                             const void* runs, const void* level_hw,
+                             int n_levels, int n_runs, int max_run,
+                             int resident_mask, int grad_mask, int B, int S,
+                             int Q, int M, int D, int P, void* stream) {
+  return msda_bwd_any<__nv_bfloat16>(value, loc, aw, dout, dvalue, dloc, daw,
+                                     order, runs, level_hw, n_levels, n_runs,
+                                     max_run, resident_mask, grad_mask, B, S,
+                                     Q, M, D, P, stream);
 }

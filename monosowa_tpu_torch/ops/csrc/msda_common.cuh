@@ -9,20 +9,27 @@
 // With null `order` and `runs` the queries go in index order, max_run to a
 // block, and a block reads neither array before it starts.
 //
-// Inside a block, G lanes (8, 16 or 32) share one query: lane gl of a group
-// owns channels [c0 + gl * VEC, c0 + gl * VEC + VEC) of the head's row, as
-// one 16-byte float4 where VEC = 4 and one float where VEC = 1.  A warp so
-// works on 32 / G queries at once, all at the same sample index and
-// therefore at the same level.
+// Value's element type T is float or __nv_bfloat16 (the bf16 value rows
+// that the TPU kernels read); every product, sum and output is float32.
+//
+// Inside a block, G lanes (4, 8, 16 or 32) share one query: lane gl of a
+// group owns channels [c0 + gl * VEC, c0 + gl * VEC + VEC) of the head's
+// row: VEC = 4 (one 16-byte float4 of a float32 value, 8 bytes of a bf16
+// one), VEC = 8 (16 bytes of bf16: the forward's bf16 form, where a head of
+// 32 channels is four lanes), or one element where VEC = 1.  A warp so works
+// on 32 / G queries at once, all at the same sample index and therefore at
+// the same level.
 //
 // Resident levels.  The levels in `resident_mask` are copied whole, for the
 // block's (image, head), into dynamic shared memory at sm_off[level]
-// (floats, rows of D).  A whole level has no window edge: every in-bounds
-// corner of a resident level is read from shared memory.  Above 48 KB the
-// entry points raise the kernel's limit once (msda_grant_smem).
+// (elements of T, rows of D), in value's own type.  A whole level has no
+// window edge: every in-bounds corner of a resident level is read from
+// shared memory.  Above 48 KB the entry points raise the kernel's limit
+// once (msda_grant_smem).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define MSDA_MAX_LEVELS 8
@@ -32,11 +39,12 @@ struct Levels {
   int h[MSDA_MAX_LEVELS];
   int w[MSDA_MAX_LEVELS];
   int start[MSDA_MAX_LEVELS];
-  int sm_off[MSDA_MAX_LEVELS];  // floats from the start of the resident copy
+  int sm_off[MSDA_MAX_LEVELS];  // elements of T from the resident copy's start
   int resident_mask;            // bit l: level l of value is in shared memory
-  int resident_floats;          // floats of the resident copy
+  int resident_elems;           // elements of T of the resident copy
   // the backward only: the resident levels whose share of dvalue is summed
-  // in shared memory too, in a block of grad_floats floats after the copy
+  // in shared memory too, in a block of grad_floats floats (float32 for
+  // every T) after the copy (msda_grad_start)
   int grad_off[MSDA_MAX_LEVELS];
   int grad_mask;
   int grad_floats;
@@ -55,26 +63,36 @@ static inline int msda_fill_levels(Levels* lv, const int* hw, int n_levels,
         ((long long)hw[2 * l] + 1) * ((long long)hw[2 * l + 1] + 1) >=
             (1LL << MSDA_TOKEN_BITS))
       return -1;
-    const int floats = hw[2 * l] * hw[2 * l + 1] * D;
+    const int elems = hw[2 * l] * hw[2 * l + 1] * D;
     lv->h[l] = hw[2 * l];
     lv->w[l] = hw[2 * l + 1];
     lv->start[l] = start;
     lv->sm_off[l] = off;
     lv->grad_off[l] = goff;
     start += lv->h[l] * lv->w[l];
-    if ((resident_mask >> l) & 1) off += floats;
-    if ((grad_mask >> l) & 1) goff += floats;
+    if ((resident_mask >> l) & 1) off += elems;
+    if ((grad_mask >> l) & 1) goff += elems;
   }
   lv->resident_mask = resident_mask;
-  lv->resident_floats = off;
+  lv->resident_elems = off;
   lv->grad_mask = grad_mask;
   lv->grad_floats = goff;
   return start;
 }
 
-// Lanes that share a query for a head of D channels at VEC channels a lane.
+// Bytes from the start of shared memory to the backward's float32 grad
+// levels: the resident copy in T, rounded up to 16 bytes.
+template <typename T>
+__host__ __device__ __forceinline__ size_t msda_grad_start(const Levels& lv) {
+  return ((size_t)lv.resident_elems * sizeof(T) + 15) / 16 * 16;
+}
+
+// Lanes that share a query for a head of D channels at VEC channels a lane:
+// 8 at the least, 4 for 16-byte lanes of 8 bf16 channels.
 static inline int msda_group_lanes(int D, int vec) {
-  return D <= 8 * vec ? 8 : (D <= 16 * vec ? 16 : 32);
+  for (int g = vec == 8 ? 4 : 8; g < 32; g *= 2)
+    if (D <= g * vec) return g;
+  return 32;
 }
 
 // Threads of a block: a lane group for each query of the longest run, in
@@ -100,40 +118,121 @@ static inline cudaError_t msda_grant_smem(K kernel, size_t bytes,
   return err;
 }
 
+// VEC float32 channels of a row of out, dout or dvalue (or of the
+// shared-memory grad levels): VEC / 4 16-byte vectors, or one float.
 template <int VEC>
-struct Row;  // VEC channels of one row
-
-template <>
-struct Row<4> {
-  float v[4];
+struct Row {
+  static_assert(VEC == 1 || VEC % 4 == 0, "1 or whole float4s");
+  float v[VEC];
   __device__ __forceinline__ void load_global(const float* p) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    if constexpr (VEC == 1) {
+      v[0] = __ldg(p);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC / 4; ++i)
+        set4(i, __ldg(reinterpret_cast<const float4*>(p) + i));
+    }
   }
   __device__ __forceinline__ void load_shared(const float* p) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+    if constexpr (VEC == 1) {
+      v[0] = *p;
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC / 4; ++i)
+        set4(i, reinterpret_cast<const float4*>(p)[i]);
+    }
   }
   __device__ __forceinline__ void store(float* p) const {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    if constexpr (VEC == 1) {
+      *p = v[0];
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC / 4; ++i)
+        reinterpret_cast<float4*>(p)[i] = get4(i);
+    }
   }
-  // one 16-byte vector atomic in global memory
+  // 16-byte vector atomics in global memory (one float: a scalar one)
   __device__ __forceinline__ void add_global(float* p) const {
-    atomicAdd(reinterpret_cast<float4*>(p),
-              make_float4(v[0], v[1], v[2], v[3]));
+    if constexpr (VEC == 1) {
+      atomicAdd(p, v[0]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC / 4; ++i)
+        atomicAdd(reinterpret_cast<float4*>(p) + i, get4(i));
+    }
+  }
+  __device__ __forceinline__ void set4(int i, float4 t) {
+    v[4 * i] = t.x, v[4 * i + 1] = t.y, v[4 * i + 2] = t.z,
+    v[4 * i + 3] = t.w;
+  }
+  __device__ __forceinline__ float4 get4(int i) const {
+    return make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  }
+};
+
+// VEC channels of a row of value (type T), as float32.
+template <typename T, int VEC>
+struct ValueRow;
+
+template <int VEC>
+struct ValueRow<float, VEC> : Row<VEC> {};
+
+// eight bf16 channels: one 16-byte load, converted in pairs by the
+// intrinsics
+template <>
+struct ValueRow<__nv_bfloat16, 8> {
+  float v[8];
+  __device__ __forceinline__ void load_global(const __nv_bfloat16* p) {
+    convert(__ldg(reinterpret_cast<const uint4*>(p)));
+  }
+  __device__ __forceinline__ void load_shared(const __nv_bfloat16* p) {
+    convert(*reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void convert(uint4 t) {
+    const unsigned u[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 h;
+      h.x = __ushort_as_bfloat16((unsigned short)(u[i] & 0xffffu));
+      h.y = __ushort_as_bfloat16((unsigned short)(u[i] >> 16));
+      const float2 f = __bfloat1622float2(h);
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// four bf16 channels: one 8-byte load (the backward's lanes, laid out as
+// its float32 form's: dout and dvalue stay 16 bytes a lane)
+template <>
+struct ValueRow<__nv_bfloat16, 4> {
+  float v[4];
+  __device__ __forceinline__ void load_global(const __nv_bfloat16* p) {
+    convert(__ldg(reinterpret_cast<const uint2*>(p)));
+  }
+  __device__ __forceinline__ void load_shared(const __nv_bfloat16* p) {
+    convert(*reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ void convert(uint2 t) {
+    const unsigned u[2] = {t.x, t.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      __nv_bfloat162 h;
+      h.x = __ushort_as_bfloat16((unsigned short)(u[i] & 0xffffu));
+      h.y = __ushort_as_bfloat16((unsigned short)(u[i] >> 16));
+      const float2 f = __bfloat1622float2(h);
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
   }
 };
 
 template <>
-struct Row<1> {
+struct ValueRow<__nv_bfloat16, 1> {
   float v[1];
-  __device__ __forceinline__ void load_global(const float* p) {
-    v[0] = __ldg(p);
+  __device__ __forceinline__ void load_global(const __nv_bfloat16* p) {
+    v[0] = __bfloat162float(__ldg(p));
   }
-  __device__ __forceinline__ void load_shared(const float* p) { v[0] = *p; }
-  __device__ __forceinline__ void store(float* p) const { *p = v[0]; }
-  __device__ __forceinline__ void add_global(float* p) const {
-    atomicAdd(p, v[0]);
+  __device__ __forceinline__ void load_shared(const __nv_bfloat16* p) {
+    v[0] = __bfloat162float(*p);
   }
 };
 
@@ -188,22 +287,33 @@ struct Corners {
   }
 };
 
-// Copies the resident levels of (b, m) from `src` (B, S, M, D) into `sm`.
-template <int VEC>
+// Copies the resident levels of (b, m) from `src` (B, S, M, D) into `sm`,
+// VEC elements of T at a time (one 16- or 8-byte vector where VEC elements
+// make one), in value's own type.
+template <typename T, int VEC>
 __device__ __forceinline__ void msda_stage_levels(
-    float* sm, const float* __restrict__ src, const Levels& lv, int n_levels,
-    int S, int M, int D, int b, int m) {
+    T* sm, const T* __restrict__ src, const Levels& lv, int n_levels, int S,
+    int M, int D, int b, int m) {
   const int per_row = D / VEC;
   for (int l = 0; l < n_levels; ++l) {
     if (!((lv.resident_mask >> l) & 1)) continue;
-    const float* base = src + (((size_t)b * S + lv.start[l]) * M + m) * D;
-    float* dst = sm + lv.sm_off[l];
+    const T* base = src + (((size_t)b * S + lv.start[l]) * M + m) * D;
+    T* dst = sm + lv.sm_off[l];
     const int n = lv.h[l] * lv.w[l] * per_row;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const int r = i / per_row, c = (i - r * per_row) * VEC;
-      Row<VEC> row;
-      row.load_global(base + (size_t)r * M * D + c);
-      row.store(dst + r * D + c);
+      const T* from = base + (size_t)r * M * D + c;
+      T* to = dst + r * D + c;
+      if constexpr (VEC * sizeof(T) == 16) {
+        *reinterpret_cast<uint4*>(to) =
+            __ldg(reinterpret_cast<const uint4*>(from));
+      } else if constexpr (VEC * sizeof(T) == 8) {
+        *reinterpret_cast<uint2*>(to) =
+            __ldg(reinterpret_cast<const uint2*>(from));
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) to[e] = from[e];
+      }
     }
   }
 }

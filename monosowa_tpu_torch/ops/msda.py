@@ -12,12 +12,22 @@ over levels x points.
     aw    (B, Q, M, L, P)
     ->    (B, Q, M * D)
 
+Types: value is float32 or bfloat16 (float64 too on the CPU); loc and aw
+are float32 (float64 with a float64 value).  The output is float32 (float64
+with a float64 value): bfloat16 value rows are read as they are and every
+product and sum is float32, as K1 reads bf16 quad rows into float32 sums
+(JAX package ``ops/msda_mxu.py:235``) and as jnp promotes bf16 x f32.  The
+value gradient comes back in value's dtype, summed in float32 and rounded
+once (``ops/msda.py:474``, ``msda_mxu.py:635``).
+
 ``ms_deform_attn`` goes through ``MSDAFunction`` on every device.  For CUDA
 tensors its forward launches ``csrc/msda_fwd.cu`` and its backward
-``csrc/msda_bwd.cu``; for CPU tensors it runs the plain versions
-(``ms_deform_attn_plain``, ``msda_grad_loc_aw_plain``,
-``msda_grad_value_plain``).  There is no other path.  ``launches`` counts
-forward kernel launches and ``bwd_launches`` backward ones.
+``csrc/msda_bwd.cu`` (entry points ``msda_fwd`` / ``msda_bwd`` for a float32
+value, ``msda_fwd_bf16`` / ``msda_bwd_bf16`` for a bfloat16 one); for CPU
+tensors it runs the plain versions (``ms_deform_attn_plain``,
+``msda_grad_loc_aw_plain``, ``msda_grad_value_plain``).  There is no other
+path.  ``launches`` and ``bwd_launches`` count the float32 kernels'
+launches, ``launches_bf16`` and ``bwd_launches_bf16`` the bfloat16 ones.
 
 The kernels take their block map from ``msda_plan``: the order in which
 queries are walked (image tiles where the queries are the pyramid's own
@@ -36,11 +46,16 @@ import numpy as np
 import torch
 
 SpatialShapes = Sequence[Tuple[int, int]]
+# value's dtypes on every device (the kernels' two forms)
+VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
-# kernel launches made by the forward and the backward (read and reset by
-# callers that must show a run went through the kernels)
+# kernel launches made by the forward and the backward, float32 and
+# bfloat16 value (read and reset by callers that must show a run went
+# through the kernels)
 launches = 0
 bwd_launches = 0
+launches_bf16 = 0
+bwd_launches_bf16 = 0
 
 
 def _corner_geometry(loc: torch.Tensor, h: int, w: int):
@@ -88,17 +103,18 @@ def _first_rows(b: int, s: int, start: int, dev) -> torch.Tensor:
 
 def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: SpatialShapes,
                          loc: torch.Tensor, aw: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch MSDA forward: explicit per-corner row gathers.
+    """The plain PyTorch MSDA forward: explicit per-corner row gathers, in
+    loc's dtype (bfloat16 rows are upcast as they are gathered).
     Differentiable by torch.autograd through its gathers."""
     b, s, m, d = value.shape
     q, p = loc.shape[1], loc.shape[4]
     vflat = value.reshape(b * s * m, d)
-    out = value.new_zeros(b, q, m, d)
+    out = loc.new_zeros(b, q, m, d)
     for lvl, h, w, start in _levels(spatial_shapes):
         first = _first_rows(b, s, start, value.device)
         sampled = None
         for flat, cw, _, _, inb in _corner_geometry(loc[:, :, :, lvl], h, w):
-            v = vflat[_rows(flat, first, m)]                 # (B,Q,M,P,D)
+            v = vflat[_rows(flat, first, m)].to(loc.dtype)   # (B,Q,M,P,D)
             term = v * (cw * inb)[..., None]
             sampled = term if sampled is None else sampled + term
         out = out + torch.einsum("bqmpd,bqmp->bqmd", sampled,
@@ -110,7 +126,8 @@ def msda_grad_loc_aw_plain(value: torch.Tensor,
                            spatial_shapes: SpatialShapes, loc: torch.Tensor,
                            aw: torch.Tensor, dout: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain MSDA backward for loc and aw (K2's contract, folded).
+    """The plain MSDA backward for loc and aw (K2's contract, folded), in
+    dout's dtype (bfloat16 value rows are upcast as they are gathered).
 
     For each sample and in-bounds corner, gdot = <value corner row,
     dout[b, q, m, :]>; then, as the JAX package's ``ops/msda.py:311-324``
@@ -128,7 +145,8 @@ def msda_grad_loc_aw_plain(value: torch.Tensor,
         dw_l = dx_l = dy_l = 0.0
         for flat, cw, dwx, dwy, inb in _corner_geometry(loc[:, :, :, lvl],
                                                          h, w):
-            g = (vflat[_rows(flat, first, m)] * do).sum(-1) * inb
+            g = (vflat[_rows(flat, first, m)].to(do.dtype) * do).sum(-1) \
+                * inb
             dw_l = dw_l + cw * g
             dx_l = dx_l + dwx * g
             dy_l = dy_l + dwy * g
@@ -140,12 +158,14 @@ def msda_grad_loc_aw_plain(value: torch.Tensor,
 
 def msda_grad_value_plain(value_shape: Sequence[int],
                           spatial_shapes: SpatialShapes, loc: torch.Tensor,
-                          aw: torch.Tensor, dout: torch.Tensor
-                          ) -> torch.Tensor:
+                          aw: torch.Tensor, dout: torch.Tensor,
+                          dtype: torch.dtype = None) -> torch.Tensor:
     """The plain MSDA backward for value (K3's contract): for each sample
     and in-bounds corner, dValue[b, token, m, :] += aw * w_corner *
     dout[b, q, m, :], as one ``index_add_`` scatter per level and corner.
-    dout is (B, Q, M * D); returns dvalue of ``value_shape`` (B, S, M, D)."""
+    dout is (B, Q, M * D); returns dvalue of ``value_shape`` (B, S, M, D),
+    summed in dout's dtype and rounded once to ``dtype`` (value's; None:
+    dout's)."""
     b, s, m, d = value_shape
     q = loc.shape[1]
     do = dout.reshape(b, q, m, 1, d)
@@ -157,7 +177,7 @@ def msda_grad_value_plain(value_shape: Sequence[int],
             coef = aw_l * cw * inb                           # (B,Q,M,P)
             dvalue.index_add_(0, _rows(flat, first, m).reshape(-1),
                               (coef[..., None] * do).reshape(-1, d))
-    return dvalue.reshape(b, s, m, d)
+    return dvalue.reshape(b, s, m, d).to(dtype or dout.dtype)
 
 
 class MSDAFunction(torch.autograd.Function):
@@ -181,7 +201,7 @@ class MSDAFunction(torch.autograd.Function):
         if value.device.type == "cpu":
             dloc, daw = msda_grad_loc_aw_plain(value, shapes, loc, aw, dout)
             dvalue = msda_grad_value_plain(value.shape, shapes, loc, aw,
-                                           dout)
+                                           dout, value.dtype)
         else:
             dvalue, dloc, daw = _launch_bwd(value, shapes, loc, aw, dout)
         need = ctx.needs_input_grad
@@ -205,15 +225,18 @@ def _check(value, spatial_shapes, loc, aw):
                          f"{tuple(loc.shape[:5])}")
     if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no MSDA for device {value.device}")
-    # float32 everywhere; float64 too on the CPU, where the plain version
-    # runs (the kernels take float32 only)
-    dtypes = (torch.float32, torch.float64) if value.device.type == "cpu" \
-        else (torch.float32,)
+    # value float32 or bfloat16, loc and aw float32; all float64 on the CPU,
+    # where the plain version runs
+    dtypes = VALUE_DTYPES + ((torch.float64,) if value.device.type == "cpu"
+                             else ())
+    if value.dtype not in dtypes:
+        raise TypeError(f"value is {value.dtype}: MSDA on "
+                        f"{value.device.type} takes one of {dtypes}")
+    want = torch.promote_types(value.dtype, torch.float32)
     for name, t in (("value", value), ("loc", loc), ("aw", aw)):
-        if t.dtype != value.dtype or t.dtype not in dtypes:
-            raise TypeError(f"{name} is {t.dtype}, value {value.dtype}: "
-                            f"MSDA on {value.device.type} takes one of "
-                            f"{dtypes}")
+        if name != "value" and t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}: with a {value.dtype} "
+                            f"value MSDA takes {want}")
         if t.device != value.device:
             raise ValueError(f"{name} is on {t.device}, value on "
                              f"{value.device}")
@@ -283,17 +306,19 @@ def query_order(spatial_shapes: SpatialShapes, q: int
 
 
 def resident_levels(spatial_shapes: SpatialShapes, run_len: int,
-                    n_points: int, d: int) -> Tuple[int, ...]:
+                    n_points: int, d: int, elem_size: int = 4
+                    ) -> Tuple[int, ...]:
     """The levels a block keeps whole in shared memory, a function of the
-    shapes alone: coarsest first while the rows (float32, ``d`` channels of
-    one head) fit RESIDENT_BUDGET, each only where a run of ``run_len``
-    queries, four corners to each of its ``n_points`` samples of the level,
-    reads RESIDENT_MIN_READS corner rows for each row copied."""
+    shapes alone: coarsest first while the rows (``d`` channels of one
+    head, ``elem_size`` bytes each: 4 for float32 value, 2 for bfloat16) fit
+    RESIDENT_BUDGET, each only where a run of ``run_len`` queries, four
+    corners to each of its ``n_points`` samples of the level, reads
+    RESIDENT_MIN_READS corner rows for each row copied."""
     taken, nbytes = [], 0
     by_size = sorted(enumerate(spatial_shapes),
                      key=lambda it: (it[1][0] * it[1][1], -it[0]))
     for lvl, (h, w) in by_size:
-        nbytes += h * w * d * 4
+        nbytes += h * w * d * elem_size
         if nbytes > RESIDENT_BUDGET or \
                 h * w * RESIDENT_MIN_READS > run_len * n_points * 4:
             break
@@ -320,20 +345,23 @@ class MSDAPlan:
     identity: bool                # index order in runs of max_run
     resident: Tuple[int, ...]     # levels kept in shared memory
     resident_mask: int            # the same as bits
-    resident_bytes: int
+    resident_bytes: int           # value's rows, in its own dtype
     grad: Tuple[int, ...]         # of those, dvalue in shared memory too
     grad_mask: int
-    grad_bytes: int
+    grad_bytes: int               # float32 whatever value's dtype
     level_hw: ctypes.Array        # host array of (H, W) pairs
 
 
 @functools.lru_cache(maxsize=None)
 def msda_plan(spatial_shapes: Tuple[Tuple[int, int], ...], q: int,
-              n_points: int, d: int, device: torch.device) -> MSDAPlan:
-    """The block map for one shape on one device, built once."""
+              n_points: int, d: int, device: torch.device,
+              elem_size: int = 4) -> MSDAPlan:
+    """The block map for one shape, value element size (bytes) and device,
+    built once."""
     order, runs = query_order(spatial_shapes, q)
     run_len = int(runs[:, 1].max()) if len(runs) else 0
-    resident = resident_levels(spatial_shapes, run_len, n_points, d)
+    resident = resident_levels(spatial_shapes, run_len, n_points, d,
+                               elem_size)
     grad = grad_levels(spatial_shapes, resident, q, n_points)
     hw = (ctypes.c_int * (2 * len(spatial_shapes)))(
         *[int(v) for hw_l in spatial_shapes for v in hw_l])
@@ -341,9 +369,9 @@ def msda_plan(spatial_shapes: Tuple[Tuple[int, int], ...], q: int,
     def mask(levels):
         return sum(1 << lvl for lvl in levels)
 
-    def nbytes(levels):
+    def nbytes(levels, size):
         return sum(spatial_shapes[lvl][0] * spatial_shapes[lvl][1]
-                   for lvl in levels) * d * 4
+                   for lvl in levels) * d * size
 
     return MSDAPlan(
         order=torch.from_numpy(order).to(device),
@@ -351,48 +379,62 @@ def msda_plan(spatial_shapes: Tuple[Tuple[int, int], ...], q: int,
         max_run=run_len,
         identity=q != sum(h * w for h, w in spatial_shapes),
         resident=resident, resident_mask=mask(resident),
-        resident_bytes=nbytes(resident), grad=grad, grad_mask=mask(grad),
-        grad_bytes=nbytes(grad), level_hw=hw)
+        resident_bytes=nbytes(resident, elem_size), grad=grad,
+        grad_mask=mask(grad), grad_bytes=nbytes(grad, 4), level_hw=hw)
 
 
 # ---------------------------------------------------------------------------
 # the CUDA kernels (csrc/msda_fwd.cu, csrc/msda_bwd.cu), bound with ctypes
 # ---------------------------------------------------------------------------
 
+# the entry point of each source for each value dtype
+ENTRY = {("msda_fwd", torch.float32): "msda_fwd",
+         ("msda_fwd", torch.bfloat16): "msda_fwd_bf16",
+         ("msda_bwd", torch.float32): "msda_bwd",
+         ("msda_bwd", torch.bfloat16): "msda_bwd_bf16"}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel(name: str):
-    """The bound C entry point of ``csrc/<name>.cu``, built at first use."""
+def _kernel(source: str, entry: str):
+    """The bound C entry point ``entry`` of ``csrc/<source>.cu``, built at
+    first use."""
     from monosowa_tpu_torch.ops._build import load_library
 
-    fn = getattr(load_library(name), name)
+    fn = getattr(load_library(source), entry)
     p, i = ctypes.c_void_p, ctypes.c_int
     # the tensors (value, loc, aw, out for the forward; value, loc, aw,
     # dout, dvalue, dloc, daw for the backward), then order, runs, level_hw
     # (host), n_levels, n_runs, max_run, resident_mask, (the backward:
     # grad_mask,) B, S, Q, M, D, P, stream
-    n_tensors, n_ints = (4, 10) if name == "msda_fwd" else (7, 11)
+    n_tensors, n_ints = (4, 10) if source == "msda_fwd" else (7, 11)
     fn.argtypes = [p] * (n_tensors + 3) + [i] * n_ints + [p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, tensors, out_tensors, spatial_shapes):
-    """One call of a kernel's entry point on the tensors' device and
-    PyTorch's current stream; raises where the launch is refused."""
+def _launch(source: str, tensors, out_tensors, spatial_shapes):
+    """One call of a kernel's entry point for value's dtype on the tensors'
+    device and PyTorch's current stream; raises where the launch is
+    refused.  value is float32 or bfloat16, every other tensor float32, all
+    contiguous."""
     value, loc = tensors[0], tensors[1]
-    for t in tensors:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise TypeError(f"the MSDA kernels take contiguous float32, got "
-                            f"{t.dtype}, contiguous={t.is_contiguous()}")
+    entry = ENTRY.get((source, value.dtype))
+    for t in tensors + out_tensors:
+        want = value.dtype if t is value else torch.float32
+        if entry is None or t.dtype != want or not t.is_contiguous():
+            raise TypeError(f"the MSDA kernels take a contiguous float32 or "
+                            f"bfloat16 value and contiguous float32 "
+                            f"otherwise, got {t.dtype} with value "
+                            f"{value.dtype}, contiguous={t.is_contiguous()}")
     b, s, m, d = value.shape
     q, n_levels, p = loc.shape[1], loc.shape[3], loc.shape[4]
     plan = msda_plan(tuple((int(h), int(w)) for h, w in spatial_shapes), q,
-                     p, d, value.device)
-    kernel = _kernel(name)
+                     p, d, value.device, value.element_size())
+    kernel = _kernel(source, entry)
     # index order needs no arrays: the kernels then count for themselves
     order_runs = (None, None) if plan.identity else \
         (plan.order.data_ptr(), plan.runs.data_ptr())
-    masks = (plan.resident_mask,) if name == "msda_fwd" else \
+    masks = (plan.resident_mask,) if source == "msda_fwd" else \
         (plan.resident_mask, plan.grad_mask)
     with torch.cuda.device(value.device):
         err = kernel(*[t.data_ptr() for t in (*tensors, *out_tensors)],
@@ -401,26 +443,37 @@ def _launch(name: str, tensors, out_tensors, spatial_shapes):
                      plan.max_run, *masks, b, s, q, m, d, p,
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
 def _launch_fwd(value, spatial_shapes, loc, aw):
-    global launches
+    """out (B, Q, M * D) float32 from one call of ``csrc/msda_fwd.cu``."""
+    global launches, launches_bf16
     b, _, m, d = value.shape
     out = torch.empty(b, loc.shape[1], m * d, device=value.device,
                       dtype=torch.float32)
     _launch("msda_fwd", (value, loc, aw), (out,), spatial_shapes)
-    launches += 1
+    if value.dtype == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
 def _launch_bwd(value, spatial_shapes, loc, aw, dout):
-    """dvalue, dloc, daw from one call of ``csrc/msda_bwd.cu``."""
-    global bwd_launches
-    dvalue = torch.empty_like(value)      # zeroed by the call
+    """dvalue (value's dtype), dloc, daw from one call of
+    ``csrc/msda_bwd.cu``.  dvalue is summed in a float32 scratch (zeroed by
+    the call) and, for a bfloat16 value, rounded to bfloat16 once after it,
+    as the JAX package casts K3's float32 sums (``msda_mxu.py:635``)."""
+    global bwd_launches, bwd_launches_bf16
+    dvalue = torch.empty(value.shape, device=value.device,
+                         dtype=torch.float32)
     dloc = torch.empty_like(loc)
     daw = torch.empty_like(aw)
     _launch("msda_bwd", (value, loc, aw, dout), (dvalue, dloc, daw),
             spatial_shapes)
+    if value.dtype == torch.bfloat16:
+        bwd_launches_bf16 += 1
+        return dvalue.to(torch.bfloat16), dloc, daw
     bwd_launches += 1
     return dvalue, dloc, daw

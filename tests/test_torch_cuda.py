@@ -238,6 +238,120 @@ def test_msda_kernels_take_tensors_off_16_bytes(cuda):
     _check_fwd_bwd(RAGGED, shifted, loc, aw, _dout(22, 40, 2, 2, 32, cuda))
 
 
+# bfloat16 value rows (the form the TPU kernels K1-K4 read): the kernels
+# against the plain versions on the same bf16 value.  out, dloc and daw are
+# float32 sums of the same products in another order: 1e-5 of each output's
+# magnitude.  dvalue is a float32 sum (atomics in an order that changes from
+# run to run) rounded once to bf16: within one bf16 step of the plain
+# version's, plus 1e-5 of its magnitude for sums that cancel
+
+
+def _bf16_ulp(x):
+    mag = x.float().abs().clamp(min=1e-30)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _check_fwd_bwd_bf16(shapes, value, loc, aw, dout):
+    assert value.dtype == torch.bfloat16
+    before = (msda.launches_bf16, msda.bwd_launches_bf16,
+              msda.launches, msda.bwd_launches)
+    got = (msda.ms_deform_attn(value, shapes, loc, aw),
+           *msda._launch_bwd(value, shapes, loc, aw, dout))
+    dloc, daw = msda.msda_grad_loc_aw_plain(value, shapes, loc, aw, dout)
+    want = (msda.ms_deform_attn_plain(value, shapes, loc, aw),
+            msda.msda_grad_value_plain(value.shape, shapes, loc, aw, dout,
+                                       value.dtype), dloc, daw)
+    torch.cuda.synchronize()
+    assert (msda.launches_bf16, msda.bwd_launches_bf16, msda.launches,
+            msda.bwd_launches) == (before[0] + 1, before[1] + 1, *before[2:])
+    for name, g, w in zip(("out", "dvalue", "dloc", "daw"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert g.dtype == (torch.bfloat16 if name == "dvalue"
+                           else torch.float32), name
+        assert torch.isfinite(g).all(), name
+        diff = (g.float() - w.float()).abs()
+        bar = 1e-5 * float(w.float().abs().max())
+        if name == "dvalue":
+            bar = bar + _bf16_ulp(torch.maximum(g.float().abs(),
+                                                w.float().abs()))
+        assert bool((diff <= bar).all()), name
+    return got
+
+
+# D = 32: the forward's four 16-byte lanes of 8 channels, the backward's
+# eight lanes of 4 (as its float32 form); D = 8 one forward lane; D = 48
+# six forward lanes of a group of 8; D = 6 one element a lane; the shipped
+# encoder's
+# own tokens (level 3 resident in bf16, its grad in float32 behind it), the
+# decoder's Q = 50 and 550 (nothing resident, index order, 4 / 1 warps a
+# query), a ragged pyramid and a 1-row level
+@pytest.mark.parametrize("shapes,q,b,m,d,p", [
+    (SHIPPED, None, 1, 2, 32, 4),
+    (SHIPPED, 50, 2, 8, 32, 4),
+    (SHIPPED, 550, 2, 8, 32, 4),
+    (RAGGED, None, 2, 4, 32, 4),
+    (RAGGED, None, 2, 4, 8, 4),
+    (RAGGED, None, 2, 2, 48, 3),
+    (RAGGED, None, 2, 3, 6, 4),
+    (((7, 9), (1, 5)), 33, 2, 2, 32, 3),
+])
+def test_msda_bf16_kernels_match_plain(cuda, shapes, q, b, m, d, p):
+    q = q or _tokens(shapes)
+    value, loc, aw = _inputs(31, shapes, q, b, m, d, p, cuda)
+    plan = msda.msda_plan(shapes, q, p, d, value.device, 2)
+    assert plan.resident_bytes == 2 * d * sum(
+        shapes[lvl][0] * shapes[lvl][1] for lvl in plan.resident)
+    _check_fwd_bwd_bf16(shapes, value.to(torch.bfloat16), loc, aw,
+                        _dout(32, q, b, m, d, cuda))
+
+
+def test_msda_bf16_kernels_take_a_view_off_16_bytes(cuda):
+    # a bf16 value 2 bytes into its storage: one element a lane, the same
+    # numbers
+    value, loc, aw = _inputs(33, RAGGED, 40, 2, 2, 32, 4, cuda)
+    shifted = torch.empty(value.numel() + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view_as(value)
+    shifted.copy_(value)
+    assert shifted.data_ptr() % 16 == 2 and shifted.is_contiguous()
+    _check_fwd_bwd_bf16(RAGGED, shifted, loc, aw,
+                        _dout(34, 40, 2, 2, 32, cuda))
+
+
+def test_msda_bf16_gradient_goes_through_the_kernels(cuda):
+    shapes = ((12, 20), (6, 10), (3, 5), (2, 3))
+    value, loc, aw = _inputs(35, shapes, 37, 2, 4, 32, 4, cuda)
+    value = value.to(torch.bfloat16).requires_grad_()
+    loc.requires_grad_()
+    aw.requires_grad_()
+    dout = _dout(36, 37, 2, 4, 32, cuda)
+    before = (msda.launches_bf16, msda.bwd_launches_bf16)
+    out = msda.ms_deform_attn(value, shapes, loc, aw)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert (msda.launches_bf16, msda.bwd_launches_bf16) == (before[0] + 1,
+                                                             before[1] + 1)
+    assert (value.grad.dtype, loc.grad.dtype, aw.grad.dtype) == (
+        torch.bfloat16, torch.float32, torch.float32)
+
+
+def test_msda_bf16_kernels_refuse_what_they_cannot_take(cuda):
+    shapes = ((4, 4),)
+    value, loc, aw = _inputs(37, shapes, 5, 1, 2, 8, 2, cuda)
+    dout = _dout(38, 5, 1, 2, 8, cuda)
+    v16 = value.to(torch.bfloat16)
+    before = (msda.launches_bf16, msda.bwd_launches_bf16)
+    with pytest.raises(TypeError):          # loc and aw stay float32
+        msda.ms_deform_attn(v16, shapes, loc.to(torch.bfloat16), aw)
+    with pytest.raises(TypeError):
+        msda._launch_fwd(v16, shapes, loc, aw.to(torch.bfloat16))
+    with pytest.raises(TypeError):          # dout is float32
+        msda._launch_bwd(v16, shapes, loc, aw, dout.to(torch.bfloat16))
+    with pytest.raises(TypeError):          # no float16 form
+        msda._launch_fwd(value.half(), shapes, loc, aw)
+    assert (msda.launches_bf16, msda.bwd_launches_bf16) == before
+
+
 def _tfl_inputs(seed, b, s, n_valid, p, t, dev):
     """Per car a scan near the origin and posed clouds around it, with
     planted near-coincident points; the scan's tail past ``n_valid[b]`` is

@@ -38,6 +38,14 @@ batch = {"image": np.random.default_rng(0).normal(
                              [0, 0, 1, 0]]], np.float32),
          "img_size": np.array([[w, h]], np.float32)}
 dets = make_eval_step(model, topk=5)(batch)
+# the bf16 policy on the CPU: bf16 activations, float32 heads
+model16 = MonoDETR(device="cpu", enc_layers=1, dec_layers=1, group_num=1,
+                   d_model=64, d_ffn=64, nheads=4, num_queries=5,
+                   num_depth_bins=8, compute_dtype="bfloat16")
+seen16 = {}
+model16.encoder.layer0.self_attn.value_proj.register_forward_hook(
+    lambda m, a, out: seen16.update(value_proj=str(out.dtype)))
+dets16 = make_eval_step(model16, topk=5)(batch)
 from monosowa_tpu_torch.train.optim import make_optimizer
 from monosowa_tpu_torch.train.sample import sample_batch
 from monosowa_tpu_torch.train.trainer import make_train_step
@@ -99,6 +107,8 @@ print(json.dumps({"modules": names, "dets": list(dets.shape),
                   "frames_written": n_written, "label_rows": label_rows,
                   "bank_path": bank_path,
                   "finite": bool(np.isfinite(dets.numpy()).all()),
+                  "bf16": [seen16["value_proj"], str(dets16.dtype),
+                           bool(np.isfinite(dets16.numpy()).all())],
                   "train_finite": bool(np.isfinite(list(losses.values())
                                                    ).all()),
                   "grad_norm": losses["grad_norm"],
@@ -119,7 +129,8 @@ def _top_imports(path):
 
 
 def test_port_runs_without_jax():
-    """Every module imports, and a tiny CPU forward, a train step, the
+    """Every module imports, and a tiny CPU forward (float32 and under the
+    bfloat16 policy), a train step, the
     labelling of one small frame (host candidates, then bank mode), the
     AP stack with its native library and
     one step of the train / test / AP loop run, in a fresh interpreter
@@ -132,6 +143,7 @@ def test_port_runs_without_jax():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "monosowa_tpu_torch.ops.msda" in res["modules"]
     assert res["dets"] == [1, 5, 37] and res["finite"]
+    assert res["bf16"] == ["torch.bfloat16", "torch.float32", True]
     assert res["train_finite"] and res["grad_norm"] > 0
     assert "monosowa_tpu_torch.sowa.pipeline" in res["modules"]
     assert "monosowa_tpu_torch.ops.tfl" in res["modules"]

@@ -168,3 +168,79 @@ def test_module_on_pixel_grid_matches_jax():
     _report("module on the pixel grid", got, want, relative=True)
     scale = np.abs(want).max()
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 value rows, as K1-K4 read them on the TPU
+# ---------------------------------------------------------------------------
+
+def _bf16(value):
+    """value rounded to bfloat16: the torch tensor and the same bits as a
+    JAX array."""
+    tv = torch.from_numpy(value).to(torch.bfloat16)
+    return tv, jnp.asarray(tv.float().numpy()).astype(jnp.bfloat16)
+
+
+def _plain_bf16(tv, loc, w):
+    out = msda.ms_deform_attn_plain(tv, SHAPES, torch.from_numpy(loc),
+                                    torch.from_numpy(w))
+    assert out.dtype == torch.float32
+    return out.numpy()
+
+
+def _close_bf16(got, want, what):
+    """Both read the same bf16 rows and sum in float32, in another order:
+    2e-5 of the output's largest magnitude."""
+    scale = float(np.abs(want).max())
+    _report(what, got, want, relative=True)
+    np.testing.assert_allclose(got / scale, want / scale, atol=2e-5)
+
+
+# K1 itself (msda_mxu.py:235 casts value to bf16, sums in float32)
+@pytest.mark.parametrize("q", [37, 130])
+def test_plain_bf16_matches_mxu_kernel(q):
+    value, loc, w = _inputs(8, q)
+    tv, jv = _bf16(value)
+    want = np.asarray(ms_deform_attn_mxu(
+        jv, SHAPES, jnp.asarray(loc), jnp.asarray(w), block_q=64,
+        block_t=64, interpret=True))
+    assert want.dtype == np.float32
+    _close_bf16(_plain_bf16(tv, loc, w), want, f"bf16 mxu interpret q={q}")
+
+
+# K4 (msda_pallas.py:98 casts value to bf16)
+def test_plain_bf16_matches_pallas_kernel():
+    value, loc, w = _inputs(9, 37, b=1, m=2)
+    tv, jv = _bf16(value)
+    want = np.asarray(ms_deform_attn_pallas(
+        jv, SHAPES, jnp.asarray(loc), jnp.asarray(w), block_q=16,
+        interpret=True))
+    _close_bf16(_plain_bf16(tv, loc, w), want, "bf16 pallas interpret q=37")
+
+
+# the XLA quad path on a bf16 value: jnp promotes bf16 x f32 to float32
+@pytest.mark.parametrize("q", [37, 130])
+def test_plain_bf16_matches_xla_quad(q):
+    value, loc, w = _inputs(10, q)
+    tv, jv = _bf16(value)
+    want = np.asarray(jax_msda(jv, SHAPES, jnp.asarray(loc), jnp.asarray(w),
+                               gather_mode="quad"))
+    assert want.dtype == np.float32
+    _close_bf16(_plain_bf16(tv, loc, w), want, f"bf16 xla quad q={q}")
+
+
+def test_wrapper_takes_bf16_value_with_float32_loc_and_aw():
+    value, loc, w = _inputs(11, 11)
+    tv = torch.from_numpy(value).to(torch.bfloat16)
+    tl, tw = torch.from_numpy(loc), torch.from_numpy(w)
+    before = (msda.launches, msda.launches_bf16)
+    got = msda.ms_deform_attn(tv, SHAPES, tl, tw)
+    assert (msda.launches, msda.launches_bf16) == before   # CPU: no kernel
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), _plain_bf16(tv, loc, w))
+    # loc and aw stay float32 whatever value's dtype; no float16 at all
+    for args in ((tv, tl.to(torch.bfloat16), tw),
+                 (tv, tl, tw.to(torch.bfloat16)), (tv, tl.double(), tw),
+                 (tv.half(), tl, tw)):
+        with pytest.raises(TypeError):
+            msda.ms_deform_attn(args[0], SHAPES, args[1], args[2])

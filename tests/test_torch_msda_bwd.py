@@ -241,3 +241,85 @@ def test_module_grads_match_jax(ref_dof):
                f"module ref_dof={ref_dof} {name}.bias")
     for t, w, name in zip(inputs, want[1:], ("query", "ref", "src")):
         _close(t.grad.numpy(), w, 2e-4, f"module ref_dof={ref_dof} d{name}")
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 value rows: the plain backward against K1-K3 through the JAX
+# package's custom VJP (gather_mode "mxu", interpreted, as
+# tests/test_msda_mxu.py:96-127 runs it) and its XLA quad path
+# ---------------------------------------------------------------------------
+
+def _bf16_inputs(seed, q):
+    value, loc, aw, dout = _inputs(seed, q)
+    tv = torch.from_numpy(value).to(torch.bfloat16)
+    return tv, tv.float().numpy(), loc, aw, dout
+
+
+def _jax_bf16_vjp(value32, loc, aw, dout, gather_mode):
+    jv = jnp.asarray(value32).astype(jnp.bfloat16)
+    out, vjp = jax.vjp(lambda v, l, a: jax_msda(v, SHAPES, l, a,
+                                                gather_mode=gather_mode),
+                       jv, jnp.asarray(loc), jnp.asarray(aw))
+    assert out.dtype == jnp.float32
+    return vjp(jnp.asarray(dout))
+
+
+def _plain_bf16_bwd(tv, loc, aw, dout):
+    """MSDAFunction's backward on the CPU for a bf16 value."""
+    t = [tv.clone().requires_grad_()] + [
+        torch.from_numpy(a).requires_grad_() for a in (loc, aw)]
+    out = msda.ms_deform_attn(t[0], SHAPES, t[1], t[2])
+    out.backward(torch.from_numpy(dout))
+    assert (t[0].grad.dtype, t[1].grad.dtype, t[2].grad.dtype) == (
+        torch.bfloat16, torch.float32, torch.float32)
+    return [x.grad.float().numpy() for x in t]
+
+
+def _within_one_ulp(got, want, what):
+    """got and want both bf16 roundings of float32 sums taken in other
+    orders: at most one bf16 step (2**-7 of the power of two below the
+    larger magnitude) apart, element by element."""
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    diff = np.abs(got - want)
+    print(json.dumps({"plain_bwd_vs": what, "max_ulps":
+                      float((diff / ulp).max()),
+                      "elements_off_by_one_ulp": int((diff > 0).sum())}))
+    assert (diff <= ulp).all(), what
+
+
+@pytest.mark.parametrize("q", [37, 130])
+def test_plain_bf16_bwd_matches_mxu_kernels(q):
+    tv, value32, loc, aw, dout = _bf16_inputs(12, q)
+    want = _jax_bf16_vjp(value32, loc, aw, dout, "mxu")
+    assert want[0].dtype == jnp.bfloat16          # K3's sums cast (:635)
+    got = _plain_bf16_bwd(tv, loc, aw, dout)
+    # K2 reads the same bf16 rows and sums float32 products
+    _close(got[1], want[1], 2e-4, f"bf16 K2 + fold q={q} dloc")
+    _close(got[2], want[2], 2e-4, f"bf16 K2 + fold q={q} daw")
+    # K3 rounds its payload to bf16 (msda_mxu.py:494): its own bar
+    _close(got[0], np.asarray(want[0], np.float32), 5e-2,
+           f"bf16 K3 q={q} dvalue")
+
+
+@pytest.mark.parametrize("q", [37, 130])
+def test_plain_bf16_bwd_matches_xla_quad(q):
+    tv, value32, loc, aw, dout = _bf16_inputs(13, q)
+    want = _jax_bf16_vjp(value32, loc, aw, dout, "quad")
+    got = _plain_bf16_bwd(tv, loc, aw, dout)
+    _within_one_ulp(got[0], np.asarray(want[0], np.float32),
+                    f"bf16 xla quad q={q} dvalue")
+    _close(got[1], want[1], 2e-4, f"bf16 xla quad q={q} dloc")
+    _close(got[2], want[2], 2e-4, f"bf16 xla quad q={q} daw")
+
+
+def test_plain_bf16_bwd_is_the_float32_sum_rounded_once():
+    """dloc and daw of a bf16 value are those of its float32 copy, and
+    dvalue is their float32 sum rounded to bf16 once."""
+    tv, value32, loc, aw, dout = _bf16_inputs(14, 53)
+    got = _plain_bf16_bwd(tv, loc, aw, dout)
+    want = _plain_bwd(value32, loc, aw, dout)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(
+        got[0], torch.from_numpy(want[0]).to(torch.bfloat16).float().numpy())

@@ -127,3 +127,50 @@ def test_plan_is_cached_and_holds_what_the_kernels_read():
     np.testing.assert_array_equal(plan.runs.numpy(), runs)
     assert plan.n_runs == len(runs) and plan.max_run == runs[:, 1].max()
     assert list(plan.level_hw) == [v for hw in RAGGED for v in hw]
+
+
+# bfloat16 value rows: half the bytes a resident row, the grad copy float32
+def test_bf16_rows_at_the_shipped_shape():
+    q = _tokens(SHIPPED)
+    plan = msda.msda_plan(SHIPPED, q, 4, 32, CPU, 2)
+    assert plan is not msda.msda_plan(SHIPPED, q, 4, 32, CPU)
+    # the reads rule, not the budget, keeps level 2 out at runs of 128
+    assert plan.resident == (3,) and plan.grad == (3,)
+    assert plan.resident_bytes == 6 * 20 * 32 * 2 == 7680
+    assert plan.grad_bytes == 6 * 20 * 32 * 4 == 15360
+    for q_dec in (50, 550):
+        assert msda.msda_plan(SHIPPED, q_dec, 4, 32, CPU, 2).resident == ()
+
+
+@pytest.mark.parametrize("shapes,d,f32,bf16", [
+    # 40 x 40 rows of 64 bytes: exactly the budget in bf16, twice it in f32
+    (((80, 80), (40, 40)), 32, (), (1,)),
+    # d = 16 at long runs: level 1 joins levels 2 and 3 in bf16 only
+    (SHIPPED, 16, (2, 3), (1, 2, 3)),
+    (SHIPPED, 32, (2, 3), (2, 3)),
+])
+def test_half_size_rows_let_more_levels_fit(shapes, d, f32, bf16):
+    assert msda.resident_levels(shapes, 10 ** 6, 4, d) == f32
+    assert msda.resident_levels(shapes, 10 ** 6, 4, d, 4) == f32
+    assert msda.resident_levels(shapes, 10 ** 6, 4, d, 2) == bf16
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+@pytest.mark.parametrize("shapes,q", [
+    (SHIPPED, _tokens(SHIPPED)), (SHIPPED, 50), (SHIPPED, 550),
+    (RAGGED, _tokens(RAGGED)), (ONE_ROW, _tokens(ONE_ROW)),
+    (((80, 80), (40, 40)), 6400 + 1600)])
+def test_shared_memory_a_block_asks_for(shapes, q, elem):
+    """The dynamic shared memory the entry points ask for (msda_fwd.cu:
+    the resident copy in value's type; msda_bwd.cu: that copy rounded up to
+    16 bytes, then the float32 grad levels) stays within what one block of
+    an H100 may have (227 KB), and the forward's within half of it, so two
+    forward blocks share an SM."""
+    plan = msda.msda_plan(shapes, q, 4, 32, CPU, elem)
+    fwd = plan.resident_bytes
+    bwd = (-(-fwd // 16) * 16 if plan.grad else fwd) + plan.grad_bytes
+    assert fwd <= msda.RESIDENT_BUDGET <= 227 * 1024 // 2
+    assert bwd <= 227 * 1024
+    # the grad levels are float32 whatever value's type
+    assert plan.grad_bytes == 32 * 4 * sum(shapes[lvl][0] * shapes[lvl][1]
+                                           for lvl in plan.grad)

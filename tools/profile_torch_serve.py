@@ -1,7 +1,8 @@
 """Where the torch port's serve forward spends its time on one GPU.
 
-Builds the full-width MonoDETR (seeded random weights, float32, TF32 off)
-on ``cuda``, warms up, then for one request of two 384x1280 images:
+Builds the full-width MonoDETR (seeded random weights, TF32 off) on
+``cuda`` under ``--compute-dtype`` (default float32; "auto" or bfloat16 for
+the bf16 policy), warms up, then for one request of two 384x1280 images:
 
 * times each stage with CUDA events from forward hooks (backbone, input
   projections, depth predictor, each encoder layer and its MSDA module,
@@ -11,9 +12,10 @@ on ``cuda``, warms up, then for one request of two 384x1280 images:
 
 Prints one JSON line per part, after the card's name and power limit.
 
-    python tools/profile_torch_serve.py
+    python tools/profile_torch_serve.py [--compute-dtype auto]
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -25,6 +27,11 @@ sys.path.insert(0, ROOT)
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--compute-dtype", default="float32",
+                        help="the model's compute_dtype (float32, bfloat16 "
+                             "or auto)")
+    args = parser.parse_args()
     import numpy as np
     import torch
 
@@ -40,7 +47,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
 
-    model = MonoDETR(device="cuda", seed=0)
+    model = MonoDETR(device="cuda", seed=0,
+                     compute_dtype=args.compute_dtype)
     rng = np.random.default_rng(1)
     b, h, w = 2, 384, 1280
     batch = {"image": rng.normal(size=(b, h, w, 3)).astype(np.float32),
@@ -86,7 +94,8 @@ def main() -> int:
     for hd in handles:
         hd.remove()
     total = start.elapsed_time(end)
-    print(json.dumps({"part": "stages_ms", "forward_ms": total, **{
+    print(json.dumps({"part": "stages_ms", "compute_dtype": args.compute_dtype,
+                      "forward_ms": total, **{
         n: events[n][0].elapsed_time(events[n][1]) for n in stages}}),
         flush=True)
 

@@ -1,7 +1,9 @@
 """Where the torch port's train step spends its time on one GPU.
 
-Builds the full-width MonoDETR (seeded random weights, float32, TF32 off,
-50 x 11 Group-DETR queries, dropout 0.1) on ``cuda`` with AdamW, warms up
+Builds the full-width MonoDETR (seeded random weights, TF32 off, 50 x 11
+Group-DETR queries, dropout 0.1) on ``cuda`` under ``--compute-dtype``
+(default float32; "auto" or bfloat16 for the bf16 policy) with AdamW, warms
+up
 with two steps of ``make_train_step`` on ``sample_batch(2, 384, 1280)``,
 then:
 
@@ -13,9 +15,10 @@ then:
 
 Prints one JSON line per part, after the card's name and power limit.
 
-    python tools/profile_torch_train.py
+    python tools/profile_torch_train.py [--compute-dtype auto]
 """
 
+import argparse
 import json
 import os
 import subprocess
@@ -27,6 +30,11 @@ sys.path.insert(0, ROOT)
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--compute-dtype", default="float32",
+                        help="the model's compute_dtype (float32, bfloat16 "
+                             "or auto)")
+    args = parser.parse_args()
     import torch
 
     from monosowa_tpu_torch.models.criterion import CriterionConfig, criterion
@@ -47,7 +55,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
 
     dev = torch.device("cuda")
-    model = MonoDETR(device=dev, seed=0)
+    model = MonoDETR(device=dev, seed=0,
+                     compute_dtype=args.compute_dtype)
     opt = make_optimizer(model, 2e-4, 1e-4)
     step = make_train_step(model, None, opt)
     batch = sample_batch(2, 384, 1280)
@@ -105,7 +114,8 @@ def main() -> int:
         hd.remove()
     phases = ["upload", "forward", "criterion", "backward", "optimizer"]
     print(json.dumps({
-        "part": "phases_ms", "step_wall_ms": wall_ms,
+        "part": "phases_ms", "compute_dtype": args.compute_dtype,
+        "step_wall_ms": wall_ms,
         **{n: events[n][0].elapsed_time(events[n][1])
            for n in phases + stages}}), flush=True)
 
