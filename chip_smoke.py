@@ -115,7 +115,38 @@ Phases, each printing one JSON line:
             result files byte for byte; and the AP stack on its own ground
             truth, which must score 100.  The steps match with the JV
             kernel, as ``criterion_config_from_yaml`` says.
-10. kernels — one line listing every ported kernel with its numbers.
+10. masks — Mask2Former on Swin-B at full width (the JAX package's
+            benchmark widths: embed 128, depths 2-2-18-2, window 12, 100
+            queries, 80 labels, 6 encoder and 10 decoder layers) from
+            seeded weights, the car label's class bias raised so that the
+            median query of the first frame reaches 0.7; written as a zoo
+            checkpoint by ``save_checkpoint`` and loaded by
+            ``zoo.mask_backend`` from a config; the driver's
+            ``mask_tracking`` over 4 seeded 375x1242 frames (handed to its
+            ``_image`` by a subclass: no PIL on the card's machine), 6 MSDA
+            launches a frame; the same forwards with the plain MSDA (class
+            and mask logits within 1e-5 of their magnitude where the
+            kernel's decoder takes the plain forward's attention masks,
+            within 1e-3 free-running, with the attention entries that
+            flipped counted; the written masks equal to the kernel
+            forward's, and to the plain forward's except where |logit| is
+            under 1e-3 of its magnitude); K1 alone on
+            the inputs of the pixel decoder's six launches (3 levels, B=1,
+            Q=S=10,080) with both clocks and the bound.  Prints
+            ``mask_ms_per_frame``, the forward's ms, the device's busy
+            share and ``peak_mem_GB``.
+    depth — Depth Anything Large (DINOv2-L, 24 layers, metric, max 80 m)
+            at full width from seeded weights through a zoo checkpoint and
+            the driver's ``lidar_scans`` over 2 frames (input 518x1722):
+            depth finite in [0, 80], ``lidar_raw/`` read back by
+            ``load_pseudo_lidar``; a 2-layer copy on the card against the
+            same weights on the CPU (2e-4 of max_depth).  Prints
+            ``depth_ms_per_frame``, the forward's ms, the busy share and
+            ``peak_mem_GB``.
+    images_to_labels — the driver's ``optimization`` over the masks_raw/
+            and lidar_raw/ the two phases wrote, 2 frames: one label file
+            each (content not judged: random weights).
+11. kernels — one line listing every ported kernel with its numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
 raises and the script exits non-zero without it; so does a machine
@@ -160,6 +191,26 @@ LABEL_STREAM_GROUPS, PRODUCTION_WINDOW = 3, 30
 RF_T, RF_D, RF_BQ = 10240, 128, 256
 RF_ROWS = {"K6": RF_T, "encoder head": 10200 * 16}
 EPOCH_TRAIN, EPOCH_VAL, PERFECT_IMAGES = 8, 4, 16
+# the model zoo: KITTI frames, Mask2Former's input (the zoo's
+# mask_input_hw), Depth Anything's input size (518 x 1722 for a 375 x 1242
+# frame)
+ZOO_HW, MASK_INPUT_HW = (375, 1242), (384, 1280)
+MASK_FRAMES, DEPTH_FRAMES, DEPTH_INPUT_SIZE = 4, 2, 518
+CAR_LABEL = 2                 # COCO's car (the zoo's mask_car_labels)
+# kernel vs plain MSDA through a whole Mask2Former forward on the same
+# decoder attention masks, of the outputs' magnitude (ROADMAP's
+# kernel-vs-plain bar: float32 sums in another order)
+MASK_LOGIT_BAR = 1e-5
+# the free-running forwards (each on its own attention masks, which can flip
+# at a logit of 0; the serve phase's whole-forward bar): a written mask's
+# pixel may differ only where the plain forward's resized logit is within
+# this of 0, and a query be kept by one forward only where its probability
+# is within this of the threshold
+WHOLE_FORWARD_BAR = 1e-3
+# a 2-layer Depth Anything, the card against the CPU: float32 sums in
+# another order through 2 transformer layers and 20 convolutions, of
+# max_depth (ROADMAP's transformer-layer bars are 2e-4 to 3e-4)
+DEPTH_CPU_BAR = 2e-4
 AP_KEYS = tuple(f"car_{m}_{s}" for s in ("strict", "loose")
                 for m in ("bbox", "bev", "3d"))
 
@@ -237,7 +288,8 @@ def msda_inputs(rng, q: int, ref, dev, wide: bool = False):
                  for a in (value, loc, aw.reshape(b, q, m, n_lv, p)))
 
 
-def msda_bound(value, loc, other_bytes: int, macs_per_corner: int):
+def msda_bound(value, loc, other_bytes: int, macs_per_corner: int,
+               shapes=ENC_SHAPES):
     """Least time for the work: compulsory bytes over the memory rate, and
     the operations the in-bounds corners need (``macs_per_corner``
     multiply-adds per channel, float32 whatever value's type) over the
@@ -254,7 +306,7 @@ def msda_bound(value, loc, other_bytes: int, macs_per_corner: int):
     bi = torch.arange(b, device=loc.device).view(b, 1, 1, 1)
     mi = torch.arange(m, device=loc.device).view(1, 1, m, 1)
     keys, corners, start = [], [], 0
-    for lvl, (h, w) in enumerate(ENC_SHAPES):
+    for lvl, (h, w) in enumerate(shapes):
         corners.append(0)
         for flat, _, _, _, inb in _corner_geometry(loc[:, :, :, lvl], h, w):
             hit = inb > 0
@@ -270,8 +322,8 @@ def msda_bound(value, loc, other_bytes: int, macs_per_corner: int):
             value_rows)
 
 
-def msda_report(label, q, value, loc, err, kernel, plain, bound, rows_moved
-                ) -> dict:
+def msda_report(label, q, value, loc, err, kernel, plain, bound, rows_moved,
+                shapes=ENC_SHAPES) -> dict:
     """The numbers of one MSDA kernel at one shape: its time inside a
     replayed CUDA graph and launched from Python, the plain version's time,
     the bound, the block map, and the rate at which corner rows are
@@ -282,12 +334,13 @@ def msda_report(label, q, value, loc, err, kernel, plain, bound, rows_moved
     from monosowa_tpu_torch.ops import msda
 
     bound_ms, bound_by, nbytes, flops, corners, value_rows = bound
-    plan = msda.msda_plan(ENC_SHAPES, q, N_POINTS, D_HEAD, value.device,
+    plan = msda.msda_plan(shapes, q, N_POINTS, D_HEAD, value.device,
                           value.element_size())
     row = D_HEAD * value.element_size()
+    b = value.shape[0]
     res = {
-        "shape": f"{label}: B={BATCH} Q={q} S={value.shape[1]} "
-                 f"M={M_HEADS} D={D_HEAD} L={len(ENC_SHAPES)} P={N_POINTS}",
+        "shape": f"{label}: B={b} Q={q} S={value.shape[1]} "
+                 f"M={M_HEADS} D={D_HEAD} L={len(shapes)} P={N_POINTS}",
         **err,
         "ms": device_ms(kernel, 50),
         "ms_launched_from_python": cuda_ms(kernel, 50),
@@ -298,7 +351,7 @@ def msda_report(label, q, value, loc, err, kernel, plain, bound, rows_moved
         "corner_row_bytes": sum(corners) * row,
         "corner_row_bytes_resident": sum(corners[lvl]
                                          for lvl in plan.resident) * row,
-        "blocks": plan.n_runs * BATCH * M_HEADS, "runs": plan.n_runs,
+        "blocks": plan.n_runs * b * M_HEADS, "runs": plan.n_runs,
         "longest_run": plan.max_run, "tiled_order": not plan.identity,
         "resident_levels": list(plan.resident),
         "resident_bytes": plan.resident_bytes,
@@ -2323,6 +2376,541 @@ def train_add(dev) -> dict:
             "kernel_vs_plain_grad_worst": worst}
 
 
+# ---------------------------------------------------------------------------
+# the labeller's live networks (the model zoo): masks, depth, and labels
+# from the caches they write
+# ---------------------------------------------------------------------------
+
+def mask2former_config():
+    """Mask2Former on Swin-B at the JAX package's benchmark widths
+    (tools/bench_models.py; facebook/mask2former-swin-base-coco-instance):
+    100 queries, 80 labels, 6 encoder and 10 decoder layers, 3 levels."""
+    from monosowa_tpu_torch.models.mask2former import Mask2FormerConfig
+    from monosowa_tpu_torch.models.swin import SwinConfig
+
+    return Mask2FormerConfig(backbone=SwinConfig(
+        embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32),
+        window_size=12))
+
+
+def depth_anything_config(layers: int = 24):
+    """Depth Anything Large, metric (tools/bench_models.py;
+    Depth-Anything-V2-Metric-Outdoor-Large): the DINOv2-L trunk, its
+    hidden states 21-24, neck (256, 512, 1024, 1024), fusion 256.  A copy
+    with fewer ``layers`` takes the same widths and its last four states
+    (repeated where it has fewer)."""
+    from monosowa_tpu_torch.models.depth_anything import DepthAnythingConfig
+    from monosowa_tpu_torch.models.dinov2 import Dinov2Config
+
+    out = tuple(max(1, layers - 3 + i) for i in range(4))
+    return DepthAnythingConfig(
+        backbone=Dinov2Config(hidden_size=1024, num_hidden_layers=layers,
+                              num_attention_heads=16, pos_grid=37),
+        out_indices=out, neck_hidden_sizes=(256, 512, 1024, 1024),
+        fusion_hidden_size=256, head_hidden_size=32,
+        depth_estimation_type="metric", max_depth=80.0)
+
+
+def unit_gain(tree):
+    """A zoo param tree with every kernel rescaled to std 1 / sqrt(fan in)
+    (a weight choice: at the initialisers' 0.02 a random Depth Anything
+    answers sigmoid(0) x max_depth everywhere)."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {k: (v / v.std() / np.sqrt(np.prod(v.shape[:-1]))).astype(
+            np.float32) if k == "kernel" else unit_gain(v)
+            for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [unit_gain(v) for v in tree]
+    return tree
+
+
+def zoo_frames(n: int, hw=ZOO_HW) -> dict:
+    """``n`` seeded uint8 RGB frames of KITTI's size: smooth gradients,
+    a horizon, bright boxes and noise, by frame id."""
+    import numpy as np
+
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = {}
+    for i in range(n):
+        rng = np.random.default_rng(300 + i)
+        img = np.stack([xx * 255 / w, yy * 255 / h,
+                        127 + 90 * np.sin(xx / 37.0 + i)], -1)
+        img[yy > h * 0.45] *= 0.5                     # the road
+        for _ in range(6):
+            y0, x0 = rng.integers(0, h - 80), rng.integers(0, w - 160)
+            img[y0:y0 + 80, x0:x0 + 160] = rng.uniform(0, 255, 3)
+        img += rng.normal(0, 12, (h, w, 3))
+        frames[f"{i:06d}"] = np.clip(img, 0, 255).astype(np.uint8)
+    return frames
+
+
+def zoo_driver(root: str, action: str, dev, frames: dict, extra: dict):
+    """The CLI driver (``sowa/cli.py`` ``KittiObjectDriver``) over a KITTI
+    tree under ``root`` whose calib files are on disk and whose images are
+    the in-memory ``frames``: the card's machine has no PIL to read PNGs,
+    so a subclass hands them to the driver's ``_image``."""
+    from monosowa_tpu_torch.config import Config, PipelineFlags
+    from monosowa_tpu_torch.sowa.cli import KittiObjectDriver
+
+    calib_dir = os.path.join(root, "kitti", "training", "calib")
+    os.makedirs(calib_dir, exist_ok=True)
+    p2 = "721.5377 0 609.5593 44.85728 0 721.5377 172.854 0.2163791 0 0 1 " \
+         "0.002745884"
+    for fid in frames:
+        with open(os.path.join(calib_dir, f"{fid}.txt"), "w") as f:
+            f.write("\n".join([f"P{i}: {p2}" for i in range(4)] + [
+                "R0_rect: 1 0 0 0 1 0 0 0 1",
+                "Tr_velo_to_cam: 1 0 0 0 0 1 0 0 0 0 1 0",
+                "Tr_imu_to_velo: 1 0 0 0 0 1 0 0 0 0 1 0"]) + "\n")
+    cfg = {"paths": {"kitti_path": os.path.join(root, "kitti"),
+                     "merged_frames_path": os.path.join(root, "cache"),
+                     "labels_path": os.path.join(root, "labels")}}
+    for k, v in extra.items():
+        cfg.setdefault(k, {}).update(v)
+
+    class InMemoryImages(KittiObjectDriver):
+        def frame_ids(self):
+            return sorted(frames)
+
+        def _image(self, fid):
+            return frames.get(fid)
+
+        def _image_hw(self, fid):
+            return frames[fid].shape[:2]
+
+        def _masks_frame(self, fid, backend):
+            self.mask_backend = backend            # for the checks after
+            return super()._masks_frame(fid, backend)
+
+    return InMemoryImages(Config(cfg), PipelineFlags(action), device=dev)
+
+
+def busy_share(fn, top: int = 6) -> dict:
+    """Wall ms of fn() (ending in a synchronise), the device's kernel ms
+    inside it, their ratio and the ``top`` kernels by device time, from
+    ``torch.profiler``."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.device_time_total > 0), key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows)
+    return {"wall_ms": wall, "device_ms": dev_ms,
+            "device_busy_share": dev_ms / wall,
+            "top_kernels": [{"kernel": k[:80], "ms": t, "count": c}
+                            for k, t, c in rows[:top]]}
+
+
+def recording_msda(layers):
+    """Swap each MSDA module's call for one that keeps a copy of its
+    inputs and then calls it; returns the list and a restore function."""
+    recorded = []
+
+    def wrap(fn):
+        def rec(value, shapes, loc, aw):
+            recorded.append((value.clone(), tuple(shapes), loc.clone(),
+                             aw.clone()))
+            return fn(value, shapes, loc, aw)
+        return rec
+
+    saved = [layer.msda for layer in layers]
+    for layer in layers:
+        layer.msda = wrap(layer.msda)
+
+    def restore():
+        for layer, fn in zip(layers, saved):
+            layer.msda = fn
+    return recorded, restore
+
+
+def check_msda_recorded(label: str, recorded) -> dict:
+    """The forward kernel against the plain version on the inputs of real
+    launches (``recording_msda``): each within 1e-5 of its output's
+    magnitude; the first one's times, bound and block map."""
+    import torch
+
+    from monosowa_tpu_torch.ops import msda
+
+    errs = []
+    for value, shapes, loc, aw in recorded:
+        out_k = msda._launch_fwd(value, shapes, loc, aw)
+        out_p = msda.ms_deform_attn_plain(value, shapes, loc, aw)
+        torch.cuda.synchronize()
+        err = float((out_k - out_p).abs().max())
+        scale = float(out_p.abs().max())
+        if not (torch.isfinite(out_k).all() and err <= 1e-5 * scale):
+            raise AssertionError(f"msda_fwd {label}: max abs err {err} > "
+                                 f"1e-5 * {scale}")
+        errs.append({"max_abs_err": err, "max_abs_out": scale})
+    value, shapes, loc, aw = recorded[0]
+    worst = max(errs, key=lambda e: e["max_abs_err"] / e["max_abs_out"])
+    return msda_report(
+        label, loc.shape[1], value, loc,
+        {**worst, "launches_checked": len(recorded)},
+        lambda: msda.ms_deform_attn(value, shapes, loc, aw),
+        lambda: msda.ms_deform_attn_plain(value, shapes, loc, aw),
+        msda_bound(value, loc, 4 * (loc.numel() + aw.numel()
+                                    + loc.shape[0] * loc.shape[1]
+                                    * value.shape[2] * value.shape[3]), 1,
+                   shapes), 1, shapes)
+
+
+def kept_masks(classes, logits, ids, thr, hw):
+    """The backend's rule on one forward's outputs: per kept query (in
+    index order) its probability, its logits at the image's size and its
+    mask."""
+    import torch
+
+    from monosowa_tpu_torch.ops.resize import cv2_resize_linear
+
+    prob = torch.softmax(classes.float(), -1)[:, :-1][:, list(ids)].max(-1)
+    prob = prob.values
+    keep = torch.nonzero(prob > thr)[:, 0]
+    full = cv2_resize_linear(logits[keep].permute(1, 2, 0).contiguous(), hw)
+    full = full.permute(2, 0, 1)
+    out = {}
+    for q, f in zip(keep.tolist(), full):
+        if bool((f > 0).any()):
+            out[q] = (float(prob[q]), f)
+    return prob, out
+
+
+def decoder_forward(backend, image, att_in=None):
+    """The backend's forward on one frame -> (class logits, mask logits,
+    the decoder's attention masks layer by layer); with ``att_in`` the
+    decoder takes those masks in place of its own (a forward hook replaces
+    each prediction's mask)."""
+    seen = []
+
+    def hook(_mod, _args, out):
+        seen.append(out[1])
+        if att_in is not None:
+            return out[0], att_in[len(seen) - 1]
+
+    pred = backend.model.transformer.mask_predictor
+    handle = pred.register_forward_hook(hook)
+    try:
+        cls, logits = backend.forward(image)
+    finally:
+        handle.remove()
+    return cls, logits, seen
+
+
+def masks(dev, root: str, frames: dict) -> dict:
+    """Mask2Former Swin-B at full width from seeded weights through the
+    driver's ``mask_tracking`` (a zoo checkpoint written by the port's
+    ``save_checkpoint``, loaded by ``zoo.mask_backend``), held against the
+    same forward with the plain MSDA."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.convert import zoo_params
+    from monosowa_tpu_torch.models.mask2former import Mask2Former
+    from monosowa_tpu_torch.ops import msda
+    from monosowa_tpu_torch.ops.resize import cv2_resize_linear
+    from monosowa_tpu_torch.sowa import masks as masks_mod
+    from monosowa_tpu_torch.sowa import zoo
+    from monosowa_tpu_torch.sowa.masks import Mask2FormerBackend
+
+    cfg = mask2former_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Mask2Former(cfg, device=dev, seed=0)
+    build_s = time.perf_counter() - t0
+    fids = sorted(frames)
+    # the car label's class bias (a weight choice): random weights give
+    # every query about 1 / 81 of each label; the median query of the first
+    # frame reaches 0.7
+    img = cv2_resize_linear(torch.tensor(frames[fids[0]], device=dev),
+                            MASK_INPUT_HW).float() / 255.0
+    mean, std = (torch.tensor(v, device=dev) for v in (
+        Mask2FormerBackend.IMAGENET01_MEAN, Mask2FormerBackend.IMAGENET01_STD))
+    with torch.no_grad():
+        logits = model(((img - mean) / std)[None])[0][0].double()
+    others = torch.cat([logits[:, :CAR_LABEL], logits[:, CAR_LABEL + 1:]], 1)
+    need = np.log(0.7 / 0.3) + torch.logsumexp(others, 1) \
+        - logits[:, CAR_LABEL]
+    car_bias = float(need.median())
+    with torch.no_grad():
+        model.transformer.class_predictor.bias[CAR_LABEL] += car_bias
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "zoo", "mask2former.npz")
+    zoo.save_checkpoint(ckpt, "mask2former", zoo_params(model), cfg)
+    save_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+
+    # the main path: the driver's mask_tracking over the frames
+    driver = zoo_driver(root, "mask_tracking", dev, frames, {
+        "backends": {"mask": "mask2former", "mask_checkpoint": ckpt,
+                     "mask_input_hw": list(MASK_INPUT_HW)}})
+    msda.launches = msda.launches_bf16 = 0
+    t0 = time.perf_counter()
+    written = driver.run(None, None)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = msda.launches
+    # one launch per encoder layer of the pixel decoder and frame
+    if written != len(frames) or launches != cfg.encoder_layers \
+            * len(frames) or msda.launches_bf16:
+        raise AssertionError(f"mask_tracking wrote {written} frames with "
+                             f"{launches} MSDA launches")
+    backend = driver.mask_backend
+    layers = list(backend.model.pixel_decoder.encoder_layers)
+    thr = backend.score_threshold
+    files = {fid: masks_mod.load_masks(driver.masks_dir, fid)
+             for fid in fids}
+
+    # steady state: the same driver into a fresh cache, then the forward
+    driver.cache = os.path.join(root, "cache_timed")
+    t0 = time.perf_counter()
+    for fid in fids:
+        driver._masks_frame(fid, backend)
+    torch.cuda.synchronize()
+    ms_per_frame = (time.perf_counter() - t0) * 1e3 / len(fids)
+    t0 = time.perf_counter()
+    for fid in fids:
+        backend.predict_masks_scores(frames[fid])
+    predict_ms = (time.perf_counter() - t0) * 1e3 / len(fids)
+    t0 = time.perf_counter()
+    for fid in fids:
+        backend.forward(frames[fid])
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3 / len(fids)
+    driver.cache = os.path.join(root, "cache_profiled")
+    prof = busy_share(lambda: driver._masks_frame(fids[0], backend))
+    peak = torch.cuda.max_memory_allocated()
+
+    # the same forwards with the plain MSDA.  The decoder binarises its
+    # attention masks at a logit of 0, so a last-bit difference can flip an
+    # entry that every later layer inherits: the kernel is held on the plain
+    # forward's masks (the same discrete decisions), and the free-running
+    # forwards, the written masks among them, on the whole-forward bar
+    hw = frames[fids[0]].shape[:2]
+    worst = {"class_logits": 0.0, "mask_logits": 0.0}
+    free = dict(worst)
+    att_flips, flips, kept, near_thr = 0, 0, [], 0
+    for fid in fids:
+        cls_k, log_k, att_k = decoder_forward(backend, frames[fid])
+        for layer in layers:
+            layer.msda = msda.ms_deform_attn_plain
+        cls_p, log_p, att_p = decoder_forward(backend, frames[fid])
+        for layer in layers:
+            layer.msda = msda.ms_deform_attn
+        cls_s, log_s, _ = decoder_forward(backend, frames[fid], att_p)
+        att_flips += sum(int((a != b).sum()) for a, b in zip(att_k, att_p))
+        for name, a, b, c in (("class_logits", cls_s, cls_p, cls_k),
+                              ("mask_logits", log_s, log_p, log_k)):
+            scale = float(b.abs().max())
+            worst[name] = max(worst[name], float((a - b).abs().max())
+                              / scale)
+            free[name] = max(free[name], float((c - b).abs().max()) / scale)
+        prob_k, out_k = kept_masks(cls_k, log_k, backend.car_label_ids, thr,
+                                   hw)
+        prob_p, out_p = kept_masks(cls_p, log_p, backend.car_label_ids, thr,
+                                   hw)
+        got = files[fid]
+        if len(got) != len(out_k) or any(
+                not np.array_equal(g, (f > 0).cpu().numpy())
+                for g, (_, f) in zip(got, out_k.values())):
+            raise AssertionError(f"masks_raw/{fid} is not the kernel "
+                                 "forward's masks")
+        kept.append(len(got))
+        bar = WHOLE_FORWARD_BAR * float(log_p.abs().max())
+        for q in set(out_k) ^ set(out_p):
+            # a query kept by one forward only: its probability at the
+            # threshold
+            if abs(float(prob_p[q]) - thr) > WHOLE_FORWARD_BAR:
+                raise AssertionError(f"{fid}: query {q} kept by one "
+                                     "forward only")
+            near_thr += 1
+        for q in set(out_k) & set(out_p):
+            fk, fp = out_k[q][1], out_p[q][1]
+            diff = (fk > 0) != (fp > 0)
+            flips += int(diff.sum())
+            if bool((fp[diff].abs() > bar).any()):
+                raise AssertionError(f"{fid}: query {q}'s mask differs "
+                                     f"where |logit| > {bar}")
+    if max(worst.values()) > MASK_LOGIT_BAR or \
+            max(free.values()) > WHOLE_FORWARD_BAR:
+        raise AssertionError(f"kernel vs plain MSDA forward: {worst} on the "
+                             f"plain forward's masks, {free} free")
+    if not 0 < sum(kept) < cfg.num_queries * len(fids):
+        raise AssertionError(f"queries kept a frame: {kept}")
+
+    # K1 alone on the inputs of the pixel decoder's six launches
+    recorded, restore = recording_msda(layers)
+    backend.forward(frames[fids[0]])
+    restore()
+    k1 = check_msda_recorded("pixel decoder", recorded)
+    del recorded
+    out = {"phase": "masks", "model": "mask2former swin-b (seeded weights)",
+           "frames": len(fids), "image_hw": list(hw),
+           "input_hw": list(MASK_INPUT_HW), "model_build_s": build_s,
+           "checkpoint_save_s": save_s, "car_label_bias": car_bias,
+           "mask_tracking_s": run_s, "msda_launches": launches,
+           "msda_launches_per_frame": launches / len(fids),
+           "mask_ms_per_frame": ms_per_frame, "predict_ms": predict_ms,
+           "forward_ms": fwd_ms,
+           **{k: prof[k] for k in ("device_ms", "device_busy_share",
+                                   "top_kernels")},
+           "profiled_frame_wall_ms": prof["wall_ms"],
+           "peak_mem_GB": peak / 1e9, "queries_kept": kept,
+           "kernel_vs_plain_forward_max_rel": worst,
+           "kernel_vs_plain_free_forward_max_rel": free,
+           "attention_entries_flipped": att_flips,
+           "mask_pixels_flipped": flips,
+           "queries_at_threshold": near_thr,
+           "pixel_decoder_k1": k1}
+    del backend, driver
+    torch.cuda.empty_cache()
+    return out
+
+
+def depth(dev, root: str, frames: dict) -> dict:
+    """Depth Anything Large at full width from seeded weights through the
+    driver's ``lidar_scans`` (a zoo checkpoint, ``zoo.depth_backend``);
+    a 2-layer copy on the card against the same weights on the CPU."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.convert import load_zoo_params, zoo_params
+    from monosowa_tpu_torch.models.depth_anything import DepthAnything
+    from monosowa_tpu_torch.sowa import depth as depth_mod
+    from monosowa_tpu_torch.sowa import zoo
+
+    cfg = depth_anything_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = DepthAnything(cfg, device=dev, seed=0)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "zoo", "depth_anything.npz")
+    zoo.save_checkpoint(ckpt, "depth_anything", unit_gain(zoo_params(model)),
+                        cfg)
+    save_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+
+    fids = sorted(frames)[:DEPTH_FRAMES]
+    sub = {fid: frames[fid] for fid in fids}
+    driver = zoo_driver(root, "lidar_scans", dev, sub, {
+        "backends": {"depth": "depth_anything", "depth_checkpoint": ckpt,
+                     "depth_input_size": DEPTH_INPUT_SIZE}})
+    t0 = time.perf_counter()
+    written = driver.run(None, None)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if written != len(fids):
+        raise AssertionError(f"lidar_scans wrote {written} frames")
+    backend = driver._depth_backend()
+    npts = []
+    for fid in fids:
+        pts = depth_mod.load_pseudo_lidar(os.path.join(driver.pcd_dir,
+                                                       f"{fid}.npz"))
+        if pts is None or pts.ndim != 2 or pts.shape[1] != 3 or \
+                not len(pts) or not np.isfinite(pts).all():
+            raise AssertionError(f"lidar_raw/{fid}.npz: "
+                             f"{None if pts is None else pts.shape}")
+        npts.append(len(pts))
+    metric = backend.predict_metric_depth(frames[fids[0]])
+    if metric.shape != frames[fids[0]].shape[:2] or \
+            not np.isfinite(metric).all() or metric.min() < 0 or \
+            metric.max() > cfg.max_depth:
+        raise AssertionError(f"depth {metric.shape} in [{metric.min()}, "
+                             f"{metric.max()}]")
+    # steady state: the same driver into a fresh cache, then the forward
+    driver.cache = os.path.join(root, "cache_timed")
+    t0 = time.perf_counter()
+    for fid in fids:
+        driver._lidar_frame(fid)
+    torch.cuda.synchronize()
+    ms_per_frame = (time.perf_counter() - t0) * 1e3 / len(fids)
+    t0 = time.perf_counter()
+    for fid in fids:
+        backend.predict_depth(frames[fid])
+    predict_ms = (time.perf_counter() - t0) * 1e3 / len(fids)
+    x = backend._encode(frames[fids[0]])[None]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        backend.model(x)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    prof = busy_share(lambda: backend.predict_depth(frames[fids[0]]))
+    peak = torch.cuda.max_memory_allocated()
+    input_hw = list(x.shape[1:3])
+    del backend, driver
+    torch.cuda.empty_cache()
+
+    # a 2-layer copy: the card against the CPU, same weights, same input
+    small = depth_anything_config(2)
+    tree = unit_gain(zoo_params(DepthAnything(small, device="cpu",
+                                              seed=1)))
+    card = load_zoo_params(DepthAnything(small, device=dev), tree)
+    host = load_zoo_params(DepthAnything(small, device="cpu"), tree)
+    with torch.no_grad():
+        d_card = card(x)[0].cpu()
+        d_host = host(x.cpu())[0]
+    err = float((d_card - d_host).abs().max())
+    if err > DEPTH_CPU_BAR * small.max_depth or float(d_host.std()) < 1.0:
+        raise AssertionError(f"2-layer depth card vs CPU: {err}")
+    del card, host
+    torch.cuda.empty_cache()
+    return {"phase": "depth", "model": "depth anything large (seeded "
+            "weights)", "frames": len(fids), "image_hw":
+            list(frames[fids[0]].shape[:2]), "input_hw": input_hw,
+            "model_build_s": build_s, "checkpoint_save_s": save_s,
+            "lidar_scans_s": run_s, "points_per_frame": npts,
+            "depth_ms_per_frame": ms_per_frame, "predict_ms": predict_ms,
+            "forward_ms": fwd_ms,
+            **{k: prof[k] for k in ("device_ms", "device_busy_share",
+                                    "top_kernels")},
+            "profiled_frame_wall_ms": prof["wall_ms"],
+            "peak_mem_GB": peak / 1e9,
+            "depth_range_m": [float(metric.min()), float(metric.max())],
+            "two_layer_card_vs_cpu_max_abs_m": err,
+            "two_layer_depth_std_m": float(d_host.std())}
+
+
+def images_to_labels(dev, root: str, frames: dict) -> dict:
+    """The driver's ``optimization`` over the caches ``masks`` and
+    ``depth`` wrote (``masks_raw/``, ``lidar_raw/``), for the frames that
+    have both: label files written (their content is not judged: the
+    networks' weights are random)."""
+    import torch
+
+    from monosowa_tpu_torch.ops import tfl
+
+    fids = sorted(frames)[:DEPTH_FRAMES]
+    sub = {fid: frames[fid] for fid in fids}
+    driver = zoo_driver(root, "optimization", dev, sub, {
+        "frames_creation": {"nscans_before": 0, "nscans_after": 0}})
+    tfl.launches = 0
+    t0 = time.perf_counter()
+    written = driver.run(None, None)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    files = sorted(os.listdir(driver.labels_path))
+    if written != len(fids) or files != [f"{fid}.txt" for fid in fids]:
+        raise AssertionError(f"optimization wrote {written}: {files}")
+    rows = [sum(1 for _ in open(os.path.join(driver.labels_path, f)))
+            for f in files]
+    return {"phase": "images_to_labels", "frames": len(fids),
+            "label_files": files, "label_rows": rows,
+            "optimization_s": run_s, "tfl_launches": tfl.launches}
+
+
 def main() -> int:
     # one card: the first of those visible
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -2489,8 +3077,23 @@ def main() -> int:
     # 9. epoch
     epc = epoch(dev)
     emit(epc)
+    torch.cuda.empty_cache()
 
-    # 10. kernels; library_ms is None where no one PyTorch call computes the
+    # 10. the model zoo: masks and depth through the driver's actions, then
+    # labels from the caches they wrote
+    with tempfile.TemporaryDirectory() as zroot:
+        frames = zoo_frames(MASK_FRAMES)
+        msk = masks(dev, zroot, frames)
+        fwd["pixel decoder"] = msk.pop("pixel_decoder_k1")
+        emit(msk)
+        emit({"phase": "kernel", "name": "msda_fwd",
+              "registers": registers["msda_fwd"], **fwd["pixel decoder"]})
+        dep = depth(dev, zroot, frames)
+        emit(dep)
+        itl = images_to_labels(dev, zroot, frames)
+        emit(itl)
+
+    # 11. kernels; library_ms is None where no one PyTorch call computes the
     # kernel's function (MSDA, its gradient, the two-way coverage)
     def entry(name, source, replaces, launches, runs, first="encoder"):
         keys = ("shape", "max_abs_err", "ms", "ms_launched_from_python",
@@ -2524,7 +3127,8 @@ def main() -> int:
               {"serve": srv["msda_launches"],
                "train": trn["msda_fwd_launches"],
                "train_add": tra["launches"]["msda_fwd"],
-               "epoch": epc["msda_fwd_launches"]}, fwd),
+               "epoch": epc["msda_fwd_launches"],
+               "masks": msk["msda_launches"]}, fwd),
         entry("msda_bwd", "monosowa_tpu_torch/ops/csrc/msda_bwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:306 (K2 msda_gdot_mxu); "
               "monosowa_tpu/ops/msda_mxu.py:544 (K3 msda_dvalue_mxu)",
@@ -2546,7 +3150,8 @@ def main() -> int:
               "monosowa_tpu/ops/tfl_pallas.py:67 (K5 "
               "binary_both_way_counts_pallas)",
               {"label": lbl["tfl_launches"],
-               "label_bank": lbk["tfl_launches"]}, cov, "rescore"),
+               "label_bank": lbk["tfl_launches"],
+               "images_to_labels": itl["tfl_launches"]}, cov, "rescore"),
         entry("row_fetch", "monosowa_tpu_torch/ops/csrc/row_fetch.cu",
               "tools/bench_gather_micro.py:61 (K6 run; bodies _kernel_gather "
               ":26, _kernel_onehot :45)",

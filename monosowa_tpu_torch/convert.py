@@ -161,3 +161,95 @@ def load_labeler_state(labeler, bank_points: np.ndarray,
         np.array(occ_kernels, dtype=np.float32), device=dev)
     labeler.memb_kernels = torch.as_tensor(
         np.array(memb_kernels, dtype=np.float32), device=dev)
+
+
+# ---------------------------------------------------------------------------
+# the model zoo's param trees (sowa/zoo.py checkpoints)
+# ---------------------------------------------------------------------------
+
+# the zoo tree's leaf for a module's ``weight`` and the axis permutations
+# tree -> port and port -> tree: a dense kernel (in, out) is the transposed
+# weight, a convolution's HWIO kernel the OIHW weight (IOHW for a
+# transposed one), a norm's scale the weight.  Other parameters (biases,
+# raw tables) keep their names and layouts.
+_WEIGHT_LEAVES = ((nn.Linear, "kernel", (1, 0), (1, 0)),
+                  (nn.ConvTranspose2d, "kernel", (2, 3, 0, 1), (2, 3, 0, 1)),
+                  (nn.Conv2d, "kernel", (3, 2, 0, 1), (2, 3, 1, 0)),
+                  ((nn.LayerNorm, nn.GroupNorm), "scale", None, None))
+
+
+def _weight_leaf(mod: nn.Module):
+    """(tree leaf, tree -> port, port -> tree) of ``mod.weight``, or
+    None for a module without one."""
+    for types, leaf, to_port, to_tree in _WEIGHT_LEAVES:
+        if isinstance(mod, types):
+            return leaf, to_port, to_tree
+    return None
+
+
+def load_zoo_params(module: nn.Module, tree: Mapping) -> nn.Module:
+    """Fill a zoo network of the port (``models/swin.py``,
+    ``mask2former.py``, ``dinov2.py``, ``depth_anything.py``) from the JAX
+    package's param tree (nested dicts and lists of numpy arrays, as
+    ``sowa.zoo.load_checkpoint`` returns it).  Any tree leaf the port has
+    no tensor for, any shape that differs and any port tensor left unfilled
+    raise ``ValueError``; nothing is written unless everything matches."""
+    from monosowa_tpu_torch.sowa.zoo import flatten_params
+
+    state = module.state_dict(keep_vars=True)
+    plan, errors = {}, []
+    for path, arr in flatten_params(tree).items():
+        *mods, leaf = path.split("/")
+        try:
+            mod = module.get_submodule(".".join(mods))
+        except AttributeError:
+            mod = None
+        wl = _weight_leaf(mod) if mod is not None else None
+        if wl is not None and leaf == wl[0]:
+            tname, perm = "weight", wl[1]
+        elif mod is not None and leaf in mod._parameters \
+                and leaf != "weight":
+            tname, perm = leaf, None
+        else:
+            errors.append(f"zoo {path}: the port has no such tensor")
+            continue
+        name = ".".join(mods + [tname])
+        arr = np.asarray(arr) if perm is None else \
+            np.asarray(arr).transpose(perm)
+        if name not in state:
+            errors.append(f"zoo {path} -> {name}: no such port tensor")
+        elif tuple(state[name].shape) != arr.shape:
+            errors.append(f"zoo {path} -> {name}: shape {arr.shape} != "
+                          f"{tuple(state[name].shape)}")
+        else:
+            plan[name] = arr
+    unfilled = sorted(set(state) - set(plan))
+    if unfilled:
+        errors.append(f"port tensors left unfilled: {unfilled}")
+    if errors:
+        raise ValueError("zoo weight bridge mismatch:\n" + "\n".join(errors))
+    with torch.no_grad():
+        for name, arr in plan.items():
+            state[name].copy_(torch.from_numpy(np.array(arr,
+                                                        dtype=np.float32)))
+    return module
+
+
+def zoo_params(module: nn.Module) -> dict:
+    """The inverse of ``load_zoo_params``: the port network's weights as
+    the JAX package's param tree of float32 numpy arrays (lists where the
+    tree has lists), ready for the JAX forward or ``save_checkpoint``."""
+    from monosowa_tpu_torch.sowa.zoo import unflatten_params
+
+    flat = {}
+    for name, t in module.state_dict().items():
+        mod_name, _, tname = name.rpartition(".")
+        mod = module.get_submodule(mod_name)
+        arr = t.detach().float().cpu().numpy()
+        wl = _weight_leaf(mod) if tname == "weight" else None
+        leaf, perm = (wl[0], wl[2]) if wl is not None else (tname, None)
+        if perm is not None:
+            arr = arr.transpose(perm)
+        path = mod_name.split(".") if mod_name else []
+        flat["/".join(path + [leaf])] = np.ascontiguousarray(arr)
+    return unflatten_params(flat)

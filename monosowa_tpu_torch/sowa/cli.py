@@ -1,7 +1,9 @@
-"""Pseudo-label generator CLI, the ``optimization`` action.
+"""Pseudo-label generator CLI: the ``lidar_scans``, ``mask_tracking`` and
+``optimization`` actions.
 
     python -m monosowa_tpu_torch.sowa.cli --config <yaml> \
-        --action optimization [--seq_start N] [--seq_end M] [--device cpu]
+        --action {lidar_scans,mask_tracking,optimization} \
+        [--seq_start N] [--seq_end M] [--device cpu]
 
 CLI contract (pseudo_label_generator/3d/scripts/main.py:5-17): ``--dataset``,
 ``--action``, ``--config``, ``--seq_start/--seq_end`` work-sharding.
@@ -10,14 +12,20 @@ Multi-machine scaling stays share-nothing: N processes over disjoint
 (main_class.py:606-646); file existence is the completion marker.
 
 Counterpart of the JAX package's ``sowa/cli.py`` for the KITTI object
-layout (``training/image_2`` + ``calib``) with cached artifacts under
-``paths.merged_frames_path``: ``masks_raw/``, ``transformations/``,
-``lidar_raw/`` and ``depth_maps/<frame>/<offset>.npz``.  Where a frame
-has a depth-map window, its job extracts on the device (bank mode under
-the default config); a merged-cars cache (``merged_cars/``) is fitted
-directly.  Labelling runs on the card unless ``--device`` names another.
-The other actions, the raw Waymo driver and the KITTI-360 shuffled draw
-raise ``NotImplementedError`` naming the JAX module they need.
+layout (``training/image_2`` + ``calib``) with caches under
+``paths.merged_frames_path``.  ``lidar_scans`` writes ``lidar_raw/<frame>
+.npz`` from cached depth maps (``depth_maps/<frame>.npz``) or from the
+frame's image through the zoo's depth network (``backends.depth``);
+``mask_tracking`` writes ``masks_raw/<frame>.npz`` (and, with
+``extract_pedestrians``, ``pedestrians/``) through the zoo's Mask2Former
+(``backends.mask``).  ``optimization`` labels from ``masks_raw/``,
+``transformations/``, ``lidar_raw/`` and ``depth_maps/<frame>/<offset>
+.npz``: where a frame has a depth-map window, its job extracts on the
+device (bank mode under the default config); a merged-cars cache
+(``merged_cars/``) is fitted directly.  Networks and labelling run on the
+card unless ``--device`` names another.  The other actions, the raw
+Waymo driver and the KITTI-360 shuffled draw raise ``NotImplementedError``
+naming the JAX module they need.
 """
 
 from __future__ import annotations
@@ -40,10 +48,8 @@ from monosowa_tpu_torch.sowa.pipeline import PipelineConfig, PseudoLabeler
 
 # action -> the module of the JAX package that it needs
 _OTHER_ACTIONS = {
-    "lidar_scans": "sowa/depth.py live backends with sowa/zoo.py",
     "transformations": "sowa/transforms.py pose sources with kittiio/oxts.py",
     "homographies": "sowa/stitching.py",
-    "mask_tracking": "sowa/masks.py live backends with sowa/zoo.py",
     "candidates": "the candidates action of sowa/cli.py",
     "frames_aggregation": "the frames_aggregation action of sowa/cli.py",
     "dimensions_output": "sowa/dimensions.py and sowa/scale.py",
@@ -157,6 +163,19 @@ class KittiObjectDriver:
         lo = seq_start or 0
         hi = min(seq_end if seq_end is not None else len(ids), len(ids))
         ids = ids[lo:hi]
+        if self.flags.generate_raw_lidar:
+            return sum(self._lidar_frame(fid) for fid in ids)
+        if self.flags.generate_raw_masks_or_tracking:
+            from monosowa_tpu_torch.sowa import zoo
+            backend = zoo.mask_backend(self.cfg, device=self.device)
+            if backend is None:
+                raise NotImplementedError(
+                    "action 'mask_tracking' on frame datasets needs a live "
+                    "instance-segmentation backend: set backends.mask "
+                    "(e.g. mask2former + mask_checkpoint) in the config, "
+                    "or precompute masks_raw/ artifacts")
+            zoo.sam_refine_backend(self.cfg)    # use_SAM raises
+            return sum(self._masks_frame(fid, backend) for fid in ids)
         n_done = 0
         labeler = PseudoLabeler(self.pcfg, device=self.device)
         group = int((self.cfg.general or Config({}))
@@ -180,6 +199,67 @@ class KittiObjectDriver:
         from monosowa_tpu_torch.kittiio import Calibration
         return Calibration(os.path.join(self.kitti_path, "training",
                                         "calib", f"{fid}.txt"))
+
+    def _depth_backend(self):
+        """The configured depth source, one per driver (a live backend
+        holds its network)."""
+        if not hasattr(self, "_depth_backend_cache"):
+            from monosowa_tpu_torch.sowa import zoo
+            self._depth_backend_cache = zoo.depth_backend(
+                self.cfg, os.path.join(self.cache, "depth_maps"),
+                device=self.device)
+        return self._depth_backend_cache
+
+    def _lidar_frame(self, fid: str) -> int:
+        """`--action lidar_scans`: depth map -> pseudo-lidar cache
+        (metric3d.py:39-279).  ``backends.depth`` selects the source:
+        cached reads <merged_frames_path>/depth_maps/<fid>.npz; the live
+        mode runs on the frame's image with its calib fx."""
+        out = os.path.join(self.pcd_dir, f"{fid}.npz")
+        if os.path.exists(out):
+            return 0
+        backend = self._depth_backend()
+        calib = self._calib(fid)
+        if hasattr(backend, "predict_depth_for"):
+            dmap = backend.predict_depth_for(fid)
+        else:
+            img = self._image(fid)
+            if img is None:
+                return 0
+            # canonical contract: metric = canonical * fx / 1000, with fx
+            # from this frame's calib (metric3d.py:327-333)
+            backend.fx = float(calib.P2[0, 0])
+            dmap = backend.predict_depth(img)
+        if dmap is None:
+            return 0
+        pts = depth_mod.pseudo_lidar_from_depth(dmap, calib.P2,
+                                                device=self.device)
+        os.makedirs(self.pcd_dir, exist_ok=True)
+        np.savez_compressed(out, points=pts)
+        return 1
+
+    def _masks_frame(self, fid: str, backend) -> int:
+        """`--action mask_tracking` for frame datasets: live instance
+        segmentation -> masks_raw cache (precompute_detectron_kitti,
+        loader.py:1703-1790).  With extract_pedestrians, person-class masks
+        land in the pedestrians/ cache (output.py:141-143) from the SAME
+        forward."""
+        if masks_mod.load_masks(self.masks_dir, fid) is not None:
+            return 0
+        img = self._image(fid)
+        if img is None:
+            return 0
+        if self.pcfg.extract_pedestrians:
+            person_ids = tuple((self.cfg.backends or Config({}))
+                               .get("mask_person_labels", (0,)))
+            (masks, _), (ped_masks, _) = backend.predict_masks_multi(
+                img, [backend.car_label_ids, person_ids])
+            masks_mod.save_masks(os.path.join(self.cache, "pedestrians"),
+                                 fid, ped_masks, img.shape[:2])
+        else:
+            masks, _ = backend.predict_masks_scores(img)
+        masks_mod.save_masks(self.masks_dir, fid, masks, img.shape[:2])
+        return 1
 
     def _window_accessors(self, fid: str):
         before, after = self.pcfg.nscans_before, self.pcfg.nscans_after
@@ -267,6 +347,15 @@ class KittiObjectDriver:
             with Image.open(p) as im:
                 return im.size[1], im.size[0]
         return (375, 1242)
+
+    def _image(self, fid: str) -> Optional[np.ndarray]:
+        """(H, W, 3) uint8 RGB frame image, or None when absent."""
+        p = os.path.join(self.kitti_path, "training", "image_2", f"{fid}.png")
+        if not os.path.exists(p):
+            return None
+        from PIL import Image
+        with Image.open(p) as im:
+            return np.asarray(im.convert("RGB"))
 
 
 def main(argv: Optional[List[str]] = None) -> int:

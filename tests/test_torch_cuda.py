@@ -180,6 +180,36 @@ def test_msda_kernels_on_the_pyramids_own_tokens(cuda, shapes, b, m, d, p):
     _check_fwd_bwd(shapes, value, loc, aw, _dout(12, q, b, m, d, cuda))
 
 
+def test_msda_kernel_at_the_pixel_decoders_shape(cuda):
+    """Mask2Former's pixel decoder at 384 x 1280: three levels, coarsest
+    first, B = 1, Q = S = 10,080, 8 heads of 32, 4 points, nothing
+    resident; samples near each token's reference point (the ring of the
+    offsets' init, jittered) and 2% anywhere in [-0.15, 1.15]."""
+    shapes = ((12, 40), (24, 80), (48, 160))
+    q, m, d, p = _tokens(shapes), 8, 32, 4
+    rng = np.random.default_rng(17)
+    ref = np.concatenate([np.stack(np.meshgrid(
+        (np.arange(w) + 0.5) / w, (np.arange(h) + 0.5) / h), -1).reshape(
+        -1, 2) for h, w in shapes])
+    norm = np.array([[w, h] for h, w in shapes], np.float64)
+    offs = rng.normal(0, 1.5, (1, q, m, len(shapes), p, 2))
+    loc = ref[None, :, None, None, None, :] + offs / norm[:, None, :]
+    wild = rng.random(loc.shape[:-1]) < 0.02
+    loc[wild] = rng.uniform(-0.15, 1.15, (int(wild.sum()), 2))
+    logits = rng.normal(size=(1, q, m, len(shapes) * p))
+    aw = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).reshape(
+        1, q, m, len(shapes), p)
+    value, loc, aw = (torch.from_numpy(a.astype(np.float32)).to(cuda)
+                      for a in (rng.normal(size=(1, q, m, d)), loc, aw))
+    assert msda.msda_plan(shapes, q, p, d, value.device).resident == ()
+    before = msda.launches
+    got = msda.ms_deform_attn(value, shapes, loc, aw)
+    want = msda.ms_deform_attn_plain(value, shapes, loc, aw)
+    torch.cuda.synchronize()
+    assert msda.launches == before + 1 and got.shape == (1, q, m * d)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def test_msda_kernels_with_nothing_resident(cuda):
     # the coarsest level alone (40 x 40 rows of 128 bytes) exceeds the budget
     shapes = ((80, 80), (40, 40))

@@ -99,6 +99,39 @@ with tempfile.TemporaryDirectory() as tmp:
     import os
     saved = sorted(os.listdir(tmp + "/out"))
     result_files = sorted(os.listdir(tmp + "/out/outputs/data"))
+# the model zoo: tiny Mask2Former and Depth Anything through zoo
+# checkpoints and the backends
+from monosowa_tpu_torch.convert import zoo_params
+from monosowa_tpu_torch.models import depth_anything, dinov2, mask2former
+from monosowa_tpu_torch.models import swin
+from monosowa_tpu_torch.sowa import zoo
+from monosowa_tpu_torch.sowa.depth import DepthAnythingBackend
+from monosowa_tpu_torch.sowa.masks import Mask2FormerBackend
+mcfg = mask2former.Mask2FormerConfig(
+    backbone=swin.SwinConfig(embed_dim=16, depths=(1, 1, 1, 1),
+                             num_heads=(1, 2, 4, 8), window_size=4),
+    feature_size=32, mask_feature_size=32, hidden_dim=32, encoder_layers=1,
+    decoder_layers=2, num_attention_heads=2, encoder_feedforward_dim=32,
+    dim_feedforward=32, num_queries=6, num_labels=3)
+dcfg = depth_anything.DepthAnythingConfig(
+    backbone=dinov2.Dinov2Config(hidden_size=32, num_hidden_layers=2,
+                                 num_attention_heads=2, pos_grid=4),
+    out_indices=(1, 2), reassemble_factors=(4.0, 0.5),
+    neck_hidden_sizes=(8, 16), fusion_hidden_size=16, head_hidden_size=8,
+    depth_estimation_type="metric", max_depth=80.0)
+image = np.random.default_rng(1).integers(0, 256, (40, 60, 3), np.uint8)
+with tempfile.TemporaryDirectory() as tmp:
+    zoo.save_checkpoint(tmp + "/m.npz", "mask2former", zoo_params(
+        mask2former.Mask2Former(mcfg, device="cpu")), mcfg)
+    zoo.save_checkpoint(tmp + "/d.npz", "depth_anything", zoo_params(
+        depth_anything.DepthAnything(dcfg, device="cpu")), dcfg)
+    _, mtree, mcfg = zoo.load_checkpoint(tmp + "/m.npz")
+    _, dtree, dcfg = zoo.load_checkpoint(tmp + "/d.npz")
+zoo_masks = Mask2FormerBackend(mtree, mcfg, score_threshold=0.0,
+                               input_hw=(64, 96),
+                               device="cpu").predict_masks(image)
+zoo_depth = DepthAnythingBackend(dtree, dcfg, fx=500.0, input_size=28,
+                                 device="cpu").predict_depth(image)
 print(json.dumps({"modules": names, "dets": list(dets.shape),
                   "ap_of_gt": ap, "saved": saved,
                   "result_files": result_files,
@@ -106,6 +139,9 @@ print(json.dumps({"modules": names, "dets": list(dets.shape),
                   "ap_keys": sorted(record["evaluated"][0]["results"]),
                   "frames_written": n_written, "label_rows": label_rows,
                   "bank_path": bank_path,
+                  "zoo": [[list(m.shape) for m in zoo_masks][:1],
+                          list(zoo_depth.shape),
+                          bool(np.isfinite(zoo_depth).all())],
                   "finite": bool(np.isfinite(dets.numpy()).all()),
                   "bf16": [seen16["value_proj"], str(dets16.dtype),
                            bool(np.isfinite(dets16.numpy()).all())],
@@ -132,8 +168,9 @@ def test_port_runs_without_jax():
     """Every module imports, and a tiny CPU forward (float32 and under the
     bfloat16 policy), a train step, the
     labelling of one small frame (host candidates, then bank mode), the
-    AP stack with its native library and
-    one step of the train / test / AP loop run, in a fresh interpreter
+    AP stack with its native library,
+    one step of the train / test / AP loop and the model zoo's two
+    backends from their checkpoints run, in a fresh interpreter
     without loading JAX, Flax or the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", CHILD, ROOT], env=env,
@@ -159,6 +196,9 @@ def test_port_runs_without_jax():
                             "outputs"]
     assert res["result_files"] == ["000002.txt", "000003.txt"]
     assert len(res["ap_keys"]) == 6
+    assert "monosowa_tpu_torch.sowa.zoo" in res["modules"]
+    assert "monosowa_tpu_torch.models.mask2former" in res["modules"]
+    assert res["zoo"] in ([[], [40, 60], True], [[[40, 60]], [40, 60], True])
     assert res["loaded"] == []
 
 
@@ -191,6 +231,17 @@ def test_cuda_request_raises_without_gpu():
     with pytest.raises(RuntimeError, match="cuda"):
         MonoDETR(enc_layers=1, dec_layers=1, d_model=64, d_ffn=64,
                  nheads=4, num_queries=5, num_depth_bins=8)
+    from monosowa_tpu_torch.models.depth_anything import (
+        DepthAnything, DepthAnythingConfig)
+    from monosowa_tpu_torch.models.dinov2 import Dinov2Config
+    from monosowa_tpu_torch.models.mask2former import (Mask2Former,
+                                                       Mask2FormerConfig)
+    from monosowa_tpu_torch.models.swin import SwinConfig
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        Mask2Former(Mask2FormerConfig(backbone=SwinConfig()))
+    with pytest.raises(RuntimeError, match="cuda"):
+        DepthAnything(DepthAnythingConfig(backbone=Dinov2Config()))
     assert resolve_device("cpu").type == "cpu"
 
 

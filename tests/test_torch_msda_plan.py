@@ -10,6 +10,8 @@ import torch
 from monosowa_tpu_torch.ops import msda
 
 SHIPPED = ((48, 160), (24, 80), (12, 40), (6, 20))      # 384 x 1280 input
+# Mask2Former's pixel decoder at 384 x 1280: three levels, coarsest first
+PIXEL_DECODER = ((12, 40), (24, 80), (48, 160))
 RAGGED = ((13, 21), (7, 11), (4, 6), (2, 3))
 ONE_ROW = ((7, 9), (1, 5))
 CPU = torch.device("cpu")
@@ -30,7 +32,7 @@ def _level_tile(shapes):
     return np.concatenate(level), np.concatenate(tile)
 
 
-@pytest.mark.parametrize("shapes", [SHIPPED, RAGGED, ONE_ROW])
+@pytest.mark.parametrize("shapes", [SHIPPED, RAGGED, ONE_ROW, PIXEL_DECODER])
 def test_order_is_a_permutation_and_runs_cover_it(shapes):
     q = _tokens(shapes)
     order, runs = msda.query_order(shapes, q)
@@ -42,7 +44,7 @@ def test_order_is_a_permutation_and_runs_cover_it(shapes):
     assert runs[-1].sum() == q
 
 
-@pytest.mark.parametrize("shapes", [SHIPPED, RAGGED, ONE_ROW])
+@pytest.mark.parametrize("shapes", [SHIPPED, RAGGED, ONE_ROW, PIXEL_DECODER])
 def test_tiles_are_consecutive_and_no_run_crosses_a_level(shapes):
     q = _tokens(shapes)
     order, runs = msda.query_order(shapes, q)
@@ -87,6 +89,26 @@ def test_resident_rule_at_the_shipped_shape():
     assert (12 * 40 + 6 * 20) * 32 * 4 == 76800 <= msda.RESIDENT_BUDGET
     # and level 1 (1,920 rows, 245,760 bytes) never fits
     assert msda.resident_levels(SHIPPED, 10 ** 6, 4, 32) == (2, 3)
+
+
+@pytest.mark.parametrize("elem", [4, 2])
+def test_pixel_decoder_plan(elem):
+    """Mask2Former's pixel decoder (B = 1, Q = S = 10,080, 8 heads of 32,
+    4 points): its queries are its tokens, so they go tile by tile, runs of
+    two 8 x 8 tiles, starting with the coarsest level (level 0 here); no
+    level is resident: the coarsest has 480 rows, and a run of 128 queries
+    reads 2,048 of its corner rows, under 12 a row copied."""
+    q = _tokens(PIXEL_DECODER)
+    assert q == 10080
+    plan = msda.msda_plan(PIXEL_DECODER, q, 4, 32, CPU, elem)
+    assert not plan.identity and plan.max_run == 128
+    order = plan.order.numpy()
+    assert sorted(order[:480].tolist()) == list(range(480))
+    # 2 x 5, 3 x 10 and 6 x 20 tiles, two a run
+    assert plan.n_runs == 5 + 15 + 60
+    assert plan.resident == () and plan.grad == ()
+    assert 12 * 40 * msda.RESIDENT_MIN_READS > 128 * 4 * 4
+    assert list(plan.level_hw) == [12, 40, 24, 80, 48, 160]
 
 
 @pytest.mark.parametrize("q", [50, 550])
@@ -159,7 +181,8 @@ def test_half_size_rows_let_more_levels_fit(shapes, d, f32, bf16):
 @pytest.mark.parametrize("shapes,q", [
     (SHIPPED, _tokens(SHIPPED)), (SHIPPED, 50), (SHIPPED, 550),
     (RAGGED, _tokens(RAGGED)), (ONE_ROW, _tokens(ONE_ROW)),
-    (((80, 80), (40, 40)), 6400 + 1600)])
+    (((80, 80), (40, 40)), 6400 + 1600),
+    (PIXEL_DECODER, _tokens(PIXEL_DECODER))])
 def test_shared_memory_a_block_asks_for(shapes, q, elem):
     """The dynamic shared memory the entry points ask for (msda_fwd.cu:
     the resident copy in value's type; msda_bwd.cu: that copy rounded up to

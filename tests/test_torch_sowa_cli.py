@@ -44,6 +44,17 @@ def _random_depth(seed):
     return d
 
 
+class _FixedDepth:
+    """A live depth backend that answers every image with one map."""
+
+    def __init__(self, dmap):
+        self.dmap, self.calls = dmap, 0
+
+    def predict_depth(self, image):
+        self.calls += 1
+        return self.dmap
+
+
 def test_depth_functions_match_jax(tmp_path):
     d = _random_depth(0)
     f = [np.float32(v) for v in (P2[0, 0], P2[1, 1], P2[0, 2], P2[1, 2])]
@@ -74,9 +85,18 @@ def test_depth_functions_match_jax(tmp_path):
         np.testing.assert_array_equal(depth.load_pseudo_lidar(p),
                                       jdepth.load_pseudo_lidar(p))
     assert depth.load_pseudo_lidar(str(tmp_path / "none.npz")) is None
-    with pytest.raises(NotImplementedError, match="zoo"):
-        depth.generate_pseudo_lidar_cache(["c"], [d], P2, str(tmp_path),
-                                          backend=object(), device="cpu")
+    # a live backend: its predict_depth of each image is lifted
+    live = _FixedDepth(_random_depth(3))
+    image = np.zeros((H, W, 3), np.uint8)
+    assert depth.generate_pseudo_lidar_cache(
+        ["c"], [image], P2, str(tmp_path / "t"), backend=live,
+        device="cpu") == 1
+    assert jdepth.generate_pseudo_lidar_cache(
+        ["c"], [image], P2, str(tmp_path / "j"), backend=live) == 1
+    np.testing.assert_array_equal(
+        depth.load_pseudo_lidar(str(tmp_path / "t" / "c.npz")),
+        jdepth.load_pseudo_lidar(str(tmp_path / "j" / "c.npz")))
+    assert live.calls == 2
     np.savez_compressed(tmp_path / "m.npz", depth=d)
     np.testing.assert_array_equal(
         depth.CachedDepthBackend(str(tmp_path)).predict_depth_for("m"),
@@ -225,14 +245,80 @@ def test_config_and_arguments_match_jax(kitti_dir):
                            "--device", "cpu"]).device == "cpu"
 
 
-@pytest.mark.parametrize("action", ["lidar_scans", "transformations",
-                                    "homographies", "mask_tracking",
+@pytest.mark.parametrize("action", ["transformations", "homographies",
                                     "candidates", "frames_aggregation",
                                     "dimensions_output", "demo"])
 def test_other_actions_raise(kitti_dir, action):
     with pytest.raises(NotImplementedError, match=r"sowa/"):
         cli.main(["--config", _config(kitti_dir, "other"), "--action",
                   action, "--device", "cpu"])
+
+
+def test_mask_tracking_without_backend_raises(kitti_dir):
+    """No ``backends.mask``: both drivers raise the same error."""
+    conf = _config(kitti_dir, "no_mask")
+    with pytest.raises(NotImplementedError) as got:
+        cli.main(["--config", conf, "--action", "mask_tracking",
+                  "--device", "cpu"])
+    with pytest.raises(NotImplementedError) as want:
+        jcli.main(["--config", conf, "--action", "mask_tracking"])
+    assert str(got.value) == str(want.value)
+    assert "backends.mask" in str(got.value)
+
+
+def test_use_sam_raises_naming_sam(kitti_dir, tmp_path):
+    """``frames_creation.use_SAM`` with a live mask backend: the SAM
+    refinement is not ported, and the driver says so before any frame."""
+    from monosowa_tpu_torch.convert import zoo_params
+    from monosowa_tpu_torch.models.mask2former import Mask2Former
+    from monosowa_tpu_torch.sowa import zoo
+    from test_torch_swin_mask2former import CFG
+
+    ckpt = str(tmp_path / "mask.npz")
+    zoo.save_checkpoint(ckpt, "mask2former",
+                        zoo_params(Mask2Former(CFG, device="cpu")), CFG)
+    conf = yaml.safe_load(open(_config(kitti_dir, "sam")))
+    conf["backends"] = {"mask": "mask2former", "mask_checkpoint": ckpt,
+                        "mask_input_hw": [64, 96]}
+    conf["frames_creation"]["use_SAM"] = True
+    conf["paths"]["merged_frames_path"] = str(tmp_path / "cache")
+    path = tmp_path / "sam.yaml"
+    path.write_text(yaml.safe_dump(conf))
+    with pytest.raises(NotImplementedError, match="models/sam.py"):
+        cli.main(["--config", str(path), "--action", "mask_tracking",
+                  "--device", "cpu"])
+    assert not (tmp_path / "cache" / "masks_raw").exists()
+
+
+def test_lidar_scans_cached_matches_jax(kitti_dir, tmp_path):
+    """`--action lidar_scans` in the cached mode: depth_maps/<fid>.npz ->
+    lidar_raw/<fid>.npz, the JAX driver's file; skip-if-exists."""
+    for tag in ("t", "j"):
+        for i, fid in enumerate(FIDS):
+            dm = tmp_path / tag / "depth_maps"
+            dm.mkdir(parents=True, exist_ok=True)
+            np.savez_compressed(dm / f"{fid}.npz", depth=_random_depth(i))
+    confs = {}
+    for tag in ("t", "j"):
+        conf = yaml.safe_load(open(_config(kitti_dir, f"lidar_{tag}")))
+        conf["paths"]["merged_frames_path"] = str(tmp_path / tag)
+        confs[tag] = tmp_path / f"{tag}.yaml"
+        confs[tag].write_text(yaml.safe_dump(conf))
+    assert cli.main(["--config", str(confs["t"]), "--action", "lidar_scans",
+                     "--device", "cpu"]) == 0
+    assert jcli.main(["--config", str(confs["j"]), "--action",
+                      "lidar_scans"]) == 0
+    for fid in FIDS:
+        got = depth.load_pseudo_lidar(str(tmp_path / "t" / "lidar_raw"
+                                          / f"{fid}.npz"))
+        want = jdepth.load_pseudo_lidar(str(tmp_path / "j" / "lidar_raw"
+                                            / f"{fid}.npz"))
+        assert len(got) > 0
+        np.testing.assert_array_equal(got, want)
+    drv = cli.KittiObjectDriver(cli.load_config(str(confs["t"])),
+                                cli.PipelineFlags("lidar_scans"),
+                                device="cpu")
+    assert drv.run(None, None) == 0
 
 
 @pytest.mark.parametrize("dataset", ["waymo", "kitti360"])
