@@ -5,7 +5,8 @@
 
 Phases, each printing one JSON line:
 
-1. env    — TF32 off for matmuls and convolutions; the card's name and
+1. env    — TF32 off for matmuls and convolutions, as the entry points'
+            ``resolve_device`` sets it (asserted); the card's name and
             power limit as nvidia-smi reports them.
 2. build  — nvcc builds every kernel of the serve, train, label and
             row-fetch paths from ``ops/csrc`` (the LAP solvers of the
@@ -103,6 +104,22 @@ Phases, each printing one JSON line:
             against the banked one on one chunk.  Prints
             ``label_ms_per_frame``, ``host_share``, ``stage_seconds``, each
             fit's device ms, K5 launches and ``peak_mem_GB``.
+   label_k360 — the CLI's ``main`` on a KITTI-360 tree of the same
+            scene (4 reference frames ``<seq>_<number>``, +-6 windows,
+            ``cam0_to_world.txt`` poses with a gap, uncompressed
+            ``lidar_raw/`` and ``masks_raw/`` caches, a JSON config):
+            ``transformations`` against the ego poses (zero at the gap),
+            ``candidates``, ``frames_aggregation``, ``optimization`` over
+            the merged cars (the label phase's bars), ``demo`` (the scale
+            detector: K5 at B=1 x 3,200 and 160 poses), ``optimization``
+            with ``robust_optimization`` (K5 at B=cars x 3,200), every K5
+            launch of those two held against the plain version (counts
+            equal); the ``chamfer`` loss kind through ``fit_cars_conv``
+            at the full grid (seconds a car); the dimension estimator
+            through ``label_from_cars`` and the outlier ensemble's four
+            votes, card against CPU; the seed-360 frame order and
+            ``--dataset all``.  K5's times and bound at the new
+            shapes; each step's seconds.
 8. bench  — the row-fetch micro-benchmark as a user runs it
             (``tools/bench_gather_micro_torch.py`` ``run``, both forms at
             its default shape), against its numpy oracle.
@@ -155,11 +172,13 @@ without a GPU.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
-import contextlib
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -700,18 +719,11 @@ def fit_check(dev, n_cars: int = FIT_CARS, fit_cfg=None) -> dict:
 
 
 @contextlib.contextmanager
-def timed_fits(module, record: bool = False):
-    """Wrap ``module.fit_cars_conv`` (the name the pipeline or the bank
-    calls): every call's cars, device time (CUDA events) and
-    ``tfl_counts`` launches.  With ``record``, also a copy of the inputs of
-    each of its ``tfl_counts`` launches (the copies fall inside the fit's
-    device time), for ``check_recorded_launches``."""
-    import torch
-
+def recording_tfl():
+    """Every ``tfl_counts`` launch's inputs (copies, taken before the
+    launch), for ``replay_tfl_launches``."""
     from monosowa_tpu_torch.ops import tfl
 
-    fits = []
-    inner = module.fit_cars_conv
     launch = tfl._launch_counts
     recorded = []
 
@@ -720,27 +732,69 @@ def timed_fits(module, record: bool = False):
                          radius))
         return launch(scan, scan_mask, templates, radius)
 
-    def timed_fit(batch, *args):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        before = tfl.launches
-        recorded.clear()
-        start.record()
-        res = inner(batch, *args)
-        end.record()
-        fits.append({"cars": len(batch.points), "events": (start, end),
-                     "tfl_launches": tfl.launches - before,
-                     "tfl_inputs": list(recorded)})
-        return res
-
-    module.fit_cars_conv = timed_fit
-    if record:
-        tfl._launch_counts = recording_launch
+    tfl._launch_counts = recording_launch
     try:
-        yield fits
+        yield recorded
     finally:
-        module.fit_cars_conv = inner
         tfl._launch_counts = launch
+
+
+def replay_tfl_launches(recorded, label: str) -> list:
+    """Each recorded ``tfl_counts`` launch again, against the plain version
+    on the same card tensors: the counts must be equal.  One entry a
+    launch: its shape and its all-masked scan rows."""
+    import torch
+
+    from monosowa_tpu_torch.ops import tfl
+
+    checked = []
+    for scan, mask, posed, radius in recorded:
+        shape = "B={} P={} T={} S={}".format(*posed.shape[:3], scan.shape[1])
+        got = tfl._launch_counts(scan, mask, posed, radius)
+        want = tfl.binary_both_way_counts_plain(scan, mask, posed, radius)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            raise AssertionError(f"{label}: tfl_counts at {shape} differs "
+                                 f"from the plain version by {err}")
+        checked.append({"shape": shape,
+                        "all_masked_rows": int((~mask.any(1)).sum())})
+    return checked
+
+
+@contextlib.contextmanager
+def timed_fits(module, record: bool = False):
+    """Wrap ``module.fit_cars_conv`` (the name the pipeline or the bank
+    calls): every call's cars, device time (CUDA events) and
+    ``tfl_counts`` launches.  With ``record``, also a copy of the inputs of
+    each of its ``tfl_counts`` launches (``recording_tfl``; the copies
+    fall inside the fit's device time), for ``check_recorded_launches``."""
+    import torch
+
+    from monosowa_tpu_torch.ops import tfl
+
+    fits = []
+    inner = module.fit_cars_conv
+    with (recording_tfl() if record else contextlib.nullcontext([])) \
+            as recorded:
+
+        def timed_fit(batch, *args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            before = tfl.launches
+            recorded.clear()
+            start.record()
+            res = inner(batch, *args)
+            end.record()
+            fits.append({"cars": len(batch.points), "events": (start, end),
+                         "tfl_launches": tfl.launches - before,
+                         "tfl_inputs": list(recorded)})
+            return res
+
+        module.fit_cars_conv = timed_fit
+        try:
+            yield fits
+        finally:
+            module.fit_cars_conv = inner
 
 
 def fit_report(fits) -> list:
@@ -755,36 +809,15 @@ def fit_report(fits) -> list:
 
 
 def check_recorded_launches(fits) -> None:
-    """Each recorded ``tfl_counts`` launch of the fits again, against the
-    plain version on the same card tensors: the fractions must agree to
-    1e-6, as in ``check_tfl``.  Replaces each fit's ``tfl_inputs`` by the
-    result (shape, all-masked rows, max abs err)."""
-    import torch
-
-    from monosowa_tpu_torch.ops import tfl
-
+    """Each fit's recorded ``tfl_counts`` launches replayed
+    (``replay_tfl_launches``: counts equal to the plain version's).
+    Replaces each fit's ``tfl_inputs`` by the result."""
     for f in fits:
         inputs = f.pop("tfl_inputs")
         if len(inputs) != f["tfl_launches"]:
             raise AssertionError(f"{len(inputs)} tfl_counts launches "
                                  f"recorded, {f['tfl_launches']} counted")
-        checked = []
-        for scan, mask, posed, radius in inputs:
-            b, p, t, _ = posed.shape
-            got = tfl._fractions(*tfl._launch_counts(scan, mask, posed,
-                                                     radius), mask, t)
-            want = tfl._fractions(*tfl.binary_both_way_counts_plain(
-                scan, mask, posed, radius), mask, t)
-            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-            if not (all(torch.isfinite(g).all() for g in got)
-                    and err <= 1e-6):
-                raise AssertionError(
-                    f"tfl_counts on the path, B={b} P={p} T={t} "
-                    f"S={scan.shape[1]}: max abs err {err} > 1e-6")
-            checked.append({"shape": f"B={b} P={p} T={t} S={scan.shape[1]}",
-                            "all_masked_rows": int((~mask.any(1)).sum()),
-                            "max_abs_err": err})
-        f["tfl_checked"] = checked
+        f["tfl_checked"] = replay_tfl_launches(inputs, "a fit on the path")
 
 
 def check_label_files(jobs, frames, scene_cars, n_frames: int):
@@ -1099,6 +1132,469 @@ def label_bank(dev, host_labels, n_frames: int = LABEL_FRAMES,
                 "extract_frames_s": plain_s,
                 "extract_frames_banked_s": banked_s}
     out["tfl_launches"] = run["tfl_launches"]
+    return out
+
+
+K360_SEQ = "2013_05_28_drive_0000_sync"
+K360_FRAMES = 4               # reference frames of the KITTI-360 phase
+K360_RANGE = LABEL_WINDOW + 2  # its transformations: 2 past the window
+K360_CHAMFER_CARS = 2
+K360_VOTE_POINTS = 4096        # a car's points for the votes card vs CPU
+
+
+def write_png(path: str, h: int, w: int) -> None:
+    """A black 8-bit grey h x w PNG, written with zlib: the card's machine
+    has no image library, and the driver reads only the size."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\0" + bytes(w) for _ in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0,
+                                             0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def k360_tree(root: str, frames, n_frames: int, window: int, rng_t: int,
+              hw) -> dict:
+    """The synthetic sequence as a KITTI-360 tree under ``root``: frame
+    ids ``<seq>_<number>`` for the reference frames (PNG, calib),
+    ``data_poses/<seq>/cam0_to_world.txt`` from the scene's ego poses for
+    frames 0 .. last + rng_t with frame ``len(frames)`` missing (a gap
+    in the transformations' windows, past every aggregation window), and
+    the caches the pipeline reads: ``masks_raw/`` and
+    ``lidar_raw/<fid>/pcds/<offset>.npz`` of each reference frame's
+    window, written uncompressed (``np.savez``).  Returns the reference
+    frames' {fid: frame index} and the gap's frame number."""
+    import numpy as np
+
+    from monosowa_tpu_torch.sowa import sample
+
+    h, w = hw
+    _, p2 = sample.intrinsics(h, w)
+    kitti = os.path.join(root, "kitti", "training")
+    cache = os.path.join(root, "cache")
+    for d in ("image_2", "calib"):
+        os.makedirs(os.path.join(kitti, d))
+    poses_dir = os.path.join(root, "k360", "data_poses", K360_SEQ)
+    os.makedirs(poses_dir)
+    gap = len(frames)
+    last = window + n_frames - 1 + rng_t
+    with open(os.path.join(poses_dir, "cam0_to_world.txt"), "w") as f:
+        for i in range(last + 1):
+            if i == gap:
+                continue
+            pose = np.eye(4)
+            pose[2, 3] = i * sample.EGO_STEP
+            f.write(f"{i} " + " ".join(f"{v:.12f}" for v in pose.ravel())
+                    + "\n")
+    p2_line = " ".join(repr(float(v)) for v in p2.ravel())
+    refs = {}
+    for fi in range(window, window + n_frames):
+        fid = f"{K360_SEQ}_{fi:010d}"
+        refs[fid] = fi
+        write_png(os.path.join(kitti, "image_2", f"{fid}.png"), h, w)
+        with open(os.path.join(kitti, "calib", f"{fid}.txt"), "w") as f:
+            f.write("\n".join([f"P{i}: {p2_line}" for i in range(4)] + [
+                "R0_rect: 1 0 0 0 1 0 0 0 1",
+                "Tr_velo_to_cam: 1 0 0 0 0 1 0 0 0 0 1 0"]) + "\n")
+        pcds = os.path.join(cache, "lidar_raw", fid, "pcds")
+        os.makedirs(pcds)
+        os.makedirs(os.path.join(cache, "masks_raw"), exist_ok=True)
+        for k in range(-window, window + 1):
+            frame = frames[fi + k]
+            np.savez(os.path.join(pcds, f"{k:+d}.npz"),
+                     points=frame["points"])
+            ms = frame["masks"]
+            arr = (np.stack(ms) if ms else np.zeros((0, h, w), bool))
+            name = fid if k == 0 else f"{fid}{k:+d}"
+            # sowa/masks.py save_masks' format, uncompressed
+            np.savez(os.path.join(cache, "masks_raw", f"{name}.npz"),
+                     packed=np.packbits(arr, axis=-1),
+                     shape=np.array(arr.shape))
+    return {"refs": refs, "gap": gap}
+
+
+def k360_config(root: str, tag: str, window: int, rng_t: int, extra=None,
+                min_points: int = 400) -> str:
+    """The phase's config as JSON (YAML's subset; the card's machine has
+    no PyYAML): label_config's labeller through the yaml's keys."""
+    cfg = {"paths": {"kitti_path": os.path.join(root, "kitti"),
+                     "merged_frames_path": os.path.join(root, "cache"),
+                     "labels_path": os.path.join(root, "labels_" + tag),
+                     "all_dataset_path": os.path.join(root, "k360")},
+           "frames_creation": {"nscans_before": window,
+                               "nscans_after": window,
+                               "nscans_transformation_range": rng_t},
+           "optimization": {"max_cars_per_frame": 16},
+           "filtering": {"max_points_per_car": TFL_S,
+                         "lidar_threshold_during_optim": min_points}}
+    for k, v in (extra or {}).items():
+        cfg[k].update(v)
+    path = os.path.join(root, tag + ".json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def _host(x):
+    """A copy of ``x`` on the host: tensors on the CPU, numpy arrays
+    copied, tuples element by element."""
+    import numpy as np
+    import torch
+
+    if torch.is_tensor(x):
+        return x.detach().cpu().clone()
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, tuple):
+        return type(x)(*map(_host, x)) if hasattr(x, "_fields") \
+            else tuple(map(_host, x))
+    return x
+
+
+@contextlib.contextmanager
+def recording_calls(module, name: str):
+    """Wrap ``module.<name>``: each call's arguments and result, copied to
+    the host, for ``replay_on_cpu``."""
+    inner = getattr(module, name)
+    calls = []
+
+    def recording(*args, **kwargs):
+        res = inner(*args, **kwargs)
+        calls.append((_host(args), _host(kwargs), _host(res)))
+        return res
+
+    setattr(module, name, recording)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, inner)
+
+
+def replay_on_cpu(fn, calls, atol: float, label: str) -> float:
+    """Each recorded call of ``fn`` again on the CPU, on the host copies of
+    its inputs: every number of the result within ``atol`` of the card's
+    (NaN where the card has NaN).  Returns the largest difference."""
+    import numpy as np
+    import torch
+
+    def flat(r):
+        parts = r if isinstance(r, tuple) else (r,)
+        return [np.asarray(v.numpy() if torch.is_tensor(v) else v,
+                           np.float64).ravel() for v in parts]
+
+    worst = 0.0
+    for args, kwargs, got in calls:
+        if "device" in kwargs:
+            kwargs = dict(kwargs, device="cpu")
+        for g, w in zip(flat(got), flat(fn(*args, **kwargs))):
+            if not np.allclose(g, w, rtol=0, atol=atol, equal_nan=True):
+                raise AssertionError(f"{label} on the card: {g}, on the "
+                                     f"CPU: {w}")
+            both = np.isfinite(g) & np.isfinite(w)
+            if both.any():
+                worst = max(worst, float(np.abs(g - w)[both].max()))
+    return worst
+
+
+def time_tfl_launch(scan, mask, posed, label: str) -> dict:
+    """K5 at one recorded launch's inputs: both clocks, the plain
+    version's time and the bound (``tfl_work``)."""
+    from monosowa_tpu_torch.ops import tfl
+
+    t = posed.shape[2]
+    got = tfl._launch_counts(scan, mask, posed, TFL_RADIUS)
+    want = tfl.binary_both_way_counts_plain(scan, mask, posed, TFL_RADIUS)
+    return {
+        "shape": f"{label}: B={posed.shape[0]} P={posed.shape[1]} T={t} "
+                 f"S={scan.shape[1]}",
+        "max_abs_err": max(float((g - w).abs().max())
+                           for g, w in zip(tfl._fractions(*got, mask, t),
+                                           tfl._fractions(*want, mask, t))),
+        "ms": device_ms(lambda: tfl._launch_counts(scan, mask, posed,
+                                                   TFL_RADIUS), 20),
+        "ms_launched_from_python": cuda_ms(
+            lambda: tfl.binary_both_way_counts(scan, mask, posed,
+                                               TFL_RADIUS), 20),
+        "plain_ms": cuda_ms(lambda: tfl.binary_both_way_counts_plain(
+            scan, mask, posed, TFL_RADIUS), 2, warmup=1),
+        **tfl_work(scan, mask, posed)}
+
+
+def k360_labels(driver_labels: str, refs: dict, frames, scene_cars):
+    """The label phase's bars on the label files of one action."""
+    jobs = [{"out_path": os.path.join(driver_labels, f"{fid}.txt"),
+             "frame_index": fi} for fid, fi in refs.items()]
+    return check_label_files(jobs, frames, scene_cars, len(refs))
+
+
+def label_k360(dev, n_frames: int = K360_FRAMES,
+               window: int = LABEL_WINDOW, rng_t: int = K360_RANGE,
+               hw=None, chamfer_cars: int = K360_CHAMFER_CARS,
+               fit_cfg=None, min_points: int = 400) -> dict:
+    """The CLI (``sowa/cli.py`` ``main``) on a KITTI-360 tree of the
+    synthetic sequence, on the card: ``transformations`` (each window
+    held against the scene's ego poses, zeros at the gap), ``candidates``,
+    ``frames_aggregation``, ``optimization`` over the merged cars (the
+    label phase's bars), ``demo`` (the scale detector and the box
+    reducer: every K5 launch held against the plain version, counts
+    equal; every car's box reducer and the scale detector of the car
+    with the fewest points against the CPU's on the same inputs),
+    ``optimization`` with ``robust_optimization`` (K5 at B cars x 3,200
+    poses, held the same way); the ``chamfer`` loss kind through
+    ``fit_cars_conv`` on merged cars at the full grid; the dimension
+    estimator through ``label_from_cars`` on one frame's merged cars
+    (its dimensions and yaw against the CPU's), and the outlier
+    ensemble's four votes on the card against the CPU's; the seed-360
+    frame order against its longhand draw and ``--dataset all``'s
+    windows against kitti360's.  K5 at the new shapes: both clocks and
+    the bound.  ``fit_cfg`` and ``min_points`` (rehearsals on the CPU at a
+    small size) replace the full grid and the 400 points a standing car
+    needs."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.ops import tfl
+    from monosowa_tpu_torch.sowa import aggregation, cache as cache_mod
+    from monosowa_tpu_torch.sowa import (cli, dimensions, filtering, fitting,
+                                         pipeline, sample, scale, transforms)
+
+    h, w = hw or (sample.H, sample.W)
+    out = {"phase": "label_k360", "frames": n_frames, "window": window,
+           "transformation_range": rng_t, "image_hw": [h, w]}
+    steps = out["step_seconds"] = {}
+    clock = time.perf_counter
+    grid = {}
+    if fit_cfg is not None:
+        grid = {"optimization": {
+            "opt_param1_iters": fit_cfg.n_dx, "opt_param2_iters": fit_cfg.n_dz,
+            "opt_param3_iters": fit_cfg.n_theta,
+            "opt_fine_iters": fit_cfg.n_theta_fine}}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = clock()
+        frames, scene_cars = sample.make_sequence(n_frames, window, h=h, w=w)
+        tree = k360_tree(root, frames, n_frames, window, rng_t, (h, w))
+        refs = tree["refs"]
+        steps["scene_and_tree"] = clock() - t0
+
+        def main(tag, action, extra=None):
+            sections = {k: dict(v) for k, v in grid.items()}
+            for k, v in (extra or {}).items():
+                sections.setdefault(k, {}).update(v)
+            conf = k360_config(root, tag, window, rng_t, sections,
+                               min_points)
+            t0 = clock()
+            rc = cli.main(["--config", conf, "--dataset", "kitti360",
+                           "--action", action])
+            torch.cuda.synchronize()
+            steps[f"{action} ({tag})"] = clock() - t0
+            if rc != 0:
+                raise AssertionError(f"{action}: exit code {rc}")
+            return os.path.join(root, "labels_" + tag)
+
+        # 1. transformations: the scene's ego motion, zero at the gap
+        main("opt", "transformations")
+        tdir = os.path.join(root, "cache", "transformations")
+        for fid, fi in refs.items():
+            full = transforms.load_window_transforms(tdir, fid)
+            for k in range(-rng_t, rng_t + 1):
+                want = np.eye(4)
+                want[2, 3] = (fi + k - fi) * sample.EGO_STEP
+                if fi + k == tree["gap"] or fi + k < 0:
+                    want = np.zeros((4, 4))
+                if not np.allclose(full[k + rng_t], want, atol=1e-9):
+                    raise AssertionError(f"transformations {fid} {k:+d}: "
+                                         f"{full[k + rng_t]}")
+        zero_windows = [int((~np.load(os.path.join(tdir, f"{fid}.npy"))
+                             .any((1, 2))).sum()) for fid in refs]
+        # 2. candidates, 3. frames_aggregation
+        main("opt", "candidates")
+        main("opt", "frames_aggregation")
+        merged_cars = []
+        for fid in refs:
+            cand = cache_mod.load_candidates(
+                os.path.join(root, "cache", "candidates"), fid)
+            merged = cache_mod.load_merged_cars(
+                os.path.join(root, "cache", "merged_cars"), fid)
+            if not cand["points"] or not merged[0]:
+                raise AssertionError(f"{fid}: {len(cand['points'])} "
+                                     f"candidates, {len(merged[0])} cars")
+            merged_cars.append(len(merged[0]))
+        # 4. optimization over the merged cars
+        tfl.launches = 0
+        labels = main("opt", "optimization")
+        out["optimization_tfl_launches"] = tfl.launches
+        cars, worst, _ = k360_labels(labels, refs, frames, scene_cars)
+        out.update(cars_per_frame=cars, max_dist_to_scene_car_m=worst,
+                   zero_matrices_per_window=zero_windows,
+                   merged_cars_per_frame=merged_cars)
+        # 5. demo: the scale detector and the box reducer, each call
+        # recorded for its replay on the CPU
+        with recording_tfl() as rec_demo, \
+                recording_calls(scale, "optimize_scale") as rec_scale, \
+                recording_calls(scale, "bbox_reduce") as rec_reduce:
+            tfl.launches = 0
+            labels = main("demo", "demo")
+            out["demo_tfl_launches"] = tfl.launches
+        cars, worst, sets = k360_labels(labels, refs, frames, scene_cars)
+        out.update(demo_cars_per_frame=cars, demo_max_dist_m=worst,
+                   demo_lengths_m=[float(v) for s in sets
+                                   for v in s.hwl[:, 2]])
+        # the box reducer of every car, and the scale detector of the car
+        # with the fewest points (its valid points only: the padding counts
+        # for nothing), on the CPU within the labels' 1e-4
+        t0 = clock()
+        out["demo_reduce_max_diff_cpu"] = replay_on_cpu(
+            scale.bbox_reduce, rec_reduce, 1e-4, "bbox_reduce")
+        args, kwargs, res = min(rec_scale, key=lambda c: int(c[0][1].sum()))
+        mask = args[1].bool()
+        compact = (args[0][mask], mask[mask]) + args[2:]
+        out["demo_scale_max_diff_cpu"] = replay_on_cpu(
+            scale.optimize_scale, [(compact, kwargs, res)], 1e-4,
+            "optimize_scale")
+        steps["demo scale + reduce on the CPU"] = clock() - t0
+        out.update(demo_scale_calls=len(rec_scale),
+                   demo_reduce_calls=len(rec_reduce),
+                   demo_scale_cpu_points=int(mask.sum()))
+        del rec_scale, rec_reduce
+        t0 = clock()
+        out["demo_launches_by_shape"] = dict(collections.Counter(
+            c["shape"] for c in replay_tfl_launches(rec_demo, "demo")))
+        steps["demo launches vs plain"] = clock() - t0
+        # 6. optimization with the robust fit over the same merged cars
+        with recording_tfl() as rec_rob:
+            tfl.launches = 0
+            labels = main("robust", "optimization", extra={
+                "optimization": {"robust_optimization": True}})
+            out["robust_tfl_launches"] = tfl.launches
+        cars, worst, _ = k360_labels(labels, refs, frames, scene_cars)
+        out.update(robust_cars_per_frame=cars, robust_max_dist_m=worst)
+        t0 = clock()
+        out["robust_launches_by_shape"] = dict(collections.Counter(
+            c["shape"] for c in replay_tfl_launches(rec_rob, "robust")))
+        steps["robust launches vs plain"] = clock() - t0
+        scale_p = 4 * 8 * 10 * 10
+        rob_p = 2 * (fit_cfg or fitting.FitConfig()).n_dx \
+            * (fit_cfg or fitting.FitConfig()).n_dz
+        # the first launch of each scale pass, the robust grid's launch
+        # with the fewest cars
+        first = {}
+        for rec, tag in ((rec_demo, "scale"), (rec_rob, "robust")):
+            for scan, mask, posed, _ in rec:
+                key = {(True, scale_p): "scale pass 1 (P=3,200)",
+                       (True, 160): "scale pass 2 (P=160)",
+                       (False, rob_p): "robust grid (B=cars, P=3,200)"}.get(
+                    (tag == "scale", posed.shape[1]))
+                if key and (key not in first or (
+                        tag == "robust"
+                        and posed.shape[0] < first[key][2].shape[0])):
+                    first[key] = (scan, mask, posed)
+        if len(first) != 3:
+            raise AssertionError(f"new K5 shapes seen: {sorted(first)}")
+        t0 = clock()
+        out["tfl_new_shapes"] = {k: time_tfl_launch(*v, k)
+                                 for k, v in first.items()}
+        steps["K5 timing at the new shapes"] = clock() - t0
+        del rec_demo, rec_rob, first
+        # 7. chamfer through the fit, on merged cars, at the full grid
+        fid0 = next(iter(refs))
+        tracks, points, ref_masks = cache_mod.load_merged_cars(
+            os.path.join(root, "cache", "merged_cars"), fid0)
+        n_ch = min(chamfer_cars, len(tracks))
+        batch = aggregation.build_car_batch(
+            tracks[:n_ch], points[:n_ch], list(range(-window, window + 1)),
+            n_ch, TFL_S)
+        from monosowa_tpu_torch.sowa.templates import TemplateBank
+        template = torch.as_tensor(TemplateBank.default().points[0],
+                                   device=dev)
+        ch_cfg = dataclasses.replace(fit_cfg or fitting.FitConfig(),
+                                     loss_function="chamfer")
+        spec, occ, memb = fitting.make_conv_kernels(
+            template.cpu().numpy(), ch_cfg, dev)
+        torch.cuda.synchronize()
+        t0 = clock()
+        res = fitting.fit_cars_conv(batch, template, occ, memb, spec, ch_cfg)
+        torch.cuda.synchronize()
+        ch_s = clock() - t0
+        xz = torch.stack([res.x, res.z], 1).cpu().numpy()
+        ego = frames[refs[fid0]]["ego_z"]
+        scene_xz = np.array([[c["x"], c["z"] - ego] for c in scene_cars])
+        ch_dist = [float(np.hypot(*(scene_xz - p).T).min()) for p in xz]
+        if not (np.isfinite(xz).all() and max(ch_dist) < 2.5):
+            raise AssertionError(f"chamfer fit: {xz}, {ch_dist}")
+        out.update(chamfer_cars=n_ch, chamfer_s_per_car=ch_s / n_ch,
+                   chamfer_grid=[ch_cfg.n_dx, ch_cfg.n_dz, ch_cfg.n_theta,
+                                 ch_cfg.n_theta_fine],
+                   chamfer_dist_to_scene_car_m=ch_dist)
+        # 8. the other two stages on the card: the dimension estimator
+        # through label_from_cars on the merged cars, and the outlier
+        # ensemble's four votes on a car's points against the CPU's
+        pcfg = dataclasses.replace(
+            cli.pipeline_config_from(cli.load_config(
+                os.path.join(root, "opt.json"))),
+            use_dimensions_estimation=True)
+        labeler = pipeline.PseudoLabeler(pcfg)
+        t0 = clock()
+        with recording_calls(dimensions, "estimate_car_dimensions") as rec:
+            cars = labeler.label_from_cars(tracks, points, ref_masks,
+                                           list(range(-window, window + 1)))
+        torch.cuda.synchronize()
+        steps["dimension estimator, one frame"] = clock() - t0
+        # its dimensions and yaw against the CPU's on the same cars, at
+        # tests/test_dimensions.py's 1e-5
+        out["dims_max_diff_cpu"] = replay_on_cpu(
+            dimensions.estimate_car_dimensions, rec, 1e-5,
+            "estimate_car_dimensions")
+        out["dims_yaw_rad"] = [c[2][1] for c in rec]
+        far = [float(np.hypot(*(scene_xz - [c["x"], c["z"]]).T).min())
+               for c in cars]
+        if not cars or max(far) > 2.5:
+            raise AssertionError(f"dimension estimator: cars {far} m from "
+                                 "the scene's")
+        cloud = torch.as_tensor(points[0][:K360_VOTE_POINTS])
+        ones = torch.ones(len(cloud), dtype=torch.bool)
+        t0 = clock()
+        votes = filtering._four_votes(cloud.to(dev), ones.to(dev)).cpu()
+        steps["four votes on the card"] = clock() - t0
+        if not torch.equal(votes, filtering._four_votes(cloud, ones)):
+            raise AssertionError("the outlier votes on the card differ from "
+                                 "the CPU's")
+        out.update(dims_cars=len(cars), dims_max_dist_m=max(far),
+                   vote_points=len(cloud),
+                   points_by_votes=[int((votes == k).sum())
+                                    for k in range(5)])
+        # the seed-360 draw, and --dataset all
+        order = cli.shuffled_frame_order(25, 3, 17)
+        np.random.seed(360)
+        longhand = np.arange(25)
+        np.random.shuffle(longhand)
+        if not np.array_equal(order, longhand[3:17]):
+            raise AssertionError(f"shuffled_frame_order: {order}")
+        all_cache = os.path.join(root, "all_cache")
+        conf = k360_config(root, "all", window, rng_t)
+        with open(conf) as f:
+            c = json.load(f)
+        c["paths"]["merged_frames_path"] = all_cache
+        with open(conf, "w") as f:
+            json.dump(c, f)
+        if cli.main(["--config", conf, "--dataset", "all", "--action",
+                     "transformations"]) != 0:
+            raise AssertionError("--dataset all: transformations")
+        for fid in refs:
+            if not np.array_equal(
+                    np.load(os.path.join(all_cache, "transformations",
+                                         f"{fid}.npy")),
+                    np.load(os.path.join(tdir, f"{fid}.npy"))):
+                raise AssertionError(f"--dataset all differs at {fid}")
+    out["launches"] = (out["optimization_tfl_launches"]
+                       + out["demo_tfl_launches"]
+                       + out["robust_tfl_launches"])
     return out
 
 
@@ -2929,7 +3425,18 @@ def main() -> int:
     from monosowa_tpu_torch.models.transformer import encoder_reference_points
     from monosowa_tpu_torch.ops import _build
 
-    # 1. env
+    # 1. env: the entry points' device resolution turns TF32 off, from
+    # PyTorch's defaults; the smoke keeps its own setting, the same
+    from monosowa_tpu_torch.device import resolve_device
+
+    tf32_default = [torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32]
+    resolve_device()
+    tf32_entry = [torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32]
+    if tf32_entry != [False, False]:
+        raise AssertionError(f"after resolve_device TF32 is {tf32_entry} "
+                             "(matmul, cudnn); the checks run without it")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -2941,7 +3448,8 @@ def main() -> int:
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "allow_tf32": False})
+          "allow_tf32": False, "allow_tf32_default": tf32_default,
+          "allow_tf32_after_resolve_device": tf32_entry})
 
     # 2. build: one compiler per source, all started together (nvcc for
     # the kernels, the host compiler for the KITTI evaluation's library)
@@ -3070,6 +3578,11 @@ def main() -> int:
     lbk = label_bank(dev, host_labels)
     emit(lbk)
 
+    # 7c. label_k360: the CLI's actions on a KITTI-360 tree
+    k3 = label_k360(dev)
+    emit(k3)
+    torch.cuda.empty_cache()
+
     # 8. bench
     bch = bench_row_fetch()
     emit(bch)
@@ -3151,7 +3664,9 @@ def main() -> int:
               "binary_both_way_counts_pallas)",
               {"label": lbl["tfl_launches"],
                "label_bank": lbk["tfl_launches"],
-               "images_to_labels": itl["tfl_launches"]}, cov, "rescore"),
+               "label_k360": k3["launches"],
+               "images_to_labels": itl["tfl_launches"]},
+              {**cov, **k3["tfl_new_shapes"]}, "rescore"),
         entry("row_fetch", "monosowa_tpu_torch/ops/csrc/row_fetch.cu",
               "tools/bench_gather_micro.py:61 (K6 run; bodies _kernel_gather "
               ":26, _kernel_onehot :45)",

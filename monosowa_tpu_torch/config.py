@@ -76,11 +76,22 @@ class Config:
 
 
 def load_yaml(path: str) -> Dict[str, Any]:
-    # imported here: the serving image need not have PyYAML
-    import yaml
-
+    """The YAML file at ``path``.  Without PyYAML (the serving image need
+    not have it) only a JSON file, which is YAML too, can be read: any
+    other file raises an ``ImportError`` that names PyYAML."""
     with open(path, "r") as f:
-        return yaml.safe_load(f)
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        import json
+
+        try:
+            return json.loads(text)
+        except json.JSONDecodeError as err:
+            raise ImportError(f"reading {path} needs PyYAML; without it "
+                              "only a JSON config can be read") from err
+    return yaml.safe_load(text)
 
 
 def load_config(path: str) -> Config:

@@ -1,4 +1,4 @@
-"""Byte-compatible KITTI-format IO: labels and calibration.
+"""Byte-compatible KITTI-format IO: labels, calibration, OXTS ego poses.
 
 This is the interface contract between the pseudo-label generator and the
 detector (reference: pseudo_label_generator/3d/scripts/output.py:12-91 writes
@@ -15,3 +15,7 @@ from monosowa_tpu_torch.kittiio.labels import (  # noqa: F401
 )
 from monosowa_tpu_torch.kittiio.calib import (  # noqa: F401
     Calibration, read_calib_file)
+from monosowa_tpu_torch.kittiio.oxts import (  # noqa: F401
+    oxts_to_poses,
+    read_oxts_file,
+)

@@ -1,9 +1,10 @@
 """Batched 3D geometry primitives on torch tensors.
 
 Counterparts of the JAX package's ``ops/geometry.py``: yaw rotations, rigid
-transforms, pinhole projection, depth back-projection, the masked median
-and 3D box corners.  Point sets are padded to fixed shapes with a validity
-mask; batch dimensions are explicit (leading ``...``).
+transforms, pinhole projection, depth back-projection, the masked median,
+3D box corners and oriented-box containment.  Point sets are padded to
+fixed shapes with a validity mask; batch dimensions are explicit (leading
+``...``).
 """
 
 from __future__ import annotations
@@ -92,5 +93,16 @@ def points_in_obb(pts: torch.Tensor, center: torch.Tensor, lwh: torch.Tensor,
     Templates and the fitter put width on camera x, height on y and length
     on z at ry = 0, so the local-frame half extents are (w/2, h/2, l/2)."""
     local = (pts - center) @ rot_y(ry)   # R^T applied from the right
+    half = torch.stack([lwh[..., 1], lwh[..., 2], lwh[..., 0]], -1) / 2.0
+    return (local.abs() <= half).all(-1)
+
+
+def points_in_obb_r(pts: torch.Tensor, center: torch.Tensor,
+                    lwh: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """Containment for a general-rotation OBB (columns of ``rot`` are the
+    box axes): the scale-lidar gather carries a yaw box through an
+    arbitrary SE(3) ego-motion, so the carried box is no longer yaw-only
+    (scale_detector.py:67-78)."""
+    local = (pts - center) @ rot                    # R^T (p - c) per row
     half = torch.stack([lwh[..., 1], lwh[..., 2], lwh[..., 0]], -1) / 2.0
     return (local.abs() <= half).all(-1)

@@ -22,8 +22,10 @@ optimizer.py:53-112).  Two evaluators, as in the JAX package's
    convolutions run in full float32 (TF32 off) and their sums are rounded
    to whole numbers (``_count_conv``).
 
-Only the ``binary2way`` loss kind is here; ``tfl_loss`` raises for the
-others.
+``tfl_loss`` dispatches the reference's seven loss kinds: ``binary2way``
+and ``binary1way`` through the coverage counts, the other five (chamfer,
+the two medians, the trimmed means, the sigmoid) in plain torch over
+chunks of poses whose (chunk, T, S) distance tensor stays near 128 MB.
 """
 
 from __future__ import annotations
@@ -99,8 +101,8 @@ def binary_both_way_counts_plain(scan: torch.Tensor, scan_mask: torch.Tensor,
         for p0 in range(0, p, chunk):
             d2 = pairwise_sq_dists(templates[bi, p0:p0 + chunk], scan[bi])
             d2 = torch.where(valid[None, None, :], d2, big)
-            t_hit = d2.min(-1).values < r2                   # (chunk, T)
-            s_hit = (d2.min(-2).values < r2) & valid         # (chunk, S)
+            t_hit = d2.amin(-1) < r2                         # (chunk, T)
+            s_hit = (d2.amin(-2) < r2) & valid               # (chunk, S)
             t_count[bi, p0:p0 + chunk] = t_hit.sum(-1).to(t_count.dtype)
             s_count[bi, p0:p0 + chunk] = s_hit.sum(-1).to(s_count.dtype)
     return t_count, s_count
@@ -171,17 +173,180 @@ def binary_both_way_loss(scan, scan_mask, templates, radius) -> torch.Tensor:
     return -(t_frac + s_frac)
 
 
+def binary_one_way_loss(scan, scan_mask, templates, radius) -> torch.Tensor:
+    """'binary1way' (loss.py:62-69): -(template points within radius of the
+    scan) / |T|, one directional count only: the coverage counts' first
+    fraction."""
+    return -binary_both_way_counts(scan, scan_mask, templates, radius)[0]
+
+
+def _per_pose_chunks(fn, scan, scan_mask, templates) -> torch.Tensor:
+    """``fn(scan (S, 3), mask (S,) bool, posed (c, T, 3)) -> (c,)`` over
+    every car and chunk of poses: scan (B, S, 3), scan_mask (B, S),
+    templates (B, P, T, 3) -> (B, P); without the car dimension (S, 3),
+    (S,), (P, T, 3) -> (P,).  A chunk's (c, T, S) distance tensor holds
+    at most ``_PLAIN_CHUNK_ELEMS`` elements."""
+    if scan.dim() == 2:
+        return _per_pose_chunks(fn, scan[None], scan_mask[None],
+                                templates[None])[0]
+    _check_counts_args(scan, scan_mask, templates)
+    b, p, t, _ = templates.shape
+    chunk = max(1, _PLAIN_CHUNK_ELEMS // max(t * scan.shape[1], 1))
+    mask = scan_mask.bool()
+    out = templates.new_empty(b, p)
+    for bi in range(b):
+        for p0 in range(0, p, chunk):
+            out[bi, p0:p0 + chunk] = fn(scan[bi], mask[bi],
+                                        templates[bi, p0:p0 + chunk])
+    return out
+
+
+def _div(x: torch.Tensor, n) -> torch.Tensor:
+    """x / n in float32 with n a count (int or tensor): a true division by
+    a tensor, as the JAX package divides (a division by a host scalar may
+    become a product with its reciprocal on the card)."""
+    if not torch.is_tensor(n):
+        n = x.new_full((), float(n))
+    return x / n.to(x.dtype)
+
+
+def _scan_distances(scan, mask, posed):
+    """(d2 (c, T, S), d2 with the masked scan points at BIG)."""
+    d2 = pairwise_sq_dists(posed, scan)
+    return d2, torch.where(mask, d2, d2.new_full((), BIG))
+
+
+def _n_scan(mask) -> torch.Tensor:
+    return mask.sum(-1).clamp_min(1)
+
+
+def _median_last(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` over the last axis: the mean of the two middle
+    values for an even count (``torch.median`` returns the lower one)."""
+    s = torch.sort(v, dim=-1).values
+    n = v.shape[-1]
+    return (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
+
+
+def _masked_median(vals, valid) -> torch.Tensor:
+    """Median over the VALID entries only (numpy semantics: mean of the two
+    middle order statistics for even counts).  vals (..., N), valid (..., N)
+    boolean; invalid entries sort to the end."""
+    s = torch.sort(torch.where(valid, vals, vals.new_full((), BIG)),
+                   dim=-1).values
+    n = valid.sum(-1).clamp_min(1)
+    lo = torch.gather(s, -1, ((n - 1) // 2)[..., None])[..., 0]
+    hi = torch.gather(s, -1, (n // 2)[..., None])[..., 0]
+    return 0.5 * (lo + hi)
+
+
+def _trim_mean(vals, valid, proportion_cut_high) -> torch.Tensor:
+    """custom_trim_mean (loss.py:56-60): sort ascending, mean of the first
+    int((1 - p) * n) entries; masked entries sort to the end.  The share
+    is taken in float32, as the JAX package takes it."""
+    s = torch.sort(torch.where(valid, vals, vals.new_full((), BIG)),
+                   dim=-1).values
+    share = vals.new_full((), 1.0 - proportion_cut_high)
+    n_use = (share * valid.sum(-1).to(vals.dtype)).long().clamp_min(1)
+    keep = torch.arange(s.shape[-1], device=s.device) < n_use[..., None]
+    return _div(torch.where(keep, s, 0.0).sum(-1), n_use)
+
+
+def _chamfer(scan, mask, posed):
+    d2, d2s = _scan_distances(scan, mask, posed)
+    t_term = _div(d2s.amin(-1).sum(-1), posed.shape[-2])
+    s_term = _div(torch.where(mask, d2.amin(-2), 0.0).sum(-1),
+                  _n_scan(mask))
+    return torch.sqrt(t_term + s_term)
+
+
+def _median_one_way(scan, mask, posed):
+    d2s = pairwise_sq_dists(posed, scan).masked_fill_(~mask, BIG)
+    return _div(_median_last(d2s.amin(-1)), posed.shape[-2])
+
+
+def _median_both(scan, mask, posed):
+    d2, d2s = _scan_distances(scan, mask, posed)
+    t_med = _median_last(d2s.amin(-1))
+    s_min = d2.amin(-2)
+    s_med = _masked_median(s_min, mask.expand_as(s_min))
+    return torch.sqrt(_div(s_med, _n_scan(mask))
+                      + _div(t_med, posed.shape[-2]))
+
+
+def _trimmed(scan, mask, posed, trim):
+    d = pairwise_sq_dists(posed, scan).add_(1e-12).sqrt_()
+    t_min = torch.where(mask, d, d.new_full((), BIG)).amin(-1)
+    s_min = d.amin(-2)
+    return (_trim_mean(s_min, mask.expand_as(s_min), trim)
+            + _trim_mean(t_min, torch.ones_like(t_min, dtype=torch.bool),
+                         trim))
+
+
+def _sigmoid_binary(scan, mask, posed, steepness):
+    d = pairwise_sq_dists(posed, scan).add_(1e-12).sqrt_()
+    d = d.masked_fill_(~mask, BIG)
+    t_term = torch.sigmoid(steepness * d.amin(-1)) - 0.5
+    s_term = torch.where(
+        mask, torch.sigmoid(steepness * d.amin(-2)) - 0.5, 0.0)
+    return (_div(t_term.sum(-1), posed.shape[-2])
+            + _div(s_term.sum(-1), _n_scan(mask)))
+
+
+def chamfer_loss(scan, scan_mask, templates) -> torch.Tensor:
+    """'chamfer' (avg_chamfer_distance, loss.py:24-33):
+    sqrt(sum(min d2 scan->temp)/|S| + sum(min d2 temp->scan)/|T|), each
+    direction normalized by ITS OWN cloud size."""
+    return _per_pose_chunks(_chamfer, scan, scan_mask, templates)
+
+
+def median_one_way_loss(scan, scan_mask, templates) -> torch.Tensor:
+    """'med1way' (avg_med_distance_only_temp_to_scan, loss.py:35-42):
+    median(min d2 temp->scan) / |T| (a median divided by a count: the
+    reference's exact formula)."""
+    return _per_pose_chunks(_median_one_way, scan, scan_mask, templates)
+
+
+def median_both_loss(scan, scan_mask, templates) -> torch.Tensor:
+    """'medboth' (avg_med_distance, loss.py:13-22):
+    sqrt(median(min d2 scan->temp)/|S| + median(min d2 temp->scan)/|T|)."""
+    return _per_pose_chunks(_median_both, scan, scan_mask, templates)
+
+
+def trimmed_loss(scan, scan_mask, templates, trim) -> torch.Tensor:
+    """'trimmed' (avg_trim_distance, loss.py:44-54): EUCLIDEAN distances,
+    high-trimmed means of both directions, unnormalized sum."""
+    return _per_pose_chunks(
+        lambda s, m, p: _trimmed(s, m, p, trim), scan, scan_mask, templates)
+
+
+def sigmoid_binary_loss(scan, scan_mask, templates, steepness=10.0
+                        ) -> torch.Tensor:
+    """Differentiable TFL variant ('diffbin', loss.py:77-87)."""
+    return _per_pose_chunks(
+        lambda s, m, p: _sigmoid_binary(s, m, p, steepness), scan,
+        scan_mask, templates)
+
+
 def tfl_loss(scan, scan_mask, templates, kind: str, radius: float = 0.2,
              steepness: float = 10.0, trim: float = 0.2) -> torch.Tensor:
     """The reference's ``loss_function`` config dispatch (compute_loss,
-    loss.py:98-116); only ``binary2way`` is ported."""
+    loss.py:98-116).  scan (S, 3) or (B, S, 3), scan_mask to match,
+    templates (P, T, 3) or (B, P, T, 3) posed -> (P,) or (B, P)."""
     if kind == "binary2way":
         return binary_both_way_loss(scan, scan_mask, templates, radius)
-    if kind in ("binary1way", "chamfer", "diffbin", "med1way", "medboth",
-                "trimmed"):
-        raise NotImplementedError(
-            f"loss_function {kind!r}: only 'binary2way' of the JAX "
-            "package's ops/tfl.py loss kinds is ported")
+    if kind == "binary1way":
+        return binary_one_way_loss(scan, scan_mask, templates, radius)
+    if kind == "chamfer":
+        return chamfer_loss(scan, scan_mask, templates)
+    if kind == "diffbin":
+        return sigmoid_binary_loss(scan, scan_mask, templates, steepness)
+    if kind == "med1way":
+        return median_one_way_loss(scan, scan_mask, templates)
+    if kind == "medboth":
+        return median_both_loss(scan, scan_mask, templates)
+    if kind == "trimmed":
+        return trimmed_loss(scan, scan_mask, templates, trim)
     raise ValueError(f"unknown loss_function {kind!r} "
                      "(loss.py:98-116 dispatch)")
 

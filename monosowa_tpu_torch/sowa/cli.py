@@ -1,8 +1,9 @@
-"""Pseudo-label generator CLI: the ``lidar_scans``, ``mask_tracking`` and
-``optimization`` actions.
+"""Pseudo-label generator CLI.
 
     python -m monosowa_tpu_torch.sowa.cli --config <yaml> \
-        --action {lidar_scans,mask_tracking,optimization} \
+        --action {lidar_scans,transformations,mask_tracking,candidates,
+                  frames_aggregation,optimization,dimensions_output,demo} \
+        [--dataset {kitti,kitti360,all,waymo_converted}] \
         [--seq_start N] [--seq_end M] [--device cpu]
 
 CLI contract (pseudo_label_generator/3d/scripts/main.py:5-17): ``--dataset``,
@@ -13,19 +14,27 @@ Multi-machine scaling stays share-nothing: N processes over disjoint
 
 Counterpart of the JAX package's ``sowa/cli.py`` for the KITTI object
 layout (``training/image_2`` + ``calib``) with caches under
-``paths.merged_frames_path``.  ``lidar_scans`` writes ``lidar_raw/<frame>
-.npz`` from cached depth maps (``depth_maps/<frame>.npz``) or from the
-frame's image through the zoo's depth network (``backends.depth``);
-``mask_tracking`` writes ``masks_raw/<frame>.npz`` (and, with
-``extract_pedestrians``, ``pedestrians/``) through the zoo's Mask2Former
-(``backends.mask``).  ``optimization`` labels from ``masks_raw/``,
-``transformations/``, ``lidar_raw/`` and ``depth_maps/<frame>/<offset>
-.npz``: where a frame has a depth-map window, its job extracts on the
-device (bank mode under the default config); a merged-cars cache
-(``merged_cars/``) is fitted directly.  Networks and labelling run on the
-card unless ``--device`` names another.  The other actions, the raw
-Waymo driver and the KITTI-360 shuffled draw raise ``NotImplementedError``
-naming the JAX module they need.
+``paths.merged_frames_path``; ``--dataset kitti``, ``kitti360``, ``all``
+and ``waymo_converted`` all take this layout (KITTI-360 frame ids are
+``<sequence>_<number>``, and its workers draw the seed-360 shuffled
+frame order).  ``lidar_scans`` writes ``lidar_raw/<frame>.npz`` from
+cached depth maps (``depth_maps/<frame>.npz``) or from the frame's image
+through the zoo's depth network (``backends.depth``); ``transformations``
+writes ``transformations/<frame>.npy`` (KITTI-360 ``cam0_to_world.txt``
+poses under ``paths.all_dataset_path``, waymo_converted ``Cur_pose`` calib
+rows, identity windows for the object layout); ``mask_tracking`` writes
+``masks_raw/<frame>.npz`` (and, with ``extract_pedestrians``,
+``pedestrians/``) through the zoo's Mask2Former (``backends.mask``);
+``candidates`` and ``frames_aggregation`` write the ``candidates/`` and
+``merged_cars/`` caches on the host.  ``optimization`` labels from
+``masks_raw/``, ``transformations/``, ``lidar_raw/`` and
+``depth_maps/<frame>/<offset>.npz``: where a frame has a depth-map window,
+its job extracts on the device (bank mode under the default config); a
+merged-cars cache (``merged_cars/``) is fitted directly.  ``demo`` and
+``dimensions_output`` label the same way with the scale detector (and box
+reducer) on.  Networks and labelling run on the card unless ``--device``
+names another.  ``homographies`` and the raw Waymo driver raise
+``NotImplementedError`` naming the JAX module they need.
 """
 
 from __future__ import annotations
@@ -48,12 +57,7 @@ from monosowa_tpu_torch.sowa.pipeline import PipelineConfig, PseudoLabeler
 
 # action -> the module of the JAX package that it needs
 _OTHER_ACTIONS = {
-    "transformations": "sowa/transforms.py pose sources with kittiio/oxts.py",
     "homographies": "sowa/stitching.py",
-    "candidates": "the candidates action of sowa/cli.py",
-    "frames_aggregation": "the frames_aggregation action of sowa/cli.py",
-    "dimensions_output": "sowa/dimensions.py and sowa/scale.py",
-    "demo": "sowa/dimensions.py and sowa/scale.py",
 }
 
 
@@ -115,6 +119,33 @@ def pipeline_config_from(cfg: Config) -> PipelineConfig:
     )
 
 
+def png_size(path: str):
+    """(height, width) of a PNG file from its IHDR chunk, the first of
+    every PNG (what PIL's ``Image.size`` reports, reversed)."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        raise ValueError(f"{path} is not a PNG file")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
+def shuffled_frame_order(n: int, seq_start: Optional[int],
+                         seq_end: Optional[int]) -> np.ndarray:
+    """The KITTI-360 fleet draw (main_class.py:636-646
+    limit_sequences_all_random): a FIXED seed-360 shuffle of the frame
+    index space, sliced by [seq_start:seq_end]: concurrent share-nothing
+    workers with disjoint slices draw disjoint random frame subsets, so a
+    partial fleet run still covers the dataset uniformly.  Seeds numpy's
+    global generator, as the reference does."""
+    np.random.seed(360)
+    indexes = np.arange(0, n)
+    np.random.shuffle(indexes)
+    return indexes[seq_start:seq_end]
+
+
 class KittiObjectDriver:
     """Drives the KITTI object-detection layout: training/image_2 + calib,
     with caches under merged_frames_path (lidar_raw/, masks_raw/,
@@ -128,6 +159,7 @@ class KittiObjectDriver:
         self.device = device
         paths = cfg.paths or Config({})
         self.kitti_path = paths.get("kitti_path", ".")
+        self.all_dataset_path = paths.get("all_dataset_path", None)
         self.cache = paths.get("merged_frames_path", "./cache")
         self.labels_path = paths.get("labels_path", "./labels")
         self.pcfg = pipeline_config_from(cfg)
@@ -146,6 +178,10 @@ class KittiObjectDriver:
         return os.path.join(self.cache, "transformations")
 
     @property
+    def candidates_dir(self):
+        return os.path.join(self.cache, "candidates")
+
+    @property
     def merged_dir(self):
         return os.path.join(self.cache, "merged_cars")
 
@@ -153,31 +189,60 @@ class KittiObjectDriver:
         img_dir = os.path.join(self.kitti_path, "training", "image_2")
         return sorted(os.path.splitext(f)[0] for f in os.listdir(img_dir))
 
-    def run(self, seq_start: Optional[int], seq_end: Optional[int]) -> int:
+    def run(self, seq_start: Optional[int], seq_end: Optional[int],
+            shuffle: bool = False) -> int:
         action = self.flags.action
         if action in _OTHER_ACTIONS:
             raise NotImplementedError(
                 f"action {action!r}: {_OTHER_ACTIONS[action]} of the JAX "
                 "package is not ported")
         ids = self.frame_ids()
-        lo = seq_start or 0
-        hi = min(seq_end if seq_end is not None else len(ids), len(ids))
-        ids = ids[lo:hi]
-        if self.flags.generate_raw_lidar:
+        if shuffle:
+            # KITTI-360 fleet draw: disjoint random subsets per worker
+            ids = [ids[i] for i in shuffled_frame_order(
+                len(ids), seq_start, seq_end)]
+        else:
+            lo = seq_start or 0
+            hi = min(seq_end if seq_end is not None else len(ids), len(ids))
+            ids = ids[lo:hi]
+        flags = self.flags
+        if flags.do_optim or flags.compute_dimensions:
+            return self._optimize_frames(ids)
+        if flags.generate_transformations_only:
+            return sum(self._transforms_frame(fid) for fid in ids)
+        if flags.generate_candidates:
+            return sum(self._candidates_frame(fid) for fid in ids)
+        if flags.generate_merged_frames_only:
+            return sum(self._merge_frame(fid) for fid in ids)
+        if flags.generate_raw_lidar:
             return sum(self._lidar_frame(fid) for fid in ids)
-        if self.flags.generate_raw_masks_or_tracking:
-            from monosowa_tpu_torch.sowa import zoo
-            backend = zoo.mask_backend(self.cfg, device=self.device)
-            if backend is None:
-                raise NotImplementedError(
-                    "action 'mask_tracking' on frame datasets needs a live "
-                    "instance-segmentation backend: set backends.mask "
-                    "(e.g. mask2former + mask_checkpoint) in the config, "
-                    "or precompute masks_raw/ artifacts")
-            zoo.sam_refine_backend(self.cfg)    # use_SAM raises
-            return sum(self._masks_frame(fid, backend) for fid in ids)
+        # mask_tracking, the last action (homographies raised above)
+        from monosowa_tpu_torch.sowa import zoo
+        backend = zoo.mask_backend(self.cfg, device=self.device)
+        if backend is None:
+            raise NotImplementedError(
+                "action 'mask_tracking' on frame datasets needs a live "
+                "instance-segmentation backend: set backends.mask "
+                "(e.g. mask2former + mask_checkpoint) in the config, "
+                "or precompute masks_raw/ artifacts")
+        zoo.sam_refine_backend(self.cfg)    # use_SAM raises
+        return sum(self._masks_frame(fid, backend) for fid in ids)
+
+    def _optimize_frames(self, ids: List[str]) -> int:
+        """`optimization`, `dimensions_output`, `demo`: label each frame
+        from its merged-cars cache, or through the full pipeline in
+        streamed groups.  The last two actions turn the size stages on
+        (the scale detector, or the dimension estimator)."""
+        import dataclasses
+
+        pcfg = self.pcfg
+        if self.flags.do_optim_scale or self.flags.compute_dimensions:
+            pcfg = dataclasses.replace(
+                pcfg, use_scale_detector=self.flags.do_optim_scale,
+                use_dimensions_estimation=self.flags.compute_dimensions
+                and not self.flags.do_optim_scale)
         n_done = 0
-        labeler = PseudoLabeler(self.pcfg, device=self.device)
+        labeler = PseudoLabeler(pcfg, device=self.device)
         group = int((self.cfg.general or Config({}))
                     .get("frames_per_batch", 8))
         pending = []
@@ -199,6 +264,123 @@ class KittiObjectDriver:
         from monosowa_tpu_torch.kittiio import Calibration
         return Calibration(os.path.join(self.kitti_path, "training",
                                         "calib", f"{fid}.txt"))
+
+    @staticmethod
+    def _read_calib_safe(path: str):
+        from monosowa_tpu_torch.kittiio import Calibration
+        try:
+            return Calibration(path)
+        except (OSError, KeyError):
+            return None
+
+    def _transforms_frame(self, fid: str) -> int:
+        """`--action transformations`, dataset-dispatched pose sources
+        (loader.py:901-1013):
+
+        * kitti360 / all: ``data_poses/<seq>/cam0_to_world.txt`` windows
+          (calculate_transformations_all :942-982); frame ids are
+          ``<sequence>_<number>``;
+        * waymo_converted: per-frame calib ``Cur_pose`` rows
+          (calculate_transformations_waymoc :984-1013), sequence layout
+          ``training/<seq>/calib/`` under all_dataset_path when the frame
+          id carries a sequence prefix, else the flat object-layout calib
+          dir (numeric neighbour frames);
+        * kitti (object layout): identity windows: single-shot frames have
+          no pose chain; raw-sequence OXTS chains come through
+          tools/kitti_raw_transforms.py.
+        """
+        out = transforms_mod.transforms_cache_path(self.transforms_dir, fid)
+        if os.path.exists(out):
+            return 0
+        rng = int((self.cfg.frames_creation or Config({}))
+                  .get("nscans_transformation_range", 130))
+        t = None
+        if self.dataset in ("kitti360", "all") and self.all_dataset_path:
+            folder, _, number = fid.rpartition("_")
+            pose_file = os.path.join(self.all_dataset_path, "data_poses",
+                                     folder, "cam0_to_world.txt")
+            if folder and os.path.exists(pose_file):
+                poses = transforms_mod.read_cam0_to_world(pose_file)
+                t = transforms_mod.k360_window_transforms(
+                    poses, int(number), rng, rng)
+        elif self.dataset == "waymo_converted":
+            folder, _, number = fid.rpartition("_")
+            seq_calib = (os.path.join(self.all_dataset_path, "training",
+                                      folder, "calib")
+                         if self.all_dataset_path and folder else None)
+            if seq_calib and os.path.isdir(seq_calib):
+                t = transforms_mod.waymoc_window_transforms(
+                    seq_calib, int(number), rng, rng)
+            else:
+                flat_calib = os.path.join(self.kitti_path, "training",
+                                          "calib")
+                ref = self._read_calib_safe(os.path.join(flat_calib,
+                                                         f"{fid}.txt"))
+                if ref is not None and ref.pose is not None:
+                    width = len(fid)
+                    t = transforms_mod.waymoc_window_transforms(
+                        flat_calib, int(fid), rng, rng,
+                        name_fn=lambda i: str(i).zfill(width))
+        if t is None:
+            t = np.tile(np.eye(4), (2 * rng + 1, 1, 1))
+        transforms_mod.save_window_transforms(self.transforms_dir, fid, t)
+        return 1
+
+    def _candidates_frame(self, fid: str) -> int:
+        """`--action candidates`: extract + cache the reference frame's
+        candidates (loader.py:1535-1649 precompute path)."""
+        from monosowa_tpu_torch.sowa import cache as cache_mod
+        from monosowa_tpu_torch.sowa import candidates as cand_mod
+
+        if cache_mod.stage_done(self.candidates_dir, fid):
+            return 0
+        window, get_points, get_masks, transforms = self._window_accessors(fid)
+        calib = self._calib(fid)
+        img_hw = self._image_hw(fid)
+        ref_k = window.index(0)
+        pts = get_points(ref_k)
+        masks = get_masks(ref_k)
+        if pts is None or masks is None:
+            return 0
+        cand = cand_mod.extract_candidates(pts, calib.P2, img_hw, masks,
+                                           transforms[ref_k],
+                                           self.pcfg.candidate)
+        cache_mod.save_candidates(self.candidates_dir, fid, cand)
+        return 1
+
+    def _merge_frame(self, fid: str) -> int:
+        """`--action frames_aggregation`: candidates -> tracking ->
+        classification -> aggregation over the window, on the host, and
+        cache the merged cars."""
+        from monosowa_tpu_torch.sowa import aggregation
+        from monosowa_tpu_torch.sowa import cache as cache_mod
+        from monosowa_tpu_torch.sowa import candidates as cand_mod
+        from monosowa_tpu_torch.sowa import lomm
+
+        if cache_mod.stage_done(self.merged_dir, fid):
+            return 0
+        window, get_points, get_masks, transforms = self._window_accessors(fid)
+        calib = self._calib(fid)
+        img_hw = self._image_hw(fid)
+        cands = []
+        for k in range(len(window)):
+            pts = get_points(k)
+            masks = get_masks(k)
+            if pts is None or masks is None or len(masks) == 0:
+                cands.append(None)
+                continue
+            cands.append(cand_mod.extract_candidates(
+                pts, calib.P2, img_hw, masks, transforms[k],
+                self.pcfg.candidate))
+        tracks = lomm.greedy_track(cands, window,
+                                   self.pcfg.dist_threshold_tracking)
+        lomm.classify_all(tracks, method=self.pcfg.moving_method)
+        kept, points, ref_masks = aggregation.aggregate_tracks(
+            tracks, transforms, window, self.pcfg.keep_k_frames,
+            self.pcfg.min_standing_points)
+        cache_mod.save_merged_cars(self.merged_dir, fid, kept, points,
+                                   ref_masks)
+        return 1
 
     def _depth_backend(self):
         """The configured depth source, one per driver (a live backend
@@ -341,11 +523,11 @@ class KittiObjectDriver:
         return job
 
     def _image_hw(self, fid: str):
+        """(height, width) of the frame's PNG, from its header (no image
+        library needed); KITTI's 375 x 1242 without one."""
         p = os.path.join(self.kitti_path, "training", "image_2", f"{fid}.png")
         if os.path.exists(p):
-            from PIL import Image
-            with Image.open(p) as im:
-                return im.size[1], im.size[0]
+            return png_size(p)
         return (375, 1242)
 
     def _image(self, fid: str) -> Optional[np.ndarray]:
@@ -366,14 +548,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise NotImplementedError(
             "--dataset waymo: the raw Waymo driver (WaymoSegmentDriver of "
             "sowa/cli.py, sowa/waymo2d.py) is not ported")
-    if args.dataset in ("kitti360", "all"):
-        raise NotImplementedError(
-            f"--dataset {args.dataset}: the KITTI-360 seed-360 shuffled "
-            "frame draw (shuffled_frame_order of sowa/cli.py) is not ported")
     t0 = time.time()
     driver = KittiObjectDriver(cfg, flags, dataset=args.dataset,
                                device=args.device)
-    n = driver.run(args.seq_start, args.seq_end)
+    # KITTI-360 workers draw seed-360-shuffled disjoint random frames
+    # (main_class.py:360, 636-646); the other datasets iterate in order
+    n = driver.run(args.seq_start, args.seq_end,
+                   shuffle=args.dataset in ("kitti360", "all"))
     print(f"[{args.action}] processed {n} frames in {time.time() - t0:.1f}s")
     return 0
 

@@ -18,7 +18,11 @@ Counterpart of the convolutional path of the JAX package's
 the exact coverage (``ops.tfl.binary_both_way_counts``) runs three times:
 the rescore of the coarse grid's best translations, its half-pitch
 refinement, and the fine theta pass; each is one call for all cars (only
-the fine pass runs when ``FitConfig.exact_topk`` is 0).
+the fine pass runs when ``FitConfig.exact_topk`` is 0).  The loss kinds
+other than ``binary2way`` sweep the reference's grid exactly
+(``exact_grid_losses``) in place of the conv grid.  ``fit_cars_robust``
+(the robust optimisation) adds a translation-only grid at a given yaw
+per car (``fit_loc_only``), one coverage call for all cars.
 """
 
 from __future__ import annotations
@@ -62,13 +66,21 @@ class FitConfig:
     # The standing-car theta itself always comes from the exact 360-step
     # fine pass.  Set >= n_theta//2 for the full theta set.
     rescore_theta_window: int = 2
-    # loss_functions.loss_function dispatch (loss.py:98-116); only
-    # binary2way is ported, another kind raises NotImplementedError (the
-    # three fields below parametrise those other kinds)
+    # loss_functions.loss_function dispatch (loss.py:98-116): binary2way
+    # (default, the conv grid) or binary1way / chamfer / diffbin / med1way /
+    # medboth / trimmed, which sweep the grid exactly instead (the conv
+    # fields approximate binary2way only)
     loss_function: str = "binary2way"
     sigmoid_steepness: float = 10.0   # loss_functions.sigmoid_steepness
+    # loss_functions yaml ships trim_threshold: 0.3 but compute_loss reads
+    # the MISSPELLED trim_treshold key (loss.py:100), which is absent ->
+    # None -> the shipped 'trimmed' branch crashes; the yaml value is used
     trim_threshold: float = 0.3
-    exact_grid_chunk: int = 16
+
+    def loss_kwargs(self) -> dict:
+        return dict(kind=self.loss_function, radius=self.radius,
+                    steepness=self.sigmoid_steepness,
+                    trim=self.trim_threshold)
 
 
 class FitResult(NamedTuple):
@@ -113,14 +125,6 @@ def _fine_thetas(cfg: FitConfig) -> np.ndarray:
     return _linspace_thetas(cfg.n_theta_fine)
 
 
-def _check_loss(cfg: FitConfig) -> None:
-    if cfg.loss_function != "binary2way":
-        raise NotImplementedError(
-            f"FitConfig.loss_function {cfg.loss_function!r}: only "
-            "'binary2way' is ported (the other kinds need the exact grid "
-            "sweep exact_grid_losses of the JAX package's sowa/fitting.py)")
-
-
 def _pose_template(template: torch.Tensor, thetas: torch.Tensor
                    ) -> torch.Tensor:
     """template (T, 3), thetas (...,) -> (..., T, 3) rotated about y."""
@@ -129,13 +133,50 @@ def _pose_template(template: torch.Tensor, thetas: torch.Tensor
 
 def exact_theta_losses(scan_local: torch.Tensor, scan_mask: torch.Tensor,
                        template: torch.Tensor, trans: torch.Tensor,
-                       thetas: torch.Tensor, radius: float) -> torch.Tensor:
-    """Exact binary2way TFL for all thetas at one fixed translation per
-    car: scan_local (B, S, 3), scan_mask (B, S), template (T, 3), trans
-    (B, 3), thetas (N,) -> (B, N), in one call of the coverage counts."""
+                       thetas: torch.Tensor, radius: float,
+                       loss_kwargs: Optional[dict] = None) -> torch.Tensor:
+    """Exact TFL (default binary2way; any loss.py:98-116 kind via
+    ``loss_kwargs``) for all thetas at one fixed translation per car:
+    scan_local (B, S, 3), scan_mask (B, S), template (T, 3), trans (B, 3),
+    thetas (N,) -> (B, N), in one call of the loss."""
+    kw = loss_kwargs or dict(kind="binary2way", radius=radius)
     posed = _pose_template(template, thetas)[None] \
         + trans[:, None, None, :]                           # (B, N, T, 3)
-    return tfl.binary_both_way_loss(scan_local, scan_mask, posed, radius)
+    return tfl.tfl_loss(scan_local, scan_mask, posed, **kw)
+
+
+# posed template points (B x poses x T) a call of exact_grid_losses poses
+# at once for the loss kinds swept in plain torch (binary2way: one call)
+_GRID_CHUNK_POINTS = 1 << 24
+
+
+def exact_grid_losses(scan_local: torch.Tensor, scan_mask: torch.Tensor,
+                      template: torch.Tensor, trans: torch.Tensor,
+                      thetas: torch.Tensor, cfg: FitConfig) -> torch.Tensor:
+    """EXACT loss over the full (theta x translation) pose grid of every
+    car: the coarse pass of the loss kinds other than binary2way (the
+    reference evaluates its selected loss at every grid pose,
+    optimizer.py:67-84; the conv fields approximate only binary2way), and
+    the grid of ``fit_loc_only``.  scan_local (B, S, 3), scan_mask (B, S),
+    template (T, 3), trans (G, 3), thetas (B, nt) per-car rows -> (B, nt,
+    G), theta-major as the JAX package orders it.  binary2way poses the
+    whole grid and counts it in one call; the other kinds pose it in
+    chunks."""
+    b, nt = thetas.shape
+    g = trans.shape[0]
+    n = nt * g
+    th_rep = thetas.repeat_interleave(g, dim=1)             # (B, n)
+    tr_rep = trans.repeat(nt, 1)                            # (n, 3)
+    kw = cfg.loss_kwargs()
+    chunk = n if cfg.loss_function == "binary2way" else max(
+        1, _GRID_CHUNK_POINTS // (b * template.shape[0]))
+    out = scan_local.new_empty(b, n)
+    for p0 in range(0, n, chunk):
+        posed = _pose_template(template, th_rep[:, p0:p0 + chunk]) \
+            + tr_rep[p0:p0 + chunk][None, :, None, :]       # (B, c, T, 3)
+        out[:, p0:p0 + chunk] = tfl.tfl_loss(scan_local, scan_mask, posed,
+                                             **kw)
+    return out.reshape(b, nt, g)
 
 
 def estimate_angle_from_track(locations: np.ndarray, valid: np.ndarray,
@@ -321,13 +362,15 @@ def _fit_conv(scan_local, scan_mask, moving, theta_est, theta_valid,
     scan_local (B, S, 3) relative to each car's center, scan_mask (B, S),
     moving / theta_valid (B,) bool, theta_est (B,).  Returns (x, z, theta,
     loss), each (B,), as pose offsets in the local frame."""
-    _check_loss(cfg)
     dev = scan_local.device
     shift = torch.where(moving, scan_local.new_tensor(cfg.moving_dz_shift),
                         scan_local.new_tensor(0.0))         # (B,)
     local_eff = scan_local - torch.stack(
         [torch.zeros_like(shift), torch.zeros_like(shift), shift],
         -1)[:, None, :]
+    if cfg.loss_function != "binary2way":
+        return _fit_exact(local_eff, scan_mask, moving, theta_est,
+                          theta_valid, template, shift, cfg)
 
     trans = torch.as_tensor(tfl.conv_translations(spec), device=dev)
     losses = tfl.grid_pose_losses_conv(local_eff, scan_mask, occ_k, memb_k,
@@ -361,6 +404,49 @@ def _fit_conv(scan_local, scan_mask, moving, theta_est, theta_valid,
     fine_thetas = torch.as_tensor(_fine_thetas(cfg), device=dev)
     fine = exact_theta_losses(local_eff, scan_mask, template, t_best,
                               fine_thetas, cfg.radius)      # (B, N)
+    theta = torch.where(moving, th_best, _plateau_theta(fine_thetas, fine))
+    loss = torch.where(moving, loss_best, fine.min(dim=1).values)
+    return t_best[:, 0], t_best[:, 2] + shift, theta, loss
+
+
+def _fit_exact(local_eff, scan_mask, moving, theta_est, theta_valid,
+               template, shift, cfg: FitConfig):
+    """The fit of the loss kinds other than binary2way: an exact sweep over
+    the reference's continuous linspace grid (the conv fields approximate
+    binary2way only; the reference evaluates its selected loss at every
+    grid pose, optimizer.py:67-84), then the exact fine theta pass with
+    the same kind.  Arguments as ``_fit_conv``, ``local_eff`` already
+    shifted for the moving cars."""
+    dev = local_eff.device
+    thetas_np, trans_np = _pose_grids(cfg)
+    thetas_c = torch.as_tensor(thetas_np, device=dev)
+    trans_ref = torch.as_tensor(trans_np, device=dev)
+    nt, g = thetas_c.shape[0], trans_ref.shape[0]
+    fixed = moving & theta_valid
+    row = torch.round(theta_est / theta_est.new_tensor(2 * np.pi / nt)
+                      ).long() % nt
+    on_row = torch.arange(nt, device=dev)[None, :] == row[:, None]
+    # the reference's optimize_moving evaluates the loss exactly at
+    # estimated_angle (opt_param3_range=[estimated_angle]): theta_est takes
+    # the selected row's place, so the masked sweep scores the translation
+    # grid at the exact angle, not the nearest lattice theta
+    rows_b = torch.where(on_row & fixed[:, None], theta_est[:, None],
+                         thetas_c[None, :])                 # (B, nt)
+    losses = exact_grid_losses(local_eff, scan_mask, template, trans_ref,
+                               rows_b, cfg)                 # (B, nt, G)
+    row_mask = on_row | ~fixed[:, None]
+    masked = torch.where(row_mask[:, :, None], losses,
+                         losses.new_tensor(float("inf")))
+    th_set = torch.where(fixed[:, None], theta_est[:, None],
+                         thetas_c[None, :])
+    flat = masked.reshape(masked.shape[0], -1)
+    best = flat.argmin(dim=1)
+    t_best = trans_ref[best % g]
+    th_best = _take(th_set, best // g)
+    loss_best = _take(flat, best)
+    fine_thetas = torch.as_tensor(_fine_thetas(cfg), device=dev)
+    fine = exact_theta_losses(local_eff, scan_mask, template, t_best,
+                              fine_thetas, cfg.radius, cfg.loss_kwargs())
     theta = torch.where(moving, th_best, _plateau_theta(fine_thetas, fine))
     loss = torch.where(moving, loss_best, fine.min(dim=1).values)
     return t_best[:, 0], t_best[:, 2] + shift, theta, loss
@@ -425,3 +511,75 @@ def fit_cars_conv(batch: CarBatch, template: torch.Tensor,
     return BatchFitResult(
         x=center[:, 0] + xs, y=center[:, 1], z=center[:, 2] + zs,
         theta=thetas, loss=losses, center=center)
+
+
+def _fit_loc_only(scan_local: torch.Tensor, scan_mask: torch.Tensor,
+                  template: torch.Tensor, theta_est: torch.Tensor,
+                  cfg: FitConfig):
+    """The translation-only grid of B cars at their yaws: scan_local
+    (B, S, 3), scan_mask (B, S), theta_est (B,) -> (x, z, theta, loss),
+    each (B,); the 2 x n_dx x n_dz poses of all cars in one call of the
+    loss."""
+    thetas = torch.stack([theta_est, theta_est + np.pi], 1)  # (B, 2)
+    _, trans_np = _pose_grids(cfg)
+    trans = torch.as_tensor(trans_np, device=scan_local.device)
+    g = trans.shape[0]
+    flat = exact_grid_losses(scan_local, scan_mask, template, trans, thetas,
+                             cfg).reshape(thetas.shape[0], -1)
+    best = flat.argmin(dim=1)
+    t = trans[best % g]
+    return t[:, 0], t[:, 2], _take(thetas, best // g), _take(flat, best)
+
+
+def fit_loc_only(scan_local: torch.Tensor, scan_mask: torch.Tensor,
+                 template: torch.Tensor, theta_est,
+                 cfg: FitConfig = FitConfig()) -> FitResult:
+    """Translation-only grid at a fixed estimated yaw (optimize_loc_only,
+    optimizer.py:114-155): (dx, dz) linspace grid x theta in
+    {theta_est, theta_est + pi}, template at its default size, scored with
+    the configured loss kind.  One car: scan_local (S, 3)."""
+    th = torch.as_tensor(theta_est, dtype=scan_local.dtype,
+                         device=scan_local.device).reshape(1)
+    x, z, theta, loss = _fit_loc_only(scan_local[None],
+                                      scan_mask[None].bool(), template, th,
+                                      cfg)
+    return FitResult(x=x[0], y=x.new_zeros(()), z=z[0], theta=theta[0],
+                     loss=loss[0])
+
+
+def fit_cars_robust(batch: CarBatch, template: torch.Tensor,
+                    occ_k: torch.Tensor, memb_k: torch.Tensor, spec,
+                    cfg: FitConfig, theta_robust, robust_valid
+                    ) -> BatchFitResult:
+    """The robust_optimization branch (optimize_car_robust,
+    optimizer.py:27-44): standing cars with a valid dims-estimator yaw run
+    the translation-only grid at that yaw; the others keep the standard
+    coarse + fine fit (moving cars optimize_moving).  The estimator's dims
+    themselves are clamped to template dims by the reference's ``or
+    True`` (dimension_estimator.py:115): only the yaw and the location
+    survive.  Every car of the batch takes the translation-only grid in
+    one call of the loss, as the JAX package computes it for each."""
+    base = fit_cars_conv(batch, template, occ_k, memb_k, spec, cfg)
+    dev = template.device
+    points = torch.as_tensor(batch.points, dtype=template.dtype, device=dev)
+    mask = torch.as_tensor(batch.mask, dtype=torch.bool, device=dev)
+    moving = torch.as_tensor(batch.moving, dtype=torch.bool, device=dev)
+    car_valid = torch.as_tensor(batch.car_valid, dtype=torch.bool,
+                                device=dev)
+    theta_robust = torch.as_tensor(theta_robust, dtype=template.dtype,
+                                   device=dev)
+    robust_valid = torch.as_tensor(robust_valid, dtype=torch.bool,
+                                   device=dev)
+    center = masked_median(points, mask)                    # (B, 3)
+    x, z, theta, loss = _fit_loc_only(points - center[:, None, :], mask,
+                                      template, theta_robust, cfg)
+    use = robust_valid & ~moving & car_valid
+
+    def pick(a, b):
+        return torch.where(use, a, b)
+
+    return BatchFitResult(
+        x=pick(center[:, 0] + x, base.x), y=pick(center[:, 1], base.y),
+        z=pick(center[:, 2] + z, base.z), theta=pick(theta, base.theta),
+        loss=pick(loss, base.loss),
+        center=torch.where(use[:, None], center, base.center))

@@ -20,10 +20,13 @@ and the merge re-fit is a second, smaller fit.  Jobs that give depth maps
 under the JAX package's condition, bank mode (``bank``): the points stay
 on the card, the host tracks candidate centres only, and one device
 function fits, suppresses and re-fits a whole group before one copy to the
-host.  What the JAX package has and this module does not yet (the
-ensemble filter, the scale detector, the dimension estimator, the robust
-optimisation, pedestrians, the strict hidden-standing check on real LiDAR)
-raises ``NotImplementedError`` naming the missing module.
+host.  The optional stages of ``label_from_cars`` follow the JAX
+package: the outlier ensemble (``filtering``), the robust optimisation
+(``fitting.fit_cars_robust`` at the dimension estimator's yaw), and per
+standing car the scale detector with the box reducer (``scale``) or the
+dimension estimator (``dimensions``).  What the JAX package has and this
+module does not yet (pedestrians, the strict hidden-standing check on
+real LiDAR) raises ``NotImplementedError`` naming the missing module.
 """
 
 from __future__ import annotations
@@ -72,18 +75,27 @@ class PipelineConfig:
     # hidden standing cars are filtered against the live reference scan
     # (aggregation.hidden_standing_keep_real; the reference's shipped
     # filter is a no-op; strict_hidden_standing=True, not ported, enables
-    # the evidently intended range check)
+    # the evidently intended range check); the scale detector re-gathers
+    # its points from the live window scans
     use_pseudo_lidar: bool = True
     strict_hidden_standing: bool = False
     # frames_creation.use_clever_aggregation: keep-k-closest frame
     # selection (True, shipped default) vs concat-every-observation
     use_clever_aggregation: bool = True
-    # the stages below are not ported: switching one on raises
-    extract_pedestrians: bool = False   # sowa/pedestrians.py
-    use_ensemble_filter: bool = False   # sowa/filtering.py, hdbscan_np.py
-    use_scale_detector: bool = False    # sowa/scale.py
-    use_dimensions_estimation: bool = False   # sowa/dimensions.py
-    use_robust_optimization: bool = False     # fitting.fit_cars_robust
+    # frames_creation.extract_pedestrians: sowa/pedestrians.py is not
+    # ported, switching it on raises
+    extract_pedestrians: bool = False
+    # optional stages (reference flags in parentheses)
+    use_ensemble_filter: bool = False   # frames_creation.use_hdbscan
+    use_scale_detector: bool = False    # scale_detector.use_scale_detector
+    use_bbox_reducer: bool = True       # scale_detector.use_bbox_reducer
+    scale_bbox_scale: float = 1.5       # scale_detector.bbox_scale
+    use_dimensions_estimation: bool = False
+    # optimization.use_dimensions_estimation_during_optim
+    # optimization.robust_optimization (config.yaml:68, default False):
+    # dims-estimator yaw first, then translation-only grid
+    # (optimize_car_robust / optimize_loc_only, optimizer.py:27-44,114-155)
+    use_robust_optimization: bool = False
     # persist fitted cars for use_add_data detector training (the
     # reference's optimized_cars/ blobs, main_class.py:780-816)
     cars_cache_dir: Optional[str] = None
@@ -111,11 +123,6 @@ _EXT_PENDING = object()
 
 # config flag -> the module of the JAX package that the flag needs
 _NOT_PORTED = (
-    ("use_ensemble_filter", "sowa/filtering.py"),
-    ("use_scale_detector", "sowa/scale.py"),
-    ("use_dimensions_estimation", "sowa/dimensions.py"),
-    ("use_robust_optimization",
-     "sowa/dimensions.py and fitting.fit_cars_robust"),
     ("extract_pedestrians", "sowa/pedestrians.py"),
 )
 
@@ -189,10 +196,16 @@ class PseudoLabeler:
         get_points/get_masks take the window index; transforms: (W, 4, 4)
         T_cur_to_ref.  Returns car dicts ready for the label writer."""
         cfg = self.cfg
+        # the real-LiDAR scale branch re-gathers from the live scans
+        # (scale_detector.py:14-104): keep them only when that path is on
+        keep_scans = self._keeps_scans()
+        window_scans = [] if keep_scans else None
         cands = []
         for k in range(len(window_frames)):
             pts = get_points(k)
             masks = get_masks(k)
+            if keep_scans:
+                window_scans.append(pts)
             if pts is None or masks is None or len(masks) == 0:
                 cands.append(None)
                 continue
@@ -202,7 +215,16 @@ class PseudoLabeler:
             cands, window_frames, transforms)
         if not kept:
             return []
-        return self.label_from_cars(kept, points, ref_masks, window_frames)
+        return self.label_from_cars(
+            kept, points, ref_masks, window_frames,
+            scale_scan_source=((window_scans, transforms)
+                               if keep_scans else None))
+
+    def _keeps_scans(self) -> bool:
+        """Whether the scale detector re-gathers from the window's live
+        scans (real LiDAR); pseudo-LiDAR short-circuits to the aggregated
+        cloud (scale_detector.py:17-21)."""
+        return self.cfg.use_scale_detector and not self.cfg.use_pseudo_lidar
 
     def _track_and_aggregate(self, cands, window_frames, transforms):
         cfg = self.cfg
@@ -221,7 +243,8 @@ class PseudoLabeler:
                         window_frames, precomputed=None,
                         precomputed_nms=None,
                         precomputed_refit=None,
-                        npts_override=None) -> List[dict]:
+                        npts_override=None,
+                        scale_scan_source=None) -> List[dict]:
         """Fit + NMS + assemble from aggregated per-car point clouds: the
         `optimization` stage when the `frames_aggregation` cache is already
         on disk (cache.load_merged_cars).
@@ -233,21 +256,38 @@ class PseudoLabeler:
         ``precomputed_refit``: optional {target_index: (center (3,), theta)}
         from a cross-frame batched merge re-fit: skips the per-frame re-fit
         (may be an empty dict).
+        ``scale_scan_source``: optional (window scans, transforms) from
+        which the scale detector re-gathers each standing car's points
+        (real LiDAR).
         """
         cfg = self.cfg
         if not kept:
             return []
         if ref_masks is None:
             ref_masks = [aggregation.choose_ref_mask(t) for t in kept]
+
+        if cfg.use_ensemble_filter:
+            from monosowa_tpu_torch.sowa.filtering import \
+                ensemble_inlier_mask_host
+            points = [p[ensemble_inlier_mask_host(p, device=self.device)]
+                      for p in points]
+
+        # the padded batch is needed for a fit here or for the per-car
+        # refinement below, not when the batched path fitted already
         n = min(len(kept), cfg.max_cars)
+        need_batch = (precomputed is None or cfg.use_scale_detector
+                      or cfg.use_dimensions_estimation)
+        batch = (aggregation.build_car_batch(
+            kept, points, window_frames, n, cfg.max_points)
+            if need_batch else None)
         l, w, h = cfg.template_dims_lwh
         if precomputed is not None:
             center, theta = precomputed
             center = np.asarray(center)[:n].copy()
             theta = np.asarray(theta)[:n].copy()
+        elif cfg.use_robust_optimization:
+            center, theta = self._fit_robust(kept, batch, n)
         else:
-            batch = aggregation.build_car_batch(
-                kept, points, window_frames, n, cfg.max_points)
             center, theta = _pull_fit(self._fit(batch))
             center, theta = center[:n], theta[:n]
         lwh = np.tile(np.array([l, w, h], np.float32), (n, 1))
@@ -291,6 +331,15 @@ class PseudoLabeler:
                     center[t] = sub_center[j]
                     theta[t] = sub_theta[j]
 
+        # ---- optional per-car refinement (scale detector / reducer /
+        # dimension estimation: main_class.py dimensions_output path) ----
+        per_car_lwh = lwh.copy()
+        if cfg.use_scale_detector or cfg.use_dimensions_estimation:
+            for i in range(n):
+                if keep[i] and not kept[i].moving:
+                    self._refine_car(i, batch, center, theta, per_car_lwh,
+                                     scale_scan_source)
+
         # ---- assemble output cars -------------------------------------
         cars = []
         for i in range(n):
@@ -302,8 +351,8 @@ class PseudoLabeler:
             cars.append({
                 "cls": "Car",
                 "box2d": mask_bbox(mask) if mask is not None else None,
-                "h": float(lwh[i, 2]), "w": float(lwh[i, 1]),
-                "l": float(lwh[i, 0]),
+                "h": float(per_car_lwh[i, 2]), "w": float(per_car_lwh[i, 1]),
+                "l": float(per_car_lwh[i, 0]),
                 "x": float(center[i, 0]), "y": float(center[i, 1]),
                 "z": float(center[i, 2]), "theta": float(theta[i]),
                 "moving": bool(kept[i].moving),
@@ -313,6 +362,93 @@ class PseudoLabeler:
                 "mask": mask,
             })
         return cars
+
+    def _fit_robust(self, kept, batch, n: int):
+        """optimize_car_robust (optimizer.py:27-44): the dimension
+        estimator's yaw of each standing car first, then a translation-only
+        grid at it; NaN estimates keep the standard coarse + fine fit
+        (``fitting.fit_cars_robust``).  Returns (center (n, 3), theta
+        (n,)) as numpy."""
+        from monosowa_tpu_torch.sowa import dimensions as dims_mod
+        from monosowa_tpu_torch.sowa.fitting import fit_cars_robust
+
+        th_rob = np.zeros(n, np.float32)
+        rob_valid = np.zeros(n, bool)
+        for i in range(n):
+            if kept[i].moving:
+                continue
+            pts_i, mask_i = batch.points[i], batch.mask[i]
+            c = np.median(pts_i[mask_i], axis=0) if mask_i.any() else \
+                np.zeros(3)
+            _, th = dims_mod.estimate_car_dimensions(
+                (pts_i - c)[None], mask_i[None], c, device=self.device)
+            if np.isfinite(th):
+                th_rob[i] = th
+                rob_valid[i] = True
+        res = fit_cars_robust(batch, self.template, self.occ_kernels,
+                              self.memb_kernels, self.conv_spec, self.cfg.fit,
+                              th_rob, rob_valid)
+        center, theta = _pull_fit(res)
+        return center[:n], theta[:n]
+
+    def _refine_car(self, i: int, batch, center, theta, per_car_lwh,
+                    scale_scan_source) -> None:
+        """Standing car i's size stages, in place on ``center`` and
+        ``per_car_lwh``: the scale detector and the box reducer, or the
+        dimension estimator."""
+        from monosowa_tpu_torch.sowa import dimensions as dims_mod
+        from monosowa_tpu_torch.sowa import scale as scale_mod
+
+        cfg, dev = self.cfg, self.device
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        pts_i, mask_i = batch.points[i], batch.mask[i]
+        if not cfg.use_scale_detector:
+            d, _ = dims_mod.estimate_car_dimensions(
+                (pts_i - center[i])[None], mask_i[None], center[i],
+                device=dev)
+            per_car_lwh[i] = d
+            return
+        # scale_lidar feeds ONLY optimize_scale (optimizer.py:186-188); the
+        # bbox reducer always gathers from the AGGREGATED cloud
+        # cars[i].lidar (bbox_reducer_tracked, scale_detector.py:161,204)
+        scale_pts_i, scale_mask_i = pts_i, mask_i
+        if scale_scan_source is not None:
+            # real-LiDAR branch: re-gather the standing car's points from
+            # the live window scans inside the bbox_scale-bloated fitted
+            # box (extract_lidar_data_from_bbox_tracker,
+            # scale_detector.py:14-104)
+            scans, tmats = scale_scan_source
+            sl = scale_mod.extract_scale_lidar_scans(
+                center[i], per_car_lwh[i], theta[i], scans, tmats,
+                bbox_scale=cfg.scale_bbox_scale, device=dev)
+            if len(sl) == 0:
+                # empty scale_lidar: the reference skips both the scale
+                # optimizer and the reducer for this car (optimizer.py:47,
+                # scale_detector.py:139): the grid-fit pose/dims stay
+                return
+            scale_pts_i = np.zeros((cfg.max_points, 3), np.float32)
+            scale_mask_i = np.zeros(cfg.max_points, bool)
+            if len(sl) > cfg.max_points:
+                sl = sl[np.linspace(0, len(sl) - 1,
+                                    cfg.max_points).astype(int)]
+            scale_pts_i[:len(sl)] = sl
+            scale_mask_i[:len(sl)] = True
+        sres = scale_mod.optimize_scale(
+            f32(scale_pts_i), torch.as_tensor(scale_mask_i, device=dev),
+            f32(self.bank.points),
+            f32([center[i, 0], center[i, 1], center[i, 2], theta[i]]))
+        vals = torch.stack([sres.x, sres.y, sres.z, sres.length,
+                            sres.width, sres.height]).cpu().numpy()
+        center[i], per_car_lwh[i] = vals[:3], vals[3:]
+        if cfg.use_bbox_reducer:
+            c2, lwh2, _ = scale_mod.bbox_reduce(
+                f32(pts_i), torch.as_tensor(mask_i, device=dev),
+                f32(center[i]), f32(per_car_lwh[i]), f32(theta[i]))
+            center[i] = c2.cpu().numpy()
+            per_car_lwh[i] = lwh2.cpu().numpy()
 
     def _nms(self, center, theta, npts, valid):
         """Batched NMS of (F, max_cars) padded boxes with the template's
@@ -546,9 +682,16 @@ class PseudoLabeler:
         stages["bank_path"] = float(use_bank)
 
         quota = cfg.max_points // cfg.bank_slots
+        # the real-LiDAR scale detector re-gathers from the live window
+        # scans (scale_detector.py:14-104): kept per prepared item so this
+        # batched entry point matches label_frame
+        keep_scans = self._keeps_scans()
 
         def prep(job):
             window_frames = job["window_frames"]
+            window_scans = ([job["get_points"](k)
+                             for k in range(len(window_frames))]
+                            if keep_scans else None)
             cands = []
             for k in range(len(window_frames)):
                 if have_ids:
@@ -583,12 +726,14 @@ class PseudoLabeler:
                     max_distance=cfg.candidate.max_distance_pseudo_lidar)
                 return dict(job=job, kept=kept, points=None,
                             ref_masks=ref_masks, window=window_frames,
-                            slots=slots, npts=[s.npts for s in slots])
+                            slots=slots, scans=window_scans,
+                            npts=[s.npts for s in slots])
             kept, points, ref_masks = self._track_and_aggregate(
                 cands, window_frames, job["transforms"])
             return dict(job=job, kept=kept, points=points,
                         ref_masks=ref_masks, window=window_frames,
-                        slots=None, npts=[p.shape[0] for p in points])
+                        slots=None, scans=window_scans,
+                        npts=[p.shape[0] for p in points])
 
         # host prep (tracking / aggregation or slot selection: numpy +
         # scipy) in threads across frames, ahead of the one big device fit
@@ -723,7 +868,9 @@ class PseudoLabeler:
                 precomputed=pre,
                 precomputed_nms=nms_by_frame.get(fi),
                 precomputed_refit=refit_by_frame[fi],
-                npts_override=item["npts"])
+                npts_override=item["npts"],
+                scale_scan_source=((item["scans"], item["job"]["transforms"])
+                                   if item["scans"] is not None else None))
             self._write(item["job"]["out_path"], cars)
             n_written += 1
         stages["write"] = clock() - t0

@@ -559,6 +559,51 @@ def test_tfl_counts_car_limit(cuda):
     assert tfl.launches == before
 
 
+@pytest.mark.parametrize("path", ["scale 3200", "scale 160", "robust"])
+def test_tfl_counts_at_the_size_stages_shapes(cuda, path):
+    """K5 at the shapes of the labeller's size stages, against its plain
+    version (equal): the scale detector's two passes, B = 1 with P =
+    3,200 (4 templates x 8 lengths x 10 x 10 translations, boxes up to
+    1.25 x the template) and P = 160, and the robust fit's
+    translation-only grid, B = 4 cars with P = 2 x 40 x 40 = 3,200; T =
+    1,000, S = 2,048."""
+    from monosowa_tpu_torch.sowa import fitting, scale
+    from monosowa_tpu_torch.sowa.templates import TemplateBank
+
+    scan, mask, _ = _tfl_car(14, b=4, s=2048, p=5)
+    bank = torch.as_tensor(TemplateBank.default().points, device=cuda)
+    if path == "robust":
+        cfg = fitting.FitConfig()
+        thetas = torch.tensor([0.3, 1.2, 2.5, 4.0], device=cuda)
+        thetas = torch.stack([thetas, thetas + np.pi], 1)
+        _, trans = fitting._pose_grids(cfg)
+        trans = torch.as_tensor(trans, device=cuda)
+        posed = (fitting._pose_template(bank[0], thetas.repeat_interleave(
+            len(trans), dim=1)) + trans.repeat(2, 1)[None, :, None, :])
+        assert posed.shape == (4, 3200, 1000, 3)
+        _tfl_equal_plain(scan, mask, posed.contiguous())
+        return
+    seen = []
+    inner = tfl.binary_both_way_loss
+
+    def recording(scan_, mask_, templates, radius):
+        seen.append(templates)
+        return inner(scan_, mask_, templates, radius)
+
+    tfl.binary_both_way_loss = recording
+    try:
+        scale.optimize_scale(scan[0], mask[0], bank,
+                             torch.tensor([0.1, 0.0, 0.2, 0.7],
+                                          device=cuda))
+    finally:
+        tfl.binary_both_way_loss = inner
+    posed = seen[0 if path == "scale 3200" else 1]
+    assert posed.shape == ((3200, 1000, 3) if path == "scale 3200"
+                           else (160, 1000, 3))
+    got = _tfl_equal_plain(scan[:1], mask[:1], posed[None].contiguous())
+    assert float(got[0].max()) > 0
+
+
 # the tool's shape with its clustered indices; rows spread over the whole
 # bank with negatives and indices past T (most miss their window), a ragged
 # last block and D = 64; an f32 bank, whose 512-row chunk would not fit

@@ -181,6 +181,9 @@ def test_tie_breaking_is_first_minimum_and_lowest_index():
 
 
 def test_exact_topk_zero_and_other_loss_kinds(state):
+    """exact_topk 0 (no rescore), and the ``chamfer`` loss kind's exact
+    sweep (which raised before the other kinds were ported): each fit
+    equals the JAX package's."""
     pts, mask, _ = _car(0, state["template"])
     jt, jo, jm, js = state["jax"]
     tt, to, tm, ts = state["torch"]
@@ -192,10 +195,98 @@ def test_exact_topk_zero_and_other_loss_kinds(state):
                                        torch.from_numpy(mask), tt, to, tm,
                                        ts, cfg_t)
     _close("exact_topk=0", rt._asdict(), rj._asdict())
-    with pytest.raises(NotImplementedError):
-        fitting.fit_standing_car_conv(
-            torch.from_numpy(pts), torch.from_numpy(mask), tt, to, tm, ts,
-            fitting.FitConfig(**GRID, loss_function="chamfer"))
+    rj = jfit.fit_standing_car_conv(
+        jnp.asarray(pts), jnp.asarray(mask), jt, jo, jm, js,
+        jfit.FitConfig(**GRID, loss_function="chamfer"))
+    rt = fitting.fit_standing_car_conv(
+        torch.from_numpy(pts), torch.from_numpy(mask), tt, to, tm, ts,
+        fitting.FitConfig(**GRID, loss_function="chamfer"))
+    _close("chamfer", rt._asdict(), rj._asdict())
+
+
+@pytest.mark.parametrize("kind", ["binary1way", "diffbin", "med1way",
+                                  "medboth", "trimmed"])
+def test_other_loss_kind_fits_match_jax(state, kind):
+    """``fit_cars_conv`` with a loss kind other than binary2way (the exact
+    sweep of the reference's grid, then the fine pass with the same kind)
+    on a standing and a moving car against the JAX package's."""
+    arrays = [a[:2] for a in _batch(state["template"], (5, 6),
+                                    (2.0, 0.5, 15.0))]
+    jt, jo, jm, js = state["jax"]
+    tt, to, tm, ts = state["torch"]
+    cfg_j = jfit.FitConfig(**GRID, loss_function=kind, trim_threshold=0.3)
+    cfg_t = fitting.FitConfig(**GRID, loss_function=kind, trim_threshold=0.3)
+    rj = jfit.fit_cars_conv(jfit.CarBatch(*map(jnp.asarray, arrays)),
+                            jt, jo, jm, js, cfg_j)
+    rt = fitting.fit_cars_conv(fitting.CarBatch(*arrays), tt, to, tm, ts,
+                               cfg_t)
+    _close(f"fit {kind}", {k: getattr(rt, k) for k in
+                           ("x", "z", "theta", "loss")},
+           {k: getattr(rj, k) for k in ("x", "z", "theta", "loss")})
+
+
+@pytest.mark.parametrize("kind", ["binary2way", "chamfer"])
+def test_exact_grid_losses_match_jax(state, kind):
+    """The exact (theta x translation) sweep: the coverage counts' one call
+    (binary2way) and the chunked plain sweep (chamfer) against the JAX
+    package's ``exact_grid_losses`` (within 1e-6)."""
+    pts, mask, th = _car(3, state["template"])
+    cfg_j = jfit.FitConfig(**GRID, loss_function=kind)
+    cfg_t = fitting.FitConfig(**GRID, loss_function=kind)
+    thetas = np.array([th, th + 1.0, th + np.pi], np.float32)
+    _, trans = fitting._pose_grids(cfg_t)
+    want = np.asarray(jfit.exact_grid_losses(
+        jnp.asarray(pts), jnp.asarray(mask), state["jax"][0],
+        jnp.asarray(trans), jnp.asarray(thetas), cfg_j))
+    got = fitting.exact_grid_losses(
+        torch.from_numpy(pts)[None], torch.from_numpy(mask)[None],
+        state["torch"][0], torch.from_numpy(trans),
+        torch.from_numpy(thetas)[None], cfg_t)[0].numpy()
+    assert got.shape == want.shape == (3, len(trans))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed,flip", [(7, False), (8, True)])
+def test_fit_loc_only_matches_jax(state, seed, flip):
+    """The translation-only grid at a given yaw (theta in {est, est +
+    pi}); with ``flip`` the estimate is the truth + pi."""
+    pts, mask, th = _car(seed, state["template"])
+    est = np.float32(th + np.pi if flip else th + 0.02)
+    rj = jfit.fit_loc_only(jnp.asarray(pts), jnp.asarray(mask),
+                           state["jax"][0], jnp.float32(est), state["cfg_j"])
+    rt = fitting.fit_loc_only(torch.from_numpy(pts), torch.from_numpy(mask),
+                              state["torch"][0], est, state["cfg_t"])
+    _close(f"loc_only flip={flip}", rt._asdict(), rj._asdict())
+
+
+def test_fit_cars_robust_matches_jax(state):
+    """The robust branch on _batch's cars: standing with a valid estimator
+    yaw (the translation-only grid), moving with and without a trajectory
+    yaw and standing without an estimator yaw (the standard fit), and a
+    padded row (not compared, as in test_fit_cars_conv_matches_jax)."""
+    arrays = _batch(state["template"], (9, 10, 11, 12), (2.0, 0.5, 15.0))
+    th_rob = np.array([_car(9, state["template"])[2] + 0.02, 0.4, 0.4, 0.0,
+                       0.0], np.float32)
+    rob_valid = np.array([True, True, True, False, True])
+    jt, jo, jm, js = state["jax"]
+    tt, to, tm, ts = state["torch"]
+    rj = jfit.fit_cars_robust(
+        jfit.CarBatch(*map(jnp.asarray, arrays)), jt, jo, jm, js,
+        state["cfg_j"], jnp.asarray(th_rob), jnp.asarray(rob_valid))
+    rt = fitting.fit_cars_robust(
+        fitting.CarBatch(*arrays), tt, to, tm, ts, state["cfg_t"], th_rob,
+        rob_valid)
+    real = slice(0, 4)
+    _close("robust", {k: getattr(rt, k)[real] for k in
+                      ("x", "z", "theta", "loss")},
+           {k: np.asarray(getattr(rj, k))[real] for k in
+            ("x", "z", "theta", "loss")})
+    np.testing.assert_allclose(rt.y.numpy()[real], np.asarray(rj.y)[real],
+                               atol=1e-5)
+    np.testing.assert_allclose(rt.center.numpy()[real],
+                               np.asarray(rj.center)[real], atol=1e-5)
+    # car 0 took the translation-only grid: its yaw is the estimate
+    assert float(rt.theta[0]) == pytest.approx(float(th_rob[0]), abs=1e-6)
 
 
 def test_estimate_angle_and_grids_equal_jax():

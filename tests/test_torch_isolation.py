@@ -132,7 +132,26 @@ zoo_masks = Mask2FormerBackend(mtree, mcfg, score_threshold=0.0,
                                device="cpu").predict_masks(image)
 zoo_depth = DepthAnythingBackend(dtree, dcfg, fx=500.0, input_size=28,
                                  device="cpu").predict_depth(image)
+# the labeller's poses, size stages and outlier ensemble
+from monosowa_tpu_torch.kittiio import oxts_to_poses
+from monosowa_tpu_torch.sowa import dimensions, filtering, scale, transforms
+cam_poses = oxts_to_poses(np.array([[49.0, 8.4, 110.0, 0.0, 0.0, 0.1],
+                                    [49.00001, 8.4, 110.0, 0.0, 0.0, 0.1]]))
+k360 = transforms.k360_window_transforms(cam_poses, 1, 1, 1)
+tb = TemplateBank.default(num_points=60)
+cloud = (tb.points[1] + np.array([0.3, 1.0, 10.0])).astype(np.float32)
+sres = scale.optimize_scale(
+    torch.from_numpy(cloud), torch.ones(60, dtype=torch.bool),
+    torch.from_numpy(tb.points), torch.tensor([0.3, 1.0, 10.0, 0.2]))
+outlier_keep = filtering.ensemble_inlier_mask_host(
+    np.random.default_rng(0).normal(size=(80, 3)), device="cpu")
+dims, _ = dimensions.estimate_car_dimensions(
+    (cloud - cloud.mean(0))[None], np.ones((1, 60), bool), cloud.mean(0),
+    device="cpu")
 print(json.dumps({"modules": names, "dets": list(dets.shape),
+                  "poses": [list(k360.shape), float(k360[2, 2, 3]),
+                            float(sres.loss), int(outlier_keep.sum()),
+                            dims.tolist()],
                   "ap_of_gt": ap, "saved": saved,
                   "result_files": result_files,
                   "epoch_losses": record["epochs"][0]["loss_total"],
@@ -167,7 +186,9 @@ def _top_imports(path):
 def test_port_runs_without_jax():
     """Every module imports, and a tiny CPU forward (float32 and under the
     bfloat16 policy), a train step, the
-    labelling of one small frame (host candidates, then bank mode), the
+    labelling of one small frame (host candidates, then bank mode), a
+    KITTI-360 pose window, the scale detector, the outlier ensemble and
+    the dimension estimator, the
     AP stack with its native library,
     one step of the train / test / AP loop and the model zoo's two
     backends from their checkpoints run, in a fresh interpreter
@@ -199,6 +220,12 @@ def test_port_runs_without_jax():
     assert "monosowa_tpu_torch.sowa.zoo" in res["modules"]
     assert "monosowa_tpu_torch.models.mask2former" in res["modules"]
     assert res["zoo"] in ([[], [40, 60], True], [[[40, 60]], [40, 60], True])
+    for module in ("kittiio.oxts", "sowa.transforms", "sowa.scale",
+                   "sowa.dimensions", "sowa.filtering", "sowa.hdbscan_np"):
+        assert "monosowa_tpu_torch." + module in res["modules"], module
+    shape, dz, scale_loss, kept, dims = res["poses"]
+    assert shape == [3, 4, 4] and dz == 0.0 and -2.0 <= scale_loss < -0.5
+    assert 0 < kept <= 80 and dims == pytest.approx([3.88, 1.63, 1.526])
     assert res["loaded"] == []
 
 

@@ -1,15 +1,22 @@
-"""The port's ``optimization`` CLI (``sowa/cli.py``) and the modules it
-reads caches with (``sowa/depth.py``, ``sowa/masks.py``,
-``sowa/transforms.py``, ``ops/geometry.backproject_depth``) against the JAX
-package's, on the CPU.
+"""The port's CLI (``sowa/cli.py``) and the modules it reads caches with
+(``sowa/depth.py``, ``sowa/masks.py``, ``sowa/transforms.py``,
+``ops/geometry.backproject_depth``) against the JAX package's, on the CPU.
 
-The CLI case builds a KITTI-layout directory (images, calib, ``masks_raw/``,
-``transformations/``, ``depth_maps/<frame>/<offset>.npz``) of the
-synthetic 96 x 160 scene and runs both CLIs over it: the label files must
-agree (names equal, x, y, z and theta within 1e-4).  Depth functions on
-random depth maps: equal."""
+The CLI cases build KITTI-layout directories (images, calib,
+``masks_raw/``, ``transformations/``, ``depth_maps/<frame>/<offset>.npz``
+or ``lidar_raw/<frame>/pcds/<offset>.npz``) of the synthetic 96 x 160
+scene, as ``--dataset kitti``, ``kitti360`` (frame ids
+``<sequence>_<number>``, ``data_poses/<sequence>/cam0_to_world.txt`` with
+a gap) and ``waymo_converted`` (``Cur_pose`` calib rows) lay them out,
+and run both CLIs over them: the cache files must be equal (the
+transformations, candidates and merged cars), the label files must agree
+(names equal, x, y, z, theta and the dimensions within 1e-4).  Depth
+functions on random depth maps: equal."""
 
+import json
 import os
+import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -245,13 +252,209 @@ def test_config_and_arguments_match_jax(kitti_dir):
                            "--device", "cpu"]).device == "cpu"
 
 
+def test_config_without_pyyaml_reads_json_only(kitti_dir, tmp_path,
+                                               monkeypatch):
+    """Without PyYAML a JSON config reads as PyYAML reads it; a YAML
+    config raises an ImportError that names PyYAML."""
+    path = _config(kitti_dir, "args")
+    with open(path) as f:
+        want = yaml.safe_load(f)
+    as_json = tmp_path / "args.json"
+    as_json.write_text(json.dumps(want))
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    assert cli.load_config(str(as_json)).to_dict() == want
+    with pytest.raises(ImportError, match="PyYAML"):
+        cli.load_config(path)
+
+
+SEQ ="2013_05_28_drive_0000_sync"
+NUMBERS = (10, 11)
+RNG = 3           # nscans_transformation_range: one more than WINDOW
+POSE_GAP = 14     # in frame 11's +-RNG window, outside every +-WINDOW
+
+
+def _pose(i):
+    """The ego camera's pose at frame i: forward along z, turning."""
+    t = np.eye(4)
+    c, s = np.cos(0.01 * i), np.sin(0.01 * i)
+    t[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+    t[:3, 3] = [0.01 * i, 0.0, 0.3 * i]
+    return t
+
+
+def _fids(dataset):
+    if dataset in ("kitti360", "all"):
+        return [f"{SEQ}_{n:010d}" for n in NUMBERS]
+    return [f"{n:06d}" for n in NUMBERS]
+
+
+def _layout(root, dataset):
+    """The scene's two reference frames laid out for ``dataset``: images,
+    calib (with ``Cur_pose`` rows for waymo_converted, frames 7-14),
+    ``data_poses/`` (kitti360 / all: frames 0-15 but POSE_GAP), and under
+    ``cache/`` the window's ``masks_raw/`` and ``lidar_raw/<fid>/pcds/``.
+    Returns the config path of each package's copy of the cache."""
+    kitti, cache = root / "kitti", root / "cache"
+    (kitti / "training" / "image_2").mkdir(parents=True)
+    (kitti / "training" / "calib").mkdir(parents=True)
+    p2_line = " ".join(str(v) for v in P2.reshape(-1))
+    calib = ([f"P{i}: {p2_line}" for i in range(4)]
+             + ["R0_rect: 1 0 0 0 1 0 0 0 1",
+                "Tr_velo_to_cam: 0 -1 0 0.1 0 0 -1 0.2 1 0 0 -0.3",
+                "Tr_imu_to_velo: 1 0 0 0 0 1 0 0 0 0 1 0"])
+    if dataset == "waymo_converted":
+        for i in range(7, 15):
+            pose = " ".join(str(v) for v in _pose(i).reshape(-1))
+            (kitti / "training" / "calib" / f"{i:06d}.txt").write_text(
+                "\n".join(calib + [f"Cur_pose: {pose}"]) + "\n")
+    if dataset in ("kitti360", "all"):
+        poses = root / "k360" / "data_poses" / SEQ
+        poses.mkdir(parents=True)
+        (poses / "cam0_to_world.txt").write_text("".join(
+            f"{i} " + " ".join(f"{v:.12f}" for v in _pose(i).reshape(-1))
+            + "\n" for i in range(16) if i != POSE_GAP))
+    for n, fid in zip(NUMBERS, _fids(dataset)):
+        Image.fromarray(np.zeros((H, W, 3), np.uint8)).save(
+            kitti / "training" / "image_2" / f"{fid}.png")
+        cal = kitti / "training" / "calib" / f"{fid}.txt"
+        if not cal.exists():
+            cal.write_text("\n".join(calib) + "\n")
+        pcds = cache / "lidar_raw" / fid / "pcds"
+        pcds.mkdir(parents=True)
+        for k in range(-WINDOW, WINDOW + 1):
+            d, ms = _scene_depth(n + k)
+            name = fid if k == 0 else f"{fid}{k:+d}"
+            masks.save_masks(str(cache / "masks_raw"), name, ms, (H, W))
+            np.savez(pcds / f"{k:+d}.npz",
+                     points=depth.pseudo_lidar_from_depth(
+                         d, P2, canonical=False, device="cpu"))
+    confs = []
+    for tag in ("t", "j"):
+        shutil.copytree(cache, root / f"cache_{tag}")
+        conf = yaml.safe_load(open(_config(root, f"labels_{tag}")))
+        conf["paths"]["merged_frames_path"] = str(root / f"cache_{tag}")
+        conf["paths"]["all_dataset_path"] = str(root / "k360")
+        conf["frames_creation"]["nscans_transformation_range"] = RNG
+        path = root / f"{tag}.yaml"
+        path.write_text(yaml.safe_dump(conf))
+        confs.append(str(path))
+    return confs
+
+
+def _run_both(confs, dataset, *actions, extra=()):
+    """Each action through the port's CLI (on the CPU) and the JAX
+    package's, in order."""
+    for action in actions:
+        args = ["--dataset", dataset, "--action", action, *extra]
+        assert cli.main(["--config", confs[0], *args, "--device",
+                         "cpu"]) == 0
+        assert jcli.main(["--config", confs[1], *args]) == 0
+
+
+def _assert_same_files(root, sub):
+    """Every cache file under cache_t/<sub> equals cache_j/<sub>'s, array
+    for array (dtypes too).  Returns the number of files."""
+    names = sorted(os.listdir(root / "cache_t" / sub))
+    assert names == sorted(os.listdir(root / "cache_j" / sub)) and names
+    for name in names:
+        a, b = (np.load(root / f"cache_{tag}" / sub / name)
+                for tag in ("t", "j"))
+        if name.endswith(".npy"):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+            continue
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert a[key].dtype == b[key].dtype, key
+            np.testing.assert_array_equal(a[key], b[key])
+    return len(names)
+
+
+def _assert_same_labels(root, fids):
+    """The two packages' label files: names equal, x, y, z, theta and
+    h, w, l within 1e-4.  Returns the number of cars."""
+    n_cars = 0
+    for fid in fids:
+        a = read_label_file(str(root / "labels_t" / f"{fid}.txt"))
+        b = read_label_file(str(root / "labels_j" / f"{fid}.txt"))
+        assert a.names == b.names
+        n_cars += len(a.names)
+        if len(a.names):
+            for got, want in ((a.pos, b.pos), (a.ry, b.ry),
+                              (a.hwl, b.hwl)):
+                np.testing.assert_allclose(got, want, atol=1e-4)
+    return n_cars
+
+
 @pytest.mark.parametrize("action", ["transformations", "homographies",
                                     "candidates", "frames_aggregation",
                                     "dimensions_output", "demo"])
-def test_other_actions_raise(kitti_dir, action):
-    with pytest.raises(NotImplementedError, match=r"sowa/"):
-        cli.main(["--config", _config(kitti_dir, "other"), "--action",
-                  action, "--device", "cpu"])
+def test_other_actions_raise(tmp_path, action):
+    """Named for what these actions did before they were ported: now only
+    ``homographies`` raises.  ``transformations``, ``candidates`` and
+    ``frames_aggregation`` write the JAX driver's cache files for
+    ``--dataset kitti``, ``kitti360`` (a pose gap in the window) and
+    ``waymo_converted`` (``all``: its transformations equal kitti360's);
+    ``dimensions_output`` (through the stream of label_frames) and
+    ``demo`` (from the merged-cars cache) label one frame with the scale
+    detector and the box reducer as the JAX driver does."""
+    if action == "homographies":
+        with pytest.raises(NotImplementedError, match=r"sowa/stitching"):
+            cli.main(["--config", _config(tmp_path, "other"), "--action",
+                      action, "--device", "cpu"])
+        return
+    if action in ("dimensions_output", "demo"):
+        confs = _layout(tmp_path, "kitti")
+        before = ("frames_aggregation",) if action == "demo" else ()
+        _run_both(confs, "kitti", *before)
+        _run_both(confs, "kitti", action, extra=("--seq_end", "1"))
+        assert sorted(os.listdir(tmp_path / "labels_t")) == ["000010.txt"]
+        assert _assert_same_labels(tmp_path, ["000010"]) == 1
+        lab = read_label_file(str(tmp_path / "labels_t" / "000010.txt"))
+        # the box reducer's length (the scale detector's grid gives 0.75 -
+        # 1.25 of the template's 3.88 m): not the template's
+        assert lab.hwl[0][2] != pytest.approx(3.88, abs=0.005)
+        return
+    chain = {"transformations": ("transformations",),
+             "candidates": ("transformations", "candidates"),
+             "frames_aggregation": ("transformations", "frames_aggregation")}
+    sub = {"transformations": "transformations", "candidates": "candidates",
+           "frames_aggregation": "merged_cars"}[action]
+    for dataset in ("kitti", "kitti360", "waymo_converted"):
+        root = tmp_path / dataset
+        confs = _layout(root, dataset)
+        _run_both(confs, dataset, *chain[action])
+        assert _assert_same_files(root, sub) == len(NUMBERS)
+        full = np.load(root / "cache_t" / "transformations"
+                       / f"{_fids(dataset)[1]}.npy")
+        if dataset == "kitti":
+            np.testing.assert_array_equal(full, np.tile(np.eye(4),
+                                                        (2 * RNG + 1, 1, 1)))
+        else:
+            # frame 11's window: inv(pose 11) @ pose k, zero at the
+            # kitti360 gap; waymo_converted conjugated into the camera
+            for k in range(-RNG, RNG + 1):
+                want = np.linalg.inv(_pose(11)) @ _pose(11 + k)
+                if dataset == "kitti360" and 11 + k == POSE_GAP:
+                    want = np.zeros((4, 4))
+                elif dataset == "waymo_converted":
+                    v2c = np.eye(4)
+                    v2c[:3] = np.array(
+                        [0, -1, 0, 0.1, 0, 0, -1, 0.2, 1, 0, 0, -0.3]
+                    ).reshape(3, 4)
+                    want = v2c @ want @ np.linalg.inv(v2c)
+                np.testing.assert_allclose(full[k + RNG], want, atol=1e-6)
+    if action == "transformations":
+        # --dataset all takes the KITTI-360 poses
+        root = tmp_path / "all"
+        confs = _layout(root, "all")
+        _run_both(confs, "all", "transformations")
+        assert _assert_same_files(root, "transformations") == len(NUMBERS)
+        for fid in _fids("all"):
+            np.testing.assert_array_equal(
+                np.load(root / "cache_t" / "transformations" / f"{fid}.npy"),
+                np.load(tmp_path / "kitti360" / "cache_t"
+                        / "transformations" / f"{fid}.npy"))
 
 
 def test_mask_tracking_without_backend_raises(kitti_dir):
@@ -322,7 +525,52 @@ def test_lidar_scans_cached_matches_jax(kitti_dir, tmp_path):
 
 
 @pytest.mark.parametrize("dataset", ["waymo", "kitti360"])
-def test_other_datasets_raise(kitti_dir, dataset):
-    with pytest.raises(NotImplementedError, match="sowa/"):
-        cli.main(["--config", _config(kitti_dir, "other"), "--action",
-                  "optimization", "--dataset", dataset, "--device", "cpu"])
+def test_other_datasets_raise(tmp_path, dataset):
+    """Named for what these datasets did before kitti360 was ported: the
+    raw Waymo driver still raises; ``--dataset kitti360`` runs
+    transformations, candidates, frames_aggregation and optimization (from
+    the merged-cars cache) in the seed-360 frame order, with the JAX
+    driver's cache and label files."""
+    if dataset == "waymo":
+        with pytest.raises(NotImplementedError, match="sowa/"):
+            cli.main(["--config", _config(tmp_path, "other"), "--action",
+                      "optimization", "--dataset", dataset, "--device",
+                      "cpu"])
+        return
+    confs = _layout(tmp_path, dataset)
+    _run_both(confs, dataset, "transformations", "candidates",
+              "frames_aggregation", "optimization")
+    for sub in ("transformations", "candidates", "merged_cars"):
+        assert _assert_same_files(tmp_path, sub) == len(NUMBERS)
+    assert _assert_same_labels(tmp_path, _fids(dataset)) == len(NUMBERS)
+
+
+def test_shuffled_frame_order_matches_jax():
+    for n, lo, hi in ((10, None, None), (37, 5, 20), (1000, 990, None)):
+        want = jcli.shuffled_frame_order(n, lo, hi)
+        np.testing.assert_array_equal(cli.shuffled_frame_order(n, lo, hi),
+                                      want)
+        np.random.seed(360)
+        longhand = np.arange(n)
+        np.random.shuffle(longhand)
+        np.testing.assert_array_equal(want, longhand[lo:hi])
+
+
+def test_pose_gap_inside_the_window_raises_in_both(tmp_path):
+    """A KITTI-360 pose gap inside the aggregation window: the zero
+    matrix reaches aggregation's ``np.linalg.inv`` of the window in both
+    packages, which raise the same error (the reference skips such
+    frames)."""
+    confs = _layout(tmp_path, "kitti360")
+    for path in confs:
+        conf = yaml.safe_load(open(path))
+        conf["frames_creation"]["nscans_before"] = RNG
+        conf["frames_creation"]["nscans_after"] = RNG
+        open(path, "w").write(yaml.safe_dump(conf))
+    _run_both(confs, "kitti360", "transformations")
+    args = ["--dataset", "kitti360", "--action", "frames_aggregation"]
+    with pytest.raises(np.linalg.LinAlgError) as got:
+        cli.main(["--config", confs[0], *args, "--device", "cpu"])
+    with pytest.raises(np.linalg.LinAlgError) as want:
+        jcli.main(["--config", confs[1], *args])
+    assert str(got.value) == str(want.value)

@@ -109,13 +109,60 @@ def test_pairwise_sq_dists_matches_jax():
         np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 
+KINDS = ("binary2way", "binary1way", "chamfer", "diffbin", "med1way",
+         "medboth", "trimmed")
+# the loss_functions keywords, trim at the shipped yaml's 0.3
+LOSS_KW = dict(radius=0.2, steepness=10.0, trim=0.3)
+
+
+def _kind_cases(seed):
+    """(scan, mask, posed) cases of tests/test_tfl_loss_dispatch.py's kind
+    (templates near the scan): T = 100 and 101 (an even and an odd count
+    for med1way's median), a scan with a masked garbage tail, and an
+    all-masked scan."""
+    rng = np.random.default_rng(seed)
+    for t in (100, 101):
+        for case in ("full", "masked", "all masked"):
+            s = 64
+            scan = rng.normal(size=(s, 3)).astype(np.float32)
+            mask = np.ones(s, bool)
+            if case == "masked":
+                mask[40:] = False
+                scan[40:] = 77.0
+            if case == "all masked":
+                mask[:] = False
+            posed = (scan[rng.integers(0, s, (5, t))]
+                     + rng.normal(scale=0.15, size=(5, t, 3))
+                     ).astype(np.float32)
+            yield f"T={t} {case}", scan, mask, posed
+
+
+def _kind_close(kind, label, got, want):
+    """The JAX package's float32 loss within 1e-6, relative where the
+    all-masked cases reach 1e9 (their sums of BIG)."""
+    diff = np.abs(got - want)
+    print({"test": "loss kind", "kind": kind, "case": label,
+           "max_abs": float(diff.max()),
+           "max_rel": float((diff / np.maximum(np.abs(want), 1e-30)).max())})
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("kind", ["binary1way", "chamfer", "diffbin",
                                   "med1way", "medboth", "trimmed"])
 def test_other_loss_kinds_raise(kind):
+    """Named for what these kinds did before they were ported: each kind
+    of the reference's loss_function dispatch now equals the JAX
+    package's ``tfl_loss`` (within 1e-6, relative for the all-masked
+    scans' 1e9 sums) on the cases of ``_kind_cases``; an unknown kind
+    still raises ValueError."""
+    for label, scan, mask, posed in _kind_cases(0):
+        want = np.asarray(jtfl.tfl_loss(jnp.asarray(scan), jnp.asarray(mask),
+                                        jnp.asarray(posed), kind, **LOSS_KW))
+        got = tfl.tfl_loss(torch.from_numpy(scan), torch.from_numpy(mask),
+                           torch.from_numpy(posed), kind, **LOSS_KW)
+        _kind_close(kind, label, got.numpy(), want)
     scan, mask, poses = (torch.from_numpy(a)
                          for a in _scan_and_poses(0, 100, s=64, n_valid=64))
-    with pytest.raises(NotImplementedError):
-        tfl.tfl_loss(scan, mask, poses, kind)
     with pytest.raises(ValueError):
         tfl.tfl_loss(scan, mask, poses, "nonsense")
     want = np.asarray(jtfl.tfl_loss(jnp.asarray(scan.numpy()),
@@ -284,3 +331,24 @@ def test_float32_origin_decides_voxels_on_faces():
         torch.from_numpy(on_faces)[None], torch.from_numpy(mask)[None],
         tfl.FieldSpec(origin=spec.origin, voxel=spec.h, shape=fshape))[0]
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_loss_kinds_batched_and_chunked_match_jax(kind, monkeypatch):
+    """Every kind in the batched form (two cars of (P, T, 3) poses) with
+    chunks of 3 poses: each car's losses equal the JAX package's
+    single-car ``tfl_loss`` (within 1e-6)."""
+    monkeypatch.setattr(tfl, "_PLAIN_CHUNK_ELEMS", 3 * 101 * 64)
+    cases = list(_kind_cases(1))
+    # T = 101: a masked scan and an all-masked one
+    (la, scan_a, mask_a, pa), (lb, scan_b, mask_b, pb) = cases[4], cases[5]
+    got = tfl.tfl_loss(torch.from_numpy(np.stack([scan_a, scan_b])),
+                       torch.from_numpy(np.stack([mask_a, mask_b])),
+                       torch.from_numpy(np.stack([pa, pb])), kind, **LOSS_KW)
+    assert got.shape == (2, 5)
+    for i, (label, scan, mask, posed) in enumerate(
+            ((la, scan_a, mask_a, pa), (lb, scan_b, mask_b, pb))):
+        want = np.asarray(jtfl.tfl_loss(jnp.asarray(scan), jnp.asarray(mask),
+                                        jnp.asarray(posed), kind, **LOSS_KW))
+        _kind_close(kind, label, got[i].numpy(), want)
