@@ -120,6 +120,22 @@ Phases, each printing one JSON line:
             votes, card against CPU; the seed-360 frame order and
             ``--dataset all``.  K5's times and bound at the new
             shapes; each step's seconds.
+   label_lidar — the label phase's scene as velodyne scans (a 64-beam
+            scanner's rows: every 4th pixel row, about 117k points a
+            frame, x, y, z, reflectance in the velodyne frame; the cars
+            rendered to 85 m; a standing person where no car covers it; the
+            nearest car 8-40 m ahead hidden from the first reference
+            frame), read by ``load_velo_scan`` / ``velo_to_cam`` and
+            labelled by ``label_frames`` with ``use_pseudo_lidar=False``,
+            ``strict_hidden_standing`` and ``extract_pedestrians`` (the
+            person's mask a job; cars without a reference mask written):
+            the hidden car dropped, and back within 2.5 m without the
+            strict check; a car beyond 75 m kept; one Pedestrian row a
+            frame within 0.5 m of the person; every car within 2.5 m of a
+            scene car; every K5 launch against the plain version (counts
+            equal); the hidden car's frame with a cut grid (11 x 11 x 8,
+            36 fine thetas) on the card and on the CPU, the same label
+            file.
 8. bench  — the row-fetch micro-benchmark as a user runs it
             (``tools/bench_gather_micro_torch.py`` ``run``, both forms at
             its default shape), against its numpy oracle.
@@ -160,6 +176,27 @@ Phases, each printing one JSON line:
             same weights on the CPU (2e-4 of max_depth).  Prints
             ``depth_ms_per_frame``, the forward's ms, the busy share and
             ``peak_mem_GB``.
+    sam   — SAM ViT-H at full width (hidden 1280, 32 layers, 16 heads,
+            global attention at layers 7, 15, 23, 31, window 14, input
+            1024) from seeded weights, kernels at unit gain, written by
+            ``save_checkpoint`` (stored, not deflated) and loaded by
+            ``zoo.sam_refine_backend`` from ``paths.sam_path``; the
+            driver's ``mask_tracking`` with ``use_SAM`` and
+            ``extract_pedestrians`` over the 4 frames with the masks
+            phase's Mask2Former (6 MSDA launches a frame; queries kept
+            from 0.5, so some masks sit below SAM's 0.7).  Holds: (a) a
+            2-layer copy (layer 1 global) on the card against the CPU on
+            one frame's boxes, low-res logits and IoU within 1e-4 of their
+            magnitude; (b) the full depth in float32 against float64 on the
+            card (embedding, logits, IoU within 1e-3), the written masks
+            equal to the float64 forward's where |logit| clears 1e-3 of its
+            magnitude, the flips counted; (c) every car mask above 0.7
+            replaced by SAM's refinement of its box, the others (0.5 to
+            0.7) byte for byte the detector's, the files reload; (d) K1
+            on the inputs of the pixel decoder's six launches.  Prints
+            the encoder's ms and its bound, the decoder's ms a chunk of 16
+            boxes, ``sam_ms_per_frame``, ``mask_ms_per_frame`` with SAM,
+            the busy share and ``peak_mem_GB``.
     images_to_labels — the driver's ``optimization`` over the masks_raw/
             and lidar_raw/ the two phases wrote, 2 frames: one label file
             each (content not judged: random weights).
@@ -230,6 +267,24 @@ WHOLE_FORWARD_BAR = 1e-3
 # another order through 2 transformer layers and 20 convolutions, of
 # max_depth (ROADMAP's transformer-layer bars are 2e-4 to 3e-4)
 DEPTH_CPU_BAR = 2e-4
+# SAM ViT-H (sam phase): a 2-layer copy, the card against the CPU, of the
+# outputs' magnitude (float32 sums in another order through 2 layers of
+# 1280 channels and the decoder); the full depth in float32 against the
+# same weights in float64 on the card (32 layers: the serve phase's
+# whole-forward bar); refine_masks' score threshold
+SAM_CPU_BAR = 1e-4
+SAM_F64_BAR = 1e-3
+SAM_SCORE, SAM_DETECTOR_SCORE = 0.7, 0.5
+# label_lidar: the label phase's scene as velodyne scans (a 64-beam
+# scanner's density: every 4th pixel row, about 117k points a frame), the
+# cars rendered to 85 m, one standing person; velodyne -> camera as
+# KITTI's axes with a lever arm
+LIDAR_ROW_STEP, LIDAR_Z_MAX = 4, 85.0
+T_CAM_VELO = ((0.0, -1.0, 0.0, 0.06), (0.0, 0.0, -1.0, -0.08),
+              (1.0, 0.0, 0.0, -0.27), (0.0, 0.0, 0.0, 1.0))
+# the CPU comparison's grid (the full one takes minutes a frame on the
+# host): the label tests' 11 x 11 x 8 coarse and 36 fine thetas
+LIDAR_CPU_GRID = {"n_dx": 11, "n_dz": 11, "n_theta": 8, "n_theta_fine": 36}
 AP_KEYS = tuple(f"car_{m}_{s}" for s in ("strict", "loose")
                 for m in ("bbox", "bev", "3d"))
 
@@ -937,6 +992,310 @@ def label(dev, n_frames: int = LABEL_FRAMES, window: int = LABEL_WINDOW,
             "scene_build_s": scene_s, "label_files": n_frames,
             "cars_per_frame": cars_per_frame,
             "max_dist_to_scene_car_m": worst, **run, "_labels": sets}
+
+
+def clear_spot(cars, n_total: int, ref_frames, h: int, w: int,
+               z_max: float, depths, width: float, top_y: float,
+               bottom_y: float) -> dict:
+    """A place (x, z in frame 0's coordinates) for an upright rectangle
+    ``width`` wide from ``top_y`` to ``bottom_y`` (camera y, down) that
+    every reference camera sees ``depths`` (lo, hi) ahead, and whose pixels
+    no car's rectangle comes within 10 pixels of in any frame of the
+    sequence (``sowa/sample.py``'s rendering rule)."""
+    import numpy as np
+
+    from monosowa_tpu_torch.sowa import sample
+
+    fu, _ = sample.intrinsics(h, w)
+
+    def rect(x, z, wide, top, bottom):
+        u = fu * x / z + w / 2
+        return (fu * top / z + h / 2, fu * bottom / z + h / 2,
+                u - fu * wide / 2 / z, u + fu * wide / 2 / z)
+
+    ego = [k * sample.EGO_STEP for k in range(n_total)]
+    reach = 0.9 * depths[0] * (w / 2) / fu      # inside the image's sides
+    for z in np.arange(ego[ref_frames[-1]] + depths[0],
+                       ego[ref_frames[0]] + depths[1], 0.5):
+        for x in sorted(np.arange(-reach, reach, 0.5), key=abs):
+            ok = True
+            for k, ez in enumerate(ego):
+                d = z - ez
+                if not 1.0 <= d <= z_max:
+                    continue
+                pt, pb, pl, pr = rect(x, d, width, top_y, bottom_y)
+                if k in ref_frames and not (0 <= pl and pr < w):
+                    ok = False
+                    break
+                for car in cars:
+                    dc = car["z"] - ez
+                    if not 4 <= dc <= z_max:
+                        continue
+                    ct, cb, cl, cr = rect(car["x"], dc, 4.0, car["y"] - 1.6,
+                                          car["y"])
+                    if cl - 10 < pr and pl < cr + 10 and ct - 10 < pb \
+                            and pt < cb + 10:
+                        ok = False
+                        break
+                if not ok:
+                    break
+            if ok:
+                return {"x": float(x), "z": float(z)}
+    raise AssertionError(f"no clear place {depths} m ahead in the scene")
+
+
+def write_velodyne(frames, out_dir: str, h: int, w: int):
+    """Each frame's camera-frame points, a 64-beam scanner's rows of them
+    (every LIDAR_ROW_STEP-th pixel row), as a velodyne ``.bin`` (x, y, z,
+    reflectance float32 in the velodyne frame).  Returns the paths."""
+    import numpy as np
+
+    inv = np.linalg.inv(np.asarray(T_CAM_VELO))
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for k, f in enumerate(frames):
+        cam = f["points"].reshape(h, w, 3)[::LIDAR_ROW_STEP]
+        cam = cam.reshape(-1, 3).astype(np.float64)
+        velo = np.hstack([cam, np.ones((len(cam), 1))]) @ inv.T
+        velo[:, 3] = 0.5                               # reflectance
+        path = os.path.join(out_dir, f"{k:010d}.bin")
+        velo.astype(np.float32).tofile(path)
+        paths.append(path)
+    return paths
+
+
+def lidar_labels(jobs, frames, scene_cars, person, hidden) -> dict:
+    """Each label file: Car rows within 2.5 m of a scene car and one
+    Pedestrian row within 0.5 m of the person; the hidden car of its
+    frame's file not among the cars; a car beyond 75 m somewhere."""
+    import numpy as np
+
+    from monosowa_tpu_torch.kittiio import read_label_file
+
+    cars_per_frame, worst, far, ped_err = [], 0.0, [], 0.0
+    for job in jobs:
+        labels = read_label_file(job["out_path"])
+        vals = np.concatenate([labels.hwl.ravel(), labels.pos.ravel(),
+                               labels.ry])
+        if not np.isfinite(vals).all() or \
+                set(labels.names) - {"Car", "Pedestrian"}:
+            raise AssertionError(f"{job['out_path']}: {labels.names}")
+        ego_z = frames[job["frame_index"]]["ego_z"]
+        scene = np.array([[c["x"], c["z"] - ego_z] for c in scene_cars])
+        peds = [p for n, p in zip(labels.names, labels.pos)
+                if n == "Pedestrian"]
+        if len(peds) != 1:
+            raise AssertionError(f"{job['out_path']}: {len(peds)} "
+                                 "Pedestrian rows")
+        ped_err = max(ped_err, float(np.hypot(
+            peds[0][0] - person["x"], peds[0][2] - (person["z"] - ego_z))))
+        cars = [p for n, p in zip(labels.names, labels.pos) if n == "Car"]
+        cars_per_frame.append(len(cars))
+        for pos in cars:
+            dist = np.hypot(scene[:, 0] - pos[0], scene[:, 1] - pos[2])
+            worst = max(worst, float(dist.min()))
+            if np.hypot(pos[0], pos[2]) > 75.0:
+                far.append(float(np.hypot(pos[0], pos[2])))
+        if job["frame_index"] == hidden["frame"]:
+            hx, hz = hidden["x"], hidden["z"] - ego_z
+            near = [float(np.hypot(p[0] - hx, p[2] - hz)) for p in cars]
+            if near and min(near) < 2.5:
+                raise AssertionError(f"the car hidden from frame "
+                                     f"{hidden['frame']}'s scan was kept")
+    if worst > 2.5 or ped_err > 0.5 or not far or min(cars_per_frame) < 1:
+        raise AssertionError(f"cars a frame {cars_per_frame}, {worst} m "
+                             f"from a scene car, person {ped_err} m off, "
+                             f"beyond 75 m: {far}")
+    return {"cars_per_frame": cars_per_frame,
+            "max_dist_to_scene_car_m": worst,
+            "pedestrian_err_m": ped_err, "cars_beyond_75m": far}
+
+
+def hidden_standing_plain(points, ref_scan, radius: float = 0.1,
+                          chunk: int = 2048) -> bool:
+    """The JAX package's strict hidden-standing rule, the plain version of
+    ``aggregation.hidden_standing_keep_real``: the float32 expanded
+    distances of every scan point, where the port measures only those
+    near the car."""
+    import numpy as np
+
+    scan = np.asarray(ref_scan[:, :3], np.float32)
+    r2 = radius * radius
+    for c0 in range(0, points.shape[0], chunk):
+        p = points[c0:c0 + chunk, :3]
+        d2 = ((p ** 2).sum(1)[:, None] + (scan ** 2).sum(1)[None, :]
+              - 2.0 * (p @ scan.T))
+        if (d2 < r2).any():
+            return True
+    return False
+
+
+def check_strict_calls(calls) -> dict:
+    """The labeller's strict hidden-standing calls again: every one through
+    the port's check (host ms, the answer the labeller got), and the
+    farthest car's and the call of the median size also through the plain
+    rule over the whole scan (ms, the same answer: the plain rule takes
+    about 0.7 ms a car point on a 117k-point scan, a minute for the
+    largest tracks)."""
+    import numpy as np
+
+    from monosowa_tpu_torch.sowa import aggregation
+
+    if not calls:
+        raise AssertionError("the labeller made no strict check")
+    port_ms, dist = [], []
+    for args, kwargs, kept in calls:
+        t0 = time.perf_counter()
+        again = aggregation.hidden_standing_keep_real(*args, **kwargs)
+        port_ms.append((time.perf_counter() - t0) * 1e3)
+        if again != kept or not kwargs.get("strict"):
+            raise AssertionError("a strict check answered otherwise again")
+        dist.append(float(np.linalg.norm(np.median(args[0][:, :3], 0))))
+    far = int(np.argmax(dist))
+    by_size = sorted(range(len(calls)), key=lambda i: len(calls[i][0][0]))
+    pick = [far] + [i for i in by_size[len(by_size) // 2:] if i != far][:1]
+    plain = []
+    for i in pick:
+        (points, scan), _, kept = calls[i]
+        t0 = time.perf_counter()
+        want = hidden_standing_plain(points, scan)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if want != kept:
+            raise AssertionError(f"the strict check of a car {dist[i]} m "
+                                 f"away: {kept}, the plain rule: {want}")
+        plain.append({"points": len(points), "scan_points": len(scan),
+                      "median_m": dist[i], "kept": bool(kept),
+                      "port_ms": port_ms[i], "plain_ms": plain_ms})
+    if dist[far] <= 75.0:
+        raise AssertionError(f"no strict check beyond 75 m: {dist[far]}")
+    return {"strict_calls": len(calls),
+            "strict_kept": int(sum(c[2] for c in calls)),
+            "strict_port_ms_total": float(sum(port_ms)),
+            "strict_port_ms_max": float(max(port_ms)),
+            "strict_vs_plain": plain}
+
+
+def label_lidar(dev, n_frames: int = LABEL_FRAMES,
+                window: int = LABEL_WINDOW, hw=None, cfg=None,
+                cpu_grid=None) -> dict:
+    """The label phase's scene, cars rendered to 85 m with one more 76-84 m
+    ahead, one standing person and one car hidden from the first
+    reference frame, both where no car covers them, as velodyne scans
+    read by ``load_velo_scan`` / ``velo_to_cam``; one group through
+    ``PseudoLabeler.label_frames`` with ``use_pseudo_lidar=False``,
+    ``strict_hidden_standing`` and ``extract_pedestrians`` (the person's
+    mask a job); every K5 launch of its fits replayed against the plain
+    version, the strict check's calls against the plain rule
+    (``check_strict_calls``).  Then the hidden car's frame without the
+    strict check (the car comes back), and with a cut grid on the card and
+    on the CPU (the same label file)."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.kittiio.velodyne import load_velo_scan, velo_to_cam
+    from monosowa_tpu_torch.sowa import (aggregation, fitting, pipeline,
+                                         sample)
+
+    h, w = hw or (sample.H, sample.W)
+    _, scene_cars = sample.make_sequence(n_frames, window, h=8, w=16,
+                                         z_max=LIDAR_Z_MAX)
+    ref_frames = list(range(window, window + n_frames))
+    n_total = n_frames + 2 * window
+    # a car 76-84 m ahead of every reference camera, clear of the others
+    far = clear_spot(scene_cars, n_total, ref_frames, h, w, LIDAR_Z_MAX,
+                     (76.0, 84.0), 4.0, -0.5, 1.1)
+    far_car = {"x": far["x"], "y": 1.1, "z": far["z"], "theta": 0.3}
+    scene_cars = scene_cars + [far_car]
+    # the hidden car: the nearest scene car 8-40 m ahead of the first
+    # reference camera
+    ego0 = ref_frames[0] * sample.EGO_STEP
+    ci = min((i for i, c in enumerate(scene_cars)
+              if 8 <= c["z"] - ego0 <= 40), key=lambda i: scene_cars[i]["z"])
+    hidden = {"frame": ref_frames[0], "x": scene_cars[ci]["x"],
+              "z": scene_cars[ci]["z"], "car": ci}
+    person = clear_spot(scene_cars, n_total, ref_frames, h, w, LIDAR_Z_MAX,
+                        (12.0, 30.0), 0.6, -0.05, 1.65)
+    t0 = time.perf_counter()
+    frames, _ = sample.make_sequence(n_frames, window, h=h, w=w,
+                                     z_max=LIDAR_Z_MAX,
+                                     hidden={ref_frames[0]: [ci]},
+                                     person=person, extra_cars=[far_car])
+    scene_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(cfg or label_config(window),
+                              use_pseudo_lidar=False,
+                              strict_hidden_standing=True,
+                              extract_pedestrians=True,
+                              skip_non_visible=False)
+    labeler = pipeline.PseudoLabeler(cfg)
+    if labeler.device.type != "cuda":
+        raise AssertionError(f"the labeller is on {labeler.device}")
+    t_cam_velo = np.asarray(T_CAM_VELO)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = write_velodyne(frames, os.path.join(tmp, "velodyne"), h, w)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scans = [velo_to_cam(load_velo_scan(p), t_cam_velo) for p in paths]
+        read_s = time.perf_counter() - t0
+        for f in frames:                    # the scans are all there is
+            del f["points"]
+
+        def jobs_in(out_dir, lo=0, hi=None):
+            jobs = sample.make_jobs(frames, window, out_dir, tag="velo",
+                                    lo=lo, hi=hi, h=h, w=w)
+            for j in jobs:
+                j["get_points"] = (lambda k, fi=j["frame_index"]:
+                                   scans[fi - window + k])
+            return jobs
+
+        jobs = jobs_in(os.path.join(tmp, "labels"))
+        if not all(len(j["ped_masks"]) == 1 and j["ped_masks"][0].any()
+                   for j in jobs):
+            raise AssertionError("a reference frame without the person")
+        with recording_calls(aggregation,
+                             "hidden_standing_keep_real") as strict_calls:
+            run = run_group(labeler, jobs, pipeline, check_launches=True)
+        strict = check_strict_calls(strict_calls)
+        del strict_calls
+        if run["stage_seconds"]["bank_path"] != 0.0:
+            raise AssertionError("real LiDAR took bank mode")
+        checked = lidar_labels(jobs, frames, scene_cars, person, hidden)
+        # the hidden car's frame without the strict check: the car is kept
+        # (the reference's filter keeps every standing car)
+        loose = pipeline.PseudoLabeler(dataclasses.replace(
+            cfg, strict_hidden_standing=False))
+        job = jobs_in(os.path.join(tmp, "loose"), 0, 1)
+        loose.label_frames(job)
+        ego = frames[hidden["frame"]]["ego_z"]
+        from monosowa_tpu_torch.kittiio import read_label_file
+        pos = read_label_file(job[0]["out_path"]).pos
+        back = float(np.hypot(pos[:, 0] - hidden["x"],
+                              pos[:, 2] - (hidden["z"] - ego)).min())
+        if back > 2.5:
+            raise AssertionError(f"without the strict check the hidden car "
+                                 f"is {back} m from every label")
+        # the card against the CPU: the same labeller (a cut grid), the
+        # same label file
+        grid = cpu_grid or LIDAR_CPU_GRID
+        small = dataclasses.replace(cfg, fit=fitting.FitConfig(
+            fine_chunk=60, **grid))
+        texts, cpu_s = [], 0.0
+        for where in (None, "cpu"):
+            job = jobs_in(os.path.join(tmp, f"small_{where}"), 0, 1)
+            t0 = time.perf_counter()
+            pipeline.PseudoLabeler(small, device=where).label_frames(job)
+            cpu_s = time.perf_counter() - t0
+            texts.append(open(job[0]["out_path"]).read())
+        if texts[0] != texts[1] or "Pedestrian" not in texts[0]:
+            raise AssertionError("the card's label file is not the CPU's:\n"
+                                 + texts[0] + "\n" + texts[1])
+    return {"phase": "label_lidar", "frames": n_frames, "window": window,
+            "image_hw": [h, w], "scan_points": [len(s) for s in scans[:3]],
+            "scene_build_s": scene_s, "velodyne_write_s": write_s,
+            "velodyne_read_s": read_s, "person": person,
+            "hidden_car": hidden, "hidden_car_without_strict_m": back,
+            **checked, **strict, **run, "cpu_grid": grid,
+            "cpu_label_file_equal": True, "cpu_label_s": cpu_s}
 
 
 def stage_a_enqueues_only(labeler, jobs) -> None:
@@ -2977,9 +3336,10 @@ def zoo_driver(root: str, action: str, dev, frames: dict, extra: dict):
         def _image_hw(self, fid):
             return frames[fid].shape[:2]
 
-        def _masks_frame(self, fid, backend):
-            self.mask_backend = backend            # for the checks after
-            return super()._masks_frame(fid, backend)
+        def _masks_frame(self, fid, backend, refine=None):
+            # for the checks after
+            self.mask_backend, self.refine_backend = backend, refine
+            return super()._masks_frame(fid, backend, refine)
 
     return InMemoryImages(Config(cfg), PipelineFlags(action), device=dev)
 
@@ -3407,6 +3767,349 @@ def images_to_labels(dev, root: str, frames: dict) -> dict:
             "optimization_s": run_s, "tfl_launches": tfl.launches}
 
 
+def sam_encoder_work(cfg) -> dict:
+    """Floating-point operations of SAM's image encoder at its input size
+    (2 a multiply-add of every matrix product and convolution: patch
+    embedding, qkv and output projections over the padded windows, the
+    MLPs, q k^T and p v, the relative-position einsums, the neck) and the
+    bytes it must move (its weights read once, the image in, the
+    embedding out)."""
+    v = cfg.vision
+    g, c = v.grid, v.hidden_size
+    heads = v.num_attention_heads
+    d, n = c // heads, g * g
+    flops = 2 * n * v.patch_size ** 2 * 3 * c
+    params = v.patch_size ** 2 * 3 * c + c + n * c
+    for i in range(v.num_hidden_layers):
+        if i in tuple(v.global_attn_indexes):
+            units, side = 1, g
+        else:
+            side = v.window_size
+            units = (-(-g // side)) ** 2
+        t = units * side * side
+        flops += 2 * t * c * 4 * c + 2 * n * c * 2 * v.mlp_dim
+        flops += units * heads * 2 * 2 * (side * side) ** 2 * d
+        flops += units * heads * 2 * 2 * side ** 3 * d
+        params += 4 * c * c + 2 * c * v.mlp_dim + 2 * (2 * side - 1) * d \
+            + 4 * c + c * 3 + v.mlp_dim + c
+    out = v.output_channels
+    flops += 2 * n * c * out + 2 * n * out * out * 9
+    params += c * out + out * out * 9 + 4 * out
+    nbytes = 4 * (params + v.image_size ** 2 * 3 + n * out)
+    return {"flop": flops, "bytes": nbytes,
+            "bound_ms": max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S)
+            * 1e3, "bound_by": "operations" if flops / FP32_FLOPS
+            > nbytes / HBM_BYTES_PER_S else "bytes"}
+
+
+def eligible_boxes(masks, scores):
+    """refine_masks' rule: the indices of the masks above its score
+    threshold that hold a pixel, and their boxes."""
+    import numpy as np
+
+    from monosowa_tpu_torch.sowa.masks import mask_box
+
+    idx = [i for i, s in enumerate(scores)
+           if s > SAM_SCORE and np.any(masks[i])]
+    boxes = (np.stack([mask_box(masks[i]) for i in idx]) if idx
+             else np.zeros((0, 4), np.int64))
+    return idx, boxes
+
+
+def mask_frame_spans(driver, fids, backend, refine, cache: str,
+                     dev) -> dict:
+    """``driver._masks_frame`` over the frames into a fresh ``cache``:
+    ms a frame on the host's clock in all and in its parts, the
+    detector's call (forward, the kept masks resized, copied and
+    tested), ``refine_masks`` (SAM; 0 without ``refine``) and within it
+    ``mask_box`` (the eligible masks' boxes), ``save_masks`` (masks_raw/
+    and pedestrians/), the rest (the image read); then, alone, the
+    device-to-host copy of as many frame-sized bool masks as the frame
+    wrote, in the detector's layout."""
+    import torch
+
+    from monosowa_tpu_torch.sowa import masks as masks_mod
+
+    spans = {"detector": 0.0, "refine": 0.0, "mask_box": 0.0,
+             "save_masks": 0.0}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spans[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    saved = (masks_mod.refine_masks, masks_mod.save_masks,
+             masks_mod.mask_box)
+    backend.predict_masks_multi = timed("detector",
+                                        backend.predict_masks_multi)
+    masks_mod.refine_masks = timed("refine", saved[0])
+    masks_mod.save_masks = timed("save_masks", saved[1])
+    masks_mod.mask_box = timed("mask_box", saved[2])
+    driver.cache = cache
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fid in fids:
+            driver._masks_frame(fid, backend, refine)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        del backend.predict_masks_multi
+        (masks_mod.refine_masks, masks_mod.save_masks,
+         masks_mod.mask_box) = saved
+    n_masks, copy_s = 0, 0.0
+    for fid in fids:
+        n = sum(len(masks_mod.load_masks(d, fid) or ()) for d in (
+            driver.masks_dir, os.path.join(cache, "pedestrians")))
+        h, w = driver._image(fid).shape[:2]
+        x = torch.zeros((h, w, n), dtype=torch.bool, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x.permute(2, 0, 1).cpu().numpy()
+        copy_s += time.perf_counter() - t0
+        n_masks += n
+    out = {k + "_ms": v * 1e3 / len(fids) for k, v in spans.items()}
+    out["other_ms"] = (total - spans["detector"] - spans["refine"]
+                       - spans["save_masks"]) * 1e3 / len(fids)
+    return {"ms_per_frame": total * 1e3 / len(fids), **out,
+            "masks_written_per_frame": n_masks / len(fids),
+            "copy_alone_ms": copy_s * 1e3 / len(fids)}
+
+
+def sam(dev, root: str, frames: dict) -> dict:
+    """SAM ViT-H at full width from seeded weights (kernels at unit gain)
+    behind ``use_SAM``: a zoo checkpoint written by the port's
+    ``save_checkpoint``, loaded by ``zoo.sam_refine_backend`` from
+    ``paths.sam_path``, through the driver's ``mask_tracking`` with
+    ``extract_pedestrians`` and the masks phase's Mask2Former checkpoint.
+    Holds: (a) a 2-layer copy (layer 1 global) on the card against the
+    CPU; (b) the full depth in float32 against float64 on the card, the
+    written masks equal where the float64 logit clears the bar; (c) every
+    eligible mask replaced by SAM's, the others (kept from 0.5) byte for
+    byte the detector's, the files reload; (d) K1 at the pixel decoder
+    against the plain MSDA."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.convert import load_zoo_params, zoo_params
+    from monosowa_tpu_torch.models.sam import Sam, vit_h
+    from monosowa_tpu_torch.ops import msda
+    from monosowa_tpu_torch.ops.resize import (cv2_resize_linear,
+                                               resize_bilinear_torch)
+    from monosowa_tpu_torch.sowa import masks as masks_mod
+    from monosowa_tpu_torch.sowa import zoo
+
+    cfg = vit_h()
+    t0 = time.perf_counter()
+    tree = unit_gain(zoo_params(Sam(cfg, device="cpu", seed=0)))
+    build_s = time.perf_counter() - t0
+    n_params = sum(a.size for a in zoo.flatten_params(tree).values())
+    t0 = time.perf_counter()
+    ckpt = os.path.join(root, "zoo", "sam_vit_h.npz")
+    zoo.save_checkpoint(ckpt, "sam", tree, cfg)
+    save_s = time.perf_counter() - t0
+    del tree
+
+    # the main path: mask_tracking with use_SAM over the frames
+    fids = sorted(frames)
+    driver = zoo_driver(root, "mask_tracking", dev, frames, {
+        "backends": {"mask": "mask2former",
+                     "mask_checkpoint": os.path.join(root, "zoo",
+                                                     "mask2former.npz"),
+                     "mask_input_hw": list(MASK_INPUT_HW)},
+        "paths": {"sam_path": ckpt},
+        # the detector keeps queries from 0.5, SAM refines those above 0.7
+        "filtering": {"score_detectron_thresh": SAM_DETECTOR_SCORE},
+        "frames_creation": {"use_SAM": True, "extract_pedestrians": True}})
+    driver.cache = os.path.join(root, "cache_sam")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    msda.launches = msda.launches_bf16 = 0
+    t0 = time.perf_counter()
+    written = driver.run(None, None)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = msda.launches
+    peak_run = torch.cuda.max_memory_allocated()
+    if written != len(frames) or launches != MSDA_PER_FORWARD * len(frames) \
+            or msda.launches_bf16:
+        raise AssertionError(f"mask_tracking with SAM wrote {written} "
+                             f"frames with {launches} MSDA launches")
+    backend, refine = driver.mask_backend, driver.refine_backend
+    model = refine.model
+    if not isinstance(refine, masks_mod.SamRefineBackend) or \
+            refine.device != dev or refine.cfg != cfg:
+        raise AssertionError(f"refine backend {refine}")
+
+    # (c) per frame: the detector's masks again, each eligible one
+    # replaced by SAM's refinement, the others byte for byte; the files
+    # reload, the person group's too
+    per_frame, boxes_of, idx_of = [], {}, {}
+    for fid in fids:
+        raw, scores = backend.predict_masks_scores(frames[fid])
+        idx, boxes = eligible_boxes(raw, scores)
+        boxes_of[fid], idx_of[fid] = boxes, idx
+        got = masks_mod.load_masks(driver.masks_dir, fid)
+        peds = masks_mod.load_masks(os.path.join(driver.cache,
+                                                 "pedestrians"), fid)
+        if got is None or peds is None or len(got) != len(raw):
+            raise AssertionError(f"{fid}: masks_raw / pedestrians files")
+        want = refine.refine(frames[fid], boxes)
+        changed = 0
+        for i, m in enumerate(raw):
+            ref = want[idx.index(i)] if i in idx else m
+            if not np.array_equal(got[i], ref):
+                raise AssertionError(f"masks_raw/{fid} mask {i} is not "
+                                     + ("SAM's" if i in idx else
+                                        "the detector's"))
+            changed += i in idx and not np.array_equal(ref, m)
+        per_frame.append({"masks": len(raw), "eligible": len(idx),
+                          "changed_by_sam": changed,
+                          "passed_through": len(raw) - len(idx),
+                          "persons": len(peds)})
+    if not all(sum(f[k] for f in per_frame) for k in (
+            "eligible", "changed_by_sam", "passed_through")):
+        raise AssertionError(f"refined and passed-through masks: "
+                             f"{per_frame}")
+
+    # timings on the boxes of the frame with the most: the encoder, the
+    # decoder a chunk of max_boxes, refine a frame, a mask frame with SAM
+    fid0 = max(fids, key=lambda f: len(idx_of[f]))
+    img0, boxes0 = frames[fid0], boxes_of[fid0]
+    padded, (nh, nw), scale = refine._encode(img0)
+    chunk = torch.from_numpy(np.resize(boxes0, (refine.max_boxes, 4))
+                             .astype(np.float32) * scale).to(dev)[None]
+    with torch.no_grad():
+        emb = model.vision_forward(padded[None])
+        enc_ms = cuda_ms(lambda: model.vision_forward(padded[None]), 5, 1)
+        dec_ms = cuda_ms(lambda: model.decode_boxes(emb, chunk), 10)
+    t0 = time.perf_counter()
+    for fid in fids:
+        refine.refine(frames[fid], boxes_of[fid])
+    sam_ms = (time.perf_counter() - t0) * 1e3 / len(fids)
+    # the same frames and threshold without SAM, then with it
+    without_sam = mask_frame_spans(driver, fids, backend, None,
+                                   os.path.join(root, "cache_no_sam"), dev)
+    with_sam = mask_frame_spans(driver, fids, backend, refine,
+                                os.path.join(root, "cache_sam_timed"), dev)
+    driver.cache = os.path.join(root, "cache_sam_profiled")
+    prof = busy_share(lambda: driver._masks_frame(fids[0], backend,
+                                                  refine), top=10)
+    work = sam_encoder_work(cfg)
+
+    # (b) the full depth, float32 against float64 on the card, that
+    # frame's boxes: embedding, low-res logits, iou; then the written
+    # masks against the float64 logits through the same post-processing
+    with torch.no_grad():
+        low32, iou32 = refine.decode(emb, boxes0, scale)
+        m64 = copy.deepcopy(model).double()
+        emb64 = m64.vision_forward(padded.double()[None])
+        lows, ious = [], []
+        for c0 in range(0, len(boxes0), refine.max_boxes):
+            b = torch.from_numpy(np.asarray(
+                boxes0[c0:c0 + refine.max_boxes], np.float32) * scale)
+            lo, io = m64.decode_boxes(emb64, b.to(dev).double()[None])
+            lows.append(lo[0, :, 0])
+            ious.append(io[0, :, 0])
+        low64, iou64 = torch.cat(lows), torch.cat(ious)
+        del m64
+        rel64 = {}
+        for name, a, b in (("embedding", emb, emb64),
+                           ("low_res_logits", low32, low64),
+                           ("iou", iou32, iou64)):
+            rel64[name] = float((a.double() - b).abs().max()
+                                / b.abs().max())
+        s = cfg.vision.image_size
+        up = resize_bilinear_torch(low64.float()[..., None], (s, s))
+        full64 = cv2_resize_linear(up[:, :nh, :nw, 0].permute(1, 2, 0)
+                                   .contiguous(), img0.shape[:2])
+        full64 = full64.permute(2, 0, 1)
+    del emb64, low64
+    bar = SAM_F64_BAR * float(full64.abs().max())
+    got0 = masks_mod.load_masks(os.path.join(root, "cache_sam", "masks_raw"),
+                                fid0)
+    flips = 0
+    for j, i in enumerate(idx_of[fid0]):
+        diff = torch.from_numpy(got0[i]).to(dev) != (full64[j] > 0)
+        flips += int(diff.sum())
+        if bool((full64[j][diff].abs() > bar).any()):
+            raise AssertionError(f"a written SAM mask differs from the "
+                                 f"float64 forward where |logit| > {bar}")
+    if max(rel64.values()) > SAM_F64_BAR:
+        raise AssertionError(f"SAM float32 vs float64: {rel64}")
+    del full64
+    torch.cuda.empty_cache()
+
+    # (a) a 2-layer copy at full width (layer 1 global): card vs CPU on
+    # that frame's boxes (one chunk)
+    small = dataclasses.replace(cfg, vision=dataclasses.replace(
+        cfg.vision, num_hidden_layers=2, global_attn_indexes=(1,)))
+    tree2 = unit_gain(zoo_params(Sam(small, device="cpu", seed=1)))
+    x = padded[None]
+    b = torch.from_numpy(np.asarray(boxes0[:refine.max_boxes], np.float32)
+                         * scale)[None]
+    outs = []
+    t0 = time.perf_counter()
+    for where in (dev, "cpu"):
+        m2 = load_zoo_params(Sam(small, device=where), tree2)
+        with torch.no_grad():
+            outs.append([t.cpu() for t in m2.predict_boxes(x.to(where),
+                                                           b.to(where))])
+        del m2
+    cpu_pair_s = time.perf_counter() - t0
+    rel_cpu = {name: float((c - h).abs().max() / h.abs().max())
+               for name, c, h in zip(("low_res_logits", "iou"), *outs)}
+    scale_cpu = float(outs[1][0].abs().max())
+    if max(rel_cpu.values()) > SAM_CPU_BAR or scale_cpu < 1e-2:
+        raise AssertionError(f"2-layer SAM card vs CPU: {rel_cpu}, "
+                             f"logits up to {scale_cpu}")
+    del outs
+    torch.cuda.empty_cache()
+
+    # (d) K1 on the inputs of the pixel decoder's six launches
+    recorded, restore = recording_msda(
+        list(backend.model.pixel_decoder.encoder_layers))
+    backend.forward(img0)
+    restore()
+    k1 = check_msda_recorded("pixel decoder (sam phase)", recorded)
+    del recorded
+    out = {"phase": "sam", "model": "sam vit-h (seeded weights, unit gain)",
+           "params": n_params, "frames": len(fids),
+           "image_hw": list(img0.shape[:2]),
+           "sam_input": [cfg.vision.image_size] * 2,
+           "resized_hw": [nh, nw], "model_build_s": build_s,
+           "checkpoint_save_s": save_s, "mask_tracking_s": run_s,
+           "msda_launches": launches, "per_frame": per_frame,
+           "encoder_ms": enc_ms, "encoder_bound_ms": work["bound_ms"],
+           "encoder_bound_by": work["bound_by"],
+           "encoder_tflop": work["flop"] / 1e12,
+           "encoder_tflops_achieved": work["flop"] / enc_ms / 1e9,
+           "decoder_ms_per_chunk": dec_ms, "chunk_boxes": refine.max_boxes,
+           "sam_ms_per_frame": sam_ms,
+           "mask_ms_per_frame": with_sam["ms_per_frame"],
+           "mask_frame_with_sam": with_sam,
+           "mask_frame_without_sam": without_sam,
+           **{k: prof[k] for k in ("device_ms", "device_busy_share",
+                                   "top_kernels")},
+           "profiled_frame_wall_ms": prof["wall_ms"],
+           "peak_mem_GB": peak_run / 1e9,
+           "peak_mem_GB_with_holds": torch.cuda.max_memory_allocated() / 1e9,
+           "float32_vs_float64_max_rel": rel64,
+           "mask_pixels_flipped_vs_float64": flips,
+           "two_layer_card_vs_cpu_max_rel": rel_cpu,
+           "two_layer_logit_scale": scale_cpu,
+           "two_layer_card_and_cpu_s": cpu_pair_s,
+           "pixel_decoder_k1": k1}
+    del backend, refine, driver, model, emb
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     # one card: the first of those visible
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -3583,6 +4286,11 @@ def main() -> int:
     emit(k3)
     torch.cuda.empty_cache()
 
+    # 7d. label_lidar: velodyne scans, strict hidden standing, pedestrians
+    lld = label_lidar(dev)
+    emit(lld)
+    torch.cuda.empty_cache()
+
     # 8. bench
     bch = bench_row_fetch()
     emit(bch)
@@ -3601,6 +4309,12 @@ def main() -> int:
         emit(msk)
         emit({"phase": "kernel", "name": "msda_fwd",
               "registers": registers["msda_fwd"], **fwd["pixel decoder"]})
+        smp = sam(dev, zroot, frames)
+        fwd["pixel decoder (sam)"] = smp.pop("pixel_decoder_k1")
+        emit(smp)
+        emit({"phase": "kernel", "name": "msda_fwd",
+              "registers": registers["msda_fwd"],
+              **fwd["pixel decoder (sam)"]})
         dep = depth(dev, zroot, frames)
         emit(dep)
         itl = images_to_labels(dev, zroot, frames)
@@ -3641,7 +4355,8 @@ def main() -> int:
                "train": trn["msda_fwd_launches"],
                "train_add": tra["launches"]["msda_fwd"],
                "epoch": epc["msda_fwd_launches"],
-               "masks": msk["msda_launches"]}, fwd),
+               "masks": msk["msda_launches"],
+               "sam": smp["msda_launches"]}, fwd),
         entry("msda_bwd", "monosowa_tpu_torch/ops/csrc/msda_bwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:306 (K2 msda_gdot_mxu); "
               "monosowa_tpu/ops/msda_mxu.py:544 (K3 msda_dvalue_mxu)",
@@ -3665,6 +4380,7 @@ def main() -> int:
               {"label": lbl["tfl_launches"],
                "label_bank": lbk["tfl_launches"],
                "label_k360": k3["launches"],
+               "label_lidar": lld["tfl_launches"],
                "images_to_labels": itl["tfl_launches"]},
               {**cov, **k3["tfl_new_shapes"]}, "rescore"),
         entry("row_fetch", "monosowa_tpu_torch/ops/csrc/row_fetch.cu",

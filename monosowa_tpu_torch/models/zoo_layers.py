@@ -89,8 +89,8 @@ def constant(fn, args: tuple, device: torch.device) -> torch.Tensor:
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Softmax attention over (B, N, heads, d) projections, float32
-    logits: ``bias`` is added to the (B, heads, Q, K) logits and ``mask``
+    """Softmax attention over (B, N, heads, d) projections, the softmax in
+    float32 (float64 for float64 inputs): ``bias`` is added to the (B, heads, Q, K) logits and ``mask``
     (True = disallowed) sets them to -inf.  -> (B, Q, heads * d).  The
     scale 1 / sqrt(d) multiplies q rather than the logits (Q x d values,
     not Q x K; exactly the same where d is a power of 4, as DINOv2's 64)."""
@@ -100,6 +100,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits = logits + bias
     if mask is not None:
         logits = logits.masked_fill(mask, float("-inf"))
-    probs = torch.softmax(logits.float(), -1).to(q.dtype)
+    probs = torch.softmax(logits.to(torch.promote_types(
+        logits.dtype, torch.float32)), -1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, nq,
                                                              heads * d)

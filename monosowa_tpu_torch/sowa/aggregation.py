@@ -148,12 +148,26 @@ def hidden_standing_keep_real(points: np.ndarray,
     applies the evidently intended semantics: keep iff any aggregated
     point lies within ``radius`` of a live scan point (brute-force
     chunked distances — faiss-free).
+
+    The JAX package measures every scan point; here only those inside
+    the car's box grown by ``radius`` + 0.5 m (any point the float32
+    distances of that rule accept lies there), in the same float32
+    arithmetic.  The whole scan costs about half a millisecond of host
+    time for each car point against a 117k-point scan, seconds a car;
+    ``chip_smoke.py``'s ``check_strict_calls`` times both rules on its
+    scans and holds their answers equal.
     """
     if not strict:
         return True
     if ref_scan is None or ref_scan.shape[0] == 0 or points.shape[0] == 0:
         return False
     scan = np.asarray(ref_scan[:, :3], np.float32)
+    margin = radius + 0.5
+    lo = points[:, :3].min(0) - margin
+    hi = points[:, :3].max(0) + margin
+    scan = scan[((scan >= lo) & (scan <= hi)).all(1)]
+    if scan.shape[0] == 0:
+        return False
     r2 = radius * radius
     for c0 in range(0, points.shape[0], chunk):
         p = points[c0:c0 + chunk, :3]

@@ -24,7 +24,8 @@ writes ``transformations/<frame>.npy`` (KITTI-360 ``cam0_to_world.txt``
 poses under ``paths.all_dataset_path``, waymo_converted ``Cur_pose`` calib
 rows, identity windows for the object layout); ``mask_tracking`` writes
 ``masks_raw/<frame>.npz`` (and, with ``extract_pedestrians``,
-``pedestrians/``) through the zoo's Mask2Former (``backends.mask``);
+``pedestrians/``) through the zoo's Mask2Former (``backends.mask``), its
+car masks refined by the zoo's SAM with ``frames_creation.use_SAM``;
 ``candidates`` and ``frames_aggregation`` write the ``candidates/`` and
 ``merged_cars/`` caches on the host.  ``optimization`` labels from
 ``masks_raw/``, ``transformations/``, ``lidar_raw/`` and
@@ -32,9 +33,11 @@ rows, identity windows for the object layout); ``mask_tracking`` writes
 its job extracts on the device (bank mode under the default config); a
 merged-cars cache (``merged_cars/``) is fitted directly.  ``demo`` and
 ``dimensions_output`` label the same way with the scale detector (and box
-reducer) on.  Networks and labelling run on the card unless ``--device``
-names another.  ``homographies`` and the raw Waymo driver raise
-``NotImplementedError`` naming the JAX module they need.
+reducer) on; with ``extract_pedestrians`` every label file also holds the
+``Pedestrian`` rows of the frame's ``pedestrians/`` masks.  Networks and
+labelling run on the card unless ``--device`` names another.
+``homographies`` and the raw Waymo driver raise ``NotImplementedError``
+naming the JAX module they need.
 """
 
 from __future__ import annotations
@@ -225,8 +228,8 @@ class KittiObjectDriver:
                 "instance-segmentation backend: set backends.mask "
                 "(e.g. mask2former + mask_checkpoint) in the config, "
                 "or precompute masks_raw/ artifacts")
-        zoo.sam_refine_backend(self.cfg)    # use_SAM raises
-        return sum(self._masks_frame(fid, backend) for fid in ids)
+        refine = zoo.sam_refine_backend(self.cfg, device=self.device)
+        return sum(self._masks_frame(fid, backend, refine) for fid in ids)
 
     def _optimize_frames(self, ids: List[str]) -> int:
         """`optimization`, `dimensions_output`, `demo`: label each frame
@@ -420,12 +423,14 @@ class KittiObjectDriver:
         np.savez_compressed(out, points=pts)
         return 1
 
-    def _masks_frame(self, fid: str, backend) -> int:
+    def _masks_frame(self, fid: str, backend, refine=None) -> int:
         """`--action mask_tracking` for frame datasets: live instance
         segmentation -> masks_raw cache (precompute_detectron_kitti,
-        loader.py:1703-1790).  With extract_pedestrians, person-class masks
+        loader.py:1703-1790), each car mask above the score threshold
+        refined by SAM when ``refine`` is given (use_SAM,
+        loader.py:1727-1739).  With extract_pedestrians, person-class masks
         land in the pedestrians/ cache (output.py:141-143) from the SAME
-        forward."""
+        forward, unrefined."""
         if masks_mod.load_masks(self.masks_dir, fid) is not None:
             return 0
         img = self._image(fid)
@@ -434,12 +439,14 @@ class KittiObjectDriver:
         if self.pcfg.extract_pedestrians:
             person_ids = tuple((self.cfg.backends or Config({}))
                                .get("mask_person_labels", (0,)))
-            (masks, _), (ped_masks, _) = backend.predict_masks_multi(
+            (masks, scores), (ped_masks, _) = backend.predict_masks_multi(
                 img, [backend.car_label_ids, person_ids])
             masks_mod.save_masks(os.path.join(self.cache, "pedestrians"),
                                  fid, ped_masks, img.shape[:2])
         else:
-            masks, _ = backend.predict_masks_scores(img)
+            masks, scores = backend.predict_masks_scores(img)
+        if refine is not None:
+            masks = masks_mod.refine_masks(masks, scores, img, refine)
         masks_mod.save_masks(self.masks_dir, fid, masks, img.shape[:2])
         return 1
 
@@ -481,6 +488,11 @@ class KittiObjectDriver:
             before, after = self.pcfg.nscans_before, self.pcfg.nscans_after
             window = list(range(-before, after + 1))
             cars = labeler.label_from_cars(tracks, points, ref_masks, window)
+            if self.pcfg.extract_pedestrians:
+                _, get_points, _, _ = self._window_accessors(fid)
+                cars = cars + labeler.pedestrian_labels(
+                    window, get_points, self._calib(fid).P2,
+                    self._image_hw(fid), self._ped_masks(fid))
             os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
             write_pseudo_label_file(out, cars)
             return 1
@@ -495,6 +507,8 @@ class KittiObjectDriver:
                    window_frames=window, get_points=get_points,
                    get_masks=get_masks, transforms=transforms,
                    p2=calib.P2, img_hw=img_hw)
+        if self.pcfg.extract_pedestrians:
+            job["ped_masks"] = self._ped_masks(fid)
         # global window-frame ids: overlapping windows (and consecutive
         # stream groups) then share each frame's candidate extraction
         try:
@@ -521,6 +535,12 @@ class KittiObjectDriver:
 
             job["get_depth"] = get_depth
         return job
+
+    def _ped_masks(self, fid: str):
+        """The frame's person-class masks from the pedestrians/ cache
+        (prepare_dirs taxonomy, output.py:141-143), or None."""
+        return masks_mod.load_masks(os.path.join(self.cache, "pedestrians"),
+                                    fid)
 
     def _image_hw(self, fid: str):
         """(height, width) of the frame's PNG, from its header (no image

@@ -24,9 +24,11 @@ host.  The optional stages of ``label_from_cars`` follow the JAX
 package: the outlier ensemble (``filtering``), the robust optimisation
 (``fitting.fit_cars_robust`` at the dimension estimator's yaw), and per
 standing car the scale detector with the box reducer (``scale``) or the
-dimension estimator (``dimensions``).  What the JAX package has and this
-module does not yet (pedestrians, the strict hidden-standing check on
-real LiDAR) raises ``NotImplementedError`` naming the missing module.
+dimension estimator (``dimensions``).  With ``extract_pedestrians`` a
+job's person masks (``ped_masks``) add ``Pedestrian`` rows
+(``pedestrians``); on real LiDAR (``use_pseudo_lidar=False``) the
+reference frame's scan is handed to the aggregation for the strict
+hidden-standing check (``strict_hidden_standing``).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from monosowa_tpu_torch.kittiio.labels import write_pseudo_label_file
 from monosowa_tpu_torch.ops import box3d
 from monosowa_tpu_torch.sowa import aggregation, candidates, lomm
 from monosowa_tpu_torch.sowa import bank as bank_mod
+from monosowa_tpu_torch.sowa import pedestrians as pedestrians_mod
 from monosowa_tpu_torch.sowa.fitting import (FitConfig, fit_cars_conv,
                                              make_conv_kernels)
 from monosowa_tpu_torch.sowa.templates import TemplateBank
@@ -71,20 +74,22 @@ class PipelineConfig:
     template_dims_lwh: tuple = (3.88, 1.63, 1.526)
     skip_non_visible: bool = True
     # real-LiDAR branch (frames_creation.use_pseudo_lidar: False): points
-    # come from velodyne scans, the 75 m pseudo-lidar gates are off, and
-    # hidden standing cars are filtered against the live reference scan
-    # (aggregation.hidden_standing_keep_real; the reference's shipped
-    # filter is a no-op; strict_hidden_standing=True, not ported, enables
-    # the evidently intended range check); the scale detector re-gathers
-    # its points from the live window scans
+    # come from velodyne scans (kittiio.velodyne), the 75 m pseudo-lidar
+    # gates are off, and hidden standing cars are filtered against the
+    # live reference scan (aggregation.hidden_standing_keep_real; the
+    # reference's shipped filter is a no-op; strict_hidden_standing=True
+    # enables the evidently intended range check); the scale detector
+    # re-gathers its points from the live window scans
     use_pseudo_lidar: bool = True
     strict_hidden_standing: bool = False
     # frames_creation.use_clever_aggregation: keep-k-closest frame
     # selection (True, shipped default) vs concat-every-observation
     use_clever_aggregation: bool = True
-    # frames_creation.extract_pedestrians: sowa/pedestrians.py is not
-    # ported, switching it on raises
+    # frames_creation.extract_pedestrians (output.py:141): person-class
+    # masks -> Pedestrian label rows (sowa/pedestrians.py)
     extract_pedestrians: bool = False
+    pedestrian: pedestrians_mod.PedestrianConfig = dataclasses.field(
+        default_factory=pedestrians_mod.PedestrianConfig)
     # optional stages (reference flags in parentheses)
     use_ensemble_filter: bool = False   # frames_creation.use_hdbscan
     use_scale_detector: bool = False    # scale_detector.use_scale_detector
@@ -121,24 +126,6 @@ class PipelineConfig:
 _EXT_PENDING = object()
 
 
-# config flag -> the module of the JAX package that the flag needs
-_NOT_PORTED = (
-    ("extract_pedestrians", "sowa/pedestrians.py"),
-)
-
-
-def _check_ported(cfg: PipelineConfig) -> None:
-    for flag, module in _NOT_PORTED:
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"PipelineConfig.{flag}: {module} is not ported")
-    if not cfg.use_pseudo_lidar and cfg.strict_hidden_standing:
-        raise NotImplementedError(
-            "PipelineConfig.strict_hidden_standing on real LiDAR "
-            "(use_pseudo_lidar=False): the live-scan check of "
-            "kittiio/velodyne.py scans is not ported")
-
-
 class PseudoLabeler:
     """Holds the template bank and the conv kernels on its device; labels
     one reference frame at a time, or a group of frames, from per-frame
@@ -146,7 +133,6 @@ class PseudoLabeler:
 
     def __init__(self, cfg: PipelineConfig = PipelineConfig(),
                  bank: Optional[TemplateBank] = None, device=None):
-        _check_ported(cfg)
         if cfg.candidate.use_pseudo_lidar != cfg.use_pseudo_lidar:
             cfg = dataclasses.replace(cfg, candidate=dataclasses.replace(
                 cfg.candidate, use_pseudo_lidar=cfg.use_pseudo_lidar))
@@ -191,10 +177,12 @@ class PseudoLabeler:
                     get_points: Callable[[int], Optional[np.ndarray]],
                     get_masks: Callable[[int], Optional[list]],
                     transforms: np.ndarray, p2: np.ndarray,
-                    img_hw) -> List[dict]:
+                    img_hw, ped_masks: Optional[list] = None) -> List[dict]:
         """window_frames: window-relative offsets (0 = reference);
         get_points/get_masks take the window index; transforms: (W, 4, 4)
-        T_cur_to_ref.  Returns car dicts ready for the label writer."""
+        T_cur_to_ref.  Returns car dicts ready for the label writer;
+        ``ped_masks`` (person-class reference-frame masks) append
+        Pedestrian rows when extract_pedestrians is on."""
         cfg = self.cfg
         # the real-LiDAR scale branch re-gathers from the live scans
         # (scale_detector.py:14-104): keep them only when that path is on
@@ -212,13 +200,43 @@ class PseudoLabeler:
             cands.append(candidates.extract_candidates(
                 pts, p2, img_hw, masks, transforms[k], cfg.candidate))
         kept, points, ref_masks = self._track_and_aggregate(
-            cands, window_frames, transforms)
+            cands, window_frames, transforms,
+            self._ref_scan(window_frames, get_points))
+        peds = self.pedestrian_labels(window_frames, get_points, p2, img_hw,
+                                      ped_masks)
         if not kept:
-            return []
+            return peds
         return self.label_from_cars(
             kept, points, ref_masks, window_frames,
             scale_scan_source=((window_scans, transforms)
-                               if keep_scans else None))
+                               if keep_scans else None)) + peds
+
+    def pedestrian_labels(self, window_frames, get_points, p2, img_hw,
+                          ped_masks) -> List[dict]:
+        """Pedestrian rows from the reference frame's points + person masks
+        (extract_pedestrians branch, sowa/pedestrians.py)."""
+        if not self.cfg.extract_pedestrians or not ped_masks:
+            return []
+        try:
+            k = list(window_frames).index(0)
+        except ValueError:
+            return []
+        pts = get_points(k)
+        if pts is None:
+            return []
+        return pedestrians_mod.extract_pedestrian_labels(
+            pts, p2, img_hw, ped_masks, self.cfg.pedestrian)
+
+    def _ref_scan(self, window_frames, get_points):
+        """The reference frame's cam-frame scan, only when the real-LiDAR
+        strict hidden-standing check needs it (one more accessor call)."""
+        if self.cfg.use_pseudo_lidar or not self.cfg.strict_hidden_standing:
+            return None
+        try:
+            k = list(window_frames).index(0)
+        except ValueError:
+            return None
+        return get_points(k)
 
     def _keeps_scans(self) -> bool:
         """Whether the scale detector re-gathers from the window's live
@@ -226,7 +244,8 @@ class PseudoLabeler:
         cloud (scale_detector.py:17-21)."""
         return self.cfg.use_scale_detector and not self.cfg.use_pseudo_lidar
 
-    def _track_and_aggregate(self, cands, window_frames, transforms):
+    def _track_and_aggregate(self, cands, window_frames, transforms,
+                             ref_scan=None):
         cfg = self.cfg
         tracks = lomm.greedy_track(cands, window_frames,
                                    cfg.dist_threshold_tracking)
@@ -236,6 +255,7 @@ class PseudoLabeler:
             cfg.min_standing_points,
             use_pseudo_lidar=cfg.use_pseudo_lidar,
             max_distance=cfg.candidate.max_distance_pseudo_lidar,
+            ref_scan=ref_scan, strict_hidden=cfg.strict_hidden_standing,
             clever=cfg.use_clever_aggregation)
 
     # ------------------------------------------------------------------
@@ -497,7 +517,9 @@ class PseudoLabeler:
         overlapping windows SHARE each frame's camera-space candidate
         extraction instead of recomputing it per window; jobs that also
         give ``get_depth`` (one depth map a window index) extract on the
-        device, in bank mode where the config allows it.
+        device, in bank mode where the config allows it; ``ped_masks``
+        (the reference frame's person masks) add Pedestrian rows with
+        extract_pedestrians.
 
         Returns the number of frames written."""
         todo = [j for j in frame_jobs
@@ -729,7 +751,8 @@ class PseudoLabeler:
                             slots=slots, scans=window_scans,
                             npts=[s.npts for s in slots])
             kept, points, ref_masks = self._track_and_aggregate(
-                cands, window_frames, job["transforms"])
+                cands, window_frames, job["transforms"],
+                self._ref_scan(window_frames, job["get_points"]))
             return dict(job=job, kept=kept, points=points,
                         ref_masks=ref_masks, window=window_frames,
                         slots=None, scans=window_scans,
@@ -871,7 +894,11 @@ class PseudoLabeler:
                 npts_override=item["npts"],
                 scale_scan_source=((item["scans"], item["job"]["transforms"])
                                    if item["scans"] is not None else None))
-            self._write(item["job"]["out_path"], cars)
+            job = item["job"]
+            cars = cars + self.pedestrian_labels(
+                item["window"], job["get_points"], job["p2"],
+                job["img_hw"], job.get("ped_masks"))
+            self._write(job["out_path"], cars)
             n_written += 1
         stages["write"] = clock() - t0
         stages["cars_fitted"] = len(all_tracks)

@@ -12,8 +12,11 @@ from a zoo checkpoint::
       mask_checkpoint: <path.npz>
       mask_input_hw: [384, 1280]
       mask_car_labels: [2]
+      sam_checkpoint: <path.npz>          # when paths.sam_path is unset
     frames_creation:
       use_SAM: False                      # reference key, config.yaml:27
+    paths:
+      sam_path: <path.npz>                # reference key (loader.py:99)
 
 Checkpoint format, the JAX package's own: one ``.npz`` holding the
 flattened param tree (``/``-joined path keys, list indices as digit
@@ -23,9 +26,10 @@ loads here unchanged, and the reverse; ``convert.load_zoo_params`` fills
 the port's modules from the tree.
 
 Ported: ``cached`` depth and masks, ``depth_anything``
-(``models/depth_anything.py`` on ``models/dinov2.py``) and ``mask2former``
-(``models/mask2former.py`` on ``models/swin.py``).  ``metric3d_hub`` (a
-``torch.hub`` download) and the kinds ``sam``, ``loftr`` and
+(``models/depth_anything.py`` on ``models/dinov2.py``), ``mask2former``
+(``models/mask2former.py`` on ``models/swin.py``) and ``sam``
+(``models/sam.py``, the refinement behind ``frames_creation.use_SAM``).
+``metric3d_hub`` (a ``torch.hub`` download) and the kinds ``loftr`` and
 ``vit_tracker`` raise ``NotImplementedError`` naming their JAX module.
 The networks run on the card unless ``device`` names another.
 """
@@ -41,7 +45,6 @@ import numpy as np
 
 # checkpoint kinds of the JAX zoo that the port does not have yet
 _NOT_PORTED = {
-    "sam": "models/sam.py (SamConfig, sam_predict_boxes)",
     "loftr": "models/efficientloftr.py (EfficientLoFTRConfig)",
     "vit_tracker": "models/vit_tracker.py (ViTTrackerConfig)",
 }
@@ -106,6 +109,12 @@ def _config_classes(kind: str) -> Dict[str, type]:
         from monosowa_tpu_torch.models.swin import SwinConfig
         return {"Mask2FormerConfig": Mask2FormerConfig,
                 "SwinConfig": SwinConfig}
+    if kind == "sam":
+        from monosowa_tpu_torch.models.sam import (SamConfig,
+                                                   SamDecoderConfig,
+                                                   SamVisionConfig)
+        return {"SamConfig": SamConfig, "SamVisionConfig": SamVisionConfig,
+                "SamDecoderConfig": SamDecoderConfig}
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"zoo checkpoint kind {kind!r}: {_NOT_PORTED[kind]} of the JAX "
@@ -227,13 +236,20 @@ def mask_backend(cfg, device=None):
     raise ValueError(f"unknown backends.mask {kind!r}")
 
 
-def sam_refine_backend(cfg):
+def sam_refine_backend(cfg, device=None):
     """SAM box-prompted refinement when ``frames_creation.use_SAM`` is on
-    (reference config.yaml:27); None when it is off."""
+    (reference config.yaml:27 gating loader.py:1727-1739; weights from
+    ``paths.sam_path``, else ``backends.sam_checkpoint``); None when it is
+    off."""
     fc = cfg.frames_creation or type(cfg)({})
     if not fc.get("use_SAM", False):
         return None
-    raise NotImplementedError(
-        "frames_creation.use_SAM: the SAM refinement (models/sam.py and "
-        "FlaxSamRefineBackend of sowa/masks.py in the JAX package) is not "
-        "ported")
+    from monosowa_tpu_torch.sowa.masks import SamRefineBackend
+
+    path = (cfg.paths or type(cfg)({})).get("sam_path") \
+        or _backends(cfg).get("sam_checkpoint")
+    if not path:
+        raise ValueError("use_SAM: True needs paths.sam_path (a zoo "
+                         "checkpoint produced by save_checkpoint)")
+    params, scfg = _load_checked(path, "sam")
+    return SamRefineBackend(params, scfg, device=device)

@@ -811,3 +811,70 @@ def test_lap_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError):
         lap.lap_jv(torch.zeros(1, 300, 300, device=cuda), m[:1])
     assert lap.auction_launches == before
+
+
+def _sam_tree(cfg, seed=0):
+    """The port's seeded SAM tree at unit gain (kernels std 1 / sqrt(fan
+    in), raw tables N(0, 0.5)), so the logits do not all sit near 0."""
+    from monosowa_tpu_torch.convert import zoo_params
+    from monosowa_tpu_torch.models.sam import Sam
+
+    rng = np.random.default_rng(seed)
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if key in ("scale", "bias"):
+            return node
+        std = (1 / np.sqrt(np.prod(node.shape[:-1])) if key == "kernel"
+               else 0.5)
+        return (std * rng.normal(size=node.shape)).astype(np.float32)
+
+    return walk(zoo_params(Sam(cfg, device="cpu", seed=seed)))
+
+
+def test_sam_on_the_card_matches_the_cpu(cuda):
+    """SAM at test widths (a padded window grid and a global layer): the
+    card's low-res masks and IoU within 1e-4 of their magnitude of the
+    CPU's, and ``SamRefineBackend``'s masks equal but for at most 4 pixels
+    (float32 sums in another order flip a pixel only at a logit near 0)."""
+    from monosowa_tpu_torch.convert import load_zoo_params
+    from monosowa_tpu_torch.models.sam import (Sam, SamConfig,
+                                               SamDecoderConfig,
+                                               SamVisionConfig)
+    from monosowa_tpu_torch.sowa.masks import SamRefineBackend
+
+    cfg = SamConfig(
+        vision=SamVisionConfig(hidden_size=64, num_hidden_layers=3,
+                               num_attention_heads=4, image_size=160,
+                               patch_size=16, window_size=4,
+                               global_attn_indexes=(1,), output_channels=32,
+                               mlp_dim=128),
+        decoder=SamDecoderConfig(hidden_size=32, num_attention_heads=4,
+                                 mlp_dim=64, iou_head_hidden_dim=32),
+        prompt_image_size=160, embedding_size=10)
+    tree = _sam_tree(cfg)
+    models = [load_zoo_params(Sam(cfg, device=d), tree)
+              for d in ("cpu", cuda)]
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(1, 160, 160, 3)).astype(
+        np.float32))
+    boxes = torch.tensor([[[3.0, 4.0, 90.0, 120.0], [40.0, 0.0, 159.0, 60.0],
+                           [10.0, 10.0, 30.0, 150.0]]])
+    with torch.no_grad():
+        out = [m.predict_boxes(x.to(m.vision.patch_proj.weight.device),
+                               boxes.to(m.vision.patch_proj.weight.device))
+               for m in models]
+    for want, got in zip(out[0], out[1]):
+        got = got.cpu()
+        scale = float(want.abs().max())
+        assert scale > 0.1
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+    img = rng.integers(0, 256, (90, 150, 3), np.uint8)
+    box = np.array([[5, 5, 80, 70], [60, 10, 140, 85]])
+    got, want = (SamRefineBackend(tree, cfg, max_boxes=1, device=d).refine(
+        img, box) for d in (cuda, "cpu"))
+    flips = sum(int((a != b).sum()) for a, b in zip(got, want))
+    assert flips <= 4 and all(0 < m.mean() < 1 for m in want)

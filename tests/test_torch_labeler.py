@@ -293,19 +293,42 @@ def _labelers_for(cfg_j, cfg_t):
     "use_ensemble_filter", "use_scale_detector", "use_dimensions_estimation",
     "use_robust_optimization", "extract_pedestrians"])
 def test_left_out_flags_raise(flag):
-    """Named for what the stages did before they were ported: now only
-    ``extract_pedestrians`` raises.  Each other stage labels the one-car
-    scene through ``label_frame`` as the JAX labeller does (x, y, z, theta
-    within 1e-4, the dimensions within 1e-5, the points equal)."""
+    """Named for what the stages did before they were ported: none raises
+    now.  Each stage labels the one-car scene through ``label_frame`` as
+    the JAX labeller does (x, y, z, theta within 1e-4, the dimensions
+    within 1e-5, the points equal); ``extract_pedestrians`` with a
+    standing person in the reference frame and its mask also gives the
+    JAX labeller's Pedestrian row, key for key."""
     cfg_j, cfg_t = _configs(**{flag: True})
-    if flag == "extract_pedestrians":
-        with pytest.raises(NotImplementedError, match="sowa/"):
-            pipeline.PseudoLabeler(cfg_t, device="cpu")
-        return
     lab_j, lab_t = _labelers_for(cfg_j, cfg_t)
     scene = _make_scene()
-    cars_j = lab_j.label_frame(WINDOW, 3, **_frame_args(scene))
-    cars_t = lab_t.label_frame(WINDOW, 3, **_frame_args(scene))
+    kw = {}
+    if flag == "extract_pedestrians":
+        rng = np.random.default_rng(5)
+        person = np.stack([rng.uniform(2.8, 3.2, 400),
+                           rng.uniform(0.0, 1.66, 400),
+                           rng.uniform(8.8, 9.2, 400)], 1)
+        pts, masks_, transforms = scene
+        pts = list(pts)
+        pts[3] = np.concatenate([pts[3], person]).astype(np.float32)
+        scene = (pts, masks_, transforms)
+        hom = np.hstack([person, np.ones((len(person), 1))]) @ P2.T
+        uv = np.rint(hom[:, :2] / hom[:, 2:3]).astype(int)
+        mask = np.zeros((H, W), bool)
+        mask[uv[:, 1], uv[:, 0]] = True
+        kw["ped_masks"] = [scipy.ndimage.binary_dilation(mask)]
+    rows_j = lab_j.label_frame(WINDOW, 3, **_frame_args(scene), **kw)
+    rows_t = lab_t.label_frame(WINDOW, 3, **_frame_args(scene), **kw)
+    assert [r["cls"] for r in rows_t] == [r["cls"] for r in rows_j]
+    peds = [(a, b) for a, b in zip(rows_t, rows_j)
+            if a["cls"] == "Pedestrian"]
+    assert len(peds) == (flag == "extract_pedestrians")
+    for a, b in peds:
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+    cars_t = [r for r in rows_t if r["cls"] == "Car"]
+    cars_j = [r for r in rows_j if r["cls"] == "Car"]
     assert len(cars_t) == 1
     _assert_cars_match(cars_t, cars_j, dims_atol=1e-5)
     if flag == "use_scale_detector":
@@ -349,14 +372,18 @@ def test_ensemble_and_dimensions_through_label_frames_match_jax(tmp_path):
 
 
 def test_other_left_out_paths_raise(labelers, tmp_path):
-    """strict_hidden_standing on real LiDAR raises, and the card is the
-    default; the ``chamfer`` loss kind (which raised before the other
-    kinds were ported) labels the scene as the JAX labeller does."""
+    """Named for what it checked before these paths were ported: the
+    strict hidden-standing check on real LiDAR and the ``chamfer`` loss
+    kind each label the scene as the JAX labeller does (the car, seen in
+    the reference scan, kept), and the card is the default."""
     lab_j, lab_t = labelers
-    with pytest.raises(NotImplementedError, match="strict_hidden_standing"):
-        pipeline.PseudoLabeler(_configs(use_pseudo_lidar=False,
-                                        strict_hidden_standing=True)[1],
-                               device="cpu")
+    lab_sj, lab_st = _labelers_for(*_configs(use_pseudo_lidar=False,
+                                             strict_hidden_standing=True))
+    scene = _make_scene()
+    cars_t = lab_st.label_frame(WINDOW, 3, **_frame_args(scene))
+    _assert_cars_match(cars_t, lab_sj.label_frame(WINDOW, 3,
+                                                  **_frame_args(scene)))
+    assert len(cars_t) == 1
     lab_cj, lab_ct = _labelers_for(
         dataclasses.replace(lab_j.cfg,
                             fit=JFitConfig(**GRID, loss_function="chamfer")),

@@ -470,27 +470,55 @@ def test_mask_tracking_without_backend_raises(kitti_dir):
 
 
 def test_use_sam_raises_naming_sam(kitti_dir, tmp_path):
-    """``frames_creation.use_SAM`` with a live mask backend: the SAM
-    refinement is not ported, and the driver says so before any frame."""
+    """Named for what it checked before SAM was ported: now
+    ``frames_creation.use_SAM`` with a live mask backend refines the car
+    masks through the SAM checkpoint of ``backends.sam_checkpoint`` (the
+    port's) and writes the JAX driver's masks_raw/ files; without a SAM
+    checkpoint both drivers raise the same ValueError before any
+    frame."""
     from monosowa_tpu_torch.convert import zoo_params
     from monosowa_tpu_torch.models.mask2former import Mask2Former
     from monosowa_tpu_torch.sowa import zoo
+    from test_torch_sam import configs, random_tree
     from test_torch_swin_mask2former import CFG
 
-    ckpt = str(tmp_path / "mask.npz")
-    zoo.save_checkpoint(ckpt, "mask2former",
-                        zoo_params(Mask2Former(CFG, device="cpu")), CFG)
+    mtree = zoo_params(Mask2Former(CFG, device="cpu"))
+    # every query a car far above refine_masks' 0.7
+    mtree["transformer"]["class_predictor"]["bias"][2] += 20.0
+    mask_ckpt, sam_ckpt = str(tmp_path / "mask.npz"), str(tmp_path / "sam.npz")
+    zoo.save_checkpoint(mask_ckpt, "mask2former", mtree, CFG)
+    _, scfg = configs()
+    zoo.save_checkpoint(sam_ckpt, "sam", random_tree(scfg), scfg)
     conf = yaml.safe_load(open(_config(kitti_dir, "sam")))
-    conf["backends"] = {"mask": "mask2former", "mask_checkpoint": ckpt,
+    conf["backends"] = {"mask": "mask2former", "mask_checkpoint": mask_ckpt,
                         "mask_input_hw": [64, 96]}
     conf["frames_creation"]["use_SAM"] = True
-    conf["paths"]["merged_frames_path"] = str(tmp_path / "cache")
-    path = tmp_path / "sam.yaml"
-    path.write_text(yaml.safe_dump(conf))
-    with pytest.raises(NotImplementedError, match="models/sam.py"):
-        cli.main(["--config", str(path), "--action", "mask_tracking",
-                  "--device", "cpu"])
-    assert not (tmp_path / "cache" / "masks_raw").exists()
+    errors = []
+    for tag, main, dev in (("torch", cli.main, ["--device", "cpu"]),
+                           ("jax", jcli.main, [])):
+        conf["paths"]["merged_frames_path"] = str(tmp_path / tag)
+        path = tmp_path / f"{tag}_no_sam.yaml"
+        path.write_text(yaml.safe_dump(conf))
+        with pytest.raises(ValueError, match="sam_path") as got:
+            main(["--config", str(path), "--action", "mask_tracking"] + dev)
+        errors.append(str(got.value))
+        assert not (tmp_path / tag / "masks_raw").exists()
+        conf["backends"]["sam_checkpoint"] = sam_ckpt
+        path = tmp_path / f"{tag}.yaml"
+        path.write_text(yaml.safe_dump(conf))
+        assert main(["--config", str(path), "--action", "mask_tracking"]
+                    + dev) == 0
+        del conf["backends"]["sam_checkpoint"]
+    assert errors[0] == errors[1]
+    n = 0
+    for fid in FIDS:
+        got = masks.load_masks(str(tmp_path / "torch" / "masks_raw"), fid)
+        want = jmasks.load_masks(str(tmp_path / "jax" / "masks_raw"), fid)
+        assert len(got) == len(want)
+        n += len(got)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    assert n > 0
 
 
 def test_lidar_scans_cached_matches_jax(kitti_dir, tmp_path):

@@ -119,11 +119,17 @@ def test_port_checkpoint_loads_into_jax(ckpts):
 
 
 def test_kinds_not_ported_raise(tmp_path):
-    for kind, module in (("sam", "models/sam.py"),
-                         ("loftr", "models/efficientloftr.py"),
+    """``loftr`` and ``vit_tracker`` raise naming their JAX module; ``sam``
+    (ported) writes and reads back (``tests/test_torch_sam.py`` holds it
+    against the JAX package)."""
+    for kind, module in (("loftr", "models/efficientloftr.py"),
                          ("vit_tracker", "models/vit_tracker.py")):
         with pytest.raises(NotImplementedError, match=module):
             zoo.save_checkpoint(str(tmp_path / "x.npz"), kind, {}, None)
+    from monosowa_tpu_torch.models.sam import SamConfig
+    zoo.save_checkpoint(str(tmp_path / "sam.npz"), "sam",
+                        {"t": np.ones(2, np.float32)}, SamConfig())
+    assert zoo.load_checkpoint(str(tmp_path / "sam.npz"))[2] == SamConfig()
     with pytest.raises(ValueError, match="unknown"):
         zoo.save_checkpoint(str(tmp_path / "x.npz"), "resnet", {}, None)
 
@@ -145,7 +151,7 @@ def test_backends_from_config(ckpts, tmp_path):
         zoo.mask_backend(Config({"backends": {
             "mask": "mask2former", "mask_checkpoint": ckpts["depth"]}}),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="models/sam.py"):
+    with pytest.raises(ValueError, match="sam_path"):
         zoo.sam_refine_backend(Config({"frames_creation": {"use_SAM": True}}))
     b = zoo.mask_backend(Config({
         "backends": {"mask": "mask2former", "mask_checkpoint": ckpts["mask"],

@@ -1,22 +1,26 @@
 """Where the model zoo's networks spend their time on one GPU.
 
-Builds Mask2Former on Swin-B and Depth Anything Large at full width
-(seeded random weights, TF32 off) on ``cuda``, through their backends
-(``sowa/masks.py`` ``Mask2FormerBackend``, ``sowa/depth.py``
-``DepthAnythingBackend``), warms up, then for one seeded 375x1242 frame
-each:
+Builds Mask2Former on Swin-B, Depth Anything Large and, with ``--sam``,
+SAM ViT-H at full width (seeded random weights, TF32 off) on ``cuda``,
+through their backends (``sowa/masks.py`` ``Mask2FormerBackend`` and
+``SamRefineBackend``, ``sowa/depth.py`` ``DepthAnythingBackend``), warms
+up, then for one seeded 375x1242 frame each:
 
 * times each stage with CUDA events from forward hooks (Mask2Former: the
   Swin trunk, the pixel decoder and each of its encoder layers, the
   masked-attention decoder; Depth Anything: each DINOv2 layer, each
-  reassemble and each fusion layer);
+  reassemble and each fusion layer; SAM: the patch embedding, each of the
+  32 encoder layers, the neck, and the prompt encoder and mask decoder of
+  ``refine`` on 16 boxes, one decoder chunk);
 * traces the backend's whole call (encode, forward, post-processing) with
   ``torch.profiler`` and sums device time by kernel name, with the
   device's busy share of the call's wall time.
 
-Prints one JSON line per part, after the card's name and power limit.
+Prints one JSON line per part, after the card's name and power limit;
+SAM's adds its encoder's operations and bound (``chip_smoke.
+sam_encoder_work``).
 
-    python tools/profile_torch_zoo.py [--only masks|depth]
+    python tools/profile_torch_zoo.py [--only masks|depth | --sam]
 """
 
 import argparse
@@ -81,7 +85,10 @@ def profile(label, backend, call, stages) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["masks", "depth"], default=None)
+    which = parser.add_mutually_exclusive_group()
+    which.add_argument("--only", choices=["masks", "depth"], default=None)
+    which.add_argument("--sam", action="store_true",
+                       help="SAM ViT-H alone")
     args = parser.parse_args()
     import torch
 
@@ -101,7 +108,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     frame = chip_smoke.zoo_frames(1)["000000"]
-    if args.only in (None, "masks"):
+    if not args.sam and args.only in (None, "masks"):
         cfg = chip_smoke.mask2former_config()
         backend = Mask2FormerBackend(
             zoo_params(Mask2Former(cfg, device="cpu")), cfg,
@@ -114,7 +121,7 @@ def main() -> int:
                 lambda: backend.predict_masks_scores(frame), stages)
         del backend
         torch.cuda.empty_cache()
-    if args.only in (None, "depth"):
+    if not args.sam and args.only in (None, "depth"):
         cfg = chip_smoke.depth_anything_config()
         backend = DepthAnythingBackend(
             chip_smoke.unit_gain(zoo_params(DepthAnything(cfg,
@@ -126,6 +133,32 @@ def main() -> int:
         stages += [f"fusion.{i}" for i in range(4)]
         profile("depth_anything", backend,
                 lambda: backend.predict_depth(frame), stages)
+        del backend
+        torch.cuda.empty_cache()
+    if args.sam:
+        import numpy as np
+
+        from monosowa_tpu_torch.models.sam import Sam, vit_h
+        from monosowa_tpu_torch.sowa.masks import SamRefineBackend
+
+        cfg = vit_h()
+        backend = SamRefineBackend(
+            chip_smoke.unit_gain(zoo_params(Sam(cfg, device="cpu"))), cfg)
+        rng = np.random.default_rng(0)
+        h, w = frame.shape[:2]
+        x0, y0 = rng.integers(0, w - 200, 16), rng.integers(0, h - 100, 16)
+        boxes = np.stack([x0, y0, x0 + rng.integers(40, 200, 16),
+                          y0 + rng.integers(30, 100, 16)], 1)
+        stages = ["vision.patch_proj"] + [
+            f"vision.layer_{i}" for i in range(cfg.vision.num_hidden_layers)]
+        stages += ["vision.neck", "decoder"]
+        profile("sam_vit_h", backend, lambda: backend.refine(frame, boxes),
+                stages)
+        work = chip_smoke.sam_encoder_work(cfg)
+        print(json.dumps({"part": "sam_vit_h_encoder_work",
+                          "tflop": work["flop"] / 1e12, "bytes": work["bytes"],
+                          "bound_ms": work["bound_ms"],
+                          "bound_by": work["bound_by"]}), flush=True)
     return 0
 
 
