@@ -200,6 +200,45 @@ Phases, each printing one JSON line:
     images_to_labels — the driver's ``optimization`` over the masks_raw/
             and lidar_raw/ the two phases wrote, 2 frames: one label file
             each (content not judged: random weights).
+    waymo — raw Waymo segments through ``sowa/cli.py``'s
+            ``WaymoSegmentDriver`` at Waymo's sizes: a seeded segment of 6
+            frames, 5 cameras (1280 x 1920; the side cameras 886 x 1920,
+            handed to the driver in memory: no PIL there), a standing and
+            a moving car in the FRONT camera, fused LiDAR (about 216k
+            points: the cars and the ground in the FRONT camera's view,
+            the ground in the other four cameras') and poses written with
+            numpy.  (a) ``homographies`` through a
+            scene matcher (true correspondences, 30% outliers: RANSAC on the
+            host; every H within 1 px of the truth at the camera's
+            corners); ``mask_tracking`` over the scene's car masks as a
+            masks_raw cache (1380 x 4590 pair canvases stitched on the
+            card, the template tracker on the card; each car tracked over
+            the segment); ``transformations``; ``optimization`` at the
+            shipped grid (every K5 launch replayed against the plain
+            version; the standing car within 0.35 m of the truth); the
+            reference frame at a cut grid on the card and on the CPU, the
+            same label file.  The window run: the reference frame of a
+            61-frame segment (its motion a tenth, so that both cars stay
+            in view) labelled at the shipped config's +-30 scans, through
+            ``mask_tracking``, ``transformations`` and ``optimization``
+            (the standing car within 0.35 m).  ``mask_tracking`` again with the masks
+            phase's Mask2Former on the canvases (its 384 x 1280 encode; the
+            threshold keeps 3 queries of the first canvas): 6 K1 launches
+            a canvas, K1 held on one canvas's recorded inputs.  (b)
+            EfficientLoFTR at full width (seeded, a zoo checkpoint) through
+            ``backends.matcher: loftr`` on the segment's pairs at 480 x
+            640: ms a pair.  Its checks run at a match threshold of 1e-6
+            (random weights match nothing above 0.2) on the FRONT image
+            beside itself moved 64 columns (the segment's cameras are
+            independent noise), so that matches exist: float32 against float64 on the card at full depth
+            (coarse features, fine-fusion windows and matched scores
+            within 1e-3 of their magnitude, keypoints within 1e-5 of the
+            image size where the matches agree), 2 attention layers on
+            the card against the CPU (1e-4); flipped matches and
+            keypoints counted, at most 1% of the coarse cells.  The ViT tracker at full width through
+            ``backends.tracker: vit``: steps, ms a step, card against CPU
+            (1e-4).  Prints each action's ms a frame, the stages' seconds,
+            the host share of a live mask frame and ``peak_mem_GB``.
 11. kernels — one line listing every ported kernel with its numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -4110,6 +4149,713 @@ def sam(dev, root: str, frames: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# waymo: raw Waymo segments through the CLI's WaymoSegmentDriver
+# ---------------------------------------------------------------------------
+
+WAYMO_FRAMES = 6
+WAYMO_F = 2000.0             # the FRONT camera's focal length, px at 1920
+WAYMO_EGO_STEP = 0.5         # ego motion a frame, m along the vehicle's +x
+# camera-frame poses at the reference frame; "step": m a frame along +x of
+# the vehicle (the moving car drives ahead of the ego)
+WAYMO_CARS = ({"x": 1.0, "y": 0.9, "z": 14.0, "theta": 0.6, "step": 0.0},
+              {"x": -4.5, "y": 0.9, "z": 20.0, "theta": 0.1, "step": 1.2})
+WAYMO_GROUND = 60000         # ground points drawn a camera and scan
+# yaw of each camera slot about the vehicle's up axis (SIDE_LEFT,
+# FRONT_LEFT, FRONT, FRONT_RIGHT, SIDE_RIGHT)
+WAYMO_CAM_YAW = (90.0, 45.0, 0.0, -45.0, -90.0)
+# the window run: the shipped config's +-30 scans (configs/sowa_kitti.yaml)
+# over a segment of 61 frames, its motion a tenth of the segment's, so that
+# both cars stay in view over the whole window
+WAYMO_WINDOW = 30
+WAYMO_WINDOW_MOTION = 0.1
+WAYMO_MATCHES, WAYMO_OUTLIERS = 240, 0.3
+WAYMO_KEPT = 3               # Mask2Former queries kept a canvas
+WAYMO_CUT_GRID = {"opt_param1_iters": 11, "opt_param2_iters": 11,
+                  "opt_param3_iters": 8, "opt_fine_iters": 36}
+WAYMO_CAR_BAR = 0.35         # m, tests/test_waymo2d_e2e.py's
+LOFTR_INPUT_HW = (480, 640)  # the backend's default (sowa/stitching.py)
+LOFTR_CUT_LAYERS = 2
+LOFTR_CPU_BAR = 1e-4         # card vs CPU at the cut depth, of max abs
+LOFTR_F64_BAR = 1e-3         # float32 vs float64 at full depth
+# the checks' match threshold: random weights match nothing above the
+# shipped 0.2 (tests/test_torch_efficientloftr.py's)
+LOFTR_CHECK_THRESHOLD = 1e-6
+# and on a pair that shares content: the FRONT image beside itself moved
+# this many columns (the segment's cameras are independent noise, whose
+# pairs match nothing)
+LOFTR_CHECK_SHIFT = 64
+LOFTR_KP_BAR = 1e-5          # keypoints, of the image size
+LOFTR_FLIP_SHARE = 0.01      # flipped matches or keypoints, of the cells
+TRACKER_CPU_BAR = 1e-4
+TRACKER_TIMED_STEPS = 20
+
+
+def waymo_homographies(layout):
+    """The true homography of each pair: the warped camera beside its
+    fixed partner with an overlap of 1/15 of the width, a small shear and
+    perspective."""
+    import numpy as np
+
+    cw, y0 = layout.cam_w, layout.paste_y0
+    right_x0 = layout.canvas_hw[1] - cw
+    out = []
+    for z in range(4):
+        h = np.eye(3)
+        h[0, 2] = right_x0 - cw + cw // 15 if z < 2 else cw - cw // 15
+        h[1, 2] = y0 + 0.02 * layout.cam_h
+        h[0, 1], h[1, 0] = 0.01, -0.008
+        h[2, 0] = (2e-5 if z < 2 else -2e-5) * 1920 / cw
+        out.append(h)
+    return out
+
+
+def car_mask(u, v, h: int, w: int, cell: int = 8):
+    """A car's mask from its projected points: the cells of ``cell``
+    pixels they fall in, dilated once and filled."""
+    import numpy as np
+    import scipy.ndimage
+
+    g = np.zeros((h // cell + 1, w // cell + 1), bool)
+    g[(v // cell).astype(int), (u // cell).astype(int)] = True
+    g = scipy.ndimage.binary_fill_holes(scipy.ndimage.binary_dilation(g))
+    return np.repeat(np.repeat(g, cell, 0), cell, 1)[:h, :w]
+
+
+def side_ground(rng, layout, ground: int, cam2veh, f: float):
+    """Ground points in the view of the four cameras other than FRONT as
+    fused-scan rows (vehicle xyz, the camera's id, u, v): drawn in a
+    camera frame like FRONT's, turned by the slot's ``WAYMO_CAM_YAW``."""
+    import numpy as np
+
+    from monosowa_tpu_torch.sowa.waymo2d import CAM_SLOT_TO_WAYMO_ID
+
+    rows = []
+    for slot in (0, 1, 3, 4):
+        h = layout.side_h if slot in (0, 4) else layout.cam_h
+        g = np.stack([rng.uniform(-15, 15, ground), np.full(ground, 1.66),
+                      rng.uniform(4, 60, ground)], 1)
+        u = f * g[:, 0] / g[:, 2] + layout.cam_w / 2
+        v = f * g[:, 1] / g[:, 2] + h / 2
+        vis = (u >= 0) & (u < layout.cam_w) & (v >= 0) & (v < h)
+        yaw = np.radians(WAYMO_CAM_YAW[slot])
+        rot = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                        [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]])
+        xyz = g[vis] @ cam2veh[:3, :3].T @ rot.T
+        n = int(vis.sum())
+        rows.append(np.concatenate([
+            xyz, np.full((n, 1), CAM_SLOT_TO_WAYMO_ID[slot]),
+            np.stack([u[vis], v[vis]], 1)], 1))
+    return np.concatenate(rows)
+
+
+def waymo_scene(layout, n_frames: int = WAYMO_FRAMES, ground: int =
+                WAYMO_GROUND, seed: int = 0, motion: float = 1.0) -> dict:
+    """A seeded segment at ``layout``'s sizes: 5 cameras of noise (side
+    cameras ``side_h`` rows), the two ``WAYMO_CARS`` (the template bank's
+    car) painted in the FRONT camera where their points project, their
+    masks on pair canvases 1 and 2 (the FRONT camera is the fixed slot of
+    both), a fused scan (vehicle xyz, camera id, u, v) of the cars and the
+    ground in the FRONT camera's view and of the ground in the other four
+    cameras', ego poses along +x; ``motion`` scales the ego's and the
+    cars' steps."""
+    import numpy as np
+
+    from monosowa_tpu_torch.sowa.templates import TemplateBank
+    from monosowa_tpu_torch.sowa.waymo2d import VEHICLE_TO_CAM
+
+    rng = np.random.default_rng(seed)
+    pts = TemplateBank.default().points[0]
+    ref = n_frames // 2
+    h, w = layout.cam_h, layout.cam_w
+    f = WAYMO_F * w / 1920.0
+    cam2veh = np.linalg.inv(VEHICLE_TO_CAM)
+    cars = []
+    for c in WAYMO_CARS:
+        ct, st = np.cos(c["theta"]), np.sin(c["theta"])
+        rot = np.array([[ct, 0, st], [0, 1, 0], [-st, 0, ct]])
+        cars.append((pts @ rot.T + [c["x"], c["y"], c["z"]]) @ cam2veh.T)
+    ys1, xs1 = layout.paste_slice(True)
+    ys2, xs2 = layout.paste_slice(False)
+    colours = ((230, 180, 90), (90, 200, 230))
+    scene = {"images": [], "lidars": [], "poses": [], "det_masks": [],
+             "ref": ref, "layout": layout}
+    for k in range(n_frames):
+        pose = np.eye(4)
+        pose[0, 3] = (k - ref) * WAYMO_EGO_STEP * motion
+        ground_cam = np.stack([rng.uniform(-15, 15, ground),
+                               np.full(ground, 1.66),
+                               rng.uniform(4, 60, ground)], 1)
+        parts = [ground_cam @ cam2veh.T]
+        for c, car in zip(WAYMO_CARS, cars):
+            moved = car + [(k - ref) * c["step"] * motion, 0, 0] \
+                - pose[:3, 3]
+            parts.append(moved + rng.normal(scale=0.02, size=moved.shape))
+        imgs = [rng.integers(0, 40, (layout.side_h if s in (0, 4) else h,
+                                     w, 3), dtype=np.uint8)
+                for s in range(5)]
+        keep, on1, on2 = [], [], []
+        ground_uv = None
+        for j, part in enumerate(parts):
+            cam = part @ VEHICLE_TO_CAM.T
+            u = f * cam[:, 0] / cam[:, 2] + w / 2
+            v = f * cam[:, 1] / cam[:, 2] + h / 2
+            vis = (cam[:, 2] > 1) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+            if j == 0:
+                ground_uv = (u, v, cam[:, 2], vis)
+                continue
+            m = car_mask(u[vis], v[vis], h, w, max(2, 8 * w // 1920))
+            imgs[2][m] = colours[j - 1]
+            # the car hides the ground behind it from the scanner
+            gu, gv, gz, gvis = ground_uv
+            hit = gvis.copy()
+            hit[gvis] = m[gv[gvis].astype(int), gu[gvis].astype(int)]
+            ground_uv = (gu, gv, gz, gvis & ~(hit & (gz > cam[:, 2].min())))
+            keep.append((part, u, v, vis))
+            for ys, xs, dst in ((ys1, xs1, on1), (ys2, xs2, on2)):
+                pano = np.zeros(layout.canvas_hw, bool)
+                pano[ys, xs] = m
+                dst.append(pano)
+        gu, gv, _, gvis = ground_uv
+        keep.insert(0, (parts[0], gu, gv, gvis))
+        scene["lidars"].append(np.concatenate([np.concatenate(
+            [part[vis], np.ones((int(vis.sum()), 1)),
+             np.stack([u[vis], v[vis]], 1)], 1)
+            for part, u, v, vis in keep]
+            + [side_ground(rng, layout, ground, cam2veh, f)]).astype(
+                np.float32))
+        scene["images"].append(imgs)
+        scene["poses"].append(pose)
+        scene["det_masks"].append([[], on1, on2, []])
+    return scene
+
+
+class SceneMatcher:
+    """``MatcherBackend`` of the synthetic segment (the card's machine has
+    no OpenCV for ORB): each pair's true correspondences, points of the
+    warped camera and their images under the pair's homography in the
+    fixed camera's pixels, a share of them replaced by outliers, so that
+    RANSAC and ``select_best_homography`` do their work.  The driver asks
+    for the pairs in order, 4 a frame."""
+
+    def __init__(self, homos, layout, n: int = WAYMO_MATCHES,
+                 outliers: float = WAYMO_OUTLIERS):
+        self.homos, self.layout, self.n, self.outliers = (homos, layout, n,
+                                                          outliers)
+        self.calls = 0
+
+    def match(self, img_src, img_dst):
+        import numpy as np
+
+        from monosowa_tpu_torch.sowa.waymo2d import PAIRS
+
+        z = self.calls % 4
+        rng = np.random.default_rng(self.calls)
+        self.calls += 1
+        lay = self.layout
+        src = rng.uniform([0, 0], [lay.cam_w, lay.cam_h], (self.n, 2))
+        hom = np.hstack([src, np.ones((self.n, 1))]) @ self.homos[z].T
+        ys, xs = lay.paste_slice(PAIRS[z][2])
+        dst = hom[:, :2] / hom[:, 2:] - [xs.start, ys.start]
+        bad = rng.uniform(size=self.n) < self.outliers
+        dst[bad] = rng.uniform([0, 0], [lay.cam_w, lay.cam_h],
+                               (int(bad.sum()), 2))
+        return src, dst
+
+
+def waymo_driver(root: str, action: str, dev, scene: dict, cache: str,
+                 labels: str = "labels", extra=None, matcher=None):
+    """The CLI driver (``sowa/cli.py`` ``WaymoSegmentDriver``) over one
+    segment under ``root``: its LiDAR (npz) and poses (npy) written with
+    numpy, its images handed over in memory (the card's machine has no
+    PIL to read PNGs); ``matcher`` in place of the configured one."""
+    import numpy as np
+
+    from monosowa_tpu_torch.config import Config, PipelineFlags
+    from monosowa_tpu_torch.sowa.cli import WaymoSegmentDriver
+
+    seg = os.path.join(root, "segments", "seg-000")
+    if not os.path.exists(os.path.join(seg, "poses.npy")):
+        os.makedirs(os.path.join(seg, "lidar"), exist_ok=True)
+        for i, pts in enumerate(scene["lidars"]):
+            np.savez_compressed(os.path.join(seg, "lidar", f"{i:06d}.npz"),
+                                points=pts)
+        np.save(os.path.join(seg, "poses.npy"), np.stack(scene["poses"]))
+    n = len(scene["images"])
+    cfg = {"paths": {"waymo_path": os.path.join(root, "segments"),
+                     "merged_frames_path": os.path.join(root, cache),
+                     "labels_path": os.path.join(root, labels)},
+           "frames_creation": {"nscans_before": n // 2,
+                               "nscans_after": n // 2,
+                               "nscans_transformation_range": n // 2},
+           "image_stitching": {
+               "height_pxl_pad": scene["layout"].height_pad,
+               "width_pxl_pad": scene["layout"].width_pad}}
+    for k, v in (extra or {}).items():
+        cfg.setdefault(k, {}).update(v)
+
+    class InMemorySegment(WaymoSegmentDriver):
+        def _n_frames(self, seg):
+            return n
+
+        def _get_imgs(self, seg):
+            return lambda i: scene["images"][i]
+
+        def _matcher(self):
+            self.matcher = matcher or super()._matcher()
+            return self.matcher
+
+    return InMemorySegment(Config(cfg), PipelineFlags(action), device=dev)
+
+
+def copy_cache(root: str, src: str, dst: str, sub: str) -> None:
+    import shutil
+
+    shutil.copytree(os.path.join(root, src, sub), os.path.join(root, dst,
+                                                                sub))
+
+
+def corner_error(got, want, layout) -> float:
+    """Largest distance at the warped camera's corners between two
+    homographies' images (canvas pixels)."""
+    import numpy as np
+
+    c = np.array([[0, 0, 1], [layout.cam_w, 0, 1], [0, layout.cam_h, 1],
+                  [layout.cam_w, layout.cam_h, 1]], float)
+    a, b = c @ got.T, c @ want.T
+    return float(np.abs(a[:, :2] / a[:, 2:] - b[:, :2] / b[:, 2:]).max())
+
+
+def label_cars(path: str):
+    from monosowa_tpu_torch.kittiio import read_label_file
+
+    lab = read_label_file(path)
+    return [(str(n), float(p[0]), float(p[2]))
+            for n, p in zip(lab.names, lab.pos)]
+
+
+def rel_err(a, b) -> float:
+    return float((a.double().cpu() - b.double().cpu()).abs().max()
+                 / max(float(b.double().abs().max()), 1e-30))
+
+
+def loftr_parts(model, pair) -> dict:
+    """One LoFTR forward's outputs with the coarse features and the
+    fine-fusion windows it computed on the way (``EfficientLoFTR.forward``
+    calls both methods once)."""
+    import torch
+
+    rec = {}
+
+    def keep(name, fn):
+        def call(*args):
+            rec[name] = fn(*args)
+            return rec[name]
+        return call
+
+    model.coarse_features = keep("coarse", model.coarse_features)
+    model.fine_fusion_forward = keep("windows", model.fine_fusion_forward)
+    try:
+        with torch.no_grad():
+            kp, sc, idx = model(pair)
+    finally:
+        del model.coarse_features, model.fine_fusion_forward
+    return {"coarse": rec["coarse"][1], "windows": rec["windows"], "kp": kp,
+            "sc": sc, "idx": idx}
+
+
+def loftr_agreement(got: dict, want: dict, bar: float, what: str) -> dict:
+    """Two LoFTR forwards held together: coarse features and fine-fusion
+    windows within ``bar`` of their magnitude; where the coarse matches
+    agree, scores within ``bar`` and keypoints within ``LOFTR_KP_BAR`` of
+    the image size.  A match is discontinuous (a score at the threshold,
+    a mutual-nearest tie, the fine stage's argmax): the slots whose match
+    or keypoint flipped are counted, at most ``LOFTR_FLIP_SHARE`` of the
+    coarse cells."""
+    idx, idx_w = got["idx"].cpu(), want["idx"].cpu()
+    same = (idx == idx_w) & (idx_w >= 0)
+    kp_err = (got["kp"].double().cpu() - want["kp"].double().cpu()).abs(
+        ).amax(-1)[same]
+    held = kp_err <= LOFTR_KP_BAR
+    out = {"coarse_rel": rel_err(got["coarse"], want["coarse"]),
+           "windows_rel": max(rel_err(a, b) for a, b in zip(
+               got["windows"], want["windows"])),
+           "matched": int((idx_w >= 0).sum()),
+           "matched_equal": int(same.sum()),
+           "scores_rel": rel_err(got["sc"].cpu()[same],
+                                 want["sc"].cpu()[same])
+           if bool(same.any()) else None,
+           "kp_abs": float(kp_err[held].max()) if bool(held.any()) else None,
+           "match_flips": int((idx != idx_w).sum()),
+           "kp_flips": int((~held).sum())}
+    flips = out["match_flips"] + out["kp_flips"]
+    if not out["matched_equal"] or max(
+            out["coarse_rel"], out["windows_rel"], out["scores_rel"]) > bar \
+            or flips > LOFTR_FLIP_SHARE * idx.numel():
+        raise AssertionError(f"LoFTR {what}: {out}")
+    return out
+
+
+def waymo_window(dev, root: str, layout, homos_dir: str) -> dict:
+    """The reference frame of a segment of ``2 * WAYMO_WINDOW + 1`` frames
+    labelled at the shipped config's window of +-``WAYMO_WINDOW`` scans:
+    the scene's car masks as the masks_raw cache, the template tracker,
+    ``transformations``, then ``optimization`` of that frame alone (the
+    other frames' label files are there already).  The homographies are
+    the short segment's (the same cameras)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.ops import tfl
+    from monosowa_tpu_torch.sowa import masks as masks_mod
+
+    n = 2 * WAYMO_WINDOW + 1
+    t0 = time.perf_counter()
+    scene = waymo_scene(layout, n, motion=WAYMO_WINDOW_MOTION)
+    out = {"frames": n, "window": [-WAYMO_WINDOW, WAYMO_WINDOW],
+           "motion": WAYMO_WINDOW_MOTION,
+           "scene_build_s": time.perf_counter() - t0,
+           "scan_points": len(scene["lidars"][scene["ref"]])}
+    seg, ref = "seg-000", scene["ref"]
+    shutil.copytree(homos_dir, os.path.join(root, "cache", "homographies"))
+    mdir = os.path.join(root, "cache", "masks_raw", seg)
+    for i in range(n):
+        for z in range(4):
+            masks_mod.save_masks(mdir, f"{i:06d}_{z}",
+                                 scene["det_masks"][i][z], layout.canvas_hw)
+    step_s = {}
+    for action in ("mask_tracking", "transformations"):
+        drv = waymo_driver(root, action, dev, scene, "cache")
+        t0 = time.perf_counter()
+        drv.run(None, None)
+        torch.cuda.synchronize()
+        step_s[action] = time.perf_counter() - t0
+        out[f"{action}_stage_s"] = dict(drv.stage_seconds)
+    lab = os.path.join(root, "labels", seg)
+    os.makedirs(lab, exist_ok=True)
+    for i in range(n):
+        if i != ref:
+            open(os.path.join(lab, f"{i:06d}.txt"), "w").close()
+    drv = waymo_driver(root, "optimization", dev, scene, "cache")
+    if (drv.pcfg.nscans_before, drv.pcfg.nscans_after) != (WAYMO_WINDOW,
+                                                           WAYMO_WINDOW):
+        raise AssertionError("the window run's window is "
+                             f"{drv.pcfg.nscans_before, drv.pcfg.nscans_after}")
+    tfl.launches = 0
+    t0 = time.perf_counter()
+    written = drv.run(None, None)
+    torch.cuda.synchronize()
+    step_s["optimization"] = time.perf_counter() - t0
+    out["optimization_stage_s"] = dict(drv.stage_seconds)
+    out["tfl_launches"] = tfl.launches
+    cars = label_cars(os.path.join(lab, f"{ref:06d}.txt"))
+    want = WAYMO_CARS[0]
+    off = min((max(abs(x - want["x"]), abs(z - want["z"]))
+               for _, x, z in cars), default=float("inf"))
+    if written != 1 or off > WAYMO_CAR_BAR:
+        raise AssertionError(f"window run: {written} label files, the "
+                             f"standing car {off} m from every label: "
+                             f"{cars}")
+    out["standing_car_err_m"] = off
+    out["ms_per_frame"] = {"mask_tracking": step_s["mask_tracking"] * 1e3
+                           / n,
+                           "transformations": step_s["transformations"]
+                           * 1e3 / n,
+                           "optimization": step_s["optimization"] * 1e3}
+    out["step_s"] = step_s
+    return out
+
+
+def waymo(dev, root: str, mask_ckpt: str, n_frames: int = WAYMO_FRAMES,
+          layout=None, loftr_cfg=None, tracker_cfg=None,
+          mask_input_hw=MASK_INPUT_HW, grid=None) -> dict:
+    """Raw Waymo segments through ``sowa/cli.py``'s ``WaymoSegmentDriver``
+    at Waymo's sizes (module docstring, phase ``waymo``)."""
+
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.config import Config
+    from monosowa_tpu_torch.convert import load_zoo_params, zoo_params
+    from monosowa_tpu_torch.models.efficientloftr import (
+        EfficientLoFTR, EfficientLoFTRConfig)
+    from monosowa_tpu_torch.models.vit_tracker import (ViTTracker,
+                                                       ViTTrackerConfig)
+    from monosowa_tpu_torch.ops import msda, tfl
+    from monosowa_tpu_torch.sowa import masks as masks_mod
+    from monosowa_tpu_torch.sowa import tracker2d, waymo2d, zoo
+
+    layout = layout or waymo2d.PairLayout()
+    out = {"phase": "waymo", "frames": n_frames,
+           "camera_hw": [layout.cam_h, layout.cam_w],
+           "side_hw": [layout.side_h, layout.cam_w],
+           "canvas_hw": list(layout.canvas_hw)}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scene = waymo_scene(layout, n_frames)
+    out["scene_build_s"] = time.perf_counter() - t0
+    out["scan_points"] = [len(p) for p in scene["lidars"][:3]]
+    truth = waymo_homographies(layout)
+    seg, ref = "seg-000", scene["ref"]
+    step_s = {}
+
+    # (a) homographies through the scene's matcher (RANSAC on the host)
+    drv = waymo_driver(root, "homographies", dev, scene, "cache",
+                       matcher=SceneMatcher(truth, layout))
+    t0 = time.perf_counter()
+    drv.run(None, None)
+    step_s["homographies"] = time.perf_counter() - t0
+    homos = drv._load_homos(seg)
+    err = max(corner_error(h, t, layout) for h, t in zip(homos, truth))
+    if err > 1.0:
+        raise AssertionError(f"homographies {err} px from the truth")
+    out["homography_corner_err_px"] = err
+    # the scene's car masks as the masks_raw cache (cached-artifact mode)
+    mdir = os.path.join(root, "cache", "masks_raw", seg)
+    t0 = time.perf_counter()
+    for i in range(n_frames):
+        for z in range(4):
+            masks_mod.save_masks(mdir, f"{i:06d}_{z}",
+                                 scene["det_masks"][i][z], layout.canvas_hw)
+    out["masks_raw_write_s"] = time.perf_counter() - t0
+
+    # (a) mask_tracking: canvases stitched on the card, the template
+    # tracker on the card
+    drv = waymo_driver(root, "mask_tracking", dev, scene, "cache")
+    t0 = time.perf_counter()
+    drv.run(None, None)
+    torch.cuda.synchronize()
+    step_s["mask_tracking"] = time.perf_counter() - t0
+    out["mask_tracking_stage_s"] = dict(drv.stage_seconds)
+    cars2d, _ = drv._load_tracked(seg, n_frames)
+    spans = sorted((len(o) for o in cars2d), reverse=True)
+    if spans[:2] != [n_frames, n_frames]:
+        raise AssertionError(f"track lengths {spans}: each car is tracked "
+                             "over the segment")
+    out["tracks"] = len(cars2d)
+
+    drv = waymo_driver(root, "transformations", dev, scene, "cache")
+    t0 = time.perf_counter()
+    drv.run(None, None)
+    step_s["transformations"] = time.perf_counter() - t0
+
+    # optimization at the shipped grid: K5 counted and replayed
+    drv = waymo_driver(root, "optimization", dev, scene, "cache",
+                       extra=grid and {"optimization": grid})
+    tfl.launches = 0
+    with recording_tfl() as recorded:
+        t0 = time.perf_counter()
+        written = drv.run(None, None)
+        torch.cuda.synchronize()
+        step_s["optimization"] = time.perf_counter() - t0
+        k5 = tfl.launches
+    out["tfl_launches"] = k5
+    out["tfl_replayed"] = replay_tfl_launches(recorded, "waymo")
+    del recorded
+    out["optimization_stage_s"] = dict(drv.stage_seconds)
+    if written != n_frames or k5 == 0:
+        raise AssertionError(f"optimization wrote {written} files with "
+                             f"{k5} tfl_counts launches")
+    cars = label_cars(os.path.join(root, "labels", seg, f"{ref:06d}.txt"))
+    want = WAYMO_CARS[0]
+    off = min(max(abs(x - want["x"]), abs(z - want["z"]))
+              for _, x, z in cars)
+    if off > WAYMO_CAR_BAR:
+        raise AssertionError(f"the standing car is {off} m from every "
+                             f"label: {cars}")
+    out["standing_car_err_m"] = off
+    out["reference_labels"] = cars
+    out["ms_per_frame"] = {k: v * 1e3 / n_frames for k, v in step_s.items()}
+    out["step_s"] = step_s
+
+    # the reference frame at a cut grid on the card and on the CPU, from
+    # the same caches: the same label file
+    texts = []
+    for tag, where in (("labels_cut_card", dev), ("labels_cut_cpu", "cpu")):
+        lab = os.path.join(root, tag, seg)
+        os.makedirs(lab, exist_ok=True)
+        for i in range(n_frames):
+            if i != ref:
+                open(os.path.join(lab, f"{i:06d}.txt"), "w").close()
+        drv = waymo_driver(root, "optimization", where, scene, "cache",
+                           labels=tag, extra={"optimization":
+                                              WAYMO_CUT_GRID})
+        t0 = time.perf_counter()
+        drv.run(None, None)
+        out[tag.replace("labels", "s")] = time.perf_counter() - t0
+        with open(os.path.join(lab, f"{ref:06d}.txt")) as f:
+            texts.append(f.read())
+    if texts[0] != texts[1] or not texts[1].startswith("Car"):
+        raise AssertionError("the card's label file is not the CPU's:\n"
+                             + texts[0] + "\n" + texts[1])
+    out["cpu_label_file_equal"] = True
+
+    # the reference frame of a longer segment at the shipped window
+    out["window_run"] = waymo_window(dev, os.path.join(root, "window"),
+                                     layout, os.path.join(root, "cache",
+                                                          "homographies"))
+    torch.cuda.empty_cache()
+
+    # the live Mask2Former on the canvases (the masks phase's checkpoint):
+    # 6 K1 launches a canvas; the threshold keeps WAYMO_KEPT queries of the
+    # first canvas (a weight choice: random weights give every query the
+    # same few labels)
+    canvases = waymo2d.stitch_frame(scene["images"][0], homos, layout,
+                                    device=dev)
+    hw = list(mask_input_hw)
+    probe = zoo.mask_backend(Config({"backends": {
+        "mask": "mask2former", "mask_checkpoint": mask_ckpt,
+        "mask_input_hw": hw}}), device=dev)
+    with torch.no_grad():
+        cls, _ = probe.forward(canvases[1])
+    prob = torch.softmax(cls.float(), -1)[:, CAR_LABEL].sort().values
+    thr = float(prob[-WAYMO_KEPT - 1] + prob[-WAYMO_KEPT]) / 2
+    del probe
+    os.makedirs(os.path.join(root, "cache_live"), exist_ok=True)
+    copy_cache(root, "cache", "cache_live", "homographies")
+    drv = waymo_driver(root, "mask_tracking", dev, scene, "cache_live",
+                       extra={"backends": {"mask": "mask2former",
+                                           "mask_checkpoint": mask_ckpt,
+                                           "mask_input_hw": hw},
+                              "filtering": {"score_detectron_thresh": thr}})
+    msda.launches = 0
+    t0 = time.perf_counter()
+    drv.run(None, None)
+    torch.cuda.synchronize()
+    live_s = time.perf_counter() - t0
+    k1 = msda.launches
+    backend = drv._mask_backend_cache
+    per_canvas = backend.cfg.encoder_layers
+    if k1 != per_canvas * 4 * n_frames:
+        raise AssertionError(f"{k1} MSDA launches for {4 * n_frames} "
+                             "canvases")
+    out["msda_launches"] = k1
+    out["live_mask_tracking_s"] = live_s
+    out["live_ms_per_frame"] = live_s * 1e3 / n_frames
+    out["live_stage_s"] = dict(drv.stage_seconds)
+    out["score_threshold"] = thr
+    out["mask_ms_per_canvas"] = cuda_ms(
+        lambda: backend.predict_masks(canvases[1]), 3, 1)
+    out["mask_forward_ms_per_canvas"] = cuda_ms(
+        lambda: backend.forward(canvases[1]), 3, 1)
+    prof = busy_share(lambda: [drv._pair_masks(seg, 0, z, c)
+                               for z, c in enumerate(canvases)])
+    out["live_masks_frame"] = {k: prof[k] for k in (
+        "wall_ms", "device_ms", "device_busy_share", "top_kernels")}
+    out["live_masks_host_share"] = 1.0 - prof["device_busy_share"]
+    recorded, restore = recording_msda(
+        list(backend.model.pixel_decoder.encoder_layers))
+    backend.forward(canvases[1])
+    restore()
+    out["canvas_k1"] = check_msda_recorded("waymo canvas", recorded)
+    del recorded, backend, drv
+    torch.cuda.empty_cache()
+
+    # (b) LoFTR at full width through backends.matcher: loftr
+    lcfg = loftr_cfg or EfficientLoFTRConfig()
+    t0 = time.perf_counter()
+    lpath = os.path.join(root, "zoo", "loftr.npz")
+    ltree = zoo_params(EfficientLoFTR(lcfg))
+    zoo.save_checkpoint(lpath, "loftr", ltree, lcfg)
+    out["loftr_checkpoint_s"] = time.perf_counter() - t0
+    drv = waymo_driver(root, "homographies", dev, scene, "cache_loftr",
+                       extra={"backends": {
+                           "matcher": "loftr", "matcher_checkpoint": lpath,
+                           "matcher_input_hw": list(LOFTR_INPUT_HW)}})
+    t0 = time.perf_counter()
+    drv.run(None, None)
+    out["loftr_homographies_s"] = time.perf_counter() - t0
+    matcher = drv.matcher
+    a, b = (waymo2d.pad_side_image(im, layout)
+            for im in scene["images"][0][1:3])
+    pair = torch.stack([matcher._gray(a), matcher._gray(b)])[None]
+    out["loftr_input_hw"] = list(pair.shape[-2:])
+    out["loftr_ms_per_pair"] = cuda_ms(lambda: matcher.model(pair), 5)
+    out["loftr_match_ms_per_pair"] = cuda_ms(lambda: matcher.match(a, b),
+                                             3, 1)
+    front = scene["images"][0][2]
+    pair = torch.stack([matcher._gray(front), matcher._gray(
+        np.roll(front, -LOFTR_CHECK_SHIFT, axis=1))])[None]
+    del matcher, drv
+    # the checks at a threshold that keeps matches, so that the fine
+    # fusion, the fine matching and the keypoints are held too
+    low = dataclasses.replace(lcfg,
+                              coarse_matching_threshold=LOFTR_CHECK_THRESHOLD)
+    m32 = load_zoo_params(EfficientLoFTR(low, device=dev), ltree)
+    got = loftr_parts(m32, pair)
+    m64 = m32.double()
+    out["loftr_f64"] = loftr_agreement(got, loftr_parts(m64, pair.double()),
+                                       LOFTR_F64_BAR, "float32 vs float64")
+    del m32, m64, got
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(low, num_attention_layers=LOFTR_CUT_LAYERS)
+    tree = zoo_params(EfficientLoFTR(cut, seed=1))
+    res = [loftr_parts(load_zoo_params(EfficientLoFTR(cut, device=where),
+                                       tree), pair.to(where))
+           for where in (dev, "cpu")]
+    out["loftr_cut_cpu"] = {"layers": LOFTR_CUT_LAYERS, **loftr_agreement(
+        *res, LOFTR_CPU_BAR, "card vs CPU")}
+    del res
+    torch.cuda.empty_cache()
+
+    # (b) the ViT tracker at full width through backends.tracker: vit
+    tcfg = tracker_cfg or ViTTrackerConfig()
+    tpath = os.path.join(root, "zoo", "vit_tracker.npz")
+    ttree = zoo_params(ViTTracker(tcfg))
+    zoo.save_checkpoint(tpath, "vit_tracker", ttree, tcfg)
+    for sub in ("homographies", "masks_raw"):
+        copy_cache(root, "cache", "cache_vit", sub)
+    drv = waymo_driver(root, "mask_tracking", dev, scene, "cache_vit",
+                       extra={"backends": {"tracker": "vit",
+                                           "tracker_checkpoint": tpath}})
+    steps, seen = [0], []
+    inner = tracker2d.ViTTrackerBackend.step
+
+    def counted(self, image):
+        steps[0] += 1
+        seen.append(self)
+        return inner(self, image)
+
+    tracker2d.ViTTrackerBackend.step = counted
+    try:
+        t0 = time.perf_counter()
+        drv.run(None, None)
+        torch.cuda.synchronize()
+        out["vit_mask_tracking_s"] = time.perf_counter() - t0
+    finally:
+        tracker2d.ViTTrackerBackend.step = inner
+    if not steps[0]:
+        raise AssertionError("the ViT tracker took no step")
+    out["vit_steps"] = steps[0]
+    trk = seen[-1]
+    z_, x_ = trk._template[None], trk._crop(
+        canvases[1], 3000.0, 700.0, 600.0, tcfg.search_size)[None]
+    tok = trk.model.track_token.detach()
+    out["tracker_ms_per_step"] = cuda_ms(lambda: trk.model(z_, x_, tok),
+                                         TRACKER_TIMED_STEPS)
+    cpu_model = load_zoo_params(ViTTracker(tcfg, device="cpu"), ttree)
+    with torch.no_grad():
+        got = trk.model(z_, x_, tok)
+        want = cpu_model(z_.cpu(), x_.cpu(), tok.cpu())
+    # the box is read at the score map's argmax: compared where that agrees
+    out["tracker_cpu"] = {n: rel_err(g, w) for n, g, w in zip(
+        ("score_map", "track_tokens"), got[1:], want[1:])}
+    same = bool(torch.equal(got[1].flatten(1).argmax(-1).cpu(),
+                            want[1].flatten(1).argmax(-1)))
+    out["tracker_cpu"]["box_abs"] = float(
+        (got[0].cpu() - want[0]).abs().max()) if same else None
+    if max(out["tracker_cpu"]["score_map"],
+           out["tracker_cpu"]["track_tokens"]) > TRACKER_CPU_BAR or (
+               same and out["tracker_cpu"]["box_abs"] > TRACKER_CPU_BAR):
+        raise AssertionError(f"tracker card vs CPU: {out['tracker_cpu']}")
+    out["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    del drv, trk, seen, canvases
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     # one card: the first of those visible
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -4319,6 +5065,14 @@ def main() -> int:
         emit(dep)
         itl = images_to_labels(dev, zroot, frames)
         emit(itl)
+        # raw Waymo segments through the driver (the masks phase's
+        # Mask2Former checkpoint on the pair canvases)
+        wmo = waymo(dev, zroot, os.path.join(zroot, "zoo",
+                                             "mask2former.npz"))
+        fwd["waymo canvas"] = wmo.pop("canvas_k1")
+        emit(wmo)
+        emit({"phase": "kernel", "name": "msda_fwd",
+              "registers": registers["msda_fwd"], **fwd["waymo canvas"]})
 
     # 11. kernels; library_ms is None where no one PyTorch call computes the
     # kernel's function (MSDA, its gradient, the two-way coverage)
@@ -4356,7 +5110,8 @@ def main() -> int:
                "train_add": tra["launches"]["msda_fwd"],
                "epoch": epc["msda_fwd_launches"],
                "masks": msk["msda_launches"],
-               "sam": smp["msda_launches"]}, fwd),
+               "sam": smp["msda_launches"],
+               "waymo": wmo["msda_launches"]}, fwd),
         entry("msda_bwd", "monosowa_tpu_torch/ops/csrc/msda_bwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:306 (K2 msda_gdot_mxu); "
               "monosowa_tpu/ops/msda_mxu.py:544 (K3 msda_dvalue_mxu)",
@@ -4381,7 +5136,8 @@ def main() -> int:
                "label_bank": lbk["tfl_launches"],
                "label_k360": k3["launches"],
                "label_lidar": lld["tfl_launches"],
-               "images_to_labels": itl["tfl_launches"]},
+               "images_to_labels": itl["tfl_launches"],
+               "waymo": wmo["tfl_launches"]},
               {**cov, **k3["tfl_new_shapes"]}, "rescore"),
         entry("row_fetch", "monosowa_tpu_torch/ops/csrc/row_fetch.cu",
               "tools/bench_gather_micro.py:61 (K6 run; bodies _kernel_gather "

@@ -189,8 +189,9 @@ def _weight_leaf(mod: nn.Module):
 
 def load_zoo_params(module: nn.Module, tree: Mapping) -> nn.Module:
     """Fill a zoo network of the port (``models/swin.py``,
-    ``mask2former.py``, ``dinov2.py``, ``depth_anything.py``) from the JAX
-    package's param tree (nested dicts and lists of numpy arrays, as
+    ``mask2former.py``, ``dinov2.py``, ``depth_anything.py``, ``sam.py``,
+    ``efficientloftr.py``, ``vit_tracker.py``) from the JAX package's
+    param tree (nested dicts and lists of numpy arrays, as
     ``sowa.zoo.load_checkpoint`` returns it).  Any tree leaf the port has
     no tensor for, any shape that differs and any port tensor left unfilled
     raise ``ValueError``; nothing is written unless everything matches."""

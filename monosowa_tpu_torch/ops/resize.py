@@ -50,11 +50,12 @@ import torch.nn.functional as F
 def _interpolate_nhwc(x: torch.Tensor, out_hw: Sequence[int],
                       **kw) -> torch.Tensor:
     """(..., H, W, C) -> (..., H', W', C) through ``F.interpolate`` in
-    float32, returned in x's dtype."""
+    float32 (float64 for float64 x), returned in x's dtype."""
     oh, ow = int(out_hw[0]), int(out_hw[1])
     lead = x.shape[:-3]
     h, w, c = x.shape[-3:]
-    y = x.reshape(-1, h, w, c).float().permute(0, 3, 1, 2)
+    y = x.reshape(-1, h, w, c).to(torch.promote_types(
+        x.dtype, torch.float32)).permute(0, 3, 1, 2)
     y = F.interpolate(y, size=(oh, ow), **kw)
     return y.permute(0, 2, 3, 1).reshape(*lead, oh, ow, c).to(x.dtype)
 

@@ -1,9 +1,10 @@
 """Pseudo-label generator CLI.
 
     python -m monosowa_tpu_torch.sowa.cli --config <yaml> \
-        --action {lidar_scans,transformations,mask_tracking,candidates,
-                  frames_aggregation,optimization,dimensions_output,demo} \
-        [--dataset {kitti,kitti360,all,waymo_converted}] \
+        --action {lidar_scans,transformations,homographies,mask_tracking,
+                  candidates,frames_aggregation,optimization,
+                  dimensions_output,demo} \
+        [--dataset {kitti,kitti360,all,waymo_converted,waymo}] \
         [--seq_start N] [--seq_end M] [--device cpu]
 
 CLI contract (pseudo_label_generator/3d/scripts/main.py:5-17): ``--dataset``,
@@ -36,13 +37,22 @@ merged-cars cache (``merged_cars/``) is fitted directly.  ``demo`` and
 reducer) on; with ``extract_pedestrians`` every label file also holds the
 ``Pedestrian`` rows of the frame's ``pedestrians/`` masks.  Networks and
 labelling run on the card unless ``--device`` names another.
-``homographies`` and the raw Waymo driver raise ``NotImplementedError``
-naming the JAX module they need.
+
+``--dataset waymo`` drives raw Waymo segments (``WaymoSegmentDriver``, the
+JAX driver's files): ``homographies`` (pair homographies through ORB on
+the host or EfficientLoFTR on the card, ``backends.matcher``),
+``mask_tracking`` (pair canvases stitched on the card, Mask2Former on them
+or a ``masks_raw/`` cache, the template or ViT tracker,
+``backends.tracker``), ``transformations`` (vehicle poses) and
+``optimization`` (the fit on the card).  ``homographies`` on the frame
+datasets raises ``NotImplementedError``, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import os
 import sys
 import time
@@ -58,10 +68,6 @@ from monosowa_tpu_torch.sowa import transforms as transforms_mod
 from monosowa_tpu_torch.sowa.fitting import FitConfig
 from monosowa_tpu_torch.sowa.pipeline import PipelineConfig, PseudoLabeler
 
-# action -> the module of the JAX package that it needs
-_OTHER_ACTIONS = {
-    "homographies": "sowa/stitching.py",
-}
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -195,10 +201,11 @@ class KittiObjectDriver:
     def run(self, seq_start: Optional[int], seq_end: Optional[int],
             shuffle: bool = False) -> int:
         action = self.flags.action
-        if action in _OTHER_ACTIONS:
+        if action == "homographies":
             raise NotImplementedError(
-                f"action {action!r}: {_OTHER_ACTIONS[action]} of the JAX "
-                "package is not ported")
+                "action 'homographies' estimates the Waymo pair homographies "
+                "(sowa/stitching.py, sowa/waymo2d.py) and runs with "
+                "--dataset waymo only")
         ids = self.frame_ids()
         if shuffle:
             # KITTI-360 fleet draw: disjoint random subsets per worker
@@ -560,21 +567,322 @@ class KittiObjectDriver:
             return np.asarray(im.convert("RGB"))
 
 
+class WaymoSegmentDriver:
+    """Drives raw multi-camera Waymo segments through the 2D-tracker path
+    (main_class.main_waymo :39-150, tracker_for_merging: '2D'); the JAX
+    package's ``WaymoSegmentDriver``, with the same files.
+
+    On-disk segment layout (one dir per segment under paths.waymo_path):
+
+      <segment>/camera_{0..4}/{frame:06d}.png   slot-ordered images
+                                                (SIDE_LEFT, FRONT_LEFT,
+                                                FRONT, FRONT_RIGHT,
+                                                SIDE_RIGHT)
+      <segment>/lidar/{frame:06d}.npz           key "points": (N, 6) fused
+                                                vehicle-frame xyz + cam id
+                                                + (u, v) pixel
+      <segment>/poses.npy                       (T, 4, 4) T_world<-vehicle
+
+    Caches under merged_frames_path: ``homographies/<seg>.npz`` (NaN for
+    a pair without one), ``detandtracked/<seg>.npz`` (bit-packed pair
+    masks and the object array of tracks), ``masks_raw/<seg>/`` for
+    precomputed pair-canvas masks, ``transformations/<seg>/``; labels under
+    ``labels_path/<seg>/``.  The canvases, the mask network
+    (``backends.mask``), the tracker (``backends.tracker``), the LoFTR
+    matcher (``backends.matcher: loftr``) and the fit run on ``device``
+    (default the card); RANSAC, the LiDAR gather, tracking bookkeeping and
+    the cache files on the host.  ``stage_seconds`` sums the wall seconds
+    of each stage."""
+
+    def __init__(self, cfg: Config, flags: PipelineFlags, device=None):
+        from monosowa_tpu_torch.sowa import waymo2d
+
+        self.cfg = cfg
+        self.flags = flags
+        self.device = device
+        self.w2d = waymo2d
+        paths = cfg.paths or Config({})
+        self.waymo_path = paths.get("waymo_path", ".")
+        self.cache = paths.get("merged_frames_path", "./cache")
+        self.labels_path = paths.get("labels_path", "./labels")
+        self.pcfg = pipeline_config_from(cfg)
+        self.stage_seconds = collections.defaultdict(float)
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.stage_seconds[name] += time.perf_counter() - t0
+
+    def segments(self) -> List[str]:
+        return sorted(d for d in os.listdir(self.waymo_path)
+                      if os.path.isdir(os.path.join(self.waymo_path, d)))
+
+    def run(self, seq_start: Optional[int], seq_end: Optional[int]) -> int:
+        segs = self.segments()[seq_start or 0:seq_end]
+        n = 0
+        for seg in segs:
+            if self.flags.generate_homographies:
+                n += self._homographies_segment(seg)
+            elif self.flags.generate_raw_masks_or_tracking:
+                n += self._tracking_segment(seg)
+            elif self.flags.generate_transformations_only:
+                n += self._transforms_segment(seg)
+            elif (self.flags.do_optim
+                  or self.flags.generate_merged_frames_only):
+                n += self._optimize_segment(seg)
+            else:
+                raise NotImplementedError(
+                    f"action {self.flags.action!r} for raw waymo segments")
+        return n
+
+    # -- segment data accessors -----------------------------------------
+    def _seg_dir(self, seg):
+        return os.path.join(self.waymo_path, seg)
+
+    def _n_frames(self, seg) -> int:
+        cam0 = os.path.join(self._seg_dir(seg), "camera_2")
+        return len([f for f in os.listdir(cam0) if f.endswith(".png")])
+
+    def _get_imgs(self, seg):
+        """``get(i)`` -> frame i's 5 slot-ordered images (PIL reads the
+        PNGs)."""
+        from PIL import Image
+
+        def get(i):
+            out = []
+            for slot in range(5):
+                p = os.path.join(self._seg_dir(seg), f"camera_{slot}",
+                                 f"{i:06d}.png")
+                with Image.open(p) as im:
+                    out.append(np.asarray(im))
+            return out
+        return get
+
+    def _layout(self, seg):
+        imgs = self._get_imgs(seg)(0)
+        ist = self.cfg.image_stitching or Config({})
+        return self.w2d.PairLayout(
+            cam_h=imgs[2].shape[0], cam_w=imgs[2].shape[1],
+            side_h=imgs[0].shape[0],
+            height_pad=int(ist.get("height_pxl_pad", 100)),
+            width_pad=int(ist.get("width_pxl_pad", 750)))
+
+    def _lidar(self, seg, i) -> np.ndarray:
+        p = os.path.join(self._seg_dir(seg), "lidar", f"{i:06d}.npz")
+        with np.load(p) as z:
+            return z["points"]
+
+    def _poses(self, seg) -> np.ndarray:
+        return np.load(os.path.join(self._seg_dir(seg), "poses.npy"))
+
+    def _homos_path(self, seg):
+        return os.path.join(self.cache, "homographies", f"{seg}.npz")
+
+    def _tracked_path(self, seg):
+        return os.path.join(self.cache, "detandtracked", f"{seg}.npz")
+
+    # -- stages ----------------------------------------------------------
+    def _homographies_segment(self, seg) -> int:
+        """`--action homographies` (perform_img_stitching homography branch
+        + find_the_best_homo, stitching.py:29-216)."""
+        out = self._homos_path(seg)
+        if os.path.exists(out):
+            return 0
+        layout = self._layout(seg)
+        matcher = self._matcher()
+        with self._stage("homographies"):
+            homos = self.w2d.estimate_pair_homographies(
+                self._get_imgs(seg), self._n_frames(seg), matcher, layout)
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        np.savez_compressed(
+            out, homos=np.stack([h if h is not None else np.full((3, 3),
+                                                                 np.nan)
+                                 for h in homos]))
+        return 1
+
+    def _matcher(self):
+        """The configured matcher (``backends.matcher``)."""
+        return stitching_matcher_backend(self.cfg, self.device)
+
+    def _load_homos(self, seg):
+        with np.load(self._homos_path(seg)) as z:
+            hs = z["homos"]
+        return [None if np.isnan(h).any() else h for h in hs]
+
+    def _pair_masks(self, seg, i, z, canvas) -> List[np.ndarray]:
+        """Detection masks for one pair canvas: the masks_raw cache first,
+        else the configured live mask backend (the canvas on the card)."""
+        cached = masks_mod.load_masks(
+            os.path.join(self.cache, "masks_raw", seg), f"{i:06d}_{z}")
+        if cached is not None:
+            return cached
+        if not hasattr(self, "_mask_backend_cache"):
+            from monosowa_tpu_torch.sowa import zoo
+            self._mask_backend_cache = zoo.mask_backend(self.cfg,
+                                                        device=self.device)
+        backend = self._mask_backend_cache
+        if backend is None:
+            return []
+        return backend.predict_masks(canvas)
+
+    def _tracking_segment(self, seg) -> int:
+        """`--action mask_tracking` (perform_stitching_and_trackingV2 +
+        perform_tracking, main_class.py:60-66, tracker_ODTrack.py:60-155):
+        the pair canvases stay on the card from the stitch to the mask
+        network and the tracker."""
+        from monosowa_tpu_torch.sowa import zoo
+
+        out = self._tracked_path(seg)
+        if os.path.exists(out):
+            return 0
+        layout = self._layout(seg)
+        homos = self._load_homos(seg)
+        get_imgs = self._get_imgs(seg)
+        n = self._n_frames(seg)
+        stitched, det_masks = [], []
+        for i in range(n):
+            with self._stage("read"):
+                imgs = get_imgs(i)
+            with self._stage("stitch"):
+                canvases = self.w2d.stitch_frame(imgs, homos, layout,
+                                                 device=self.device)
+            stitched.append(canvases)
+            with self._stage("masks"):
+                det_masks.append([self._pair_masks(seg, i, z, canvases[z])
+                                  for z in range(4)])
+        with self._stage("track"):
+            cars = self.w2d.track_pair_sequence(
+                stitched, det_masks, homos, layout,
+                tracker_factory=zoo.tracker_factory(self.cfg, self.device),
+                device=self.device)
+        with self._stage("write"):
+            obs_arr = np.empty(len(cars), object)   # ragged-safe
+            for ci, o in enumerate(cars):
+                obs_arr[ci] = np.asarray(o, int)
+            payload = {"cars": obs_arr}
+            for i in range(n):
+                for z in range(4):
+                    ms = det_masks[i][z]
+                    if ms:
+                        stack = np.stack([np.asarray(m, bool) for m in ms])
+                        payload[f"m_{i}_{z}"] = np.packbits(stack, axis=-1)
+                        payload[f"s_{i}_{z}"] = np.asarray(stack.shape)
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            np.savez_compressed(out, **payload)
+        return 1
+
+    def _load_tracked(self, seg, n_frames):
+        with np.load(self._tracked_path(seg), allow_pickle=True) as z:
+            cars = [[tuple(row) for row in obs] for obs in z["cars"]]
+            det_masks = []
+            for i in range(n_frames):
+                frame = []
+                for zi in range(4):
+                    key = f"m_{i}_{zi}"
+                    if key in z:
+                        shape = z[f"s_{i}_{zi}"]
+                        packed = z[key]
+                        unpacked = np.unpackbits(
+                            packed, axis=-1)[..., :shape[-1]]
+                        frame.append(list(unpacked.astype(bool)))
+                    else:
+                        frame.append([])
+                det_masks.append(frame)
+        return cars, det_masks
+
+    def _transforms_segment(self, seg) -> int:
+        """`--action transformations`: vehicle poses -> camera-frame
+        T_cur_to_ref windows (calculate_transformations_waymo)."""
+        out_dir = os.path.join(self.cache, "transformations", seg)
+        poses = self._poses(seg)
+        rng = int((self.cfg.frames_creation or Config({}))
+                  .get("nscans_transformation_range", 130))
+        n = 0
+        for i in range(len(poses)):
+            fid = f"{i:06d}"
+            out = transforms_mod.transforms_cache_path(out_dir, fid)
+            if os.path.exists(out):
+                continue
+            lo, hi = max(0, i - rng), min(len(poses), i + rng + 1)
+            t_cam = self.w2d.camera_transforms_from_vehicle(
+                poses[lo:hi], i - lo)
+            full = np.tile(np.eye(4), (2 * rng + 1, 1, 1))
+            full[rng - (i - lo):rng + (hi - i)] = t_cam
+            transforms_mod.save_window_transforms(out_dir, fid, full)
+            n += 1
+        return n
+
+    def _optimize_segment(self, seg) -> int:
+        """`--action optimization` through the 2D-tracked path
+        (load_and_prepare_lidar_scan_from_multiple_waymo_tracker + the
+        main_waymo per-frame fit loop): the fit on the card (K5)."""
+        from monosowa_tpu_torch.kittiio.labels import write_pseudo_label_file
+        from monosowa_tpu_torch.sowa import aggregation, lomm
+
+        layout = self._layout(seg)
+        homos = self._load_homos(seg)
+        n_frames = self._n_frames(seg)
+        with self._stage("read"):
+            cars2d, det_masks = self._load_tracked(seg, n_frames)
+            poses = self._poses(seg)
+            lidars = [self._lidar(seg, i) for i in range(n_frames)]
+        labeler = PseudoLabeler(self.pcfg, device=self.device)
+        before, after = self.pcfg.nscans_before, self.pcfg.nscans_after
+        n_done = 0
+        for ref in range(n_frames):
+            out = os.path.join(self.labels_path, seg, f"{ref:06d}.txt")
+            if os.path.exists(out):
+                continue
+            lo, hi = max(0, ref - before), min(n_frames, ref + after + 1)
+            window = list(range(lo - ref, hi - ref))
+            t_cam = self.w2d.camera_transforms_from_vehicle(
+                poses[lo:hi], ref - lo)
+            with self._stage("gather"):
+                tracks = self.w2d.tracks_from_2d(
+                    cars2d, det_masks, lidars, homos, t_cam, ref, window,
+                    layout, device=self.device)
+            with self._stage("track_aggregate"):
+                lomm.classify_all(tracks, method=self.pcfg.moving_method)
+                kept, points, ref_masks = aggregation.aggregate_tracks(
+                    tracks, t_cam, window, self.pcfg.keep_k_frames,
+                    self.pcfg.min_standing_points)
+            with self._stage("fit"):
+                cars = labeler.label_from_cars(kept, points, ref_masks,
+                                               window)
+            with self._stage("write"):
+                os.makedirs(os.path.dirname(out), exist_ok=True)
+                write_pseudo_label_file(out, cars)
+            n_done += 1
+        return n_done
+
+
+def stitching_matcher_backend(cfg: Config, device=None):
+    """Matcher for the homographies: ORB on the host by default (OpenCV);
+    ``backends.matcher: loftr`` + ``matcher_checkpoint`` runs the port's
+    EfficientLoFTR on ``device`` (``zoo.matcher_backend``)."""
+    from monosowa_tpu_torch.sowa import zoo
+    return zoo.matcher_backend(cfg, device=device)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     cfg = load_config(args.config)
     flags = PipelineFlags(args.action)
-    if args.dataset == "waymo":
-        raise NotImplementedError(
-            "--dataset waymo: the raw Waymo driver (WaymoSegmentDriver of "
-            "sowa/cli.py, sowa/waymo2d.py) is not ported")
     t0 = time.time()
-    driver = KittiObjectDriver(cfg, flags, dataset=args.dataset,
-                               device=args.device)
-    # KITTI-360 workers draw seed-360-shuffled disjoint random frames
-    # (main_class.py:360, 636-646); the other datasets iterate in order
-    n = driver.run(args.seq_start, args.seq_end,
-                   shuffle=args.dataset in ("kitti360", "all"))
+    if args.dataset == "waymo":
+        # raw waymo: the 2D-tracker stitching path over extracted segments
+        driver = WaymoSegmentDriver(cfg, flags, device=args.device)
+        n = driver.run(args.seq_start, args.seq_end)
+    else:
+        driver = KittiObjectDriver(cfg, flags, dataset=args.dataset,
+                                   device=args.device)
+        # KITTI-360 workers draw seed-360-shuffled disjoint random frames
+        # (main_class.py:360, 636-646); the other datasets iterate in order
+        n = driver.run(args.seq_start, args.seq_end,
+                       shuffle=args.dataset in ("kitti360", "all"))
     print(f"[{args.action}] processed {n} frames in {time.time() - t0:.1f}s")
     return 0
 

@@ -58,14 +58,15 @@ class Mask2FormerBackend:
         self._mean = torch.tensor(self.IMAGENET01_MEAN, device=self.device)
         self._std = torch.tensor(self.IMAGENET01_STD, device=self.device)
 
-    def _encode(self, image: np.ndarray) -> torch.Tensor:
-        """(H, W, 3) uint8 RGB -> (h, w, 3) normalised float32 on the
+    def _encode(self, image) -> torch.Tensor:
+        """(H, W, 3) uint8 RGB, numpy or a tensor (a Waymo pair canvas
+        stays on the card) -> (h, w, 3) normalised float32 on the
         device."""
         from monosowa_tpu_torch.ops.resize import cv2_resize_linear
 
-        img = cv2_resize_linear(torch.tensor(np.asarray(image),
-                                                device=self.device),
-                                self.input_hw)
+        img = image.to(self.device) if isinstance(image, torch.Tensor) \
+            else torch.tensor(np.asarray(image), device=self.device)
+        img = cv2_resize_linear(img, self.input_hw)
         return (img.float() / 255.0 - self._mean) / self._std
 
     def forward(self, image: np.ndarray):

@@ -13,6 +13,11 @@ from a zoo checkpoint::
       mask_input_hw: [384, 1280]
       mask_car_labels: [2]
       sam_checkpoint: <path.npz>          # when paths.sam_path is unset
+      matcher: orb | loftr
+      matcher_checkpoint: <path.npz>
+      matcher_input_hw: [480, 640]
+      tracker: template | vit
+      tracker_checkpoint: <path.npz>
     frames_creation:
       use_SAM: False                      # reference key, config.yaml:27
     paths:
@@ -27,11 +32,14 @@ the port's modules from the tree.
 
 Ported: ``cached`` depth and masks, ``depth_anything``
 (``models/depth_anything.py`` on ``models/dinov2.py``), ``mask2former``
-(``models/mask2former.py`` on ``models/swin.py``) and ``sam``
-(``models/sam.py``, the refinement behind ``frames_creation.use_SAM``).
-``metric3d_hub`` (a ``torch.hub`` download) and the kinds ``loftr`` and
-``vit_tracker`` raise ``NotImplementedError`` naming their JAX module.
-The networks run on the card unless ``device`` names another.
+(``models/mask2former.py`` on ``models/swin.py``), ``sam``
+(``models/sam.py``, the refinement behind ``frames_creation.use_SAM``),
+and the Waymo stitching path's ``loftr`` (``models/efficientloftr.py``,
+``backends.matcher``; ``orb`` runs OpenCV on the host) and
+``vit_tracker`` (``models/vit_tracker.py``, ``backends.tracker``;
+``template`` matching by default).  ``metric3d_hub`` (a ``torch.hub``
+download) raises ``NotImplementedError``.  The networks run on the card
+unless ``device`` names another.
 """
 
 from __future__ import annotations
@@ -39,15 +47,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
-
-# checkpoint kinds of the JAX zoo that the port does not have yet
-_NOT_PORTED = {
-    "loftr": "models/efficientloftr.py (EfficientLoFTRConfig)",
-    "vit_tracker": "models/vit_tracker.py (ViTTrackerConfig)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -115,10 +117,13 @@ def _config_classes(kind: str) -> Dict[str, type]:
                                                    SamVisionConfig)
         return {"SamConfig": SamConfig, "SamVisionConfig": SamVisionConfig,
                 "SamDecoderConfig": SamDecoderConfig}
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"zoo checkpoint kind {kind!r}: {_NOT_PORTED[kind]} of the JAX "
-            "package is not ported")
+    if kind == "loftr":
+        from monosowa_tpu_torch.models.efficientloftr import \
+            EfficientLoFTRConfig
+        return {"EfficientLoFTRConfig": EfficientLoFTRConfig}
+    if kind == "vit_tracker":
+        from monosowa_tpu_torch.models.vit_tracker import ViTTrackerConfig
+        return {"ViTTrackerConfig": ViTTrackerConfig}
     raise ValueError(f"unknown checkpoint kind {kind!r}")
 
 
@@ -253,3 +258,54 @@ def sam_refine_backend(cfg, device=None):
                          "checkpoint produced by save_checkpoint)")
     params, scfg = _load_checked(path, "sam")
     return SamRefineBackend(params, scfg, device=device)
+
+
+def matcher_backend(cfg, device=None):
+    """Stitching keypoint matcher (reference kornia LoFTR,
+    stitching.py:29-151): ORB on the host by default (OpenCV needed), the
+    port's EfficientLoFTR on the card when ``backends.matcher: loftr``
+    names a checkpoint."""
+    from monosowa_tpu_torch.sowa import stitching as stitch_mod
+
+    b = _backends(cfg)
+    kind = b.get("matcher", "orb")
+    if kind == "orb":
+        return stitch_mod.OrbMatcherBackend()
+    if kind == "loftr":
+        params, lcfg = _load_checked(b.get("matcher_checkpoint"), "loftr")
+        hw = b.get("matcher_input_hw", (480, 640))
+        return stitch_mod.LoFTRMatcherBackend(
+            params, lcfg, input_hw=tuple(int(v) for v in hw), device=device)
+    raise ValueError(f"unknown backends.matcher {kind!r}")
+
+
+def tracker_factory(cfg, device=None) -> Callable[[], Any]:
+    """Single-object tracker factory for the pair-canvas mask tracking
+    (reference ODTrack, tracker_ODTrack.py:10-58): template matching by
+    default, the port's ViT tracker when ``backends.tracker: vit`` names a
+    checkpoint.  Both run on ``device`` (default the card)."""
+    import copy
+
+    b = _backends(cfg)
+    kind = b.get("tracker", "template")
+    if kind == "template":
+        from monosowa_tpu_torch.sowa.tracker2d import TemplateMatchTracker
+        return lambda: TemplateMatchTracker(device=device)
+    if kind == "vit":
+        from monosowa_tpu_torch.sowa.tracker2d import ViTTrackerBackend
+
+        params, tcfg = _load_checked(b.get("tracker_checkpoint"),
+                                     "vit_tracker")
+        # one network for every track; each track a shallow copy with
+        # fresh state
+        proto = ViTTrackerBackend(params, tcfg, device=device)
+
+        def make():
+            t = copy.copy(proto)
+            t._template = None
+            t._track_tokens = None
+            t._box = None
+            return t
+
+        return make
+    raise ValueError(f"unknown backends.tracker {kind!r}")

@@ -878,3 +878,86 @@ def test_sam_on_the_card_matches_the_cpu(cuda):
         img, box) for d in (cuda, "cpu"))
     flips = sum(int((a != b).sum()) for a, b in zip(got, want))
     assert flips <= 4 and all(0 < m.mean() < 1 for m in want)
+
+
+@pytest.mark.parametrize("out_w", [64, 97, 4590])
+def test_warp_rules_on_the_card_match_the_cpu(cuda, out_w):
+    """``ops/warp.py`` on the card: the warps of uint8 images and float32
+    masks equal to the CPU's byte for byte (OpenCV's float32 mapping with
+    its fused multiply-adds, each taken in float64); grey and area resize
+    equal; the template match at the same location, its map within 1e-12
+    of its magnitude (float64 FFTs)."""
+    from monosowa_tpu_torch.ops import warp
+
+    rng = np.random.default_rng(out_w)
+    img = torch.from_numpy(rng.integers(0, 256, (256, 384, 3), np.uint8))
+    mask = torch.from_numpy((rng.uniform(size=(300, 500)) > 0.5).astype(
+        np.float32))
+    for _ in range(2):
+        m = np.eye(3) + np.array([[0.2, 0.1, 30], [0.05, 0.3, 20],
+                                  [5e-4, 5e-4, 0]]) * rng.normal(size=(3, 3))
+        for src in (img, mask):
+            want = warp.cv2_warp_perspective(src, m, (out_w, 211))
+            got = warp.cv2_warp_perspective(src.to(cuda), m, (out_w, 211))
+            assert torch.equal(got.cpu(), want)
+    grey = warp.cv2_rgb2gray(img)
+    assert torch.equal(warp.cv2_rgb2gray(img.to(cuda)).cpu(), grey)
+    assert torch.equal(warp.cv2_resize_area(grey.to(cuda), (96, 128)).cpu(),
+                       warp.cv2_resize_area(grey, (96, 128)))
+    win = grey[:120, :150].float()
+    tmpl = win[40:70, 50:90].clone() + 0.5
+    res, loc = warp.match_template_sqdiff(win, tmpl)
+    res_g, loc_g = warp.match_template_sqdiff(win.to(cuda), tmpl.to(cuda))
+    assert loc_g == loc == (50, 40)
+    assert float((res_g.cpu() - res).abs().max()) <= 1e-12 * float(
+        res.abs().max())
+
+
+def test_loftr_and_tracker_on_the_card_match_the_cpu(cuda):
+    """EfficientLoFTR at its full widths with 2 attention layers (seeded
+    weights) on a 2 x 192 x 256 pair, and the ViT tracker at its full
+    widths: the card's outputs within 1e-4 of the CPU's magnitude.  LoFTR
+    runs at a match threshold of 1e-6 (random weights match nothing above
+    the shipped 0.2), so that matches exist and their keypoints are held:
+    within 1e-4 of the image size where the coarse matches agree; matches
+    or keypoints flipped at most on 1% of the coarse cells (a score at the
+    threshold, a mutual-nearest tie or the fine stage's argmax flips
+    between float32 sums in another order)."""
+    from monosowa_tpu_torch.device import resolve_device
+    from monosowa_tpu_torch.models.efficientloftr import (
+        EfficientLoFTR, EfficientLoFTRConfig)
+    from monosowa_tpu_torch.models.vit_tracker import ViTTracker
+
+    resolve_device(cuda)        # TF32 off, as the entry points set it
+    cfg = EfficientLoFTRConfig(num_attention_layers=2,
+                               coarse_matching_threshold=1e-6)
+    models = [EfficientLoFTR(cfg, device=d, seed=0) for d in ("cpu", cuda)]
+    rng = np.random.default_rng(2)
+    base = rng.uniform(size=(192, 288)).astype(np.float32)
+    pair = torch.from_numpy(np.stack([base[:, :256], base[:, 24:280]])[None])
+    with torch.no_grad():
+        feats = [m.repvgg_forward(pair.reshape(2, 192, 256, 1).to(
+            next(m.parameters()).device))[-1] for m in models]
+        out = [m(pair.to(next(m.parameters()).device)) for m in models]
+    scale = float(feats[0].abs().max())
+    assert float((feats[1].cpu() - feats[0]).abs().max()) <= 1e-4 * scale
+    (kp, sc, idx), (kp_g, sc_g, idx_g) = out
+    same = (idx_g.cpu() == idx) & (idx >= 0)
+    assert bool(same.any())
+    assert float((sc_g.cpu() - sc)[same].abs().max()) <= 1e-4 * float(
+        sc[same].abs().max())
+    kp_err = (kp_g.cpu() - kp).abs().amax(-1)[same]
+    flips = int((idx_g.cpu() != idx).sum()) + int((kp_err > 1e-4).sum())
+    assert flips <= 0.01 * idx.numel()
+
+    trackers = [ViTTracker(device=d, seed=0) for d in ("cpu", cuda)]
+    z = torch.from_numpy(rng.normal(size=(1, 128, 128, 3)).astype(
+        np.float32))
+    x = torch.from_numpy(rng.normal(size=(1, 256, 256, 3)).astype(
+        np.float32))
+    with torch.no_grad():
+        res = [t(z.to(d), x.to(d), t.track_token)
+               for t, d in zip(trackers, ("cpu", cuda))]
+    for want, got in zip(res[0][1:], res[1][1:]):
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())

@@ -554,16 +554,34 @@ def test_lidar_scans_cached_matches_jax(kitti_dir, tmp_path):
 
 @pytest.mark.parametrize("dataset", ["waymo", "kitti360"])
 def test_other_datasets_raise(tmp_path, dataset):
-    """Named for what these datasets did before kitti360 was ported: the
-    raw Waymo driver still raises; ``--dataset kitti360`` runs
-    transformations, candidates, frames_aggregation and optimization (from
-    the merged-cars cache) in the seed-360 frame order, with the JAX
-    driver's cache and label files."""
+    """Named for what these datasets did before they were ported: both
+    run now.  ``--dataset waymo`` goes to the raw Waymo driver
+    (``tests/test_torch_waymo.py`` holds its actions against the JAX
+    driver's): here an empty ``paths.waymo_path`` labels nothing in either
+    package, and a segment without its cameras raises the same error in
+    both.  ``--dataset kitti360`` runs transformations, candidates,
+    frames_aggregation and optimization (from the merged-cars cache) in the
+    seed-360 frame order, with the JAX driver's cache and label files."""
     if dataset == "waymo":
-        with pytest.raises(NotImplementedError, match="sowa/"):
-            cli.main(["--config", _config(tmp_path, "other"), "--action",
-                      "optimization", "--dataset", dataset, "--device",
-                      "cpu"])
+        segs = tmp_path / "segments"
+        segs.mkdir()
+        conf = tmp_path / "waymo.yaml"
+        conf.write_text(yaml.safe_dump({"paths": {
+            "waymo_path": str(segs),
+            "merged_frames_path": str(tmp_path / "cache") + "/",
+            "labels_path": str(tmp_path / "labels") + "/"}}))
+        for main, dev in ((cli.main, ["--device", "cpu"]), (jcli.main, [])):
+            assert main(["--config", str(conf), "--action", "optimization",
+                         "--dataset", dataset] + dev) == 0
+        assert not (tmp_path / "labels").exists()
+        (segs / "seg-000").mkdir()
+        errors = []
+        for main, dev in ((cli.main, ["--device", "cpu"]), (jcli.main, [])):
+            with pytest.raises(FileNotFoundError) as err:
+                main(["--config", str(conf), "--action", "optimization",
+                      "--dataset", dataset] + dev)
+            errors.append(str(err.value))
+        assert errors[0] == errors[1]
         return
     confs = _layout(tmp_path, dataset)
     _run_both(confs, dataset, "transformations", "candidates",

@@ -119,17 +119,23 @@ def test_port_checkpoint_loads_into_jax(ckpts):
 
 
 def test_kinds_not_ported_raise(tmp_path):
-    """``loftr`` and ``vit_tracker`` raise naming their JAX module; ``sam``
-    (ported) writes and reads back (``tests/test_torch_sam.py`` holds it
-    against the JAX package)."""
-    for kind, module in (("loftr", "models/efficientloftr.py"),
-                         ("vit_tracker", "models/vit_tracker.py")):
-        with pytest.raises(NotImplementedError, match=module):
-            zoo.save_checkpoint(str(tmp_path / "x.npz"), kind, {}, None)
+    """Named for what it checked before the Waymo networks were ported:
+    ``loftr`` and ``vit_tracker`` raised naming their JAX module.  Now
+    they, like ``sam``, write and read back with their config dataclasses
+    (``tests/test_torch_waymo.py`` and ``test_torch_sam.py`` hold the
+    networks against the JAX package); an unknown kind raises."""
+    from monosowa_tpu_torch.models.efficientloftr import EfficientLoFTRConfig
     from monosowa_tpu_torch.models.sam import SamConfig
-    zoo.save_checkpoint(str(tmp_path / "sam.npz"), "sam",
-                        {"t": np.ones(2, np.float32)}, SamConfig())
-    assert zoo.load_checkpoint(str(tmp_path / "sam.npz"))[2] == SamConfig()
+    from monosowa_tpu_torch.models.vit_tracker import ViTTrackerConfig
+
+    for kind, cfg in (("loftr", EfficientLoFTRConfig()),
+                      ("vit_tracker", ViTTrackerConfig()),
+                      ("sam", SamConfig())):
+        path = str(tmp_path / f"{kind}.npz")
+        zoo.save_checkpoint(path, kind, {"t": np.ones(2, np.float32)}, cfg)
+        got_kind, tree, got = zoo.load_checkpoint(path)
+        assert (got_kind, got) == (kind, cfg)
+        np.testing.assert_array_equal(tree["t"], np.ones(2))
     with pytest.raises(ValueError, match="unknown"):
         zoo.save_checkpoint(str(tmp_path / "x.npz"), "resnet", {}, None)
 
