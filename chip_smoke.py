@@ -65,6 +65,27 @@ Phases, each printing one JSON line:
             gradients within 5e-2 of their scale: the float32 bar plus ten
             bf16 steps), then a warm-up and three timed steps: launch counts,
             finite losses, float32 params, gradients and AdamW moments.
+   detector_variants — configs/monodetr_kitti.yaml's model at its
+            widths (float32) with the variants that the JAX package's
+            ``build_monodetr`` reads: (a) ``two_stage`` and (b)
+            ``use_dab`` + learned position embedding + ``use_depth``
+            (4-channel images), each through
+            ``build_monodetr``, ``make_train_step`` (JV matcher: a tall
+            ``lap_jv`` launch a two_stage step for the encoder match of
+            10,200 tokens x 50 padded targets, 12 and 7 valid) and
+            ``run_inference``; (c) DN-DETR, 5 groups of 50 slots before
+            the 550 queries (800 decoder queries an image), written out as
+            the JAX package's tests/test_dn_wiring.py does: ``prepare_dn``,
+            the forward, the criterion plus ``dn_loss``, backward, AdamW.
+            Each: from the seeded weights, dropout off, the kernels' step
+            against the plain-MSDA step (the train phase's bars), a warm-up
+            step with every MSDA and JV launch recorded, three timed steps
+            (launch counts held), a request of two images.  Then K1 and
+            K2/K3 replayed on the recorded decoder launches (Q = 550, 800;
+            1e-5 of each output's magnitude) with both clocks and the
+            bound, and the tall ``lap_jv`` on the recorded encoder match:
+            equal to the plain JV on the card, at scipy's optimum, its
+            times, the plain version's, the scipy route's and the bound.
    train_add — the same model trained on pseudo-label cars
             (``SampleDataset`` with ``use_add_data``, its cars written as
             the labeller's ``optimized_cars`` cache; ``use_tfl`` and
@@ -2621,6 +2642,43 @@ def serve(dev, bf16: bool = False) -> dict:
             "peak_mem_GB": peak / 1e9}
 
 
+def msda_step_grads(model, loss_of, msda_fn):
+    """Loss dict (floats), gradients (copies) and peak device memory of one
+    forward and backward of ``loss_of()`` with every MSDA module of the
+    model calling ``msda_fn``."""
+    import torch
+
+    from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
+
+    for mod in model.modules():
+        if isinstance(mod, MSDeformAttnModule):
+            mod.msda = msda_fn
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = loss_of()
+    losses["loss_total"].backward()
+    torch.cuda.synchronize()
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None},
+            torch.cuda.max_memory_allocated())
+
+
+def grad_rel(got: dict, want: dict):
+    """(name, value) of the largest gradient difference, each tensor's max
+    abs over its scale, the scale floored at 1e-4 of the largest gradient:
+    the key projections' biases have an exact gradient of 0."""
+    if set(got) != set(want):
+        raise AssertionError(f"gradients of {sorted(set(got) ^ set(want))} "
+                             "in one run only")
+    floor = 1e-4 * max(float(g.abs().max()) for g in want.values())
+    rel = {n: float((got[n] - g).abs().max())
+           / max(float(g.abs().max()), floor) for n, g in want.items()}
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst]
+
+
 def train(dev) -> dict:
     import numpy as np
     import torch
@@ -2686,18 +2744,8 @@ def train(dev) -> dict:
                            num_classes=model.num_classes)
 
     def grads_with(fn):
-        for mod in attn:
-            mod.msda = fn
-        model.zero_grad(set_to_none=True)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses = criterion(model(*inputs), targets, ccfg)
-        losses["loss_total"].backward()
-        torch.cuda.synchronize()
-        return ({k: float(v.detach()) for k, v in losses.items()},
-                {n: p.grad.detach().clone()
-                 for n, p in model.named_parameters()},
-                torch.cuda.max_memory_allocated())
+        return msda_step_grads(
+            model, lambda: criterion(model(*inputs), targets, ccfg), fn)
 
     losses_k, grads_k, peak_k = grads_with(msda.ms_deform_attn)
     losses_p, grads_p, peak_p = grads_with(msda.ms_deform_attn_plain)
@@ -2714,18 +2762,9 @@ def train(dev) -> dict:
     if losses_kp != losses_k:
         raise AssertionError("the forward kernel is not deterministic: "
                              f"{losses_k} != {losses_kp}")
-    # each tensor's max abs, floored at 1e-4 of the largest gradient: the
-    # key projections' biases have an exact gradient of 0
-    floor = 1e-4 * max(float(g.abs().max()) for g in grads_p.values())
-
-    def grad_rel(want):
-        rel = {n: float((grads_k[n] - g).abs().max())
-               / max(float(g.abs().max()), floor) for n, g in want.items()}
-        worst = max(rel, key=rel.get)
-        return worst, rel[worst]
-
     # the backward kernel vs the plain backward, the same forward: 1e-3
-    worst_b, rel_b = grad_rel(grads_kp)
+    # (grad_rel's floor: 1e-4 of the largest gradient of the reference)
+    worst_b, rel_b = grad_rel(grads_k, grads_kp)
     if rel_b > 1e-3:
         raise AssertionError(f"backward kernel vs plain backward, gradient "
                              f"of {worst_b}: {rel_b} of its scale")
@@ -2733,7 +2772,7 @@ def train(dev) -> dict:
     # so from the second MSDA layer of each stack on, a sampling point
     # within rounding of a pixel edge can fall into the neighbouring cell,
     # where the bilinear weights' derivative (dLoc) jumps; 1e-2
-    worst_a, rel_a = grad_rel(grads_p)
+    worst_a, rel_a = grad_rel(grads_k, grads_p)
     if rel_a > 1e-2:
         raise AssertionError(f"kernels vs plain MSDA, gradient of "
                              f"{worst_a}: {rel_a} of its scale")
@@ -3275,6 +3314,459 @@ def train_add(dev) -> dict:
 # from the caches they write
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# detector_variants: two_stage; DAB anchors + learned position embedding +
+# RGB-D; DN-DETR queries; at the shipped widths
+# ---------------------------------------------------------------------------
+
+# padded targets an image (the dataset's max_objs), the valid ones of the
+# two images, DN-DETR's groups of VARIANT_OBJS slots
+VARIANT_OBJS = 50
+VARIANT_VALID = (12, 7)
+DN_GROUPS = 5
+DN_QUERIES = DN_GROUPS * VARIANT_OBJS + TRAIN_QUERIES    # 800 an image
+ENC_TOKENS = sum(h * w for h, w in ENC_SHAPES)           # 10,200
+
+
+def variant_batch(use_depth: bool = False) -> dict:
+    """``train.sample.sample_batch`` at 384 x 1280 with VARIANT_OBJS padded
+    targets of which VARIANT_VALID are valid; with ``use_depth`` a 4th
+    channel as the dataset encodes depth (metres clipped to 150, / 75 - 1)."""
+    import numpy as np
+
+    from monosowa_tpu_torch.train.sample import sample_batch as train_batch
+
+    batch = train_batch(BATCH, IMG_H, IMG_W, max_objs=VARIANT_OBJS)
+    valid = np.arange(VARIANT_OBJS)[None] < np.array(VARIANT_VALID)[:, None]
+    batch["valid"], batch["mask_2d"] = valid, valid.copy()
+    if use_depth:
+        depth = np.random.default_rng(5).uniform(2.0, 80.0,
+                                                 (BATCH, IMG_H, IMG_W, 1))
+        batch["image"] = np.concatenate(
+            [batch["image"], (depth / 75.0 - 1.0).astype(np.float32)], -1)
+    return batch
+
+
+def kernel_vs_plain_step(model, loss_of, label: str) -> dict:
+    """One forward and backward of ``loss_of()`` with the MSDA kernels
+    against one through the plain MSDA, from the model's current weights
+    with dropout off, on the train phase's bars: the loss dict within 1e-5
+    relative, each gradient within 1e-2 of its scale (``grad_rel``)."""
+    import torch
+
+    from monosowa_tpu_torch.models.layers import Dropout
+    from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
+    from monosowa_tpu_torch.ops import msda
+
+    dropouts = [m for m in model.modules() if isinstance(m, Dropout)]
+    saved_p = [m.p for m in dropouts]
+    try:
+        for m in dropouts:
+            m.p = 0.0
+        loss_k, grad_k, peak_k = msda_step_grads(model, loss_of,
+                                                 msda.ms_deform_attn)
+        loss_p, grad_p, peak_p = msda_step_grads(model, loss_of,
+                                                 msda.ms_deform_attn_plain)
+    finally:
+        for m in model.modules():
+            if isinstance(m, MSDeformAttnModule):
+                m.msda = msda.ms_deform_attn
+        for m, p in zip(dropouts, saved_p):
+            m.p = p
+        model.zero_grad(set_to_none=True)
+    loss_rel = {k: abs(loss_k[k] - v) / max(abs(v), 1e-12)
+                for k, v in loss_p.items()}
+    if sorted(loss_k) != sorted(loss_p) or max(loss_rel.values()) > 1e-5:
+        raise AssertionError(f"{label}: kernel vs plain loss dict "
+                             f"{loss_rel}")
+    worst, rel = grad_rel(grad_k, grad_p)
+    if rel > 1e-2:
+        raise AssertionError(f"{label}: kernels vs plain MSDA, gradient of "
+                             f"{worst}: {rel} of its scale")
+    torch.cuda.empty_cache()
+    return {"kernel_vs_plain_loss_max_rel": max(loss_rel.values()),
+            "kernel_vs_plain_grad_max_rel": rel,
+            "kernel_vs_plain_grad_worst": worst,
+            "kernel_step_peak_mem_GB": peak_k / 1e9,
+            "plain_step_peak_mem_GB": peak_p / 1e9}
+
+
+@contextlib.contextmanager
+def recording_msda_bwd():
+    """Wrap ``msda._launch_bwd``: a copy of every backward launch's
+    (value, shapes, loc, aw, dout)."""
+    from monosowa_tpu_torch.ops import msda
+
+    recorded = []
+    launch = msda._launch_bwd
+
+    def recording_launch(value, shapes, loc, aw, dout):
+        recorded.append((value.clone(), tuple(shapes), loc.clone(),
+                         aw.clone(), dout.clone()))
+        return launch(value, shapes, loc, aw, dout)
+
+    msda._launch_bwd = recording_launch
+    try:
+        yield recorded
+    finally:
+        msda._launch_bwd = launch
+
+
+def check_msda_bwd_recorded(label: str, recorded) -> dict:
+    """The backward kernel against the plain backward on the inputs of
+    real launches: dvalue, dloc and daw each within 1e-5 of its magnitude
+    (``check_msda_bwd``'s float32 bar); the first launch's times, bound
+    and block map."""
+    import torch
+
+    from monosowa_tpu_torch.ops import msda
+
+    def plain(value, shapes, loc, aw, dout):
+        dloc, daw = msda.msda_grad_loc_aw_plain(value, shapes, loc, aw, dout)
+        return (msda.msda_grad_value_plain(value.shape, shapes, loc, aw,
+                                           dout, value.dtype), dloc, daw)
+
+    errs = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for value, shapes, loc, aw, dout in recorded:
+        got = msda._launch_bwd(value, shapes, loc, aw, dout)
+        want = plain(value, shapes, loc, aw, dout)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dvalue", "dloc", "daw"), got, want):
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            if not (torch.isfinite(g).all() and err <= 1e-5 * scale):
+                raise AssertionError(f"msda_bwd {label} {name}: max abs err "
+                                     f"{err} > 1e-5 * {scale}")
+            errs["max_abs_err"] = max(errs["max_abs_err"], err)
+            errs["max_rel_err"] = max(errs["max_rel_err"],
+                                      err / max(scale, 1e-30))
+    value, shapes, loc, aw, dout = recorded[0]
+    return msda_report(
+        label, loc.shape[1], value, loc,
+        {**errs, "launches_checked": len(recorded)},
+        lambda: msda._launch_bwd(value, shapes, loc, aw, dout),
+        lambda: plain(value, shapes, loc, aw, dout),
+        msda_bound(value, loc, 4 * (2 * (loc.numel() + aw.numel())
+                                    + dout.numel())
+                   + value.numel() * value.element_size(), 2, shapes), 2,
+        shapes)
+
+
+def check_tall_jv(label: str, cost, n_valid) -> dict:
+    """The tall form of ``lap_jv`` on one encoder match's costs (N images x
+    10,200 tokens x 50 padded targets): equal to the plain
+    ``solve_lap_jv`` on the card, its total cost at scipy's optimum within
+    rel 1e-6 / abs 1e-5, every valid target assigned; its ms from a
+    replayed graph and from Python, the plain version's, the scipy route's
+    and the bound (the cost read once, the counts read and the assignment
+    written once)."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.ops import lap
+
+    n, q, mmax = cost.shape
+    if lap.jv_smem_bytes(q, mmax) <= lap.SMEM_LIMIT:
+        raise AssertionError(f"{label}: Q={q} M={mmax} is not tall")
+    launches = lap.jv_tall_launches
+    got = lap.lap_jv(cost, n_valid)
+    if lap.jv_tall_launches != launches + 1:
+        raise AssertionError(f"{label}: the tall form did not launch")
+    want = lap.solve_lap_jv(cost, n_valid)
+    torch.cuda.synchronize()
+    differ = int((got != want).sum())
+    if differ:
+        raise AssertionError(f"lap_jv {label}: {differ} assignments differ "
+                             "from the plain version's")
+    costs = cost.cpu().numpy().astype(np.float64)
+    counts = n_valid.cpu().numpy()
+    host = lap.solve_lap_host(cost, n_valid).cpu().numpy()
+    a = got.cpu().numpy()
+    for k in range(n):
+        if int((a[k] >= 0).sum()) != min(int(counts[k]), q, mmax):
+            raise AssertionError(f"lap_jv {label}: a valid target of "
+                                 f"problem {k} is unassigned")
+        val = costs[k, a[k] >= 0, a[k][a[k] >= 0]].sum()
+        opt = costs[k, host[k] >= 0, host[k][host[k] >= 0]].sum()
+        if abs(val - opt) > 1e-5 + 1e-6 * abs(opt):
+            raise AssertionError(f"lap_jv {label}: total cost {val} against "
+                                 f"scipy's {opt}")
+
+    def host_clock_ms(fn, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    nbytes = cost.numel() * 4 + n * 4 + n * q * 8
+    return {"label": label, "form": "tall (one block of 1,024 threads a "
+            "problem)", "shape": f"{label}: N={n} Q={q} M={mmax}",
+            "n_valid": counts.tolist(), "assignments_differing": differ,
+            "max_abs_err": 0.0,
+            "ms": device_ms(lambda: lap.lap_jv(cost, n_valid), 20),
+            "ms_launched_from_python": cuda_ms(
+                lambda: lap.lap_jv(cost, n_valid), 20),
+            "plain_ms": host_clock_ms(
+                lambda: lap.solve_lap_jv(cost, n_valid), 1),
+            "host_route_ms": host_clock_ms(
+                lambda: lap.solve_lap_host(cost, n_valid), 3),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "compulsory_bytes": nbytes, "library_ms": None}
+
+
+def variant_counts() -> dict:
+    from monosowa_tpu_torch.ops import lap, msda
+
+    return {"msda_fwd": msda.launches, "msda_bwd": msda.bwd_launches,
+            "msda_fwd_bf16": msda.launches_bf16,
+            "msda_bwd_bf16": msda.bwd_launches_bf16,
+            "lap_jv": lap.jv_launches, "lap_jv_tall": lap.jv_tall_launches,
+            "lap_auction": lap.auction_launches}
+
+
+def reset_variant_counts() -> None:
+    from monosowa_tpu_torch.ops import lap, msda
+
+    msda.launches = msda.bwd_launches = 0
+    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
+    lap.jv_launches = lap.jv_tall_launches = lap.auction_launches = 0
+
+
+def run_variant(name: str, model, step, loss_of, want: dict,
+                eval_batch=None) -> dict:
+    """One variant: its kernels' step against the plain MSDA's
+    (``kernel_vs_plain_step``), a warm-up step with every MSDA and JV
+    launch recorded and one without, TRAIN_STEPS timed steps of ``step``
+    (the main path: launch counts held to ``want``, a step's counts times
+    TRAIN_STEPS), and with ``eval_batch`` REQUESTS requests through
+    ``run_inference``."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.kittiio import read_label_file
+    from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
+    from monosowa_tpu_torch.train.tester import run_inference
+
+    res = {"variant": name, **kernel_vs_plain_step(model, loss_of, name)}
+    attn = [m for m in model.modules() if isinstance(m, MSDeformAttnModule)]
+    fwd_rec, restore = recording_msda(attn)
+    try:
+        with recording_msda_bwd() as bwd_rec, recording_lap() as lap_rec:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            res["warmup_step_s"] = time.perf_counter() - t0
+    finally:
+        restore()
+    step()                              # a second warm-up, not recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_variant_counts()
+    history, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        history.append(step())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = variant_counts()
+    res["peak_mem_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    expected = {k: want.get(k, 0) * TRAIN_STEPS for k in launches}
+    if launches != expected:
+        raise AssertionError(f"{name}: {TRAIN_STEPS} steps launched "
+                             f"{launches}, want {expected}")
+    for losses in history:
+        if not all(np.isfinite(v) for v in losses.values()) \
+                or not losses["grad_norm"] > 0:
+            raise AssertionError(f"{name}: {losses}")
+    res.update(train_step_ms=step_ms,
+               train_step_ms_mean=sum(step_ms) / len(step_ms),
+               loss_total=[h["loss_total"] for h in history],
+               launches=launches)
+    if eval_batch is not None:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = {"tester": {"threshold": 0.0, "topk": 50},
+                   "trainer": {"save_path": tmp}, "dataset": {}}
+            run_inference(model, [eval_batch], cfg, logger=lambda s: None)
+            torch.cuda.synchronize()
+            reset_variant_counts()
+            t0 = time.perf_counter()
+            out_dir = run_inference(model, [eval_batch] * REQUESTS, cfg,
+                                    logger=lambda s: None)
+            torch.cuda.synchronize()
+            res["ms_per_request"] = (time.perf_counter() - t0) * 1e3 \
+                / REQUESTS
+            res["eval_launches"] = variant_counts()
+            if res["eval_launches"]["msda_fwd"] != \
+                    MSDA_PER_FORWARD * REQUESTS:
+                raise AssertionError(f"{name} eval: {res['eval_launches']}")
+            for f in sorted(os.listdir(out_dir)):
+                labels = read_label_file(os.path.join(out_dir, f))
+                if len(labels) != 50 or not np.isfinite(labels.pos).all():
+                    raise AssertionError(f"{name} eval {f}: {len(labels)} "
+                                         "rows")
+    # the recorded launches at the decoder's shapes (Q other than S)
+    res["_fwd"] = [r for r in fwd_rec if r[2].shape[1] != ENC_TOKENS]
+    res["_bwd"] = [r for r in bwd_rec if r[2].shape[1] != ENC_TOKENS]
+    res["_tall"] = [r for r in lap_rec if r[0].shape[1] == ENC_TOKENS]
+    return res
+
+
+def detector_variants(dev) -> dict:
+    """configs/monodetr_kitti.yaml's model at its widths (float32, seeded
+    weights) with (a) ``two_stage`` and (b) ``use_dab`` + learned position
+    embedding + ``use_depth``, each through ``build_monodetr``,
+    ``make_train_step`` (JV matcher) and ``run_inference``; (c) DN-DETR
+    (5 groups of 50 slots before the 550 queries: 800 decoder queries an
+    image) written out as the JAX package's tests/test_dn_wiring.py does:
+    ``prepare_dn``, the forward, the criterion plus ``dn_loss`` of the last
+    layer, backward and an AdamW step.  Then K1 and K2/K3 replayed on the
+    recorded decoder launches and the tall ``lap_jv`` on the recorded
+    encoder matches."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.models.criterion import CriterionConfig, criterion
+    from monosowa_tpu_torch.models.dn_components import (DNConfig, dn_loss,
+                                                         prepare_dn)
+    from monosowa_tpu_torch.models.matcher import MatcherConfig
+    from monosowa_tpu_torch.models.monodetr import MonoDETR, build_monodetr
+    from monosowa_tpu_torch.train.optim import make_optimizer
+    from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
+                                                  make_train_step,
+                                                  targets_from_batch)
+
+    t_phase = time.perf_counter()
+    shipped = {**shipped_model_config(), "compute_dtype": "float32"}
+    rng = np.random.default_rng(6)
+    out = {"phase": "detector_variants", "batch": BATCH,
+           "image_hw": [IMG_H, IMG_W], "targets": list(VARIANT_VALID),
+           "padded_targets": VARIANT_OBJS}
+    runs = {}
+
+    def through_trainer(name, flags, use_depth=False):
+        model = build_monodetr({**shipped, **flags}, device=dev, seed=0)
+        batch = variant_batch(use_depth)
+        inputs = [torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
+                  for k in MODEL_INPUTS]
+        targets = targets_from_batch(batch, dev)
+        ccfg = CriterionConfig(group_num=model.group_num,
+                               num_queries=model.num_queries,
+                               num_classes=model.num_classes,
+                               matcher=MatcherConfig(backend="jv"))
+
+        def loss_of():
+            model.train()
+            return criterion(model(*inputs), targets, ccfg)
+
+        step_fn = make_train_step(model, None,
+                                  make_optimizer(model, 2e-4, 1e-4))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        request = sample_batch(rng, 0)
+        if use_depth:
+            request["image"] = variant_batch(True)["image"]
+        want = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD,
+                "lap_jv": LAP_PER_STEP + bool(flags.get("two_stage")),
+                "lap_jv_tall": int(bool(flags.get("two_stage")))}
+        runs[name] = run_variant(name, model, lambda: step_fn(batch, gen),
+                                 loss_of, want, request)
+        del model, step_fn
+        torch.cuda.empty_cache()
+
+    through_trainer("two_stage", {"two_stage": True})
+    through_trainer("dab_learned_depth", {"use_dab": True,
+                                          "position_embedding": "learned",
+                                          "use_depth": True}, use_depth=True)
+
+    # (c) DN-DETR, written out; MonoDETR's defaults are the shipped widths
+    model = MonoDETR(use_dn=True, compute_dtype="float32", device=dev,
+                     seed=0)
+    if (model.d_model, model.num_queries, model.dec_layers) != (
+            shipped["hidden_dim"], shipped["num_queries"],
+            shipped["dec_layers"]):
+        raise AssertionError("the DN model is not at the shipped widths")
+    batch = variant_batch()
+    inputs = [torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
+              for k in MODEL_INPUTS]
+    targets = targets_from_batch(batch, dev)
+    ccfg = CriterionConfig(group_num=model.group_num,
+                           num_queries=model.num_queries,
+                           num_classes=model.num_classes,
+                           matcher=MatcherConfig(backend="jv"))
+    dn_cfg = DNConfig(scalar=DN_GROUPS, num_classes=model.num_classes)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    opt = make_optimizer(model, 2e-4, 1e-4)
+    fixed = prepare_dn(gen, targets.labels, targets.boxes_3d, targets.valid,
+                       TRAIN_QUERIES, dn_cfg)
+
+    def dn_losses(queries, generator=None):
+        model.train()
+        o = model(*inputs, generator=generator, dn_queries=queries)
+        if o["pred_logits"].shape[1] != TRAIN_QUERIES or \
+                o["dn_outputs"][-1]["pred_logits"].shape[1] != \
+                DN_GROUPS * VARIANT_OBJS:
+            raise AssertionError("DN outputs of the wrong shape")
+        losses = criterion(o, targets, ccfg)
+        losses.update(dn_loss(o["dn_outputs"][-1], targets.labels,
+                              targets.boxes_3d, targets.valid, dn_cfg))
+        losses["loss_total"] = (losses["loss_total"]
+                                + losses["tgt_loss_ce"]
+                                + losses["tgt_loss_bbox"])
+        return losses
+
+    def dn_step():
+        queries = prepare_dn(gen, targets.labels, targets.boxes_3d,
+                             targets.valid, TRAIN_QUERIES, dn_cfg)
+        losses = dn_losses(queries, gen)
+        opt.zero_grad(set_to_none=True)
+        losses["loss_total"].backward()
+        grad_norm = torch.nn.utils.get_total_norm(
+            [p.grad for p in model.parameters() if p.grad is not None])
+        opt.step()
+        vals = torch.stack([v.detach() for v in losses.values()]
+                           + [grad_norm]).cpu().tolist()
+        return dict(zip(list(losses) + ["grad_norm"], vals))
+
+    runs["dn"] = run_variant(
+        "dn", model, dn_step, lambda: dn_losses(fixed),
+        {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD,
+         "lap_jv": LAP_PER_STEP})
+    del model, opt
+    torch.cuda.empty_cache()
+
+    # the recorded launches: K1 and K2/K3 at the decoder's shapes, the
+    # tall JV on the encoder matches
+    fwd, bwd = {}, {}
+    for name, res in runs.items():
+        recs_f, recs_b = res.pop("_fwd"), res.pop("_bwd")
+        q = recs_f[0][2].shape[1]
+        label = f"{name} decoder Q={q}"
+        fwd[label] = check_msda_recorded(label, recs_f)
+        bwd[label] = check_msda_bwd_recorded(label, recs_b)
+    tall = [r for res in runs.values() for r in res.pop("_tall")]
+    if len(tall) != 1:
+        raise AssertionError(f"{len(tall)} encoder matches recorded")
+    tall_runs = {"two_stage encoder match": check_tall_jv(
+        "two_stage encoder match", *tall[0])}
+    torch.cuda.empty_cache()
+    out.update(variants=runs,
+               msda_fwd={k: {f: v.get(f) for f in (
+                   "shape", "max_abs_err", "ms", "ms_launched_from_python",
+                   "plain_ms", "bound_ms", "bound_by")}
+                   for k, v in fwd.items()},
+               msda_bwd={k: {f: v.get(f) for f in (
+                   "shape", "max_abs_err", "ms", "ms_launched_from_python",
+                   "plain_ms", "bound_ms", "bound_by")}
+                   for k, v in bwd.items()},
+               lap_jv_tall=tall_runs,
+               launches={k: sum(r["launches"][k] for r in runs.values())
+                         for k in ("msda_fwd", "msda_bwd", "lap_jv",
+                                   "lap_jv_tall")},
+               seconds=time.perf_counter() - t_phase)
+    out["_fwd"], out["_bwd"], out["_tall"] = fwd, bwd, tall_runs
+    return out
+
+
 def mask2former_config():
     """Mask2Former on Swin-B at the JAX package's benchmark widths
     (tools/bench_models.py; facebook/mask2former-swin-base-coco-instance):
@@ -3414,8 +3906,8 @@ def recording_msda(layers):
 
     def wrap(fn):
         def rec(value, shapes, loc, aw):
-            recorded.append((value.clone(), tuple(shapes), loc.clone(),
-                             aw.clone()))
+            recorded.append((value.detach().clone(), tuple(shapes),
+                             loc.detach().clone(), aw.detach().clone()))
             return fn(value, shapes, loc, aw)
         return rec
 
@@ -5000,6 +5492,21 @@ def main() -> int:
         "train_step_ms_mean", "peak_mem_GB")}
     emit(trn16)
 
+    # 5a. detector_variants: two_stage, DAB + learned + RGB-D, DN-DETR
+    dvr = detector_variants(dev)
+    dv_fwd, dv_bwd, dv_tall = dvr.pop("_fwd"), dvr.pop("_bwd"), \
+        dvr.pop("_tall")
+    dvr["train_phase_step_ms_mean"] = trn["train_step_ms_mean"]
+    emit(dvr)
+    for name, runs in (("msda_fwd", dv_fwd), ("msda_bwd", dv_bwd)):
+        for res in runs.values():
+            emit({"phase": "kernel", "name": name, **res})
+    for res in dv_tall.values():
+        emit({"phase": "kernel", "name": "lap_jv", **res})
+    fwd.update(dv_fwd)
+    bwd.update(dv_bwd)
+    torch.cuda.empty_cache()
+
     # 5b. train_add
     tra = train_add(dev)
     recorded = tra.pop("_lap_costs")
@@ -5013,6 +5520,9 @@ def main() -> int:
     for res in lap_runs.values():
         for name in ("lap_jv", "lap_auction"):
             emit({"phase": "kernel", "name": name, **res[name]})
+    # the tall form on the two-stage encoder match (detector_variants)
+    lap_runs.update({f"{key} (tall form)": {"lap_jv": res}
+                     for key, res in dv_tall.items()})
     torch.cuda.empty_cache()
 
     # 6. fit
@@ -5093,7 +5603,8 @@ def main() -> int:
                                  for key, r in runs.items() if key != first]}
 
     def lap_entry(name, replaces, launches):
-        runs = {key: res[name] for key, res in lap_runs.items()}
+        runs = {key: res[name] for key, res in lap_runs.items()
+                if name in res}
         out = entry(name, "monosowa_tpu_torch/ops/csrc/lap.cu", replaces,
                     launches, runs, "train step, final layer")
         out["host_route_ms"] = runs["train step, final layer"][
@@ -5108,6 +5619,7 @@ def main() -> int:
               {"serve": srv["msda_launches"],
                "train": trn["msda_fwd_launches"],
                "train_add": tra["launches"]["msda_fwd"],
+               "detector_variants": dvr["launches"]["msda_fwd"],
                "epoch": epc["msda_fwd_launches"],
                "masks": msk["msda_launches"],
                "sam": smp["msda_launches"],
@@ -5117,6 +5629,7 @@ def main() -> int:
               "monosowa_tpu/ops/msda_mxu.py:544 (K3 msda_dvalue_mxu)",
               {"train": trn["msda_bwd_launches"],
                "train_add": tra["launches"]["msda_bwd"],
+               "detector_variants": dvr["launches"]["msda_bwd"],
                "epoch": epc["msda_bwd_launches"]}, bwd),
         entry("msda_fwd_bf16", "monosowa_tpu_torch/ops/csrc/msda_fwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:378 (K1 ms_deform_attn_mxu, "
@@ -5147,6 +5660,7 @@ def main() -> int:
                   "(XLA, not Pallas)",
                   {"train": trn["lap_jv_launches"],
                    "train_add": tra["launches"]["lap_jv"],
+                   "detector_variants": dvr["launches"]["lap_jv"],
                    "epoch": epc["lap_jv_launches"]}),
         lap_entry("lap_auction", "monosowa_tpu/ops/lap.py:219 "
                   "solve_lap_auction (XLA, not Pallas)",

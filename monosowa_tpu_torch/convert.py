@@ -8,9 +8,11 @@ needed) and fills the torch module in place:
 * Conv kernels HWIO become OIHW;
 * GroupNorm and LayerNorm ``scale`` becomes ``weight``;
 * FrozenBatchNorm ``scale/bias/mean/var`` fill the buffers of those names;
-* raw parameters (``level_embed``, ``query_embed``, ``depth_pos_embed``)
-  keep their names and shapes (the full query table of
-  num_queries x group_num rows).
+* raw parameters (``level_embed``, ``query_embed``, ``depth_pos_embed``,
+  and of the variants ``tgt_embed``, ``refpoint_embed``, ``label_enc``)
+  keep their names and shapes (the full query tables of
+  num_queries x group_num rows), as do ``flax.linen.Embed`` tables
+  (``position_embedding/{row,col}_embed/embedding``: ``layers.Embed``).
 
 Flax's auto-generated submodule names are mapped by the fixed table
 ``AUTO_NAMES``, keyed by the torch module that holds them.  Any Flax key

@@ -15,7 +15,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from monosowa_tpu_torch.models.layers import FrozenBatchNorm, conv
+from monosowa_tpu_torch.models.layers import (FrozenBatchNorm, conv,
+                                              xavier_uniform_)
 
 BACKBONE_CHANNELS = (512, 1024, 2048)
 BACKBONE_STRIDES = (8, 16, 32)
@@ -53,14 +54,23 @@ class Bottleneck(nn.Module):
 
 class ResNet50(nn.Module):
     """NCHW images -> (C3, C4, C5): strides 8/16/32, channels
-    512/1024/2048."""
+    512/1024/2048.
+
+    ``depth_input``: the 4-channel RGB-D stem (reference backbone.py:
+    109-111; the JAX package's backbone.py:58-76): conv1 takes 4 input
+    channels with a xavier-uniform init.  As in the JAX package the norm
+    stays frozen (the reference swaps in a trainable BatchNorm2d)."""
 
     def __init__(self, gen: torch.Generator,
                  stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 compute_dtype: Optional[str] = None):
+                 compute_dtype: Optional[str] = None,
+                 depth_input: bool = False):
         super().__init__()
-        self.conv1 = conv(3, 64, 7, gen, stride=2, padding=3, bias=False,
-                          compute_dtype=compute_dtype)
+        self.conv1 = conv(4 if depth_input else 3, 64, 7, gen, stride=2,
+                          padding=3, bias=False, compute_dtype=compute_dtype)
+        if depth_input:
+            with torch.no_grad():
+                xavier_uniform_(self.conv1.weight, gen)
         self.bn1 = FrozenBatchNorm(64)
         self.pool = nn.MaxPool2d(3, 2, 1)
         self.stage_sizes = tuple(stage_sizes)

@@ -20,9 +20,13 @@ depth_predictor/ddn_loss/*; the JAX package's ``models/criterion.py``):
   monodetr.py:538-575) on the final layer and, with ``tfl_on_aux``, on each
   aux layer.
 
-Targets are padded tensors with a validity mask.  The two-stage encoder
-losses and DN-DETR are not in the port yet and raise
-``NotImplementedError``.
+* with two_stage, the encoder proposals (``enc_outputs``) matched with one
+  group over all S tokens and supervised on class and box terms, weighted
+  by the ``_enc`` suffix rule (the JAX package's criterion.py:295-382).
+
+Targets are padded tensors with a validity mask.  ``dn_outputs`` are
+ignored, as in the JAX package's criterion: ``dn_components.dn_loss``
+supervises them.
 """
 
 from __future__ import annotations
@@ -126,14 +130,15 @@ def _gather_targets(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[torch.arange(x.shape[0], device=x.device)[:, None], safe]
 
 
-def _layer_losses(out: Dict[str, torch.Tensor], targets: Targets,
-                  match_idx: torch.Tensor, num_boxes: torch.Tensor,
-                  cfg: CriterionConfig) -> Dict[str, torch.Tensor]:
-    logits = out["pred_logits"]                     # (B, Q, C)
-    boxes = out["pred_boxes"]                       # (B, Q, 6)
-    matched = match_idx >= 0                        # (B, Q)
-
-    # ----- focal classification over all queries -----------------------
+def _class_box_losses(out: Dict[str, torch.Tensor], targets: Targets,
+                      match_idx: torch.Tensor, num_boxes: torch.Tensor,
+                      cfg: CriterionConfig) -> Dict[str, torch.Tensor]:
+    """Focal classification over all queries, L1 3D center, L1 + GIoU on
+    the 6-dof boxes: a decoder layer's first four terms and all of the
+    two-stage encoder proposals' (whose head has no depth/dim/angle
+    outputs, the JAX package's ``_enc_layer_losses``)."""
+    logits, boxes = out["pred_logits"], out["pred_boxes"]
+    matched = match_idx >= 0
     tgt_cls = _gather_targets(targets.labels, match_idx).long()
     tgt_cls = torch.where(matched, tgt_cls,
                           torch.full_like(tgt_cls, cfg.num_classes))
@@ -147,18 +152,24 @@ def _layer_losses(out: Dict[str, torch.Tensor], targets: Targets,
     loss_ce = (alpha_t * (1 - p_t) ** cfg.focal_gamma * ce).sum() / num_boxes
 
     mask = matched.to(logits.dtype)
-
-    # ----- 3D center + 2D box L1 + GIoU ---------------------------------
     tgt_boxes = _gather_targets(targets.boxes_3d, match_idx)
-    l1_center = (boxes[..., :2] - tgt_boxes[..., :2]).abs().sum(-1)
-    loss_center = (l1_center * mask).sum() / num_boxes
-    l1_box = (boxes[..., 2:6] - tgt_boxes[..., 2:6]).abs().sum(-1)
-    loss_bbox = (l1_box * mask).sum() / num_boxes
-
+    l1c = (boxes[..., :2] - tgt_boxes[..., :2]).abs().sum(-1)
+    l1b = (boxes[..., 2:6] - tgt_boxes[..., 2:6]).abs().sum(-1)
     giou_pair = generalized_box_iou(
         box_cxcylrtb_to_xyxy(boxes).reshape(-1, 1, 4),
         box_cxcylrtb_to_xyxy(tgt_boxes).reshape(-1, 1, 4))[:, 0, 0]
-    loss_giou = ((1 - giou_pair.reshape(mask.shape)) * mask).sum() / num_boxes
+    return {"loss_ce": loss_ce,
+            "loss_center": (l1c * mask).sum() / num_boxes,
+            "loss_bbox": (l1b * mask).sum() / num_boxes,
+            "loss_giou": ((1 - giou_pair.reshape(mask.shape))
+                          * mask).sum() / num_boxes}
+
+
+def _layer_losses(out: Dict[str, torch.Tensor], targets: Targets,
+                  match_idx: torch.Tensor, num_boxes: torch.Tensor,
+                  cfg: CriterionConfig) -> Dict[str, torch.Tensor]:
+    losses = _class_box_losses(out, targets, match_idx, num_boxes, cfg)
+    mask = (match_idx >= 0).to(out["pred_logits"].dtype)
 
     # ----- Laplacian depth ---------------------------------------------
     depth_pred = out["pred_depth"]
@@ -188,10 +199,9 @@ def _layer_losses(out: Dict[str, torch.Tensor], targets: Targets,
     l1_res = (res_pred - tgt_res).abs()
     loss_angle = ((ce_angle + l1_res) * mask).sum() / num_boxes
 
-    return {"loss_ce": loss_ce, "loss_center": loss_center,
-            "loss_bbox": loss_bbox, "loss_giou": loss_giou,
-            "loss_depth": loss_depth, "loss_dim": loss_dim,
-            "loss_angle": loss_angle}
+    losses.update(loss_depth=loss_depth, loss_dim=loss_dim,
+                  loss_angle=loss_angle)
+    return losses
 
 
 def ddn_depth_map_loss(depth_logits: torch.Tensor, targets: Targets,
@@ -315,13 +325,11 @@ def criterion(outputs: Dict[str, Any], targets: Targets,
     """Full loss dict; 'loss_total' is the weighted sum the trainer steps
     on.  The auxiliary losses against pseudo-label cars are added when
     ``add_data`` is given and ``use_tfl`` or ``use_mask_loss`` is set."""
-    for key in ("enc_outputs", "dn_outputs"):
-        if key in outputs:
-            raise NotImplementedError(f"{key} (two_stage / DN-DETR) is not "
-                                      "in the port yet")
+    enc = outputs.get("enc_outputs")
     # the heads stay float32 under the bf16 policy (the JAX package's
     # tests/test_mixed_precision.py:40): no bf16 tensor reaches a loss
-    for out in [outputs] + list(outputs.get("aux_outputs", [])):
+    for out in [outputs] + list(outputs.get("aux_outputs", [])) \
+            + ([enc] if enc is not None else []):
         for key, val in out.items():
             if key.startswith("pred_") and val.dtype not in FLOAT_HEADS:
                 raise TypeError(f"{key} is {val.dtype}: the losses take "
@@ -351,9 +359,21 @@ def criterion(outputs: Dict[str, Any], targets: Targets,
         for k, v in aux_l.items():
             losses[f"{k}_{i}"] = v
 
+    if enc is not None:
+        # one group over all S encoder tokens (the JAX criterion's
+        # hungarian_match(..., 1, s_tok)): a tall problem for the solver
+        enc_idx = hungarian_match(enc["pred_logits"], enc["pred_boxes"],
+                                  targets.labels, targets.boxes_3d,
+                                  targets.valid, cfg.matcher,
+                                  enc["pred_logits"].shape[1])
+        for k, v in _class_box_losses(enc, targets, enc_idx, num_boxes,
+                                      cfg).items():
+            losses[f"{k}_enc"] = v
+
     total = 0.0
     for k, v in losses.items():
-        base = k.rsplit("_", 1)[0] if k[-1].isdigit() else k
+        base = k[:-4] if k.endswith("_enc") else (
+            k.rsplit("_", 1)[0] if k[-1].isdigit() else k)
         total = total + getattr(cfg, WEIGHT_OF[base]) * v
     losses["loss_total"] = total
     return losses

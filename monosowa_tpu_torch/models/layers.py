@@ -142,6 +142,23 @@ def conv(c_in: int, c_out: int, k: int, gen: torch.Generator,
     return c
 
 
+class Embed(nn.Module):
+    """A lookup table whose parameter is named like ``flax.linen.Embed``'s
+    (``embedding``, (num_embeddings, features)), drawn as Flax's default
+    embedding init draws it: truncated normal with variance 1 / features."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 gen: torch.Generator):
+        super().__init__()
+        std = math.sqrt(1.0 / features) / _TRUNC_STD
+        self.embedding = nn.Parameter(nn.init.trunc_normal_(
+            torch.empty(num_embeddings, features), 0.0, std, -2 * std,
+            2 * std, generator=gen))
+
+    def forward(self, idx: torch.Tensor) -> torch.Tensor:
+        return self.embedding[idx]
+
+
 class GroupNorm(nn.GroupNorm):
     """``flax.linen.GroupNorm`` (dtype None): the input is promoted with the
     params, so a bfloat16 activation is normalised and returned in
@@ -253,7 +270,10 @@ class MultiHeadAttention(nn.Module):
                               compute_dtype=compute_dtype)
         self.attn_dropout = Dropout(dropout)
 
-    def forward(self, query, key, value):
+    def forward(self, query, key, value,
+                attn_mask: Optional[torch.Tensor] = None):
+        """``attn_mask`` (Lq, Lk) bool, True = blocked (the DN-DETR block
+        structure): those logits are set to -1e9 before the softmax."""
         d = query.shape[-1]
         dh = d // self.num_heads
 
@@ -266,6 +286,8 @@ class MultiHeadAttention(nn.Module):
         acc = torch.promote_types(q.dtype, torch.float32)
         logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), k.to(acc)) \
             / math.sqrt(dh)
+        if attn_mask is not None:
+            logits = logits.masked_fill(attn_mask, -1e9)
         attn = self.attn_dropout(torch.softmax(logits, dim=-1).to(v.dtype))
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return self.out_proj(out.reshape(query.shape[:-1] + (d,)))

@@ -13,7 +13,8 @@ Behavioral contract (MonoDETR/lib/models/monodetr/depthaware_transformer.py):
 * ``DepthAwareDecoderLayer`` = :387-516 — depth cross-attention,
   group-wise self-attention (Group-DETR: in training each group of queries
   attends only within itself, by folding the groups into the batch axis,
-  :480-498), deformable cross-attention, FFN.  Like the JAX package it
+  :480-498; with DN-DETR queries, under a block mask instead),
+  deformable cross-attention, FFN.  Like the JAX package it
   reproduces the reference's effective computation: q/k go through the
   sa_* projections and then the attention's own projections; the value is
   the raw target (:409).
@@ -208,10 +209,16 @@ class DepthAwareDecoderLayer(nn.Module):
         self.dropout_out = Dropout(dropout)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def group_self_attn(self, q_in, k_in, v_in):
-        """Self-attention over the queries.  In training with several
-        groups, (B, g * nq, d) is folded to (B * g, nq, d) so each group
-        attends only within itself (JAX package transformer.py:249-264)."""
+    def group_self_attn(self, q_in, k_in, v_in, attn_mask=None):
+        """Self-attention over the queries.  With ``attn_mask`` (the
+        DN-DETR path) every query of the image attends under the mask,
+        which encodes both the denoising groups' and the Group-DETR groups'
+        isolation (JAX package transformer.py:242-248).  Otherwise, in
+        training with several groups, (B, g * nq, d) is folded to
+        (B * g, nq, d) so each group attends only within itself
+        (:249-264)."""
+        if attn_mask is not None:
+            return self.self_attn(q_in, k_in, v_in, attn_mask=attn_mask)
         if not (self.training and self.group_num > 1):
             return self.self_attn(q_in, k_in, v_in)
         b, gq, d = q_in.shape
@@ -224,7 +231,7 @@ class DepthAwareDecoderLayer(nn.Module):
             b, gq, d)
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes,
-                depth_embed_seq):
+                depth_embed_seq, self_attn_mask=None):
         # depth cross-attention
         tgt = self.norm_depth(tgt + self.dropout_depth(self.cross_attn_depth(
             tgt, depth_embed_seq, depth_embed_seq)))
@@ -234,7 +241,7 @@ class DepthAwareDecoderLayer(nn.Module):
         q_in = self.sa_qcontent_proj(qk) + self.sa_qpos_proj(qk)
         k_in = self.sa_kcontent_proj(qk) + self.sa_kpos_proj(qk)
         tgt = self.norm2(tgt + self.dropout_sa(
-            self.group_self_attn(q_in, k_in, tgt)))
+            self.group_self_attn(q_in, k_in, tgt, self_attn_mask)))
 
         # deformable cross-attention
         tgt = self.norm1(tgt + self.dropout_ca(self.cross_attn(

@@ -7,7 +7,9 @@
 //
 // Replaces the JAX package's on-device solvers of monosowa_tpu/ops/lap.py,
 // which are XLA programs (lax.while_loop), not Pallas kernels:
-//   lap_jv       solve_lap_jv :54, exact shortest augmenting paths;
+//   lap_jv       solve_lap_jv :54, exact shortest augmenting paths (two
+//                forms: one warp a problem in shared memory, and
+//                lap_jv_tall, one block a tall problem);
 //   lap_auction  solve_lap_auction :219, Jacobi auction with eps scaling.
 // Both follow the JAX functions step by step, so that they give the same
 // assignments as the port's plain versions (ops/lap.py solve_lap_jv,
@@ -34,6 +36,23 @@
 // objects, minv -= delta on the others), and stops at an unassigned
 // object.  Lane 0 flips the path.  The transposed cost (M x Q, 10 KB at
 // 50 x 50), u, v, p, minv, way and used live in shared memory.
+//
+// lap_jv_tall: the same augmentations for a tall problem, the two-stage
+// encoder match of 10,200 encoder tokens x 50 targets an image, whose cost
+// (2 MB) cannot sit in a block's shared memory.  One block of 1,024
+// threads a problem.  The cost stays in device memory, transposed once by
+// the wrapper (ops/lap.py) so that a person's row of Q objects is
+// contiguous: a Dijkstra step reads one row of 40 KB, which L2 serves after
+// the first touch.  The Q-length state (v, minv, p, way, used: 20 bytes an
+// object, 204,000 at Q = 10,200) lives in shared memory where it fits and
+// in a device-memory scratch where it does not (the wrapper chooses); u and
+// the reduction's partials are always in shared memory.  Each Dijkstra
+// step is a block-wide argmin over Q (a thread's strided objects, a warp
+// shuffle, the warps' partials through shared memory; the lower index wins
+// a tie) and two passes over the objects, the same float32 operations in
+// the same order as the one-warp form.  What bounds it: the chain of
+// dependent steps, each a few barriers and passes over Q in shared memory;
+// the bytes (4.08 MB of cost for two problems) take 1.2 us at 3.35 TB/s.
 //
 // lap_auction: one thread a column and a row of the squared Q x Q problem
 // (real columns j < m with benefit -cost[:, j], the others 0).  A round:
@@ -155,6 +174,130 @@ __global__ void __launch_bounds__(32) lap_jv_kernel(
   for (int j = lane; j < Q; j += 32) o[j] = p[j];
 }
 
+#define LAP_TALL_THREADS 1024
+
+__device__ __forceinline__ void lap_argmin_step(float& bv, int& bj, float ov,
+                                                int oj) {
+  if (ov < bv || (ov == bv && oj < bj)) {
+    bv = ov;
+    bj = oj;
+  }
+}
+
+__global__ void __launch_bounds__(LAP_TALL_THREADS) lap_jv_tall_kernel(
+    const float* __restrict__ costT, const int* __restrict__ n_valid,
+    int64_t* __restrict__ out, float* __restrict__ scratch, int Q, int M) {
+  extern __shared__ float smem[];
+  __shared__ float red_v[LAP_TALL_THREADS / 32];
+  __shared__ int red_j[LAP_TALL_THREADS / 32];
+  __shared__ float s_delta;
+  __shared__ int s_j1;
+  float* u = smem;                  // M persons' potentials
+  // v, minv (float), p, way, used (int): Q each, in shared memory after u
+  // or, with a scratch, in the problem's slice of it
+  float* v = scratch ? scratch + (size_t)blockIdx.x * 5 * Q : u + M;
+  float* minv = v + Q;
+  int* p = reinterpret_cast<int*>(minv + Q);
+  int* way = p + Q;
+  int* used = way + Q;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const float* cp = costT + (size_t)blockIdx.x * M * Q;   // M x Q
+  for (int j = tid; j < Q; j += blockDim.x) {
+    v[j] = 0.f;
+    p[j] = -1;
+  }
+  for (int i = tid; i < M; i += blockDim.x) u[i] = 0.f;
+  int m = n_valid[blockIdx.x];
+  m = max(0, min(m, min(Q, M)));
+  __syncthreads();
+
+  for (int i = 0; i < m; ++i) {
+    const float ui = u[i];
+    const float* ci = cp + (size_t)i * Q;
+    for (int j = tid; j < Q; j += blockDim.x) {
+      minv[j] = (ci[j] - ui) - v[j];
+      way[j] = -1;
+      used[j] = 0;
+    }
+    __syncthreads();
+    int j_end;
+    while (true) {
+      // argmin over the unused objects, lowest index on ties
+      float bv = CUDART_INF_F;
+      int bj = Q;
+      for (int j = tid; j < Q; j += blockDim.x)
+        lap_argmin_step(bv, bj, used[j] ? CUDART_INF_F : minv[j], j);
+      for (int off = 16; off > 0; off >>= 1)
+        lap_argmin_step(bv, bj, __shfl_xor_sync(LAP_FULL, bv, off),
+                        __shfl_xor_sync(LAP_FULL, bj, off));
+      if (lane == 0) {
+        red_v[warp] = bv;
+        red_j[warp] = bj;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        bv = lane < nwarps ? red_v[lane] : CUDART_INF_F;
+        bj = lane < nwarps ? red_j[lane] : Q;
+        for (int off = 16; off > 0; off >>= 1)
+          lap_argmin_step(bv, bj, __shfl_xor_sync(LAP_FULL, bv, off),
+                          __shfl_xor_sync(LAP_FULL, bj, off));
+        if (lane == 0) {
+          s_delta = bv;
+          s_j1 = bj;
+        }
+      }
+      __syncthreads();
+      const int j1 = s_j1;
+      const float delta = s_delta;
+      // the potentials (used objects have distinct persons, none of them i)
+      for (int j = tid; j < Q; j += blockDim.x) {
+        if (used[j]) {
+          u[p[j]] = u[p[j]] + delta;
+          v[j] = v[j] - delta;
+        } else {
+          minv[j] = minv[j] - delta;
+        }
+      }
+      if (tid == 0) u[i] = u[i] + delta;
+      __syncthreads();
+      if (tid == 0) used[j1] = 1;
+      const int pj1 = p[j1];
+      __syncthreads();
+      if (pj1 < 0) {
+        j_end = j1;
+        break;
+      }
+      // extend the search tree through j1's current person
+      const float ui2 = u[pj1];
+      const float* ci2 = cp + (size_t)pj1 * Q;
+      for (int j = tid; j < Q; j += blockDim.x) {
+        if (!used[j]) {
+          const float cur = (ci2[j] - ui2) - v[j];
+          if (cur < minv[j]) {
+            minv[j] = cur;
+            way[j] = j1;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // flip the augmenting path back to its root
+    if (tid == 0) {
+      int j = j_end;
+      while (j >= 0) {
+        const int jprev = way[j];
+        p[j] = jprev < 0 ? i : p[jprev];
+        j = jprev;
+      }
+    }
+    __syncthreads();
+  }
+  int64_t* o = out + (size_t)blockIdx.x * Q;
+  for (int j = tid; j < Q; j += blockDim.x) o[j] = p[j];
+}
+
 __global__ void lap_auction_kernel(const float* __restrict__ cost,
                                    const int* __restrict__ n_valid,
                                    const float* __restrict__ eps_all,
@@ -262,6 +405,22 @@ extern "C" int lap_jv(const void* cost, const void* n_valid, void* out,
   if (err) return err;
   lap_jv_kernel<<<N, 32, smem, (cudaStream_t)stream>>>(
       (const float*)cost, (const int*)n_valid, (int64_t*)out, Q, M);
+  return (int)cudaGetLastError();
+}
+
+// costT (N, M, Q): the cost transposed; scratch: NULL to keep the state in
+// shared memory, else N * 5 * Q words of device memory for it
+extern "C" int lap_jv_tall(const void* costT, const void* n_valid, void* out,
+                           void* scratch, int N, int Q, int M, void* stream) {
+  if (N < 0 || Q < 1 || M < 1) return (int)cudaErrorInvalidValue;
+  if (N == 0) return 0;
+  const size_t smem =
+      sizeof(float) * ((size_t)M + (scratch ? 0 : 5 * (size_t)Q));
+  int err = set_smem((const void*)lap_jv_tall_kernel, smem);
+  if (err) return err;
+  lap_jv_tall_kernel<<<N, LAP_TALL_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)costT, (const int*)n_valid, (int64_t*)out,
+      (float*)scratch, Q, M);
   return (int)cudaGetLastError();
 }
 

@@ -15,6 +15,13 @@ problem per (image, Group-DETR group).
 * ``solve_lap_auction`` — Jacobi auction with epsilon scaling on the
   squared problem (JAX ``solve_lap_auction`` :219), near-optimal.
 
+``lap_jv`` has two forms, both hand-written kernels of ``csrc/lap.cu``,
+chosen by ``jv_smem_bytes``: a problem whose transposed cost and state fit
+a block's shared memory (the decoder's 50 x 50 matches) takes the one-warp
+form; a tall one (the two-stage encoder match, 10,200 tokens x 50
+targets) takes ``lap_jv_tall``, one block of 1,024 threads a problem with
+the cost in device memory.
+
 ``solve_lap_jv`` and ``solve_lap_auction`` are the plain versions: they
 follow the JAX functions step by step (the same float32 operations in the
 same order, first index on ties as ``jnp.argmin`` / ``jnp.argmax`` take it,
@@ -23,7 +30,8 @@ have stopped), so they give the JAX solvers' assignments, not merely
 assignments of the same cost.  ``lap_jv`` and ``lap_auction`` launch the
 hand-written kernels of ``csrc/lap.cu`` for CUDA tensors and run the plain
 versions for CPU tensors; there is no other path.  ``jv_launches`` and
-``auction_launches`` count kernel launches.
+``auction_launches`` count kernel launches (``jv_launches`` those of both
+forms, ``jv_tall_launches`` those of the tall form alone).
 
 One departure: a problem with more valid columns than rows is solved over
 its first Q columns.  The JAX solvers never end on such a problem (JV) or
@@ -47,6 +55,7 @@ AUCTION_MAX_Q = 1024          # one thread per row and per column
 # kernel launches of lap_jv and lap_auction (read and reset by callers that
 # must show a run went through the kernels)
 jv_launches = 0
+jv_tall_launches = 0
 auction_launches = 0
 
 
@@ -287,9 +296,16 @@ def lap_auction(cost: torch.Tensor, n_valid: torch.Tensor,
 
 
 def jv_smem_bytes(q: int, mmax: int) -> int:
-    """Shared memory of one ``lap_jv`` block: the transposed cost, u, and
-    v, minv, p, way, used."""
+    """Shared memory of one block of the one-warp ``lap_jv``: the
+    transposed cost, u, and v, minv, p, way, used."""
     return 4 * (mmax * q + mmax + 5 * q)
+
+
+def jv_tall_smem_bytes(q: int, mmax: int, state_in_smem: bool) -> int:
+    """Shared memory of one ``lap_jv_tall`` block: the reduction's
+    partials and broadcast (66 words, static), u, and with
+    ``state_in_smem`` v, minv, p, way, used."""
+    return 4 * (66 + mmax + (5 * q if state_in_smem else 0))
 
 
 def auction_smem_bytes(q: int) -> int:
@@ -307,31 +323,47 @@ def _kernels():
     p, i = ctypes.c_void_p, ctypes.c_int
     # cost, n_valid, out, N, Q, M, stream
     lib.lap_jv.argtypes = [p, p, p, i, i, i, p]
+    # costT, n_valid, out, scratch, N, Q, M, stream
+    lib.lap_jv_tall.argtypes = [p, p, p, p, i, i, i, p]
     # cost, n_valid, eps, out, N, Q, M, phases, rounds, stream
     lib.lap_auction.argtypes = [p, p, p, p, i, i, i, i, i, p]
-    for fn in (lib.lap_jv, lib.lap_auction):
+    for fn in (lib.lap_jv, lib.lap_jv_tall, lib.lap_auction):
         fn.restype = ctypes.c_int
     return lib
 
 
 def _launch_jv(cost, n_valid):
-    global jv_launches
+    """One launch of the one-warp form where a problem fits a block's
+    shared memory, else of the tall form."""
+    global jv_launches, jv_tall_launches
     n, q, mmax = cost.shape
-    if jv_smem_bytes(q, mmax) > SMEM_LIMIT:
-        raise ValueError(f"lap_jv: Q = {q}, M = {mmax} need "
-                         f"{jv_smem_bytes(q, mmax)} bytes of shared memory, "
-                         f"a block may have {SMEM_LIMIT}")
     counts = n_valid.to(torch.int32).contiguous()
     out = torch.empty(n, q, dtype=torch.int64, device=cost.device)
     if n == 0:
         return out
+    tall = jv_smem_bytes(q, mmax) > SMEM_LIMIT
+    if tall:
+        # a person's row of objects contiguous; the state in shared memory
+        # where it fits, else in a scratch of device memory
+        cost_t = cost.transpose(1, 2).contiguous()
+        in_smem = jv_tall_smem_bytes(q, mmax, True) <= SMEM_LIMIT
+        scratch = None if in_smem else torch.empty(
+            n * 5 * q, dtype=torch.float32, device=cost.device)
     with torch.cuda.device(cost.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels().lap_jv(cost.data_ptr(), counts.data_ptr(),
-                                out.data_ptr(), n, q, mmax, stream)
+        if tall:
+            err = _kernels().lap_jv_tall(
+                cost_t.data_ptr(), counts.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), n, q, mmax,
+                stream)
+        else:
+            err = _kernels().lap_jv(cost.data_ptr(), counts.data_ptr(),
+                                    out.data_ptr(), n, q, mmax, stream)
     if err != 0:
-        raise RuntimeError(f"lap_jv launch failed: CUDA error {err}")
+        raise RuntimeError(f"lap_jv{'_tall' if tall else ''} launch failed: "
+                           f"CUDA error {err}")
     jv_launches += 1
+    jv_tall_launches += tall
     return out
 
 

@@ -767,6 +767,24 @@ def test_lap_jv_kernel_equals_plain(cuda, n, q, mmax):
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n,q,mmax", [(4, 2000, 50), (2, 10200, 50),
+                                      (2, 12000, 50), (3, 5000, 7),
+                                      (2, 300, 300)])
+def test_lap_jv_tall_form_equals_plain(cuda, n, q, mmax):
+    """Problems too tall for the one-warp form's shared memory take
+    ``lap_jv_tall``: the two-stage encoder match (10,200 x 50), its state
+    in shared memory; past about 11,600 rows in device memory."""
+    cost, m = _lap_problems(n + 200, n, q, mmax)
+    assert lap.jv_smem_bytes(q, mmax) > lap.SMEM_LIMIT
+    before, tall = lap.jv_launches, lap.jv_tall_launches
+    got = lap.lap_jv(cost.to(cuda), m.to(cuda))
+    torch.cuda.synchronize()
+    assert (lap.jv_launches, lap.jv_tall_launches) == (before + 1, tall + 1)
+    torch.testing.assert_close(
+        got.cpu(), lap.solve_lap_jv(cost.to(cuda), m.to(cuda)).cpu(),
+        rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("n,q,mmax", [(22, 50, 50), (7, 20, 8), (3, 33, 1)])
 def test_lap_auction_kernel_equals_plain(cuda, n, q, mmax):
     cost, m = _lap_problems(n + 100, n, q, mmax)
@@ -801,16 +819,20 @@ def test_device_match_syncs_nothing(cuda):
 
 
 def test_lap_kernels_refuse_what_they_cannot_take(cuda):
+    """The auction refuses more columns than rows, JV counts on another
+    device and a cost that is not (N, Q, M); a problem too large for the
+    one-warp JV's shared memory is no longer refused: the tall form takes
+    it (test_lap_jv_tall_form_equals_plain)."""
     cost = torch.zeros(2, 4, 6, device=cuda)
     m = torch.zeros(2, dtype=torch.int64, device=cuda)
-    before = lap.auction_launches
+    before = lap.auction_launches, lap.jv_launches
     with pytest.raises(ValueError):
         lap.lap_auction(cost, m)
     with pytest.raises(ValueError):
         lap.lap_jv(cost, m.cpu())
     with pytest.raises(ValueError):
-        lap.lap_jv(torch.zeros(1, 300, 300, device=cuda), m[:1])
-    assert lap.auction_launches == before
+        lap.lap_jv(torch.zeros(300, 300, device=cuda), m[:1])
+    assert (lap.auction_launches, lap.jv_launches) == before
 
 
 def _sam_tree(cfg, seed=0):

@@ -273,14 +273,36 @@ def test_cuda_request_raises_without_gpu():
 
 
 def test_unshipped_flags_raise():
+    """What the port still refuses: a feature-level count other than 4
+    (the JAX model cannot run one either), the one-hot MSDA backend,
+    use_dn and no box refinement in a yaml (the JAX ``build_monodetr``
+    ignores both), the prediction renders (``visu``), and the auction
+    kernel past 1,024 rows (the two-stage encoder match).  The variants
+    the JAX ``build_monodetr`` reads are built
+    (tests/test_torch_detector_variants.py holds them)."""
     from monosowa_tpu_torch.models.monodetr import MonoDETR, build_monodetr
+    from monosowa_tpu_torch.ops import lap
+    from monosowa_tpu_torch.train import tester
 
-    for flag in ("two_stage", "use_dab", "use_depth"):
+    tiny = dict(enc_layers=1, dec_layers=1, d_model=64, d_ffn=64, nheads=4,
+                num_queries=5, num_depth_bins=8)
+    for levels in (3, 5):
         with pytest.raises(NotImplementedError):
-            MonoDETR(device="cpu", **{flag: True})
+            MonoDETR(device="cpu", num_feature_levels=levels, **tiny)
     with pytest.raises(NotImplementedError):
-        MonoDETR(device="cpu", position_embedding="learned")
+        MonoDETR(device="cpu", msda_backend="onehot", **tiny)
+    for flag, value in (("use_dn", True), ("with_box_refine", False)):
+        with pytest.raises(NotImplementedError):
+            build_monodetr({flag: value}, device="cpu")
+    for flags in ({"two_stage": True}, {"use_dab": True}, {"use_depth": True},
+                  {"position_embedding": "learned"}):
+        MonoDETR(device="cpu", **tiny, **flags)
     with pytest.raises(NotImplementedError):
-        build_monodetr({"use_dn": True}, device="cpu")
+        tester.run_inference(None, [], {"trainer": {}}, visu=True)
     with pytest.raises(NotImplementedError):
-        MonoDETR(device="cpu", msda_backend="onehot")
+        tester.run_inference(None, [], {"trainer": {}, "tester": {
+            "visu_predictions": True}})
+    tall = torch.zeros(1, lap.AUCTION_MAX_Q + 1, 50)
+    with pytest.raises(ValueError, match="lap_auction"):
+        lap._launch_auction(tall, torch.ones(1, dtype=torch.int64),
+                            lap.AUCTION_PHASES, lap.AUCTION_ROUNDS)

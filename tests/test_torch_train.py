@@ -231,8 +231,10 @@ def test_criterion_config_from_yaml_matches_jax():
 
 
 def test_criterion_rejects_what_the_port_lacks():
-    """two_stage / DN-DETR outputs raise.  The TFL and mask losses are
-    ported: without a car payload they add nothing, as in the JAX package
+    """DN-DETR outputs are ignored, as in the JAX criterion (``dn_loss``
+    supervises them; tests/test_torch_two_stage_train.py holds the
+    ``enc_outputs`` losses).  The TFL and mask losses are ported: without
+    a car payload they add nothing, as in the JAX package
     (tests/test_torch_add_data.py holds them with one)."""
     out = jax.tree_util.tree_map(
         torch.from_numpy, _random_outputs(np.random.default_rng(5), 20))
@@ -243,8 +245,13 @@ def test_criterion_rejects_what_the_port_lacks():
         group_num=2, num_queries=10))
     assert sorted(with_flags) == sorted(plain)
     assert float(with_flags["loss_total"]) == float(plain["loss_total"])
-    with pytest.raises(NotImplementedError):
-        crit.criterion({**out, "enc_outputs": {}}, targets, _port_ccfg())
+    dn_outputs = [{"pred_logits": torch.ones(B, 6, 3),
+                   "pred_boxes": torch.full((B, 6, 6), 0.5)}] * 2
+    ccfg = crit.CriterionConfig(group_num=2, num_queries=10)
+    with_dn = crit.criterion({**out, "dn_outputs": dn_outputs}, targets,
+                             ccfg)
+    assert sorted(with_dn) == sorted(plain)
+    assert float(with_dn["loss_total"]) == float(plain["loss_total"])
 
 
 # ---------------------------------------------------------------------------
