@@ -260,6 +260,40 @@ Phases, each printing one JSON line:
             ``backends.tracker: vit``: steps, ms a step, card against CPU
             (1e-4).  Prints each action's ms a frame, the stages' seconds,
             the host share of a live mask frame and ``peak_mem_GB``.
+    optional_stages — the labeller's stages that the shipped config
+            leaves off, through their own functions (no CLI flag reads
+            them): (a) ICP poses: a seeded street (buildings 9-13 m to
+            each side, parked cars) cast by a 64-beam scanner's 115,200
+            rays a frame at 80 m, 1 m a frame at one speed on a curve;
+            ``icp_window_transforms_v2`` (an odometry prior 0.16 m and 0.4
+            degrees off a pair) and ``icp_window_transforms`` around the
+            middle frame at +-130, jump 5, 4,096 points, 20 iterations,
+            k = 10: v2's frames registered straight to the reference
+            (+-4) held to the truth (5 cm, 0.5 degrees), its anchors',
+            the +-30 frames', the window's errors and v1's printed; one
+            pair on the card against the CPU port (1e-4); ms a pair, s a
+            window, pairs a window.  (b) ``perform_growing_frame`` for
+            each car mask of the label scene's 375 x 1242 pseudo-LiDAR
+            frame (a point a pixel): the grown points inside the mask's
+            car grown by 0.3 m where the car shows, none where a nearer
+            car covers it; on the CPU at full resolution the recorded
+            rounds of at most 5 M edges (the same region) and the largest
+            round's labels at 0.1 m (equal); card and CPU equal on every
+            4th row and column; each round's crop and edges, ms a mask,
+            ``peak_mem_GB``.  (c) ``fit_deformable_batch`` at
+            ``DeformConfig()`` (1,000 steps) with ``make_car_mesh()``
+            (288 vertices) on 16 cars of 2,048 points: finite, scales
+            clipped, mean vertex-to-scan distance under 0.25 m; 30 steps
+            card against CPU (1e-4 of the vertices' scale); s a batch,
+            launches a step, busy share.  (d) ``fit_cars`` (the
+            gather-field fit) on 16 cars at ``FitConfig()``, one car's
+            standing and moving fits on the CPU too (poses equal); ms a
+            batch.  (e) ``custom_dataset``: the standing cars saved,
+            loaded and re-fitted by ``evaluate_fitting_on_pairs`` through
+            (d)'s fit, the IoUs those of the batch fit.  The fine theta
+            pass of (d) and (e) launches ``tfl_counts``: counted (in the
+            ``kernels`` line) and each launch replayed against the plain
+            version.
 11. kernels — one line listing every ported kernel with its numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -5348,6 +5382,775 @@ def waymo(dev, root: str, mask_ckpt: str, n_frames: int = WAYMO_FRAMES,
     return out
 
 
+# ---------------------------------------------------------------------------
+# optional_stages (slice 15): ICP poses, region growing, the deformable
+# mesh, the gather-field fit and the custom-dataset harness
+# ---------------------------------------------------------------------------
+
+# ICP: the shipped +-130 window (configs/sowa_kitti.yaml
+# nscans_transformation_range) at jump 5, 4,096 points, 20 iterations,
+# k = 10; a 64-beam scanner's rays (HDL-64E: +2 to -24.8 degrees, 1,800
+# azimuths: about 115k a frame, 80 m) at KITTI's driving speed (1 m a
+# frame at 10 Hz) on a gentle curve.  The label scenes' scans (a flat
+# ground and cars that face the camera) leave a point-to-plane ICP no
+# constraint across the road, hence a street of its own
+ICP_RNG, ICP_JUMP, ICP_POINTS = 130, 5, 4096
+ICP_BEAMS, ICP_AZIMUTHS, ICP_RANGE = 64, 1800, 80.0
+ICP_STEP, ICP_YAW_RATE, ICP_NOISE = 1.0, 0.0005, 0.01
+# v2 (with its prior) is held to the truth on every frame within
+# ICP_HOLD_WINDOW of the reference: the frames registered straight to it,
+# 1-4 m away.  Its anchors, 5 m apart, miss the bar on this street (a
+# corridor: little but the gaps and the parked cars' ends fixes the
+# forward motion of a 4,096-point sample), and over the +-130 window's
+# 26 anchor links their errors chain into a drift (reported: the reach,
+# the largest r whose frames all hold the bar, the errors within the
+# +-30 frames the labeller aggregates and over the window, each
+# anchor's).  v1 has no prior, and its pairs, 5 m apart, start outside
+# its 1 m correspondence gate: reported, not held
+ICP_HOLD_WINDOW = 4
+ICP_REPORT_WINDOW = 30
+ICP_POS_BAR, ICP_ROT_BAR_DEG, ICP_CPU_BAR = 0.05, 0.5, 1e-4
+# region growing: the CPU checks at full resolution are the rounds of the
+# card's run with at most GROW_CPU_EDGES edges (the far cars' second
+# rounds) and the largest round at the smallest threshold; the whole flow
+# of every mask on every GROW_CPU_STRIDE-th pixel row and column (a near
+# car's round, with its 790 M edges, takes minutes on the host)
+GROW_CPU_STRIDE, GROW_BOX_MARGIN, GROW_CPU_EDGES = 4, 0.3, 5_000_000
+# the deformable mesh: DeformConfig() on 16 cars of 2,048 points; the card
+# against the CPU over 30 steps, of the vertices' scale
+DEFORM_CARS, DEFORM_S, DEFORM_CPU_STEPS, DEFORM_CPU_BAR = 16, 2048, 30, 1e-4
+DEFORM_DIST_BAR = 0.25        # m, tests/test_deformable.py's
+DEFORM_BUSY_STEPS = 100       # steps of the profiled run
+# the gather-field fit at FitConfig(): 16 cars, the second (moving) of
+# them through both the standing and the moving fit on the CPU too
+GATHER_CARS, GATHER_CPU_CAR = 16, 1
+
+
+def icp_world(rng, path_len: float):
+    """Boxes (center (M, 3), half extents (M, 3), yaw (M,)) along the ego
+    path in frame 0's camera axes (x right, y down, z forward; the ground
+    at y = 1.65): buildings 9-13 m to each side (8-16 m long, 1-4 m gaps,
+    9.65 m tall) and parked cars 4-6 m to each side every 6-10 m, yawed
+    up to 0.3 rad off the road, from 80 m behind to 80 m beyond the
+    path."""
+    import numpy as np
+
+    centers, halves, yaws = [], [], []
+
+    def along(s, lateral):
+        psi = ICP_YAW_RATE * s / ICP_STEP          # the road's heading at s
+        k = np.arange(0.0, s, ICP_STEP) if s > 0 else np.zeros(0)
+        x = float(np.sum(ICP_STEP * np.sin(ICP_YAW_RATE * k / ICP_STEP)))
+        z = float(np.sum(ICP_STEP * np.cos(ICP_YAW_RATE * k / ICP_STEP)))
+        if s <= 0:
+            x, z = 0.0, s
+        return (x + lateral * np.cos(psi), z - lateral * np.sin(psi), psi)
+
+    for side in (-1, 1):
+        s = -80.0
+        while s < path_len + 80.0:
+            length = rng.uniform(8, 16)
+            off = side * (rng.uniform(9, 13) + 5.0)
+            x, z, psi = along(s + length / 2, off)
+            centers.append([x, 1.65 - 4.825, z])
+            halves.append([5.0, 4.825, length / 2])
+            yaws.append(psi)
+            s += length + rng.uniform(1, 4)
+        s = -80.0
+        while s < path_len + 80.0:
+            x, z, psi = along(s, side * rng.uniform(4, 6))
+            centers.append([x, 1.65 - 0.75, z])
+            halves.append([0.9, 0.75, 2.1])
+            yaws.append(psi + rng.uniform(-0.3, 0.3))
+            s += rng.uniform(6, 10)
+    return (np.asarray(centers), np.asarray(halves), np.asarray(yaws))
+
+
+def icp_poses(n: int):
+    """(n, 4, 4) camera-to-world poses: ICP_STEP a frame, at one speed,
+    along a heading that turns ICP_YAW_RATE a frame."""
+    import numpy as np
+
+    poses = np.tile(np.eye(4), (n, 1, 1))
+    pos = np.zeros(3)
+    for k in range(n):
+        psi = ICP_YAW_RATE * k
+        c, s = np.cos(psi), np.sin(psi)
+        poses[k, :3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        poses[k, :3, 3] = pos
+        pos = pos + ICP_STEP * np.array([s, 0.0, c])
+    return poses
+
+
+def ray_scan(world, pose, dev, gen):
+    """One frame's scan, (N, 3) float32 camera-frame points: every ray of
+    the scanner's rings hits the ground or a box within ICP_RANGE, moved
+    along the ray by ICP_NOISE Gaussian noise (ray casting on ``dev``)."""
+    import numpy as np
+    import torch
+
+    el = torch.deg2rad(torch.linspace(2.0, -24.8, ICP_BEAMS,
+                                      dtype=torch.float64, device=dev))
+    az = torch.arange(ICP_AZIMUTHS, dtype=torch.float64,
+                      device=dev) * (2 * np.pi / ICP_AZIMUTHS)
+    el, az = el[:, None], az[None, :]
+    d_cam = torch.stack([torch.cos(el) * torch.sin(az),
+                         (-torch.sin(el)).expand(-1, az.shape[1]),
+                         torch.cos(el) * torch.cos(az)], -1).reshape(-1, 3)
+    rot = torch.as_tensor(pose[:3, :3], device=dev)
+    origin = torch.as_tensor(pose[:3, 3], device=dev)
+    d = d_cam @ rot.T                                        # world rays
+    t = torch.where(d[:, 1] > 1e-9, (1.65 - origin[1]) / d[:, 1],
+                    torch.full_like(d[:, 1], np.inf))
+    centers, halves, yaws = (torch.as_tensor(a, device=dev) for a in world)
+    near = ((centers[:, [0, 2]] - origin[[0, 2]]).norm(dim=1)
+            < ICP_RANGE + halves.norm(dim=1))
+    c, h, yw = centers[near], halves[near], yaws[near]
+    cy, sy = torch.cos(yw), torch.sin(yw)
+    # into each box's frame: R_y(yaw)^T (p - c)
+    rel = origin[None] - c                                   # (M, 3)
+    o_b = torch.stack([cy * rel[:, 0] - sy * rel[:, 2], rel[:, 1],
+                       sy * rel[:, 0] + cy * rel[:, 2]], -1)
+    d_b = torch.stack([cy[None] * d[:, None, 0] - sy[None] * d[:, None, 2],
+                       d[:, None, 1].expand(-1, len(yw)),
+                       sy[None] * d[:, None, 0] + cy[None] * d[:, None, 2]],
+                      -1)                                    # (R, M, 3)
+    d_b = torch.where(d_b.abs() < 1e-12, torch.full_like(d_b, 1e-12), d_b)
+    t1 = (-h[None] - o_b[None]) / d_b
+    t2 = (h[None] - o_b[None]) / d_b
+    t_near = torch.minimum(t1, t2).amax(-1)
+    t_far = torch.maximum(t1, t2).amin(-1)
+    hit = (t_far >= t_near) & (t_near > 0)
+    t_box = torch.where(hit, t_near, torch.full_like(t_near, np.inf))
+    t = torch.minimum(t, t_box.amin(-1) if len(yw) else t)
+    keep = t <= ICP_RANGE
+    t = t[keep] + ICP_NOISE * torch.randn(int(keep.sum()), dtype=t.dtype,
+                                          device=dev, generator=gen)
+    return (d_cam[keep] * t[:, None]).float().cpu().numpy()
+
+
+def pose_errors(got, want):
+    """(translation errors m, rotation errors degrees), each (n,), between
+    two stacks of 4x4 transforms."""
+    import numpy as np
+
+    dt = np.linalg.norm(got[:, :3, 3] - want[:, :3, 3], axis=1)
+    rel = np.einsum("nji,njk->nik", got[:, :3, :3], want[:, :3, :3])
+    cos = np.clip((np.trace(rel, axis1=1, axis2=2) - 1) / 2, -1, 1)
+    return dt, np.degrees(np.arccos(cos))
+
+
+def window_errors(got, truth, rng_w: int) -> dict:
+    """A window's largest errors within ICP_HOLD_WINDOW and
+    ICP_REPORT_WINDOW of the reference and over all of it, each anchor's
+    within ICP_REPORT_WINDOW ([offset, m, degrees]), and its reach: the
+    largest r whose frames within +-r all hold the bar."""
+    import numpy as np
+
+    dt, dr = pose_errors(got, truth)
+    signed = np.arange(-rng_w, rng_w + 1)
+    off = np.abs(signed)
+    held = off <= ICP_HOLD_WINDOW
+    near = off <= ICP_REPORT_WINDOW
+    bad = off[(dt >= ICP_POS_BAR) | (dr >= ICP_ROT_BAR_DEG)
+              | ~np.isfinite(got).all((1, 2))]
+    anchors = near & (signed % ICP_JUMP == 0) & (off > 0)
+    return {"max_pos_err_m": float(dt.max()),
+            "max_rot_err_deg": float(dr.max()),
+            "held_max_pos_err_m": float(dt[held].max()),
+            "held_max_rot_err_deg": float(dr[held].max()),
+            "aggregated_max_pos_err_m": float(dt[near].max()),
+            "aggregated_max_rot_err_deg": float(dr[near].max()),
+            "anchors": [[int(o), float(a), float(b)] for o, a, b in
+                        zip(signed[anchors], dt[anchors], dr[anchors])],
+            "reach": int(bad.min()) - 1 if len(bad) else rng_w}
+
+
+def icp_stage(dev, rng_w: int = ICP_RNG) -> dict:
+    """(a) ICP: v2 (with an odometry prior 0.16 m and 0.4 degrees off a
+    pair) and v1 (no prior) over the +-rng_w window of the middle frame
+    of a 2 rng_w + 1 frame sequence; v2's transforms within
+    ICP_HOLD_WINDOW of the reference held to the truth, its whole
+    window's error and reach reported, v1's reported; one pair on the
+    card against the CPU port."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.ops import icp
+    from monosowa_tpu_torch.sowa import transforms
+
+    n = 2 * rng_w + 1
+    ref = rng_w
+    poses = icp_poses(n)
+    world = icp_world(np.random.default_rng(11),
+                      float(np.linalg.norm(poses[-1, :3, 3])))
+    gen = torch.Generator(dev).manual_seed(12)
+    scans = {}
+
+    def get_scan(f):
+        if f not in scans:
+            scans[f] = ray_scan(world, poses[f], dev, gen)
+        return scans[f]
+
+    truth = np.stack([np.linalg.inv(poses[ref]) @ poses[f]
+                      for f in range(ref - rng_w, ref + rng_w + 1)])
+    err_rot = np.eye(4)
+    c, s = np.cos(np.deg2rad(0.4)), np.sin(np.deg2rad(0.4))
+    err_rot[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+    err_rot[:3, 3] = [0.1, 0.05, -0.12]
+
+    def prior(cur, anchor):
+        return np.linalg.inv(poses[anchor]) @ poses[cur] @ err_rot
+
+    t0 = time.perf_counter()
+    for f in range(n):
+        get_scan(f)
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    points = [len(scans[f]) for f in range(n)]
+    kw = dict(jump=ICP_JUMP, max_points=ICP_POINTS, device=dev)
+    t0 = time.perf_counter()
+    v2 = transforms.icp_window_transforms_v2(get_scan, ref, rng_w, n,
+                                             get_prior=prior, **kw)
+    v2_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    v1 = transforms.icp_window_transforms(get_scan, ref, rng_w, n, **kw)
+    v1_s = time.perf_counter() - t0
+    anchors = 2 * (rng_w // ICP_JUMP)
+    pairs_v2 = anchors + (n - 1 - anchors)
+    pairs_v1 = anchors
+    out = {"frames": n, "points_per_frame": [min(points), max(points)],
+           "metres_per_frame": ICP_STEP, "held_window": ICP_HOLD_WINDOW,
+           "v2": window_errors(v2, truth, rng_w),
+           "v1": window_errors(v1, truth, rng_w)}
+    if not (np.isfinite(v1).all() and out["v2"]["reach"]
+            >= min(rng_w, ICP_HOLD_WINDOW)):
+        raise AssertionError(f"icp v2 holds {ICP_POS_BAR} m and "
+                             f"{ICP_ROT_BAR_DEG} deg to +-"
+                             f"{out['v2']['reach']}, not +-"
+                             f"{ICP_HOLD_WINDOW}: {out['v2']}")
+    # one pair on the card and on the CPU (the v2 phase 1 pair of anchor
+    # +jump: its own subsample)
+    rs = np.random.default_rng(3)
+    a, b = get_scan(ref + ICP_JUMP), get_scan(ref)
+    a = a[rs.choice(len(a), ICP_POINTS, replace=False)]
+    b = b[rs.choice(len(b), ICP_POINTS, replace=False)]
+    p = prior(ref + ICP_JUMP, ref)
+    a = (a @ p[:3, :3].T + p[:3, 3]).astype(np.float32)
+    m = np.ones(ICP_POINTS, bool)
+    args = [torch.from_numpy(x) for x in (a, m, b, m)]
+    t_cpu, r_cpu = icp.icp_point_to_plane(*args)
+    t_gpu, r_gpu = icp.icp_point_to_plane(*(x.to(dev) for x in args))
+    pair_err = float((t_gpu.cpu() - t_cpu).abs().max())
+    if not pair_err <= ICP_CPU_BAR:
+        raise AssertionError(f"icp pair card vs CPU {pair_err}")
+    # the batch's time a pair, alone
+    srcs = torch.stack([args[0]] * 8).to(dev)
+    ms_ = torch.stack([args[1]] * 8).to(dev)
+    tgts = torch.stack([args[2]] * 8).to(dev)
+    pair_ms = cuda_ms(lambda: icp.icp_batch(srcs, ms_, tgts, ms_), 3, 1) / 8
+    out.update({"pairs_v2": pairs_v2, "pairs_v1": pairs_v1,
+                "v2_window_s": v2_s, "v1_window_s": v1_s,
+                "v2_ms_per_pair": v2_s * 1e3 / pairs_v2,
+                "v1_ms_per_pair": v1_s * 1e3 / pairs_v1,
+                "batch_ms_per_pair": pair_ms, "scene_s": scene_s,
+                "pair_card_vs_cpu": pair_err,
+                "pair_rms": [float(r_cpu), float(r_gpu)]})
+    return out
+
+
+def growing_scene(stride: int = 1):
+    """The label scene's frame 0 as pseudo-LiDAR at one point a pixel (or
+    every ``stride``-th row and column), (N, 6) [x, y, z, camera 0, row,
+    column]; its car masks (full size) and each mask's scene car, with the
+    share of the mask's pixels that show it (a nearer car may cover it:
+    the masks are the cars' whole rectangles)."""
+    import numpy as np
+
+    from monosowa_tpu_torch.sowa import sample
+
+    frames, cars = sample.make_sequence(1, 0)
+    f = frames[0]
+    h, w = sample.H, sample.W
+    rows, cols = np.mgrid[0:h, 0:w]
+    scan = np.concatenate([f["points"], np.zeros((h * w, 1), np.float32),
+                           rows.reshape(-1, 1).astype(np.float32),
+                           cols.reshape(-1, 1).astype(np.float32)], 1)
+    if stride > 1:
+        keep = ((rows % stride == 0) & (cols % stride == 0)).reshape(-1)
+        scan = scan[keep]
+    fu, _ = sample.intrinsics(h, w)
+    owners = []       # make_sequence's rule for the cars it gives masks
+    for ci, car in enumerate(cars):
+        z = car["z"]
+        if z < 4 or z > 70.0:
+            continue
+        u = fu * car["x"] / z + w / 2
+        v = fu * car["y"] / z + h / 2
+        x1, x2 = int(u - fu * 2.0 / z), int(u + fu * 2.0 / z)
+        y1, y2 = int(v - fu * 1.6 / z), int(v)
+        if x2 < 0 or x1 >= w or y2 < 0 or y1 >= h:
+            continue
+        owners.append(car)
+    if len(owners) != len(f["masks"]):
+        raise AssertionError("growing scene: masks and cars disagree")
+    for car, m in zip(owners, f["masks"]):
+        car["visible"] = float((np.abs(f["depth"][m] - car["z"])
+                                < 1e-3).mean())
+    return scan, f["masks"], owners
+
+
+def grown_inside(points, car, margin: float = GROW_BOX_MARGIN) -> bool:
+    """Every point inside the car's rectangle (4 m wide, 1.6 m tall, at its
+    depth) grown by ``margin``."""
+    import numpy as np
+
+    lo = np.array([car["x"] - 2.0, car["y"] - 1.6, car["z"]]) - margin
+    hi = np.array([car["x"] + 2.0, car["y"], car["z"]]) + margin
+    return bool(((points >= lo) & (points <= hi)).all())
+
+
+@contextlib.contextmanager
+def recording_regions():
+    """Every ``growing.largest_region`` call's host inputs and result (a
+    numpy mask or None), for ``growing_full_size_on_cpu``."""
+    from monosowa_tpu_torch.sowa import growing
+
+    inner = growing.largest_region
+    recorded = []
+
+    def recording(pts, mask, car, thresholds, **kw):
+        region = inner(pts, mask, car, thresholds, **kw)
+        recorded.append({"pts": pts, "mask": mask, "car": car,
+                         "thresholds": tuple(thresholds),
+                         "edges": kw["stats"]["edges"],
+                         "region": None if region is None
+                         else region.cpu().numpy()})
+        return region
+
+    growing.largest_region = recording
+    try:
+        yield recorded
+    finally:
+        growing.largest_region = inner
+
+
+def growing_full_size_on_cpu(recorded, dev) -> dict:
+    """The card's rounds at full resolution on the CPU: every recorded
+    ``largest_region`` with at most GROW_CPU_EDGES edges again (the same
+    region), and the round with the most edges at the smallest threshold:
+    the card's labels from its edges at the largest threshold, filtered,
+    as ``largest_region`` takes them, against the CPU's
+    ``connected_components`` (the same labels)."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.sowa import growing
+
+    rounds = []
+    for r in recorded:
+        if r["edges"] > GROW_CPU_EDGES:
+            continue
+        got = growing.largest_region(r["pts"], r["mask"], r["car"],
+                                     r["thresholds"], device="cpu")
+        same = (got is None and r["region"] is None) or (
+            got is not None and r["region"] is not None
+            and np.array_equal(got.numpy(), r["region"]))
+        rounds.append({"points": len(r["pts"]), "edges": r["edges"],
+                       "equal": same})
+        if not same:
+            raise AssertionError(f"growing round of {r['edges']} edges: "
+                                 "card and CPU regions differ")
+    if not rounds:
+        raise AssertionError("growing: no round the CPU can take")
+    big = max(recorded, key=lambda r: r["edges"])
+    t_lo, t_hi = min(big["thresholds"]), max(big["thresholds"])
+    pts = torch.from_numpy(big["pts"])
+    mask = torch.from_numpy(big["mask"])
+    ei, ej, d2 = growing.neighbor_edges(pts.to(dev), mask.to(dev), t_hi)
+    keep = d2 <= growing._sq_threshold(t_lo)
+    card = growing.propagate_labels(len(pts), mask.to(dev), ei[keep],
+                                    ej[keep]).cpu()
+    edges_hi, edges_lo = ei.numel(), int(keep.sum())
+    del ei, ej, d2, keep
+    cpu = growing.connected_components(pts, mask, t_lo)
+    if not torch.equal(card, cpu):
+        raise AssertionError(f"growing: the {edges_hi}-edge round's labels "
+                             f"at {t_lo} m differ on the card and the CPU")
+    return {"rounds_replayed": rounds,
+            "largest_round": {"points": len(pts), "edges": edges_hi,
+                              "threshold": t_lo, "edges_at_threshold":
+                              edges_lo, "components": len(cpu.unique()),
+                              "labels_equal": True}}
+
+
+def growing_stage(dev) -> dict:
+    """(b) ``perform_growing_frame`` for each car mask of a 375 x 1242
+    pseudo-LiDAR frame on the card (a CPU-seeded draw, so the card and the
+    CPU fit the same planes); the grown points inside the mask's car where
+    the car shows, no region where a nearer car covers all of it; the
+    card's rounds against the CPU at full resolution
+    (``growing_full_size_on_cpu``); on every GROW_CPU_STRIDE-th row and
+    column, each mask's grown points on the card and the CPU equal."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.sowa import growing
+
+    scan, masks, owners = growing_scene()
+    per_mask = []
+    torch.cuda.reset_peak_memory_stats()
+    with recording_regions() as recorded:
+        for i, m in enumerate(masks):
+            stats = []
+            t0 = time.perf_counter()
+            got = growing.perform_growing_frame(
+                scan, m, 0, growing.make_draw(i, "cpu"), device=dev,
+                stats=stats)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            per_mask.append((got, stats, ms))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    full = growing_full_size_on_cpu(recorded, dev)
+    full["seconds"] = time.perf_counter() - t0
+    del recorded
+    for i, (got, stats, ms) in enumerate(per_mask):
+        shown = owners[i]["visible"] > 0
+        inside = got is not None and grown_inside(got, owners[i])
+        per_mask[i] = {"mask_pixels": int(masks[i].sum()),
+                       "visible_share": owners[i]["visible"], "ms": ms,
+                       "grown": 0 if got is None else len(got),
+                       "inside_box": inside, "rounds": stats}
+        if (inside if shown else got is None) is not True:
+            raise AssertionError(f"growing mask {i}: {per_mask[i]}")
+    t0 = time.perf_counter()
+    small, _, _ = growing_scene(GROW_CPU_STRIDE)
+    equal = []
+    for i, m in enumerate(masks):
+        a = growing.perform_growing_frame(small, m, 0,
+                                          growing.make_draw(i, "cpu"),
+                                          device=dev)
+        b = growing.perform_growing_frame(small, m, 0,
+                                          growing.make_draw(i, "cpu"),
+                                          device="cpu")
+        same = (a is None and b is None) or (
+            a is not None and b is not None and np.array_equal(a, b))
+        equal.append(same)
+        if not same:
+            raise AssertionError(f"growing mask {i} at stride "
+                                 f"{GROW_CPU_STRIDE}: card and CPU differ")
+    return {"points": len(scan), "masks": len(masks),
+            "per_mask": per_mask,
+            "ms_per_mask": float(np.mean([p["ms"] for p in per_mask])),
+            "peak_mem_GB": peak, "full_size_cpu_check": full,
+            "cpu_check_points": len(small), "cpu_check_equal": equal,
+            "cpu_check_s": time.perf_counter() - t0}
+
+
+def deform_cars(rng, verts, faces, b: int, s: int):
+    """B scans of the mesh's surface (0.6 S to S points, stretched 0.9-1.15
+    an axis, posed, 2 cm noise), zero-padded to S; initial poses 0.1 m and
+    0.05 rad off."""
+    import numpy as np
+
+    from monosowa_tpu_torch.sowa.mesh_io import sample_mesh_surface
+
+    pts = np.zeros((b, s, 3), np.float32)
+    mask = np.zeros((b, s), bool)
+    centers = np.zeros((b, 3), np.float32)
+    thetas = np.zeros(b, np.float32)
+    for i in range(b):
+        n = int(rng.integers(s * 3 // 5, s + 1))
+        stretch = rng.uniform(0.9, 1.15, 3)
+        surf = sample_mesh_surface(verts.astype(np.float64) * stretch, faces,
+                                   n, seed=i)
+        th = rng.uniform(0, 2 * np.pi)
+        c, sn = np.cos(th), np.sin(th)
+        rot = np.array([[c, 0, sn], [0, 1, 0], [-sn, 0, c]])
+        center = np.array([rng.uniform(-8, 8), 0.9, rng.uniform(8, 40)])
+        pts[i, :n] = surf @ rot.T + center + rng.normal(scale=0.02,
+                                                        size=(n, 3))
+        mask[i, :n] = True
+        centers[i] = center + [rng.normal(scale=0.1), 0.0,
+                               rng.normal(scale=0.1)]
+        thetas[i] = th + rng.normal(scale=0.05)
+    return pts, mask, centers, thetas
+
+
+def deformable_stage(dev) -> dict:
+    """(c) ``fit_deformable_batch`` at DeformConfig() with make_car_mesh()
+    on DEFORM_CARS cars: losses finite, scales in the clip range, the mean
+    vertex-to-scan distance under 0.25 m; 30 steps on the card against the
+    CPU, each from the card's state before it; seconds a batch, launches
+    a step, the busy share."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.sowa import deformable as dfm
+
+    verts, faces = dfm.make_car_mesh()
+    pts, mask, centers, thetas = deform_cars(np.random.default_rng(21),
+                                             verts, faces, DEFORM_CARS,
+                                             DEFORM_S)
+    host = [torch.from_numpy(verts), torch.from_numpy(dfm.mesh_edges(faces)
+                                                      ).long(),
+            torch.from_numpy(dfm.vertex_adjacency(faces, len(verts))).long(),
+            torch.from_numpy(dfm.mirror_indices(verts)).long(),
+            torch.from_numpy(pts), torch.from_numpy(mask),
+            torch.from_numpy(centers), torch.from_numpy(thetas)]
+    args = [a.to(dev) for a in host]
+    cfg = dfm.DeformConfig()
+    dfm.fit_deformable_batch(*args, dc.replace(cfg, iterations=5))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = dfm.fit_deformable_batch(*args, cfg)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    v = res.verts.cpu().numpy()
+    dist = []
+    for i in range(DEFORM_CARS):
+        scan = pts[i][mask[i]]
+        d2 = ((v[i][:, None] - scan[None]) ** 2).sum(-1)
+        dist.append(float(np.sqrt(d2.min(1)).mean()))
+    scales = res.scales.cpu().numpy()
+    if not (torch.isfinite(res.loss).all() and np.isfinite(v).all()
+            and scales.min() >= cfg.scale_min - 1e-6
+            and scales.max() <= cfg.scale_max + 1e-6
+            and max(dist) < DEFORM_DIST_BAR):
+        raise AssertionError(f"deformable: loss {res.loss.tolist()}, scales "
+                             f"{scales.tolist()}, distance {dist}")
+    # 30 steps on the card against the CPU, a step at a time: each of the
+    # card's steps repeated on the CPU from the card's state before it.
+    # The fit is chaotic at this size (moving every input by 1e-14 of
+    # itself moves float64 vertices by about 2e-4 of their scale in 30
+    # steps), so two free-running fits are not held to each other
+    t0 = time.perf_counter()
+    prob = {"card": dfm.deform_problem(*args), "cpu": dfm.deform_problem(*host)}
+    bc = {k: dfm.bias_corrections(DEFORM_CPU_STEPS, torch.float32,
+                                  p.scans.device) for k, p in prob.items()}
+    state = dfm.initial_state(prob["card"])
+    step_err = []
+    for it in range(DEFORM_CPU_STEPS):
+        mirror = dfm.DeformState(*(
+            [t.detach().cpu().requires_grad_(t.requires_grad) for t in part]
+            for part in state))
+        dfm.deform_step(prob["cpu"], mirror, it, bc["cpu"][it], cfg)
+        dfm.deform_step(prob["card"], state, it, bc["card"][it], cfg)
+        with torch.no_grad():
+            got = dfm.deform_vertices(prob["card"], state, it + 1, cfg)
+            want = dfm.deform_vertices(prob["cpu"], mirror, it + 1, cfg)
+        step_err.append(float((got.cpu() - want).abs().max()
+                              / want.abs().max()))
+    cpu_err = {"max_step": max(step_err), "steps": step_err}
+    if not max(step_err) <= DEFORM_CPU_BAR:
+        raise AssertionError(f"deformable 30 steps card vs CPU {cpu_err}")
+    cpu_s = time.perf_counter() - t0
+    # launches a step: kernels of a 20-step fit less a 10-step one
+    counts = {}
+    for steps in (10, 20):
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            dfm.fit_deformable_batch(*args, dc.replace(cfg, iterations=steps))
+            torch.cuda.synchronize()
+        counts[steps] = sum(e.count for e in prof.key_averages()
+                            if e.device_type
+                            == torch.autograd.DeviceType.CUDA)
+    busy = busy_share(lambda: dfm.fit_deformable_batch(
+        *args, dc.replace(cfg, iterations=DEFORM_BUSY_STEPS)))
+    return {"cars": DEFORM_CARS, "scan_points": DEFORM_S,
+            "vertices": len(verts), "steps": cfg.iterations,
+            "s_per_batch": batch_s, "ms_per_step": batch_s * 1e3
+            / cfg.iterations,
+            "launches_per_step": (counts[20] - counts[10]) / 10,
+            "busy_share_steps": DEFORM_BUSY_STEPS, "busy": busy,
+            "mean_vertex_to_scan_m": [min(dist), max(dist)],
+            "scales": [float(scales.min()), float(scales.max())],
+            "card_vs_cpu_30_steps": cpu_err, "cpu_check_s": cpu_s}
+
+
+def gather_stage(dev, root: str, cfg=None) -> dict:
+    """(d) ``fit_cars`` (the gather-field fit) on GATHER_CARS synthetic cars
+    at FitConfig(), one of them through both single-car fits on the card
+    and the CPU (the same pose); (e) the
+    standing cars through ``custom_dataset``: saved, loaded, re-fitted by
+    ``evaluate_fitting_on_pairs`` with the same fit.  The fine theta pass
+    of ``fit_cars`` launches ``tfl_counts`` (K5): its launches are counted
+    in the timed batch and in the harness, the warm-up's and the
+    harness's recorded and replayed against the plain version."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.ops import tfl
+    from monosowa_tpu_torch.sowa import custom_dataset, fitting
+    from monosowa_tpu_torch.sowa.templates import TemplateBank
+
+    rng = np.random.default_rng(31)
+    cfg = cfg or fitting.FitConfig()
+    template = TemplateBank.default().points[0]
+    pts = np.zeros((GATHER_CARS, TFL_S, 3), np.float32)
+    mask = np.zeros((GATHER_CARS, TFL_S), bool)
+    moving = np.arange(GATHER_CARS) % 2 == 1
+    theta_est = np.zeros(GATHER_CARS, np.float32)
+    truth = []
+    for i in range(GATHER_CARS):
+        p, pose = synthetic_car(rng, template, bool(moving[i]))
+        pts[i, :len(p)], mask[i, :len(p)] = p, True
+        theta_est[i] = pose["theta"] + np.deg2rad(2.0) if moving[i] else 0
+        truth.append(pose)
+
+    def batch(sel):
+        return fitting.CarBatch(pts[sel], mask[sel], moving[sel],
+                                theta_est[sel], moving[sel].copy(),
+                                np.ones(len(pts[sel]), bool))
+
+    every = np.arange(GATHER_CARS)
+    tmpl = {d: torch.as_tensor(template, device=d) for d in (dev, "cpu")}
+    field = {d: tfl.build_template_field(template, cfg.radius, device=d)
+             for d in (dev, "cpu")}
+    with recording_tfl() as rec_batch:                          # warm-up
+        fitting.fit_cars(batch(every), tmpl[dev], field[dev], cfg)
+    torch.cuda.synchronize()
+    tfl.launches = 0
+    t0 = time.perf_counter()
+    res = fitting.fit_cars(batch(every), tmpl[dev], field[dev], cfg)
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    fit_launches = tfl.launches
+    if fit_launches != 1 or len(rec_batch) != 1:
+        raise AssertionError(f"fit_cars launched tfl_counts {fit_launches} "
+                             f"times ({len(rec_batch)} recorded), not once")
+    k5_replayed = replay_tfl_launches(rec_batch, "fit_cars")
+    del rec_batch
+    # the CPU check: car GATHER_CPU_CAR (moving, with a trajectory angle)
+    # through the standing and the moving fit, on the card and the CPU
+    i = GATHER_CPU_CAR
+    t0 = time.perf_counter()
+    local = pts[i] - fitting.masked_median(
+        torch.from_numpy(pts[i]), torch.from_numpy(mask[i])).numpy()
+    diffs = {}
+    for name, fit in (
+            ("standing", lambda d: fitting.fit_standing_car(
+                torch.as_tensor(local, device=d), torch.as_tensor(
+                    mask[i], device=d), tmpl[d], field[d], cfg)),
+            ("moving", lambda d: fitting.fit_moving_car(
+                torch.as_tensor(local, device=d), torch.as_tensor(
+                    mask[i], device=d), tmpl[d], field[d],
+                float(theta_est[i]), True, cfg))):
+        a, b = fit(dev), fit("cpu")
+        diffs[name] = {k: float((getattr(a, k).cpu() - getattr(b, k)).abs())
+                       for k in ("x", "z", "theta", "loss")}
+        if not (diffs[name]["x"] == 0 and diffs[name]["z"] == 0
+                and diffs[name]["loss"] == 0
+                and diffs[name]["theta"] <= 1e-6):
+            raise AssertionError(f"gather fit card vs CPU: {diffs}")
+    mov = fitting.fit_moving_car(torch.as_tensor(local, device=dev),
+                                 torch.as_tensor(mask[i], device=dev),
+                                 tmpl[dev], field[dev],
+                                 float(theta_est[i]), True, cfg)
+    if not (float(res.x[i]) == float(res.center[i, 0] + mov.x)
+            and float(res.theta[i]) == float(mov.theta)):
+        raise AssertionError("gather fit: the batch's car differs from "
+                             "the single car's")
+    cpu_s = time.perf_counter() - t0
+    x, z, th = (getattr(res, k).cpu().numpy() for k in ("x", "z", "theta"))
+    dx = np.abs(x - [t["x"] for t in truth])
+    dz = np.abs(z - [t["z"] for t in truth])
+    # (e) the harness: each standing car stored with its true box
+    # (center, template dims, KITTI ry = theta - pi/2) and re-fitted alone
+    out_dir = os.path.join(root, "custom_dataset")
+    standing = np.flatnonzero(~moving)
+    boxes = {}
+    for i in standing:
+        gt = np.array([truth[i]["x"], 0.9, truth[i]["z"], 3.88, 1.63, 1.526,
+                       truth[i]["theta"] - np.pi / 2], np.float32)
+        custom_dataset.save_pair(out_dir, f"car{i:02d}", pts[i][mask[i]], gt)
+        boxes[i] = gt
+
+    def fit_fn(points):
+        one = np.zeros((1, TFL_S, 3), np.float32)
+        m = np.zeros((1, TFL_S), bool)
+        one[0, :len(points)], m[0, :len(points)] = points, True
+        r = fitting.fit_cars(fitting.CarBatch(
+            one, m, np.zeros(1, bool), np.zeros(1, np.float32),
+            np.zeros(1, bool), np.ones(1, bool)), tmpl[dev], field[dev], cfg)
+        return [float(r.x[0]), float(r.y[0]), float(r.z[0]), 3.88, 1.63,
+                1.526, float(r.theta[0]) - np.pi / 2]
+
+    loaded, gt_boxes, _ = custom_dataset.load_pairs(out_dir)
+    if not (len(loaded) == len(standing) and all(
+            np.array_equal(loaded[k], pts[i][mask[i]])
+            for k, i in enumerate(standing))
+            and np.array_equal(gt_boxes, np.stack([boxes[i]
+                                                   for i in standing]))):
+        raise AssertionError("custom_dataset: the loaded pairs differ")
+    with recording_tfl() as rec_harness:
+        tfl.launches = 0
+        t0 = time.perf_counter()
+        ious = custom_dataset.evaluate_fitting_on_pairs(out_dir, fit_fn)
+        harness_s = time.perf_counter() - t0
+        harness_launches = tfl.launches
+    if harness_launches != len(standing):
+        raise AssertionError(f"the harness launched tfl_counts "
+                             f"{harness_launches} times for "
+                             f"{len(standing)} cars")
+    k5_replayed += replay_tfl_launches(rec_harness, "custom_dataset")
+    del rec_harness
+    direct = [custom_dataset.compute_pair_iou(
+        [x[i], float(res.y[i]), z[i], 3.88, 1.63, 1.526,
+         th[i] - np.pi / 2], boxes[i]) for i in standing]
+    if not np.allclose(ious, direct, atol=1e-5):
+        raise AssertionError(f"custom_dataset IoUs {ious} against the "
+                             f"batch fit's {direct}")
+    return {"gather": {"cars": GATHER_CARS, "grid": [cfg.n_dx, cfg.n_dz,
+                                                     cfg.n_theta],
+                       "fine_thetas": cfg.n_theta_fine, "ms_per_batch":
+                       fit_ms, "cpu_car": GATHER_CPU_CAR,
+                       "cpu_check_s": cpu_s,
+                       "card_vs_cpu": diffs,
+                       "max_abs_dx_m": float(dx.max()),
+                       "max_abs_dz_m": float(dz.max()),
+                       "tfl_launches": fit_launches},
+            "custom_dataset": {"pairs": len(ious), "ious": ious,
+                               "min_iou": float(min(ious)),
+                               "harness_s": harness_s,
+                               "tfl_launches": harness_launches},
+            "tfl_launches": fit_launches + harness_launches,
+            "tfl_replayed": dict(collections.Counter(
+                c["shape"] for c in k5_replayed))}
+
+
+def optional_stages(dev, icp_rng: int = ICP_RNG, fit_cfg=None) -> dict:
+    """The labeller's optional stages on the card: (a) ICP windows, (b)
+    region growing, (c) the deformable mesh, (d) the gather-field fit and
+    (e) the custom-dataset harness."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"phase": "optional_stages"}
+    steps = {}
+    t = time.perf_counter()
+    out["icp"] = icp_stage(dev, icp_rng)
+    steps["icp"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["growing"] = growing_stage(dev)
+    steps["growing"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["deformable"] = deformable_stage(dev)
+    steps["deformable"] = time.perf_counter() - t
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        out.update(gather_stage(dev, root, fit_cfg))
+    steps["gather_and_custom_dataset"] = time.perf_counter() - t
+    out["step_seconds"] = steps
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     # one card: the first of those visible
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -5584,6 +6387,13 @@ def main() -> int:
         emit({"phase": "kernel", "name": "msda_fwd",
               "registers": registers["msda_fwd"], **fwd["waymo canvas"]})
 
+    # 10b. optional_stages: ICP, region growing, the deformable mesh, the
+    # gather-field fit, the custom-dataset harness
+    ops_ = optional_stages(dev)
+    ops_["nvidia_smi"] = smi
+    emit(ops_)
+    torch.cuda.empty_cache()
+
     # 11. kernels; library_ms is None where no one PyTorch call computes the
     # kernel's function (MSDA, its gradient, the two-way coverage)
     def entry(name, source, replaces, launches, runs, first="encoder"):
@@ -5650,7 +6460,8 @@ def main() -> int:
                "label_k360": k3["launches"],
                "label_lidar": lld["tfl_launches"],
                "images_to_labels": itl["tfl_launches"],
-               "waymo": wmo["tfl_launches"]},
+               "waymo": wmo["tfl_launches"],
+               "optional_stages": ops_["tfl_launches"]},
               {**cov, **k3["tfl_new_shapes"]}, "rescore"),
         entry("row_fetch", "monosowa_tpu_torch/ops/csrc/row_fetch.cu",
               "tools/bench_gather_micro.py:61 (K6 run; bodies _kernel_gather "

@@ -2,7 +2,8 @@
 
 Counterparts of the JAX package's ``ops/geometry.py``: yaw rotations, rigid
 transforms, pinhole projection, depth back-projection, the masked median,
-3D box corners and oriented-box containment.  Point sets are padded to
+3D box corners, oriented-box containment and the voxel downsample of
+region growing.  Point sets are padded to
 fixed shapes with a validity mask; batch dimensions are explicit (leading
 ``...``).
 """
@@ -72,6 +73,33 @@ def masked_median(pts: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     med = (torch.gather(srt, -1, lo) + torch.gather(srt, -1, hi))[..., 0] \
         / 2.0
     return torch.where((n > 0)[..., None], med, torch.zeros_like(med))
+
+
+def voxel_downsample_mask(pts: torch.Tensor, mask: torch.Tensor,
+                          voxel: float) -> torch.Tensor:
+    """Keep one representative point per occupied voxel, the first in scan
+    order among equal hashes; (N, 3), (N,) bool -> (N,) bool, a refined
+    mask over the same padded array (the JAX package's mask, bit for bit).
+
+    The voxel key is ``floor(pts / voxel)`` with a true division by a
+    tensor (a division by a host scalar may become a product with its
+    reciprocal on the card, and a point on a voxel face would change
+    voxel).  The int32 spatial hash wraps in two's complement, as XLA's
+    does; valid rows sort first, each group of equal hashes in scan order
+    (the JAX ``lexsort((h, ~mask))`` as two stable sorts)."""
+    key = torch.floor(pts / pts.new_tensor(voxel)).to(torch.int32)
+    h = ((key[:, 0] * 73856093) ^ (key[:, 1] * 19349663)
+         ^ (key[:, 2] * 83492791))
+    order = torch.sort(h, stable=True).indices
+    order = order[torch.sort((~mask[order]).to(torch.int8),
+                             stable=True).indices]
+    sorted_h = h[order]
+    sorted_valid = mask[order]
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=pts.device),
+                       (sorted_h[1:] != sorted_h[:-1]) | ~sorted_valid[:-1]])
+    keep = torch.zeros_like(mask)
+    keep[order] = first
+    return keep & mask
 
 
 def box3d_corners(center: torch.Tensor, lwh: torch.Tensor,

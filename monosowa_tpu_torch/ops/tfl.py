@@ -58,15 +58,24 @@ def pairwise_sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     For K <= 4 (3-D point clouds) the sum runs over the components in
     order, ``((0 + d0^2) + d1^2) + d2^2``, each product and sum rounded to
-    float32 on its own: the order the CUDA kernel repeats.  Larger K uses
-    the |a|^2 + |b|^2 - 2ab matrix form."""
+    float32 on its own: the order the CUDA kernel repeats.  Without
+    autograd the sums run in place (two (..., N, M) temporaries, not
+    five), with the same roundings.  Larger K uses the |a|^2 + |b|^2 - 2ab
+    matrix form."""
     k = a.shape[-1]
     if k <= 4:
-        d2 = None
-        for i in range(k):
-            diff = a[..., :, None, i] - b[..., None, :, i]
-            sq = diff * diff
-            d2 = sq if d2 is None else d2 + sq
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            d2 = None
+            for i in range(k):
+                diff = a[..., :, None, i] - b[..., None, :, i]
+                sq = diff * diff
+                d2 = sq if d2 is None else d2 + sq
+            return d2
+        d2 = a[..., :, None, 0] - b[..., None, :, 0]
+        d2.mul_(d2)
+        for i in range(1, k):
+            t = a[..., :, None, i] - b[..., None, :, i]
+            d2.add_(t.mul_(t))
         return d2
     aa = (a * a).sum(-1)[..., :, None]
     bb = (b * b).sum(-1)[..., None, :]
@@ -639,6 +648,160 @@ def occupancy_histogram(pts: torch.Tensor, mask: torch.Tensor,
     counts = pts.new_zeros(b * cells + 1)
     counts.index_add_(0, flat.reshape(-1), pts.new_ones(flat.numel()))
     return counts[:-1].reshape(b, sx, sy, sz)
+
+
+# ---------------------------------------------------------------------------
+# Membership fields and the gather grid (the JAX package's first coarse
+# pass, before the convolutional one; ``sowa/fitting.fit_cars``)
+# ---------------------------------------------------------------------------
+
+# Field covering the coarse pose grid around a car's median center:
+# x: +-(l/2 + |dx|max + r), z: dz in [-1,3] plus reach, y: template half-height.
+CAR_FIELD = FieldSpec(origin=(-4.48, -1.28, -3.52), voxel=0.08,
+                      shape=(112, 32, 116))
+# Canonical-frame template field (x=width, y=height, z=length).
+TEMPLATE_FIELD = FieldSpec(origin=(-1.28, -1.28, -2.24), voxel=0.08,
+                           shape=(32, 32, 56))
+
+
+def _neighbor_offsets(radius: float, voxel: float) -> np.ndarray:
+    k = int(np.ceil(radius / voxel)) + 1
+    r = np.arange(-k, k + 1)
+    offs = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    # keep offsets whose voxel could possibly be within radius of the point
+    min_d = np.maximum(np.abs(offs) - 1.0, 0.0) * voxel
+    keep = (min_d ** 2).sum(-1) <= radius * radius
+    return offs[keep].astype(np.int32)
+
+
+def build_membership_field(pts: torch.Tensor, mask: torch.Tensor,
+                           spec: FieldSpec, radius: float) -> torch.Tensor:
+    """int8 field[v] = 1 iff some valid point lies within ~``radius`` of the
+    center of voxel v; pts in the field's local frame.  (B, N, 3), (B, N)
+    -> (B, X*Y*Z) flat in (x, y, z) order; (N, 3), (N,) -> (X*Y*Z,).
+
+    The occupancy counts (``occupancy_histogram``) dilated by the voxel
+    ball: one 3-D cross-correlation, its sums rounded (``_count_conv``),
+    then > 0.5; the JAX package's sum of 2-D convolutions over shifted y
+    slices gives the same whole numbers."""
+    if pts.dim() == 2:
+        return build_membership_field(pts[None], mask[None], spec,
+                                      radius)[0]
+    counts = occupancy_histogram(pts, mask.bool(), spec)    # (B, X, Y, Z)
+    kern = torch.as_tensor(_ball_kernel(radius, spec.voxel),
+                           device=pts.device)[None, None]   # [dx, dy, dz]
+    acc = _count_conv(F.conv3d, counts[:, None], kern,
+                      padding=kern.shape[-1] // 2)[:, 0]
+    return (acc.reshape(acc.shape[0], -1) > 0.5).to(torch.int8)
+
+
+def _take_field(field_flat: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """field (F,) or (B, F) at flat indices (...) or (B, ...)."""
+    if field_flat.dim() == 1:
+        return field_flat[flat]
+    b = field_flat.shape[0]
+    return torch.gather(field_flat, 1, flat.reshape(b, -1)).reshape(
+        flat.shape)
+
+
+def sample_membership(field_flat: torch.Tensor, spec: FieldSpec,
+                      pts: torch.Tensor) -> torch.Tensor:
+    """Nearest-voxel membership lookup; (..., 3) -> (...,) int8 (0 outside).
+    A field (B, F) takes points (B, ..., 3).  The voxel index is a true
+    division by the voxel size as a tensor, as in the JAX function."""
+    origin = pts.new_tensor(spec.origin)
+    idx = torch.floor((pts - origin) / pts.new_tensor(spec.voxel)).long()
+    shape = idx.new_tensor(spec.shape)
+    in_bounds = ((idx >= 0) & (idx < shape)).all(-1)
+    cidx = torch.minimum(idx.clamp_min(0), shape - 1)
+    flat = (cidx[..., 0] * (spec.shape[1] * spec.shape[2])
+            + cidx[..., 1] * spec.shape[2] + cidx[..., 2])
+    return torch.where(in_bounds, _take_field(field_flat, flat),
+                       torch.zeros((), dtype=field_flat.dtype,
+                                   device=field_flat.device))
+
+
+def build_template_field(template_pts: np.ndarray, radius: float,
+                         spec: FieldSpec = TEMPLATE_FIELD,
+                         device=None) -> torch.Tensor:
+    """Precompute (once per template model) the canonical-frame field,
+    (X*Y*Z,) int8 on ``device`` (the CPU when None)."""
+    pts = torch.as_tensor(np.asarray(template_pts, np.float32),
+                          device=device)
+    mask = torch.ones(pts.shape[0], dtype=torch.bool, device=pts.device)
+    return build_membership_field(pts, mask, spec, radius)
+
+
+def _sample_membership_xyz(field_flat: torch.Tensor, spec: FieldSpec,
+                           x: torch.Tensor, y: torch.Tensor,
+                           z: torch.Tensor) -> torch.Tensor:
+    """Component-wise membership lookup, coordinates as separate planes.
+    The voxel index is ``(x - origin) * float32(1 / voxel)``, a product,
+    as in the JAX function (``sample_membership`` divides)."""
+    ox, oy, oz = (float(np.float32(o)) for o in spec.origin)
+    inv = float(np.float32(1.0 / spec.voxel))
+    ix = torch.floor((x - ox) * inv).long()
+    iy = torch.floor((y - oy) * inv).long()
+    iz = torch.floor((z - oz) * inv).long()
+    sx, sy, sz = spec.shape
+    inb = ((ix >= 0) & (ix < sx) & (iy >= 0) & (iy < sy)
+           & (iz >= 0) & (iz < sz))
+    flat = (ix.clamp(0, sx - 1) * (sy * sz) + iy.clamp(0, sy - 1) * sz
+            + iz.clamp(0, sz - 1))
+    return torch.where(inb, _take_field(field_flat, flat),
+                       torch.zeros((), dtype=field_flat.dtype,
+                                   device=field_flat.device))
+
+
+def grid_pose_losses(scan_local: torch.Tensor, scan_mask: torch.Tensor,
+                     template: torch.Tensor, template_field: torch.Tensor,
+                     thetas: torch.Tensor, trans: torch.Tensor,
+                     radius: float, car_spec: FieldSpec = CAR_FIELD,
+                     tmpl_spec: FieldSpec = TEMPLATE_FIELD) -> torch.Tensor:
+    """Approximate binary2way TFL over a (theta x translation) pose grid by
+    membership fields, per car.
+
+    scan_local (B, S, 3) relative to each car's center, scan_mask (B, S);
+    template (T, 3) canonical and template_field its flat int8 field;
+    thetas (NT,) or per car (B, NT); trans (P, 3).  Returns losses
+    (B, NT, P) = -(t_frac + s_frac), a theta at a time (the JAX
+    ``lax.map``).  The cosines and sines are computed once on the CPU, so
+    the card and the CPU pose the same points."""
+    b = scan_local.shape[0]
+    dev = scan_local.device
+    scan_field = build_membership_field(scan_local, scan_mask, car_spec,
+                                        radius)              # (B, F)
+    maskf = scan_mask.to(torch.float32)
+    n_scan = scan_mask.sum(-1).clamp_min(1).to(torch.float32)  # (B,)
+    n_t = template.new_tensor(float(template.shape[0]))
+    th = thetas.expand(b, -1) if thetas.dim() == 1 else thetas
+    th_cpu = th.detach().cpu()
+    cos_all = torch.cos(th_cpu).to(dev)
+    sin_all = torch.sin(th_cpu).to(dev)
+    px, py, pz = template[:, 0], template[:, 1], template[:, 2]   # (T,)
+    sx_, sy_, sz_ = (scan_local[..., k][:, None, :] for k in range(3))
+    tx, ty, tz = (trans[:, k][None, :, None] for k in range(3))   # (1,P,1)
+    out = []
+    for j in range(th.shape[1]):
+        c = cos_all[:, j, None, None]                       # (B, 1, 1)
+        s = sin_all[:, j, None, None]
+        # posed template: R_y @ p + t  (rows: x' = c x + s z; z' = -s x + c z)
+        rx = c * px + s * pz                                # (B, 1, T)
+        rz = -s * px + c * pz
+        t_hits = _sample_membership_xyz(
+            scan_field, car_spec, rx + tx, py + ty, rz + tz)   # (B, P, T)
+        t_frac = t_hits.to(torch.float32).sum(-1) / n_t
+        # scan -> canonical frame: q = R^T (s - t)
+        dx = sx_ - tx                                       # (B, P, S)
+        dz = sz_ - tz
+        qx = c * dx - s * dz
+        qz = s * dx + c * dz
+        s_hits = _sample_membership_xyz(
+            template_field, tmpl_spec, qx, sy_ - ty, qz)    # (B, P, S)
+        s_frac = (s_hits.to(torch.float32) * maskf[:, None, :]).sum(-1) \
+            / n_scan[:, None]
+        out.append(-(t_frac + s_frac))
+    return torch.stack(out, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,11 @@ other than ``binary2way`` sweep the reference's grid exactly
 (``exact_grid_losses``) in place of the conv grid.  ``fit_cars_robust``
 (the robust optimisation) adds a translation-only grid at a given yaw
 per car (``fit_loc_only``), one coverage call for all cars.
+
+``fit_cars`` (with ``fit_standing_car`` / ``fit_moving_car``) is the JAX
+package's first coarse pass: the grid scored by sampling voxel membership
+fields (``ops.tfl.grid_pose_losses``), then the exact fine theta pass;
+no labelling path calls it, the conv fit replaced it.
 """
 
 from __future__ import annotations
@@ -511,6 +516,112 @@ def fit_cars_conv(batch: CarBatch, template: torch.Tensor,
     return BatchFitResult(
         x=center[:, 0] + xs, y=center[:, 1], z=center[:, 2] + zs,
         theta=thetas, loss=losses, center=center)
+
+
+# ---------------------------------------------------------------------------
+# The gather-field fit (membership fields; the JAX package's ``fit_cars``)
+# ---------------------------------------------------------------------------
+
+def _gather_standing(scan_local, scan_mask, template, template_field,
+                     cfg: FitConfig):
+    """Coarse grid by membership fields + the exact fine theta pass for B
+    cars: (x, z, theta, loss), each (B,)."""
+    thetas_np, trans_np = _pose_grids(cfg)
+    dev = scan_local.device
+    thetas = torch.as_tensor(thetas_np, device=dev)
+    trans = torch.as_tensor(trans_np, device=dev)
+    losses = tfl.grid_pose_losses(scan_local, scan_mask, template,
+                                  template_field, thetas, trans, cfg.radius)
+    best = losses.reshape(losses.shape[0], -1).argmin(1)
+    t_best = trans[best % trans.shape[0]]                   # (B, 3)
+    fine_th = torch.as_tensor(_fine_thetas(cfg), device=dev)
+    fine = exact_theta_losses(scan_local, scan_mask, template, t_best,
+                              fine_th, cfg.radius)          # (B, N)
+    return (t_best[:, 0], t_best[:, 2], _plateau_theta(fine_th, fine),
+            fine.min(-1).values)
+
+
+def _gather_moving(scan_local, scan_mask, template, template_field,
+                   theta_est, theta_valid, cfg: FitConfig):
+    """Moving cars: the translation grid (dz shifted by +moving_dz_shift)
+    at the trajectory theta where valid, else over the full theta grid
+    (optimize_moving:306-311); argmin over the (theta, translation)
+    losses: (x, z, theta, loss), each (B,)."""
+    thetas_np, trans_np = _pose_grids(cfg)
+    dev = scan_local.device
+    trans = torch.as_tensor(trans_np, device=dev) \
+        + torch.tensor([0.0, 0.0, cfg.moving_dz_shift], device=dev)
+    thetas_full = torch.as_tensor(thetas_np, device=dev)
+    thetas = torch.where(theta_valid[:, None], theta_est[:, None],
+                         thetas_full[None, :])              # (B, NT)
+    losses = tfl.grid_pose_losses(scan_local, scan_mask, template,
+                                  template_field, thetas, trans, cfg.radius)
+    flat = losses.reshape(losses.shape[0], -1)
+    best = flat.argmin(1)
+    g = trans.shape[0]
+    t = trans[best % g]
+    return t[:, 0], t[:, 2], _take(thetas, best // g), _take(flat, best)
+
+
+def _one_car(scan_local, scan_mask):
+    return scan_local[None], scan_mask[None].bool()
+
+
+def fit_standing_car(scan_local: torch.Tensor, scan_mask: torch.Tensor,
+                     template: torch.Tensor, template_field: torch.Tensor,
+                     cfg: FitConfig = FitConfig()) -> FitResult:
+    """Coarse grid (membership fields) + exact fine theta pass for one car,
+    scan_local (S, 3) relative to its median center.  Returns the pose
+    offset relative to the center (x/z are deltas; y = 0)."""
+    x, z, theta, loss = _gather_standing(*_one_car(scan_local, scan_mask),
+                                         template, template_field, cfg)
+    return FitResult(x=x[0], y=x.new_zeros(()), z=z[0], theta=theta[0],
+                     loss=loss[0])
+
+
+def fit_moving_car(scan_local: torch.Tensor, scan_mask: torch.Tensor,
+                   template: torch.Tensor, template_field: torch.Tensor,
+                   theta_est, theta_valid,
+                   cfg: FitConfig = FitConfig()) -> FitResult:
+    """Moving car: translation grid (dz +1 shifted) at fixed trajectory
+    theta; if no reliable trajectory angle, the full theta grid
+    (optimize_moving:306-311)."""
+    dev = scan_local.device
+    x, z, theta, loss = _gather_moving(
+        *_one_car(scan_local, scan_mask), template, template_field,
+        torch.as_tensor(theta_est, dtype=scan_local.dtype,
+                        device=dev).reshape(1),
+        torch.as_tensor(theta_valid, dtype=torch.bool, device=dev
+                        ).reshape(1), cfg)
+    return FitResult(x=x[0], y=x.new_zeros(()), z=z[0], theta=theta[0],
+                     loss=loss[0])
+
+
+def fit_cars(batch: CarBatch, template: torch.Tensor,
+             template_field: torch.Tensor,
+             cfg: FitConfig = FitConfig()) -> BatchFitResult:
+    """Fit every car of a padded batch on the membership-field grid (the
+    JAX package's ``fit_cars``): both the standing and the moving fit run
+    for every car, selected per car.  The batch (numpy or tensors) is
+    brought to the device of ``template``."""
+    dev = template.device
+    points = torch.as_tensor(batch.points, dtype=template.dtype, device=dev)
+    mask = torch.as_tensor(batch.mask, dtype=torch.bool, device=dev)
+    moving = torch.as_tensor(batch.moving, dtype=torch.bool, device=dev)
+    theta_est = torch.as_tensor(batch.theta_est, dtype=template.dtype,
+                                device=dev)
+    theta_valid = torch.as_tensor(batch.theta_valid, dtype=torch.bool,
+                                  device=dev)
+    template_field = template_field.to(dev)
+    center = masked_median(points, mask)                    # (B, 3)
+    local = points - center[:, None, :]
+    std = _gather_standing(local, mask, template, template_field, cfg)
+    mov = _gather_moving(local, mask, template, template_field, theta_est,
+                         theta_valid, cfg)
+    x, z, theta, loss = (torch.where(moving, m, s) for s, m in zip(std, mov))
+    return BatchFitResult(
+        x=center[:, 0] + x, y=center[:, 1], z=center[:, 2] + z,
+        theta=theta, loss=loss, center=center)
 
 
 def _fit_loc_only(scan_local: torch.Tensor, scan_mask: torch.Tensor,

@@ -983,3 +983,32 @@ def test_loftr_and_tracker_on_the_card_match_the_cpu(cuda):
     for want, got in zip(res[0][1:], res[1][1:]):
         assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(
             want.abs().max())
+
+
+def _plane_cloud(n, seed):
+    """n points on a noisy 100 m x 100 m plane, about 4 within 0.3 m of
+    each: components of every size."""
+    rng = np.random.default_rng(seed)
+    pts = np.stack([rng.uniform(0, 100, n), rng.normal(scale=0.05, size=n),
+                    rng.uniform(0, 100, n)], 1).astype(np.float32)
+    return pts
+
+
+def test_growing_on_the_card_matches_the_cpu(cuda):
+    """150,000 points: a dense distance matrix would take 90 GB.  The
+    voxel mask and the component labels (24 steps) equal the CPU's."""
+    from monosowa_tpu_torch.ops.geometry import voxel_downsample_mask
+    from monosowa_tpu_torch.sowa import growing
+
+    pts = _plane_cloud(150_000, 0)
+    pts[:2000] = np.float32(np.round(pts[:2000] / 0.2)) * np.float32(0.2)
+    mask = np.random.default_rng(1).random(len(pts)) < 0.95
+    p_cpu, m_cpu = torch.from_numpy(pts), torch.from_numpy(mask)
+    p_gpu, m_gpu = p_cpu.to(cuda), m_cpu.to(cuda)
+    want = voxel_downsample_mask(p_cpu, m_cpu, 0.2)
+    got = voxel_downsample_mask(p_gpu, m_gpu, 0.2)
+    assert torch.equal(got.cpu(), want)
+    want = growing.connected_components(p_cpu, m_cpu, 0.3)
+    got = growing.connected_components(p_gpu, m_gpu, 0.3)
+    assert torch.equal(got.cpu(), want)
+    assert 1000 < len(torch.unique(want)) < len(pts) // 2
