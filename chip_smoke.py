@@ -78,7 +78,10 @@ Phases, each printing one JSON line:
             the JAX package's tests/test_dn_wiring.py does: ``prepare_dn``,
             the forward, the criterion plus ``dn_loss``, backward, AdamW.
             Each: from the seeded weights, dropout off, the kernels' step
-            against the plain-MSDA step (the train phase's bars), a warm-up
+            against the plain-MSDA step and against the forward kernel
+            with the plain backward (the train phase's bars, 1e-2 and
+            1e-3 of each gradient's scale; the worst tensor of each
+            printed), a warm-up
             step with every MSDA and JV launch recorded, three timed steps
             (launch counts held), a request of two images.  Then K1 and
             K2/K3 replayed on the recorded decoder launches (Q = 550, 800;
@@ -96,6 +99,27 @@ Phases, each printing one JSON line:
             TFL / mask losses of every layer, gradients), and the
             gradient of ``loss_tfl`` alone in the 3D heads; then a
             warm-up step and three timed steps, with launch counts.
+   train_add_bf16 — the same under the bf16 policy: the kernels' step
+            against the plain-MSDA step (train_bf16's bars: the loss
+            dict, the TFL and mask losses included, within 0.15 of
+            |a| + 1; the backward kernel alone within 1e-3 plus four bf16
+            steps of each gradient's scale), three timed steps on the bf16
+            kernels, float32 params, gradients and moments.
+   msda_onehot — configs/monodetr_kitti.yaml's model under
+            ``compute_dtype: float32`` with ``msda_backend: onehot``:
+            value rounded to bf16 before each MSDA, as the JAX backends
+            read it, so three requests and one train step run the bf16
+            kernels (6 of each a step) and no float32 one; each MSDA
+            launch of the step replayed against the plain versions on the
+            same bf16 rows; one request each under ``mxu`` and ``pallas``
+            (the same launches and result files).
+   ddp    — data parallelism (``monosowa_tpu_torch/parallel``), one train
+            step at full width with dropout on against one process on the
+            whole batch: a world of one on ``nccl`` (loss dict equal,
+            gradients within 1e-5 of the largest) and two processes on
+            ``gloo`` with CUDA tensors on the one card, each with half
+            the batch (each loss within 2e-4 of itself, gradients within
+            2e-4 of the largest; each tensor's own share reported).
    lap    — both LAP kernels (``lap_jv``, ``lap_auction``) against their
             plain versions on the card, assignment for assignment, on 22
             problems of 50 x 50 from a generator (n_valid 0..50, padding
@@ -2676,6 +2700,35 @@ def serve(dev, bf16: bool = False) -> dict:
             "peak_mem_GB": peak / 1e9}
 
 
+def kernel_fwd_plain_bwd(value, shapes, loc, aw):
+    """MSDA with the forward kernel and the plain backward, so that a
+    whole-model comparison with the kernels' step isolates the backward
+    kernel (dvalue in value's dtype, its float32 sum rounded once)."""
+    import torch
+
+    from monosowa_tpu_torch.ops import msda
+
+    class KernelFwdPlainBwd(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, value, loc, aw, shapes):
+            ctx.shapes = shapes
+            ctx.save_for_backward(value, loc, aw)
+            return msda._launch_fwd(value, shapes, loc, aw)
+
+        @staticmethod
+        def backward(ctx, dout):
+            value, loc, aw = ctx.saved_tensors
+            dout = dout.contiguous()
+            dloc, daw = msda.msda_grad_loc_aw_plain(value, ctx.shapes, loc,
+                                                    aw, dout)
+            return (msda.msda_grad_value_plain(value.shape, ctx.shapes, loc,
+                                               aw, dout, value.dtype), dloc,
+                    daw, None)
+
+    return KernelFwdPlainBwd.apply(value.contiguous(), loc.contiguous(),
+                                   aw.contiguous(), tuple(shapes))
+
+
 def msda_step_grads(model, loss_of, msda_fn):
     """Loss dict (floats), gradients (copies) and peak device memory of one
     forward and backward of ``loss_of()`` with every MSDA module of the
@@ -2731,29 +2784,6 @@ def train(dev) -> dict:
 
     model = MonoDETR(device=dev, seed=0, compute_dtype="float32")
     batch = train_batch(BATCH, IMG_H, IMG_W)
-
-    class KernelFwdPlainBwd(torch.autograd.Function):
-        """The forward kernel with the plain backward, so that a whole-model
-        comparison isolates the backward kernel."""
-
-        @staticmethod
-        def forward(ctx, value, loc, aw, shapes):
-            ctx.shapes = shapes
-            ctx.save_for_backward(value, loc, aw)
-            return msda._launch_fwd(value, shapes, loc, aw)
-
-        @staticmethod
-        def backward(ctx, dout):
-            value, loc, aw = ctx.saved_tensors
-            dout = dout.contiguous()
-            dloc, daw = msda.msda_grad_loc_aw_plain(value, ctx.shapes, loc,
-                                                    aw, dout)
-            return (msda.msda_grad_value_plain(value.shape, ctx.shapes, loc,
-                                               aw, dout), dloc, daw, None)
-
-    def kernel_fwd_plain_bwd(value, shapes, loc, aw):
-        return KernelFwdPlainBwd.apply(value.contiguous(), loc.contiguous(),
-                                       aw.contiguous(), tuple(shapes))
 
     # one forward + backward each from the seeded weights, in training mode
     # with dropout off: with the kernels, through the plain MSDA (autograd
@@ -2928,13 +2958,15 @@ BF16_BWD_GRAD_BAR = 1e-3 + BF16_STEPS * 2.0 ** -8
 BF16_GRAD_FLOOR = 1e-2
 
 
-def bf16_step_comparison(model, inputs, targets, ccfg, floor_rel: float):
+def bf16_step_comparison(model, inputs, targets, ccfg, floor_rel: float,
+                         add_data=None):
     """Loss dicts and gradients of one forward and backward from the current
-    weights, dropout off: the kernels ("k"), the plain MSDA ("p"), the
-    forward kernel with the plain backward ("kp").  Returns the loss
+    weights, dropout off (with ``add_data``, the pseudo-label cars' losses
+    too): the kernels ("k"), the plain MSDA ("p"), the forward kernel with
+    the plain backward ("kp").  Returns the loss
     statistic |a - b| / (|a| + 1) of k against p, and each parameter's
     max |difference| over its scale (floored at ``floor_rel`` of the largest
-    gradient) of k against p and against kp."""
+    gradient) of k against p and against kp, and k's loss dict."""
     import torch
 
     from monosowa_tpu_torch.models.criterion import criterion
@@ -2982,7 +3014,8 @@ def bf16_step_comparison(model, inputs, targets, ccfg, floor_rel: float):
         for mod in attn:
             mod.msda = fn
         model.zero_grad(set_to_none=True)
-        losses = criterion(model(*inputs), targets, ccfg)
+        losses = criterion(model(*inputs), targets, ccfg,
+                           add_data=add_data)
         losses["loss_total"].backward()
         torch.cuda.synchronize()
         return ({k: float(v.detach()) for k, v in losses.items()},
@@ -3010,7 +3043,7 @@ def bf16_step_comparison(model, inputs, targets, ccfg, floor_rel: float):
         raise AssertionError("a gradient left float32")
     loss = {k: abs(losses_k[k] - v) / (abs(v) + 1.0)
             for k, v in runs["p"][0].items()}
-    return loss, rel(runs["p"][1]), rel(runs["kp"][1])
+    return loss, rel(runs["p"][1]), rel(runs["kp"][1]), losses_k
 
 
 def train_bf16(dev) -> dict:
@@ -3040,7 +3073,7 @@ def train_bf16(dev) -> dict:
                            num_queries=model.num_queries,
                            num_classes=model.num_classes)
     msda.launches_bf16 = msda.bwd_launches_bf16 = 0
-    loss, grad_p, grad_kp = bf16_step_comparison(
+    loss, grad_p, grad_kp, _ = bf16_step_comparison(
         model, inputs, targets_from_batch(batch, dev), ccfg, BF16_GRAD_FLOOR)
     # the kernels' step and the forward kernel of the kernel-plain step
     if (msda.launches_bf16, msda.bwd_launches_bf16) != (
@@ -3168,36 +3201,27 @@ def live_add_data(model, inputs, targets, add, ccfg, per_layer: int = 4):
                         car_masks=masks)
 
 
-def train_add(dev) -> dict:
-    """The train step with pseudo-label cars: SampleDataset with
-    use_add_data (its cars written as the labeller's optimized_cars cache
-    by write_sample_cars), use_tfl and use_mask_loss, the JV matcher."""
-    import numpy as np
-    import torch
-
-    from monosowa_tpu_torch.data.kitti_dataset import collate
-    from monosowa_tpu_torch.models.criterion import CriterionConfig, criterion
-    from monosowa_tpu_torch.models.layers import Dropout
+def add_data_ccfg(model):
+    """train_add's criterion: use_tfl and use_mask_loss, the JV matcher."""
+    from monosowa_tpu_torch.models.criterion import CriterionConfig
     from monosowa_tpu_torch.models.matcher import MatcherConfig
-    from monosowa_tpu_torch.models.monodetr import MonoDETR
-    from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
-    from monosowa_tpu_torch.ops import lap, msda
-    from monosowa_tpu_torch.train.optim import make_optimizer
-    from monosowa_tpu_torch.train.sample import (SampleDataset,
-                                                 write_sample_cars)
-    from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
-                                                  _tfl_templates,
-                                                  add_data_from_batch,
-                                                  make_train_step,
-                                                  targets_from_batch)
 
-    model = MonoDETR(device=dev, seed=0, compute_dtype="float32")
-    ccfg = CriterionConfig(group_num=model.group_num,
+    return CriterionConfig(group_num=model.group_num,
                            num_queries=model.num_queries,
                            num_classes=model.num_classes,
                            matcher=MatcherConfig(backend="jv"),
                            use_tfl=True, use_mask_loss=True,
                            tfl_gather_k=TFL_GATHER_K)
+
+
+def add_data_batch():
+    """A batch of SampleDataset with use_add_data, its cars written as the
+    labeller's optimized_cars cache (write_sample_cars); and the payload's
+    host ms an image."""
+    from monosowa_tpu_torch.data.kitti_dataset import collate
+    from monosowa_tpu_torch.train.sample import (SampleDataset,
+                                                 write_sample_cars)
+
     with tempfile.TemporaryDirectory() as tmp:
         ds = SampleDataset(BATCH, {"resolution": [IMG_W, IMG_H],
                                    "use_add_data": True,
@@ -3210,6 +3234,32 @@ def train_add(dev) -> dict:
     if n_cars < BATCH or not batch["car_masks"].any():
         raise AssertionError(f"{n_cars} cars with masks "
                              f"{batch['car_masks'].any()} in the payload")
+    return batch, load_ms
+
+
+def train_add(dev) -> dict:
+    """The train step with pseudo-label cars: SampleDataset with
+    use_add_data (its cars written as the labeller's optimized_cars cache
+    by write_sample_cars), use_tfl and use_mask_loss, the JV matcher."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.models.criterion import criterion
+    from monosowa_tpu_torch.models.layers import Dropout
+    from monosowa_tpu_torch.models.monodetr import MonoDETR
+    from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
+    from monosowa_tpu_torch.ops import lap, msda
+    from monosowa_tpu_torch.train.optim import make_optimizer
+    from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
+                                                  _tfl_templates,
+                                                  add_data_from_batch,
+                                                  make_train_step,
+                                                  targets_from_batch)
+
+    model = MonoDETR(device=dev, seed=0, compute_dtype="float32")
+    ccfg = add_data_ccfg(model)
+    batch, load_ms = add_data_batch()
+    n_cars = int(batch["car_valid"].sum())
 
     # one forward + backward each from the seeded weights, dropout off, on
     # the live payload: the kernels (MSDA, JV) against the plain MSDA and
@@ -3343,6 +3393,468 @@ def train_add(dev) -> dict:
             "kernel_vs_plain_grad_worst": worst}
 
 
+def train_add_bf16(dev) -> dict:
+    """train_add under the bf16 policy (``compute_dtype`` "bfloat16", what
+    "auto" resolves to on the card): from the seeded weights, dropout off, on the live payload,
+    ``bf16_step_comparison`` with the TFL and mask losses on train_bf16's
+    bars (the loss dict within BF16_LOSS_BAR of |a| + 1; the backward
+    kernel alone within BF16_BWD_GRAD_BAR of each gradient's scale, inside
+    the 5e-2 bar of a bf16 step; the kernels against the plain MSDA
+    reported, as train_bf16 reports them: dLoc's jumps); then a warm-up and
+    TRAIN_STEPS timed steps of ``make_train_step``: launch counts, finite
+    aux losses, float32 params, gradients and AdamW moments."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.models.layers import Dropout
+    from monosowa_tpu_torch.models.monodetr import MonoDETR
+    from monosowa_tpu_torch.ops import msda
+    from monosowa_tpu_torch.train.optim import make_optimizer
+    from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
+                                                  _tfl_templates,
+                                                  add_data_from_batch,
+                                                  make_train_step,
+                                                  targets_from_batch)
+
+    model = MonoDETR(device=dev, seed=0, compute_dtype="bfloat16")
+    ccfg = add_data_ccfg(model)
+    batch, _ = add_data_batch()
+    inputs = [torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
+              for k in MODEL_INPUTS]
+    targets = targets_from_batch(batch, dev)
+    add = add_data_from_batch(batch, *_tfl_templates(dev), dev)
+    dropouts = [mod for mod in model.modules() if isinstance(mod, Dropout)]
+    dropout_p = [mod.p for mod in dropouts]
+    for mod in dropouts:
+        mod.p = 0.0
+    model.train()
+    live = live_add_data(model, inputs, targets, add, ccfg)
+    for mod, p_drop in zip(dropouts, dropout_p):
+        mod.p = p_drop
+    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
+    loss, grad_p, grad_kp, losses_k = bf16_step_comparison(
+        model, inputs, targets, ccfg, BF16_GRAD_FLOOR, add_data=live)
+    if (msda.launches_bf16, msda.bwd_launches_bf16) != (
+            2 * MSDA_PER_FORWARD, MSDA_PER_FORWARD):
+        raise AssertionError("the kernels' step did not go through the bf16 "
+                             "kernels")
+    aux_keys = sorted(k for k in losses_k if k.startswith(("loss_tfl",
+                                                            "loss_mask")))
+    if aux_keys != ["loss_mask", "loss_mask_0", "loss_mask_1", "loss_tfl",
+                    "loss_tfl_0", "loss_tfl_1"]:
+        raise AssertionError(f"aux-loss keys {aux_keys}")
+    for k in aux_keys:
+        if not (np.isfinite(losses_k[k]) and losses_k[k] > 0):
+            raise AssertionError(f"{k} = {losses_k[k]}")
+    worst_loss = max(loss, key=loss.get)
+    worst_p = max(grad_p, key=grad_p.get)
+    worst_kp = max(grad_kp, key=grad_kp.get)
+    if loss[worst_loss] >= BF16_LOSS_BAR:
+        raise AssertionError(f"train_add bf16 kernels vs plain MSDA, "
+                             f"{worst_loss}: {loss[worst_loss]}")
+    if grad_kp[worst_kp] > BF16_BWD_GRAD_BAR:
+        raise AssertionError(f"train_add bf16 backward kernel vs plain "
+                             f"backward, gradient of {worst_kp}: "
+                             f"{grad_kp[worst_kp]} of its scale")
+    torch.cuda.empty_cache()
+
+    opt = make_optimizer(model, 2e-4, 1e-4)
+    step = make_train_step(model, ccfg, opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    step(batch, gen)                                 # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+
+    # the main path: TRAIN_STEPS steps of make_train_step with add data
+    # under the bf16 policy
+    torch.cuda.reset_peak_memory_stats()
+    reset_variant_counts()
+    history, step_ms = [], []
+    with policy_dtypes(model) as seen:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            history.append(step(batch, gen))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = variant_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_policy(seen, "torch.bfloat16", "train_add_bf16")
+    want = {k: 0 for k in launches}
+    want.update(msda_fwd_bf16=MSDA_PER_FORWARD * TRAIN_STEPS,
+                msda_bwd_bf16=MSDA_PER_FORWARD * TRAIN_STEPS,
+                lap_jv=LAP_PER_STEP * TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"{TRAIN_STEPS} bf16 steps with add data "
+                             f"launched {launches}, want {want}")
+    for losses in history:
+        if not all(np.isfinite(v) for v in losses.values()) \
+                or not losses["grad_norm"] > 0 \
+                or not all(losses[k] >= 0 for k in aux_keys):
+            raise AssertionError(f"train_add_bf16 losses: {losses}")
+    moments = [t for st in opt.state.values() for t in st.values()
+               if torch.is_tensor(t) and t.dim()]
+    kept = {str(t.dtype) for t in [*model.parameters(), *moments]} | {
+        str(p.grad.dtype) for p in model.parameters() if p.grad is not None}
+    if kept != {"torch.float32"}:
+        raise AssertionError(f"params, gradients and moments in {kept}")
+    return {"phase": "train_add_bf16", "compute_dtype": model.compute_dtype,
+            "batch": BATCH, "image_hw": [IMG_H, IMG_W],
+            "queries": TRAIN_QUERIES, "steps": TRAIN_STEPS, **ADD_DATA,
+            "warmup_step_s": warmup_s, "train_step_ms": step_ms,
+            "train_step_ms_mean": sum(step_ms) / len(step_ms),
+            "loss_total": [h["loss_total"] for h in history],
+            "aux_losses": {k: [h[k] for h in history] for k in aux_keys},
+            "live_payload_aux_losses": {k: losses_k[k] for k in aux_keys},
+            "grad_norm": [h["grad_norm"] for h in history],
+            "launches": launches, "params_grads_moments": sorted(kept),
+            "peak_mem_GB": peak / 1e9,
+            "kernel_vs_plain_loss_max_err": loss[worst_loss],
+            "kernel_vs_plain_loss_worst": worst_loss,
+            "kernel_vs_plain_aux_loss_err": {k: loss[k] for k in aux_keys},
+            "kernel_vs_plain_grad_max_rel_reported": grad_p[worst_p],
+            "kernel_vs_plain_grad_worst": worst_p,
+            "bwd_kernel_vs_plain_bwd_grad_max_rel": grad_kp[worst_kp],
+            "bwd_kernel_vs_plain_bwd_grad_worst": worst_kp,
+            "bars": {"loss_abs_over_abs_plus_1": BF16_LOSS_BAR,
+                     "bwd_grad_rel": BF16_BWD_GRAD_BAR,
+                     "grad_floor_of_largest": BF16_GRAD_FLOOR}}
+
+
+# ---------------------------------------------------------------------------
+# msda_onehot: the explicit MSDA backends under float32 read bf16 value rows
+# ---------------------------------------------------------------------------
+
+def msda_onehot(dev) -> dict:
+    """configs/monodetr_kitti.yaml's model at its widths through
+    ``build_monodetr`` with ``compute_dtype: float32`` and ``msda_backend:
+    onehot``: value is rounded to bf16 before every MSDA (the JAX backend's
+    bf16 operands), so the bf16 kernels run and the float32 ones do not.
+    REQUESTS requests through ``run_inference`` and one step of
+    ``make_train_step`` (MSDA_PER_FORWARD launches of each bf16 kernel),
+    every MSDA launch of the step recorded and replayed against the plain
+    versions on the same bf16 rows (out, dloc, daw within 1e-5 of their
+    magnitude, dvalue one bf16 step more); then one request each under
+    ``mxu`` and ``pallas``: the same bf16 kernels, the same result files."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.kittiio import read_label_file
+    from monosowa_tpu_torch.models.monodetr import build_monodetr
+    from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
+    from monosowa_tpu_torch.train.optim import make_optimizer
+    from monosowa_tpu_torch.train.sample import sample_batch as train_batch
+    from monosowa_tpu_torch.train.tester import run_inference
+    from monosowa_tpu_torch.train.trainer import (make_eval_step,
+                                                  make_train_step)
+
+    t_phase = time.perf_counter()
+    base = {**shipped_model_config(), "compute_dtype": "float32"}
+    rng = np.random.default_rng(3)
+    batches = [sample_batch(rng, 2 * i) for i in range(REQUESTS)]
+
+    def requests(backend: str, n: int):
+        model = build_monodetr({**base, "msda_backend": backend},
+                               device=dev, seed=0)
+        attn = [m for m in model.modules()
+                if isinstance(m, MSDeformAttnModule)]
+        if len(attn) != MSDA_PER_FORWARD or any(m.backend != backend
+                                                for m in attn):
+            raise AssertionError(f"{backend}: the model's MSDA modules")
+        make_eval_step(model, topk=50)(batches[0])   # warm-up
+        torch.cuda.synchronize()
+        reset_variant_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = {"tester": {"threshold": 0.0, "topk": 50},
+                   "trainer": {"save_path": tmp}, "dataset": {}}
+            t0 = time.perf_counter()
+            out_dir = run_inference(model, batches[:n], cfg,
+                                    logger=lambda s: None)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / n
+            files = {}
+            for f in sorted(os.listdir(out_dir)):
+                labels = read_label_file(os.path.join(out_dir, f))
+                if len(labels) != 50 or not np.isfinite(labels.pos).all():
+                    raise AssertionError(f"{backend} {f}: {len(labels)} "
+                                         "rows")
+                with open(os.path.join(out_dir, f)) as fh:
+                    files[f] = fh.read()
+        counts = {k: v for k, v in variant_counts().items() if v}
+        if counts != {"msda_fwd_bf16": MSDA_PER_FORWARD * n} \
+                or len(files) != n * BATCH:
+            raise AssertionError(f"{backend}: {n} requests launched {counts}"
+                                 f", {len(files)} result files")
+        return model, files, ms, counts
+
+    model, files, ms, serve_counts = requests("onehot", REQUESTS)
+
+    # one step of make_train_step, every MSDA launch recorded
+    batch = train_batch(BATCH, IMG_H, IMG_W)
+    step = make_train_step(model, None, make_optimizer(model, 2e-4, 1e-4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    attn = [m for m in model.modules() if isinstance(m, MSDeformAttnModule)]
+    fwd_rec, restore = recording_msda(attn)
+    try:
+        with recording_msda_bwd() as bwd_rec:
+            reset_variant_counts()
+            t0 = time.perf_counter()
+            losses = step(batch, gen)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            step_counts = {k: v for k, v in variant_counts().items() if v}
+    finally:
+        restore()
+    want = {"msda_fwd_bf16": MSDA_PER_FORWARD,
+            "msda_bwd_bf16": MSDA_PER_FORWARD, "lap_jv": LAP_PER_STEP}
+    if step_counts != want:
+        raise AssertionError(f"the onehot step launched {step_counts}, "
+                             f"want {want}")
+    if not all(np.isfinite(v) for v in losses.values()) \
+            or not losses["grad_norm"] > 0:
+        raise AssertionError(f"onehot step: {losses}")
+    if {str(r[0].dtype) for r in fwd_rec + bwd_rec} != {"torch.bfloat16"}:
+        raise AssertionError("an MSDA of the step read other rows than "
+                             "bf16")
+    del model, step
+    torch.cuda.empty_cache()
+
+    # K1 / K2+K3 bf16 against the plain versions on the recorded launches
+    fwd, bwd = {}, {}
+    for name, pick in (("encoder", lambda q: q == ENC_TOKENS),
+                       ("decoder", lambda q: q != ENC_TOKENS)):
+        recs_f = [r for r in fwd_rec if pick(r[2].shape[1])]
+        recs_b = [r for r in bwd_rec if pick(r[2].shape[1])]
+        label = f"onehot {name} Q={recs_f[0][2].shape[1]}"
+        fwd[label] = check_msda_recorded(label, recs_f)
+        bwd[label] = check_msda_bwd_recorded(label, recs_b)
+    del fwd_rec, bwd_rec
+    torch.cuda.empty_cache()
+
+    # step 0's dispatch: mxu and pallas read the same bf16 rows
+    others = {}
+    for backend in ("mxu", "pallas"):
+        m2, f2, ms2, c2 = requests(backend, 1)
+        if f2 != {k: files[k] for k in f2}:
+            raise AssertionError(f"{backend}: result files differ from "
+                                 "onehot's")
+        others[backend] = {"ms_per_request": ms2, "launches": c2,
+                           "result_files_equal_onehot": len(f2)}
+        del m2
+        torch.cuda.empty_cache()
+    keys = ("shape", "max_abs_err", "ms", "ms_launched_from_python",
+            "plain_ms", "bound_ms", "bound_by")
+    return {"phase": "msda_onehot", "compute_dtype": "float32",
+            "msda_backend": "onehot", "requests": REQUESTS,
+            "images_per_request": BATCH, "image_hw": [IMG_H, IMG_W],
+            "ms_per_request": ms, "serve_launches": serve_counts,
+            "train_step_s_first": step_s, "train_step_launches": step_counts,
+            "loss_total": losses["loss_total"],
+            "grad_norm": losses["grad_norm"], "other_backends": others,
+            "msda_fwd_bf16": {k: {f: v.get(f) for f in keys}
+                              for k, v in fwd.items()},
+            "msda_bwd_bf16": {k: {f: v.get(f) for f in keys}
+                              for k, v in bwd.items()},
+            "launches": {
+                "msda_fwd_bf16": serve_counts["msda_fwd_bf16"]
+                + step_counts["msda_fwd_bf16"]
+                + sum(o["launches"]["msda_fwd_bf16"]
+                      for o in others.values()),
+                "msda_bwd_bf16": step_counts["msda_bwd_bf16"],
+                "lap_jv": step_counts["lap_jv"]},
+            "seconds": time.perf_counter() - t_phase,
+            "_fwd": fwd, "_bwd": bwd}
+
+
+# ---------------------------------------------------------------------------
+# ddp: data-parallel training (monosowa_tpu_torch/parallel) on the one card
+# ---------------------------------------------------------------------------
+
+DDP_WORLD = 2
+DDP_TIMEOUT_S = 300
+
+
+def ddp_step(dev, data_parallel=None, timed: int = 2):
+    """The train phase's float32 model (seed 0, dropout 0.1) and batch, one
+    step of ``make_train_step`` on this rank's slice of the batch (all of it
+    without ``data_parallel``): loss dict, gradients (copies) and launch
+    counts of that step, and the ms of the first step and of ``timed``
+    steps after a second warm-up step (their mean)."""
+    import torch
+
+    from monosowa_tpu_torch.models.monodetr import MonoDETR
+    from monosowa_tpu_torch.train.optim import make_optimizer
+    from monosowa_tpu_torch.train.sample import sample_batch as train_batch
+    from monosowa_tpu_torch.train.trainer import make_train_step
+
+    model = MonoDETR(device=dev, seed=0, compute_dtype="float32")
+    batch = train_batch(BATCH, IMG_H, IMG_W)
+    if data_parallel is not None:
+        batch = {k: v[data_parallel.shard(BATCH)] for k, v in batch.items()}
+    step = make_train_step(model, None, make_optimizer(model, 2e-4, 1e-4),
+                           data_parallel=data_parallel)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    reset_variant_counts()
+    t0 = time.perf_counter()
+    losses = step(batch, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v for k, v in variant_counts().items() if v}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    step(batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step(batch, gen)
+    torch.cuda.synchronize()
+    return losses, grads, counts, {
+        "first_step_ms": ms,
+        "step_ms_mean": (time.perf_counter() - t0) * 1e3 / timed}
+
+
+def ddp_rank(rank: int, store: str, out_dir: str, device: str) -> None:
+    """A rank of the ddp phase's gloo group, in a process of its own on
+    ``device`` (the one card): ``ddp_step`` on its half of the batch,
+    written to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from monosowa_tpu_torch.device import resolve_device
+    from monosowa_tpu_torch.parallel import from_process_group
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(store, DDP_WORLD),
+                            rank=rank, world_size=DDP_WORLD)
+    try:
+        dp = from_process_group(BATCH, dev)
+        if (dp.rank, dp.size) != (rank, DDP_WORLD) or dp.group is None:
+            raise AssertionError(f"rank {rank}: {dp}")
+        losses, grads, counts, ms = ddp_step(dev, dp)
+        torch.save({"losses": losses, "counts": counts, "ms": ms,
+                    "grads": {k: v.cpu() for k, v in grads.items()}},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp(dev, backend: str = "nccl") -> dict:
+    """Data parallelism (``monosowa_tpu_torch/parallel``), one train step of
+    the float32 model at full width with dropout on, against the same step
+    of one process on the whole batch without a process group: (a) a
+    world of one on ``nccl`` (the loss dict equal; gradients within 1e-5
+    of the largest, the backward's float32 atomics may sum in another
+    order); (b) DDP_WORLD processes on ``gloo`` with CUDA tensors on the
+    one card, each with its half of the batch (each loss within 2e-4 of
+    itself and the gradients within 2e-4 of the largest:
+    tests/test_torch_train_step.py's bar; each tensor's own share is
+    reported: a half batch sums in another order, and a ReLU input of the
+    random ResNet-50 within rounding of 0 then moves the gradients of the
+    weights below it, tools/check_relu_ties.py).
+    ``backend`` is the world of one's."""
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from monosowa_tpu_torch.parallel import from_process_group
+
+    t_phase = time.perf_counter()
+    losses_0, grads_0, counts_0, ms_0 = ddp_step(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            dp = from_process_group(BATCH, dev)
+            if dp.group is None or dist.get_backend(dp.group) != backend:
+                raise AssertionError(f"the world of one: {dp}")
+            losses_1, grads_1, counts_1, ms_1 = ddp_step(dev, dp)
+        finally:
+            dist.destroy_process_group()
+    if counts_1 != counts_0:
+        raise AssertionError(f"nccl step launched {counts_1}, the step "
+                             f"without a group {counts_0}")
+    same = {k: v for k, v in losses_1.items()
+            if k != "grad_norm" and v != losses_0[k]}
+    if sorted(losses_1) != sorted(losses_0) or same:
+        raise AssertionError(f"nccl world of one, loss dict: {same}")
+    if set(grads_1) != set(grads_0):
+        raise AssertionError("nccl world of one: other gradients")
+    top = max(float(g.abs().max()) for g in grads_0.values())
+    err_1 = max(float((grads_1[k] - g).abs().max())
+                for k, g in grads_0.items())
+    if err_1 > 1e-5 * top:
+        raise AssertionError(f"nccl world of one, gradients: {err_1} > "
+                             f"1e-5 * {top}")
+    worst_1, rel_1 = grad_rel(grads_1, grads_0)
+    del grads_1
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(ddp_rank, args=(os.path.join(tmp, "store"), tmp,
+                                       str(dev)),
+                       nprocs=DDP_WORLD, join=False)
+        # a rank that hangs in a collective is killed, not waited for
+        deadline = time.monotonic() + DDP_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise AssertionError(f"gloo ranks still running after "
+                                     f"{DDP_TIMEOUT_S} s")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(DDP_WORLD)]
+    gloo_s = time.perf_counter() - t0
+    for r in ranks[1:]:
+        if r["losses"] != ranks[0]["losses"] or any(
+                not torch.equal(r["grads"][k], ranks[0]["grads"][k])
+                for k in ranks[0]["grads"]):
+            raise AssertionError("the gloo ranks hold other losses or "
+                                 "gradients")
+    got_l = ranks[0]["losses"]
+    loss_rel = {k: abs(got_l[k] - v) / max(abs(v), 1e-6)
+                for k, v in losses_0.items()}
+    worst_l = max(loss_rel, key=loss_rel.get)
+    if sorted(got_l) != sorted(losses_0) or loss_rel[worst_l] > 2e-4:
+        raise AssertionError(f"gloo ranks vs one process, loss "
+                             f"{worst_l}: {loss_rel[worst_l]}")
+    grads_2 = {k: v.to(dev) for k, v in ranks[0]["grads"].items()}
+    if set(grads_2) != set(grads_0):
+        raise AssertionError("gloo ranks: other gradients")
+    err_2 = max(float((grads_2[k] - g).abs().max())
+                for k, g in grads_0.items())
+    if err_2 > 2e-4 * top:
+        raise AssertionError(f"gloo ranks vs one process, gradients: "
+                             f"{err_2} > 2e-4 * {top}")
+    worst_2, rel_2 = grad_rel(grads_2, grads_0)
+    return {"phase": "ddp", "batch": BATCH, "image_hw": [IMG_H, IMG_W],
+            "queries": TRAIN_QUERIES, "dropout": 0.1,
+            "one_process": {**ms_0, "launches": counts_0,
+                            "loss_total": losses_0["loss_total"],
+                            "grad_norm": losses_0["grad_norm"]},
+            "world_1": {"backend": backend, **ms_1, "launches": counts_1,
+                             "loss_dict_equal": True,
+                             "grad_max_abs_err": err_1,
+                             "grad_max_abs": top,
+                             "grad_max_rel": rel_1, "grad_worst": worst_1,
+                             "grad_norm": losses_1["grad_norm"]},
+            "gloo_world_2": {
+                "step_ms_by_rank": [r["ms"] for r in ranks],
+                "launches_by_rank": [r["counts"] for r in ranks],
+                "seconds_with_process_start": gloo_s,
+                "loss_max_rel": loss_rel[worst_l], "loss_worst": worst_l,
+                "grad_max_abs_err": err_2, "grad_max_abs": top,
+                "grad_max_rel_reported": rel_2, "grad_worst": worst_2,
+                "grad_norm": got_l["grad_norm"]},
+            "launches": {k: counts_0.get(k, 0) + counts_1.get(k, 0)
+                         for k in ("msda_fwd", "msda_bwd", "lap_jv")},
+            "seconds": time.perf_counter() - t_phase}
+
+
 # ---------------------------------------------------------------------------
 # the labeller's live networks (the model zoo): masks, depth, and labels
 # from the caches they write
@@ -3383,9 +3895,12 @@ def variant_batch(use_depth: bool = False) -> dict:
 
 def kernel_vs_plain_step(model, loss_of, label: str) -> dict:
     """One forward and backward of ``loss_of()`` with the MSDA kernels
-    against one through the plain MSDA, from the model's current weights
-    with dropout off, on the train phase's bars: the loss dict within 1e-5
-    relative, each gradient within 1e-2 of its scale (``grad_rel``)."""
+    against one through the plain MSDA and one with the forward kernel and
+    the plain backward, from the model's current weights with dropout off,
+    on the train phase's bars: the loss dict within 1e-5 relative, each
+    gradient within 1e-2 of its scale (``grad_rel``) against the plain
+    MSDA and within 1e-3 against the plain backward on the same forward
+    (the backward kernel alone)."""
     import torch
 
     from monosowa_tpu_torch.models.layers import Dropout
@@ -3401,6 +3916,8 @@ def kernel_vs_plain_step(model, loss_of, label: str) -> dict:
                                                  msda.ms_deform_attn)
         loss_p, grad_p, peak_p = msda_step_grads(model, loss_of,
                                                  msda.ms_deform_attn_plain)
+        loss_kp, grad_kp, _ = msda_step_grads(model, loss_of,
+                                              kernel_fwd_plain_bwd)
     finally:
         for m in model.modules():
             if isinstance(m, MSDeformAttnModule):
@@ -3413,14 +3930,26 @@ def kernel_vs_plain_step(model, loss_of, label: str) -> dict:
     if sorted(loss_k) != sorted(loss_p) or max(loss_rel.values()) > 1e-5:
         raise AssertionError(f"{label}: kernel vs plain loss dict "
                              f"{loss_rel}")
+    if loss_kp != loss_k:
+        raise AssertionError(f"{label}: the forward kernel is not "
+                             f"deterministic: {loss_k} != {loss_kp}")
+    # the backward kernel vs the plain backward, the same forward: 1e-3
+    worst_b, rel_b = grad_rel(grad_k, grad_kp)
+    if rel_b > 1e-3:
+        raise AssertionError(f"{label}: backward kernel vs plain backward, "
+                             f"gradient of {worst_b}: {rel_b} of its scale")
     worst, rel = grad_rel(grad_k, grad_p)
     if rel > 1e-2:
         raise AssertionError(f"{label}: kernels vs plain MSDA, gradient of "
                              f"{worst}: {rel} of its scale")
+    loss_worst = max(loss_rel, key=loss_rel.get)
     torch.cuda.empty_cache()
-    return {"kernel_vs_plain_loss_max_rel": max(loss_rel.values()),
+    return {"kernel_vs_plain_loss_max_rel": loss_rel[loss_worst],
+            "kernel_vs_plain_loss_worst": loss_worst,
             "kernel_vs_plain_grad_max_rel": rel,
             "kernel_vs_plain_grad_worst": worst,
+            "bwd_kernel_vs_plain_bwd_grad_max_rel": rel_b,
+            "bwd_kernel_vs_plain_bwd_grad_worst": worst_b,
             "kernel_step_peak_mem_GB": peak_k / 1e9,
             "plain_step_peak_mem_GB": peak_p / 1e9}
 
@@ -3448,9 +3977,9 @@ def recording_msda_bwd():
 
 def check_msda_bwd_recorded(label: str, recorded) -> dict:
     """The backward kernel against the plain backward on the inputs of
-    real launches: dvalue, dloc and daw each within 1e-5 of its magnitude
-    (``check_msda_bwd``'s float32 bar); the first launch's times, bound
-    and block map."""
+    real launches: dvalue, dloc and daw each within 1e-5 of its magnitude,
+    a bf16 dvalue one bf16 step more (``check_msda_bwd``'s bars); the first
+    launch's times, bound and block map."""
     import torch
 
     from monosowa_tpu_torch.ops import msda
@@ -3466,10 +3995,16 @@ def check_msda_bwd_recorded(label: str, recorded) -> dict:
         want = plain(value, shapes, loc, aw, dout)
         torch.cuda.synchronize()
         for name, g, w in zip(("dvalue", "dloc", "daw"), got, want):
-            err, scale = float((g - w).abs().max()), float(w.abs().max())
-            if not (torch.isfinite(g).all() and err <= 1e-5 * scale):
+            diff = (g.float() - w.float()).abs()
+            err, scale = float(diff.max()), float(w.float().abs().max())
+            bar = torch.full_like(diff, 1e-5 * scale)
+            if name == "dvalue" and value.dtype == torch.bfloat16:
+                bar = bar + bf16_step(torch.maximum(g.float().abs(),
+                                                    w.float().abs()))
+            if not (g.dtype == w.dtype and torch.isfinite(g).all()
+                    and bool((diff <= bar).all())):
                 raise AssertionError(f"msda_bwd {label} {name}: max abs err "
-                                     f"{err} > 1e-5 * {scale}")
+                                     f"{err}, max abs {scale}, {g.dtype}")
             errs["max_abs_err"] = max(errs["max_abs_err"], err)
             errs["max_rel_err"] = max(errs["max_rel_err"],
                                       err / max(scale, 1e-30))
@@ -6310,11 +6845,33 @@ def main() -> int:
     bwd.update(dv_bwd)
     torch.cuda.empty_cache()
 
-    # 5b. train_add
+    # 5b. train_add, float32 and under the bf16 policy
     tra = train_add(dev)
     recorded = tra.pop("_lap_costs")
     tra["train_phase_step_ms_mean"] = trn["train_step_ms_mean"]
     emit(tra)
+    tra16 = train_add_bf16(dev)
+    tra16["float32_train_add_step_ms_mean"] = tra["train_step_ms_mean"]
+    emit(tra16)
+    torch.cuda.empty_cache()
+
+    # 5d. msda_onehot: msda_backend onehot (and mxu, pallas) under float32
+    # reads bf16 value rows: the bf16 kernels
+    onehot = msda_onehot(dev)
+    oh_fwd, oh_bwd = onehot.pop("_fwd"), onehot.pop("_bwd")
+    emit(onehot)
+    for name, runs in (("msda_fwd_bf16", oh_fwd), ("msda_bwd_bf16", oh_bwd)):
+        for res in runs.values():
+            emit({"phase": "kernel", "name": name, **res})
+    fwd16.update(oh_fwd)
+    bwd16.update(oh_bwd)
+    torch.cuda.empty_cache()
+
+    # 5e. ddp: a world of one on nccl, two processes on gloo on the card
+    dpr = ddp(dev)
+    dpr["nvidia_smi"] = smi
+    emit(dpr)
+    torch.cuda.empty_cache()
 
     # 5c. the LAP kernels on the generator's problems and on the costs a
     # train_add step solved
@@ -6430,6 +6987,7 @@ def main() -> int:
                "train": trn["msda_fwd_launches"],
                "train_add": tra["launches"]["msda_fwd"],
                "detector_variants": dvr["launches"]["msda_fwd"],
+               "ddp": dpr["launches"]["msda_fwd"],
                "epoch": epc["msda_fwd_launches"],
                "masks": msk["msda_launches"],
                "sam": smp["msda_launches"],
@@ -6440,18 +6998,23 @@ def main() -> int:
               {"train": trn["msda_bwd_launches"],
                "train_add": tra["launches"]["msda_bwd"],
                "detector_variants": dvr["launches"]["msda_bwd"],
+               "ddp": dpr["launches"]["msda_bwd"],
                "epoch": epc["msda_bwd_launches"]}, bwd),
         entry("msda_fwd_bf16", "monosowa_tpu_torch/ops/csrc/msda_fwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:378 (K1 ms_deform_attn_mxu, "
               "bf16 quad rows :235); monosowa_tpu/ops/msda_pallas.py:71 (K4 "
               "ms_deform_attn_pallas, bf16 value :98)",
               {"serve_bf16": srv16["msda_launches"],
-               "train_bf16": trn16["launches"]["msda_fwd_bf16"]}, fwd16),
+               "train_bf16": trn16["launches"]["msda_fwd_bf16"],
+               "train_add_bf16": tra16["launches"]["msda_fwd_bf16"],
+               "msda_onehot": onehot["launches"]["msda_fwd_bf16"]}, fwd16),
         entry("msda_bwd_bf16", "monosowa_tpu_torch/ops/csrc/msda_bwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:306 (K2 msda_gdot_mxu, bf16 quad "
               "rows :331); monosowa_tpu/ops/msda_mxu.py:544 (K3 "
               "msda_dvalue_mxu, cast to value's dtype :635)",
-              {"train_bf16": trn16["launches"]["msda_bwd_bf16"]}, bwd16),
+              {"train_bf16": trn16["launches"]["msda_bwd_bf16"],
+               "train_add_bf16": tra16["launches"]["msda_bwd_bf16"],
+               "msda_onehot": onehot["launches"]["msda_bwd_bf16"]}, bwd16),
         entry("tfl_counts", "monosowa_tpu_torch/ops/csrc/tfl_counts.cu",
               "monosowa_tpu/ops/tfl_pallas.py:67 (K5 "
               "binary_both_way_counts_pallas)",
@@ -6471,6 +7034,9 @@ def main() -> int:
                   "(XLA, not Pallas)",
                   {"train": trn["lap_jv_launches"],
                    "train_add": tra["launches"]["lap_jv"],
+                   "train_add_bf16": tra16["launches"]["lap_jv"],
+                   "msda_onehot": onehot["launches"]["lap_jv"],
+                   "ddp": dpr["launches"]["lap_jv"],
                    "detector_variants": dvr["launches"]["lap_jv"],
                    "epoch": epc["lap_jv_launches"]}),
         lap_entry("lap_auction", "monosowa_tpu/ops/lap.py:219 "

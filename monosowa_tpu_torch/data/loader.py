@@ -4,7 +4,9 @@ the device step.
 Counterpart of the JAX package's ``tools/train_val.py`` ``build_loader``
 (the reference's torch DataLoader(num_workers=4) role, train_val.py:60-66):
 the same ``default_rng(seed)`` shuffle, so both packages visit the same
-indices in the same order, and a partial last batch is dropped.
+indices in the same order, and a partial last batch is dropped.  Under data
+parallelism every rank draws the same permutation and assembles only its
+positions of each global batch (``shard``).
 """
 
 from __future__ import annotations
@@ -21,14 +23,18 @@ from monosowa_tpu_torch.data.kitti_dataset import collate
 
 
 def build_loader(ds, batch_size: int, shuffle: bool, seed: int = 444,
-                 prefetch: int = 4, workers: int = 4
+                 prefetch: int = 4, workers: int = 4,
+                 shard: slice = slice(None)
                  ) -> Callable[[], Iterator[Dict[str, np.ndarray]]]:
     """``epoch_iter()`` yields one epoch of collated batches; each call
-    draws the next permutation from one generator seeded with ``seed``."""
+    draws the next permutation from one generator seeded with ``seed``.
+    ``batch_size`` is the global batch; each yielded batch holds its
+    ``shard`` positions (``parallel.DataParallel.shard``), all of them by
+    default."""
     rng = np.random.default_rng(seed)
 
     def make_batch(idxs):
-        return collate([ds[int(j)] for j in idxs])
+        return collate([ds[int(j)] for j in idxs[shard]])
 
     def epoch_iter():
         order = np.arange(len(ds))

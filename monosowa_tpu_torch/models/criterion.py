@@ -27,6 +27,13 @@ depth_predictor/ddn_loss/*; the JAX package's ``models/criterion.py``):
 Targets are padded tensors with a validity mask.  ``dn_outputs`` are
 ignored, as in the JAX package's criterion: ``dn_components.dn_loss``
 supervises them.
+
+Data parallelism (``group``, ``parallel.dist``): the terms over the whole
+batch, ``num_boxes``, the dimension loss's compensation ratio and the
+depth map's pixel count, are summed over the group's ranks, so that each
+rank's loss dict is its share of the global batch's (the sum over the ranks
+is the loss one process computes on the whole batch).  The other terms are
+sums over images (the TFL and mask losses are means within an image).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from monosowa_tpu_torch.models.matcher import (MatcherConfig,
                                                box_cxcylrtb_to_xyxy,
                                                generalized_box_iou,
                                                hungarian_match)
+from monosowa_tpu_torch.parallel.dist import global_sum, group_size
 
 
 class AddData(NamedTuple):
@@ -167,7 +175,8 @@ def _class_box_losses(out: Dict[str, torch.Tensor], targets: Targets,
 
 def _layer_losses(out: Dict[str, torch.Tensor], targets: Targets,
                   match_idx: torch.Tensor, num_boxes: torch.Tensor,
-                  cfg: CriterionConfig) -> Dict[str, torch.Tensor]:
+                  cfg: CriterionConfig, group=None
+                  ) -> Dict[str, torch.Tensor]:
     losses = _class_box_losses(out, targets, match_idx, num_boxes, cfg)
     mask = (match_idx >= 0).to(out["pred_logits"].dtype)
 
@@ -183,10 +192,12 @@ def _layer_losses(out: Dict[str, torch.Tensor], targets: Targets,
     tgt_dims = _gather_targets(targets.size_3d, match_idx)
     dim_l1 = (dims - tgt_dims).abs() / tgt_dims.abs().clamp(min=1e-6)
     dim_l1 = dim_l1 * mask[..., None]
-    n_el = (mask.sum() * 3).clamp(min=1.0)
-    mean_abs = ((dims - tgt_dims).abs() * mask[..., None]).sum() / n_el
-    mean_dim_loss = dim_l1.sum() / n_el
-    comp = (mean_abs / mean_dim_loss.clamp(min=1e-9)).detach()
+    # the compensation ratio over the whole batch (detached)
+    n_el, abs_sum, l1_sum = global_sum(torch.stack([
+        mask.sum() * 3, ((dims - tgt_dims).abs() * mask[..., None]).sum(),
+        dim_l1.sum()]).detach(), group)
+    n_el = n_el.clamp(min=1.0)
+    comp = (abs_sum / n_el) / (l1_sum / n_el).clamp(min=1e-9)
     loss_dim = dim_l1.sum() * comp / num_boxes
 
     # ----- angle: 12-bin CE + residual ---------------------------------
@@ -205,9 +216,10 @@ def _layer_losses(out: Dict[str, torch.Tensor], targets: Targets,
 
 
 def ddn_depth_map_loss(depth_logits: torch.Tensor, targets: Targets,
-                       cfg: CriterionConfig) -> torch.Tensor:
+                       cfg: CriterionConfig, group=None) -> torch.Tensor:
     """depth_logits (B, H, W, D+1) NHWC; paints the GT depth map from 2D
-    boxes (nearest box wins), LID-bins it, focal CE + 13:1 balancing."""
+    boxes (nearest box wins), LID-bins it, focal CE + 13:1 balancing; the
+    mean over the pixels of the group's whole batch."""
     b, h, w, nbins_p1 = depth_logits.shape
     nbins = nbins_p1 - 1
     dev = depth_logits.device
@@ -252,7 +264,8 @@ def ddn_depth_map_loss(depth_logits: torch.Tensor, targets: Targets,
     focal = cfg.focal_alpha * (1 - pt) ** cfg.focal_gamma * ce
 
     weights = torch.where(fg, cfg.ddn_fg_weight, cfg.ddn_bg_weight)
-    return (focal * weights).sum() / float(b * h * w)
+    # every rank holds as many images (parallel.dist.shard_slice)
+    return (focal * weights).sum() / float(group_size(group) * b * h * w)
 
 
 def _add_data_losses(out: Dict[str, torch.Tensor], match_idx: torch.Tensor,
@@ -320,11 +333,13 @@ FLOAT_HEADS = (torch.float32, torch.float64)
 def criterion(outputs: Dict[str, Any], targets: Targets,
               cfg: CriterionConfig = CriterionConfig(),
               training: bool = True,
-              add_data: Optional[AddData] = None
-              ) -> Dict[str, torch.Tensor]:
+              add_data: Optional[AddData] = None,
+              group=None) -> Dict[str, torch.Tensor]:
     """Full loss dict; 'loss_total' is the weighted sum the trainer steps
     on.  The auxiliary losses against pseudo-label cars are added when
-    ``add_data`` is given and ``use_tfl`` or ``use_mask_loss`` is set."""
+    ``add_data`` is given and ``use_tfl`` or ``use_mask_loss`` is set.
+    With a process ``group``, this rank's share of the group's global
+    batch loss (module docstring)."""
     enc = outputs.get("enc_outputs")
     # the heads stay float32 under the bf16 policy (the JAX package's
     # tests/test_mixed_precision.py:40): no bf16 tensor reaches a loss
@@ -335,8 +350,8 @@ def criterion(outputs: Dict[str, Any], targets: Targets,
                 raise TypeError(f"{key} is {val.dtype}: the losses take "
                                 f"heads in {FLOAT_HEADS}")
     group_num = cfg.group_num if training else 1
-    num_boxes = (targets.valid.sum().to(torch.float32) * group_num).clamp(
-        min=1.0)
+    num_boxes = (global_sum(targets.valid.sum().to(torch.float32), group)
+                 * group_num).clamp(min=1.0)
 
     def match(out):
         return hungarian_match(out["pred_logits"], out["pred_boxes"],
@@ -346,14 +361,15 @@ def criterion(outputs: Dict[str, Any], targets: Targets,
     use_add = add_data is not None and (cfg.use_tfl or cfg.use_mask_loss)
 
     idx_final = match(outputs)
-    losses = _layer_losses(outputs, targets, idx_final, num_boxes, cfg)
+    losses = _layer_losses(outputs, targets, idx_final, num_boxes, cfg,
+                           group)
     losses["loss_depth_map"] = ddn_depth_map_loss(
-        outputs["pred_depth_map_logits"], targets, cfg)
+        outputs["pred_depth_map_logits"], targets, cfg, group)
     if use_add:
         losses.update(_add_data_losses(outputs, idx_final, add_data, cfg))
     for i, aux in enumerate(outputs.get("aux_outputs", [])):
         idx_aux = match(aux)
-        aux_l = _layer_losses(aux, targets, idx_aux, num_boxes, cfg)
+        aux_l = _layer_losses(aux, targets, idx_aux, num_boxes, cfg, group)
         if use_add and cfg.tfl_on_aux:
             aux_l.update(_add_data_losses(aux, idx_aux, add_data, cfg))
         for k, v in aux_l.items():

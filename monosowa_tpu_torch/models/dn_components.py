@@ -24,6 +24,8 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from monosowa_tpu_torch.parallel.dist import global_sum
+
 
 @dataclasses.dataclass(frozen=True)
 class DNConfig:
@@ -115,17 +117,20 @@ def prepare_dn(generator: Optional[torch.Generator], labels: torch.Tensor,
 def dn_loss(outputs_dn: Dict[str, torch.Tensor], labels: torch.Tensor,
             boxes_3d: torch.Tensor, valid: torch.Tensor,
             cfg: DNConfig = DNConfig(), focal_alpha: float = 0.25,
-            focal_gamma: float = 2.0) -> Dict[str, torch.Tensor]:
+            focal_gamma: float = 2.0, group=None
+            ) -> Dict[str, torch.Tensor]:
     """Direct (match-free) supervision of the DN slots: slot (g, j) of
     image b answers for target (b, j) (dn_components.py tgt_* losses).
 
     outputs_dn: dict with pred_logits (B, G*M, C), pred_boxes (B, G*M, 6).
+    With a process ``group``, the valid slots are counted over the group's
+    whole batch (``parallel.dist``): this rank's share of the global loss.
     """
     g = cfg.scalar
     tgt_labels = labels.repeat(1, g).long()
     tgt_boxes = boxes_3d.repeat(1, g, 1)
     tgt_valid = valid.repeat(1, g)
-    num = tgt_valid.sum().clamp(min=1).to(torch.float32)
+    num = global_sum(tgt_valid.sum(), group).clamp(min=1).to(torch.float32)
 
     logits = outputs_dn["pred_logits"]
     onehot = F.one_hot(torch.where(tgt_valid, tgt_labels, cfg.num_classes),

@@ -20,7 +20,7 @@ model on the CPU stays float64.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -230,21 +230,33 @@ class Dropout(nn.Module):
 
     The mask is drawn from ``generator``, which ``MonoDETR.forward`` sets
     on every dropout of the model, or, when it is None, from the default
-    generator of the tensor's device (seeded by ``torch.manual_seed``)."""
+    generator of the tensor's device (seeded by ``torch.manual_seed``).
+    With ``batch_shard`` (rank, n), also set by ``MonoDETR.forward``, x is
+    rank's slice of a batch n times as long on its first axis (images
+    first, as every dropout of the model sees them): the whole batch's mask
+    is drawn and the slice kept, so n data-parallel ranks draw what one
+    process does."""
 
     def __init__(self, p: float):
         super().__init__()
         self.p = p
         self.generator = None
+        self.batch_shard: Optional[Tuple[int, int]] = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
+        shape = tuple(x.shape)
+        if self.batch_shard is not None:
+            rank, n = self.batch_shard
+            shape = (n * shape[0],) + shape[1:]
         # the uniforms in float32 at the least: a bfloat16 activation gets
         # the mask a float32 one would
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device,
+        keep = torch.rand(shape, generator=self.generator, device=x.device,
                           dtype=torch.promote_types(x.dtype, torch.float32)
                           ) >= self.p
+        if self.batch_shard is not None:
+            keep = keep[rank * x.shape[0]:(rank + 1) * x.shape[0]]
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
 
 

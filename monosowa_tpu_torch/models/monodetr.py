@@ -63,8 +63,7 @@ from monosowa_tpu_torch.models.layers import (MLP, Dropout,
                                               inverse_sigmoid, layer_dtype)
 from monosowa_tpu_torch.models.position_encoding import (
     LearnedPositionEmbedding, sine_position_encoding)
-from monosowa_tpu_torch.models.transformer import (MSDA_BACKENDS,
-                                                   DepthAwareDecoderLayer,
+from monosowa_tpu_torch.models.transformer import (DepthAwareDecoderLayer,
                                                    VisualEncoder)
 
 FOCAL_BIAS = -math.log((1 - 0.01) / 0.01)
@@ -127,9 +126,6 @@ class MonoDETR(nn.Module):
             raise NotImplementedError(
                 "the port builds 4 feature levels, as the JAX model does "
                 "(C3, C4, C5 and one stride-64 level)")
-        if msda_backend not in MSDA_BACKENDS:
-            raise NotImplementedError(f"msda_backend {msda_backend!r}; the "
-                                      f"port has {MSDA_BACKENDS}")
         if position_embedding not in ("sine", "learned"):
             raise ValueError(f"position_embedding {position_embedding!r}: "
                              "want 'sine' or 'learned'")
@@ -254,7 +250,9 @@ class MonoDETR(nn.Module):
     def forward(self, images: torch.Tensor, calibs: torch.Tensor,
                 img_sizes: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                dn_queries: Optional[DNQueries] = None) -> Dict[str, Any]:
+                dn_queries: Optional[DNQueries] = None,
+                batch_shard: Optional[Tuple[int, int]] = None
+                ) -> Dict[str, Any]:
         """images (B, H, W, 3) normalized (4 channels with use_depth);
         calibs (B, 3, 4) P2; img_sizes (B, 2) as (width, height).  Returns
         the reference's output dict (with ``enc_outputs`` under two_stage,
@@ -262,13 +260,17 @@ class MonoDETR(nn.Module):
         draws from ``generator`` (on the model's device), or from the
         device's default generator if None; ``dn_queries``
         (``dn_components.prepare_dn``) are used in training mode only, as
-        in the JAX package."""
+        in the JAX package.  ``batch_shard`` (rank, n): the images are
+        rank's slice of a batch n times as large, and each dropout keeps
+        that slice of the whole batch's draws (data parallelism,
+        ``parallel.dist``)."""
         b = images.shape[0]
         d = self.d_model
         dev = images.device
         for mod in self.modules():
             if isinstance(mod, Dropout):
                 mod.generator = generator
+                mod.batch_shard = batch_shard
         # images in the compute dtype (JAX package monodetr.py:108-109)
         images = images.to(layer_dtype(self.compute_dtype, images,
                                        self.level_embed))

@@ -30,6 +30,14 @@ attention weights are float32 dense layers on the float32 query, so the
 locations keep their mantissa; MSDA returns float32 (it reads bfloat16 value
 rows and sums in float32), which ``output_proj`` casts back; the residual
 sums and LayerNorms stay float32.
+
+The explicit MSDA backends ``mxu``, ``pallas`` and ``onehot`` read bfloat16
+value rows whatever the compute dtype, as the JAX package's do (K1's bf16
+quad rows, ``ops/msda_mxu.py:235``; K4's ``value.astype(bfloat16)``,
+``ops/msda_pallas.py:98``; the one-hot gathers' bf16 operands,
+``ops/msda.py:157-205``): value is rounded to bfloat16 before the MSDA, so
+on the card they run the kernels' bf16 forms.  ``auto`` and ``xla`` read
+value in the compute dtype (the JAX ``auto`` is ``xla`` off the TPU).
 """
 
 from __future__ import annotations
@@ -46,7 +54,17 @@ from monosowa_tpu_torch.ops.msda import ms_deform_attn
 
 # MSDA backend names of the JAX package; on the card every one of them is
 # the CUDA kernel, on the CPU the plain version (ops.msda.ms_deform_attn)
-MSDA_BACKENDS = ("auto", "mxu", "pallas", "xla")
+MSDA_BACKENDS = ("auto", "mxu", "pallas", "onehot", "xla")
+# the backends whose JAX counterparts read bfloat16 value rows
+BF16_ROW_BACKENDS = ("mxu", "pallas", "onehot")
+
+
+def bf16_rows(value: torch.Tensor) -> torch.Tensor:
+    """value rounded to bfloat16, the rows the bf16-row backends read; a
+    float64 value (on the CPU) keeps its dtype, so that its float64 sums
+    read the same rounded rows."""
+    rows = value.to(torch.bfloat16)
+    return rows.to(torch.float64) if value.dtype == torch.float64 else rows
 
 
 def ring_bias(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:
@@ -67,10 +85,11 @@ class MSDeformAttnModule(nn.Module):
                  backend: str = "auto", compute_dtype: Optional[str] = None):
         super().__init__()
         if backend not in MSDA_BACKENDS:
-            raise NotImplementedError(f"msda_backend {backend!r}; the port "
-                                      f"has {MSDA_BACKENDS}")
+            raise ValueError(f"msda_backend {backend!r}: want one of "
+                             f"{MSDA_BACKENDS}")
         self.n_levels, self.n_heads, self.n_points = n_levels, n_heads, \
             n_points
+        self.backend = backend
         self.value_proj = dense(d_model, d_model, gen, xavier_uniform_,
                                 compute_dtype)
         self.sampling_offsets = dense(d_model, n_heads * n_levels * n_points
@@ -93,6 +112,8 @@ class MSDeformAttnModule(nn.Module):
         m, l, p = self.n_heads, self.n_levels, self.n_points
 
         value = self.value_proj(src_flat).reshape(b, -1, m, d // m)
+        if self.backend in BF16_ROW_BACKENDS:
+            value = bf16_rows(value)
         offsets = self.sampling_offsets(query).reshape(b, lq, m, l, p, 2)
         weights = torch.softmax(
             self.attention_weights(query).reshape(b, lq, m, l * p), dim=-1)

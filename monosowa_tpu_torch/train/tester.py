@@ -4,16 +4,17 @@ Behavioral contract (MonoDETR/lib/helpers/tester_helper.py:14-188, the JAX
 package's ``train/tester.py``): batch inference with decode
 (canonical-module inversion), per-image KITTI result txt under
 <save_path>/outputs/data, dataset eval via the KITTI AP stack
-(``evalkitti``) and a per-image s/img report.  The prediction / ground-truth
-renders (``visu``, ``tester.visu_predictions``) need ``sowa/visualization.py``,
-which is not ported: asking for them raises.
+(``evalkitti``), a per-image s/img report, and with ``visu`` or
+``tester.visu_predictions`` the BEV renders of predictions against the
+ground truth (``visualize_results``, tester_helper.py:196-254's headless
+analog; matplotlib is needed then).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, Iterable, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -35,16 +36,12 @@ def dataset_batches(dataset, batch_size: int
                        for j in range(i, min(i + batch_size, len(dataset)))])
 
 
-def _refuse_visu(cfg: Dict, visu: bool) -> None:
-    if visu or cfg.get("tester", {}).get("visu_predictions", False):
-        raise NotImplementedError("sowa/visualization.py is not ported")
-
-
 def run_inference(model, batches: Iterable[Dict[str, np.ndarray]],
                   cfg: Dict, logger=print, visu: bool = False) -> str:
     """Runs the model over collated numpy batches (``data.collate``) and
-    writes result files; returns the results dir."""
-    _refuse_visu(cfg, visu)
+    writes result files; returns the results dir.  With ``visu`` or
+    ``tester.visu_predictions``, then renders the first images' results
+    (``visualize_results``)."""
     tester_cfg = cfg.get("tester", {})
     threshold = float(tester_cfg.get("threshold", 0.2))
     out_dir = os.path.join(cfg["trainer"].get("save_path", "outputs"),
@@ -54,7 +51,7 @@ def run_inference(model, batches: Iterable[Dict[str, np.ndarray]],
     mean_size = (CLS_MEAN_SIZE if cfg["dataset"].get("meanshape", False)
                  else np.zeros((3, 3), np.float32))
 
-    n = 0
+    img_ids = []
     t0 = time.time()
     for batch in batches:
         dets = eval_step(batch).cpu().numpy()
@@ -66,10 +63,35 @@ def run_inference(model, batches: Iterable[Dict[str, np.ndarray]],
         for img_id, rows in results.items():
             write_detection_file(os.path.join(out_dir, f"{img_id:06d}.txt"),
                                  rows, CLASS_NAMES)
-        n += len(batch["img_id"])
+        img_ids.extend(int(i) for i in batch["img_id"])
+    n = len(img_ids)
     logger(f"inference on {n} images, {(time.time() - t0) / max(n, 1):.3f}"
            " s/img")
+
+    if visu or tester_cfg.get("visu_predictions", False):
+        visualize_results(img_ids, out_dir, cfg, logger)
     return out_dir
+
+
+def visualize_results(img_ids: Sequence[int], results_dir: str, cfg: Dict,
+                      logger=print, max_images: int = 20) -> None:
+    """BEV renders of the first ``max_images`` images' result files against
+    ``<root_dir>/training/label_2`` (unless ``tester.visu_ground_truth`` is
+    False), one PNG an image under <save_path>/outputs/visu
+    (tester_helper.py:196-254 headless analog)."""
+    from monosowa_tpu_torch.sowa.visualization import compare_label_dirs
+
+    visu_dir = os.path.join(cfg["trainer"].get("save_path", "outputs"),
+                            "outputs", "visu")
+    os.makedirs(visu_dir, exist_ok=True)
+    gt_dir = os.path.join(cfg["dataset"]["root_dir"], "training", "label_2")
+    show_gt = cfg.get("tester", {}).get("visu_ground_truth", True)
+    for idx in img_ids[:max_images]:
+        fid = f"{int(idx):06d}"
+        compare_label_dirs(fid, os.path.join(visu_dir, fid + ".png"),
+                           pred_dir=results_dir,
+                           gt_dir=gt_dir if show_gt else None)
+    logger(f"visualisations under {visu_dir}")
 
 
 def evaluate_results(dataset, results_dir: str, cfg: Dict,

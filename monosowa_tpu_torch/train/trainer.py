@@ -9,7 +9,9 @@ solver on the card (``MatcherConfig(backend="jv")``) unless a criterion
 config says otherwise, as in the JAX trainer.  When the config uses the TFL
 or the silhouette-mask loss and the batch carries pseudo-label cars
 (use_add_data), the step moves them to the device with the canonical
-templates and passes them to the criterion.
+templates and passes them to the criterion.  Under data parallelism
+(``parallel.dist``) each rank steps on its slice of the global batch and
+the step is the one a single process takes on the whole batch.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from monosowa_tpu_torch.models.criterion import (AddData, CriterionConfig,
                                                  Targets, criterion)
 from monosowa_tpu_torch.models.matcher import MatcherConfig
 from monosowa_tpu_torch.models.monodetr import MonoDETR
+from monosowa_tpu_torch.parallel.dist import (DataParallel, all_reduce_grads,
+                                              global_sum)
 from monosowa_tpu_torch.train.decode import extract_dets
 from monosowa_tpu_torch.train.optim import optimizer_step
 
@@ -121,7 +125,8 @@ def criterion_config_from_yaml(model: MonoDETR,
 
 def make_train_step(model: MonoDETR, ccfg: Optional[CriterionConfig],
                     optimizer: torch.optim.Optimizer,
-                    lr_schedule: Optional[Callable[[int], float]] = None
+                    lr_schedule: Optional[Callable[[int], float]] = None,
+                    data_parallel: Optional[DataParallel] = None
                     ) -> Callable[..., Dict[str, float]]:
     """``train_step(batch, generator=None) -> losses``: the forward in
     training mode, the criterion, ``loss_total.backward()`` and one
@@ -133,7 +138,13 @@ def make_train_step(model: MonoDETR, ccfg: Optional[CriterionConfig],
     the optimizer keeps its own.  Dropout draws from ``generator`` (a
     ``torch.Generator`` on the model's device) or, when it is None, from
     the device's default generator.  ccfg None means the reference loss
-    weights with the exact JV matcher on the model's device."""
+    weights with the exact JV matcher on the model's device.
+
+    With ``data_parallel`` (a rank of a training group), ``batch`` is the
+    rank's slice of the global batch (``DataParallel.shard``): the
+    criterion's batch normalisers and the gradients are summed over the
+    group, dropout keeps the rank's slice of the whole batch's draws, and
+    ``losses`` is the global batch's loss dict on every rank."""
     if ccfg is None:
         ccfg = CriterionConfig(group_num=model.group_num,
                                num_queries=model.num_queries,
@@ -142,6 +153,8 @@ def make_train_step(model: MonoDETR, ccfg: Optional[CriterionConfig],
     templates = None
     if ccfg.use_tfl or ccfg.use_mask_loss:
         templates = _tfl_templates(model.device)
+    pg = data_parallel.group if data_parallel is not None else None
+    shard = data_parallel.batch_shard if data_parallel is not None else None
 
     def train_step(batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None
@@ -150,11 +163,13 @@ def make_train_step(model: MonoDETR, ccfg: Optional[CriterionConfig],
         dev = model.device
         add_data = (add_data_from_batch(batch, *templates, dev)
                     if templates is not None else None)
-        out = model(*_inputs(batch, dev), generator=generator)
+        out = model(*_inputs(batch, dev), generator=generator,
+                    batch_shard=shard)
         losses = criterion(out, targets_from_batch(batch, dev), ccfg,
-                           training=True, add_data=add_data)
+                           training=True, add_data=add_data, group=pg)
         optimizer.zero_grad(set_to_none=True)
         losses["loss_total"].backward()
+        all_reduce_grads(model.parameters(), pg)
         grad_norm = torch.nn.utils.get_total_norm(
             [p.grad for p in model.parameters() if p.grad is not None])
         if lr_schedule is not None:
@@ -163,8 +178,9 @@ def make_train_step(model: MonoDETR, ccfg: Optional[CriterionConfig],
                 group["lr"] = lr
         optimizer.step()
         names = list(losses) + ["grad_norm"]
-        values = torch.stack([v.detach() for v in losses.values()]
-                             + [grad_norm]).cpu().tolist()
+        values = torch.cat([global_sum(torch.stack(
+            [v.detach() for v in losses.values()]), pg),
+            grad_norm[None]]).cpu().tolist()
         return dict(zip(names, values))
 
     return train_step

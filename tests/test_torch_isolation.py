@@ -148,10 +148,19 @@ outlier_keep = filtering.ensemble_inlier_mask_host(
 dims, _ = dimensions.estimate_car_dimensions(
     (cloud - cloud.mean(0))[None], np.ones((1, 60), bool), cloud.mean(0),
     device="cpu")
+# the Waymo converter's schema and tool, data parallelism at world size 1
+from monosowa_tpu_torch.waymo import dataset_pb2 as waymo_pb2
+import waymo_to_kitti_projected_torch
+from monosowa_tpu_torch.parallel import setup
+dp = setup(2, "cpu")
 print(json.dumps({"modules": names, "dets": list(dets.shape),
                   "poses": [list(k360.shape), float(k360[2, 2, 3]),
                             float(sres.loss), int(outlier_keep.sum()),
                             dims.tolist()],
+                  "waymo": [type(waymo_pb2.Frame()).__name__,
+                            waymo_pb2.DESCRIPTOR.package,
+                            "waymo_dataset_pb2" in sys.modules],
+                  "dp": [dp.rank, dp.size, dp.group is None],
                   "ap_of_gt": ap, "saved": saved,
                   "result_files": result_files,
                   "epoch_losses": record["epochs"][0]["loss_total"],
@@ -226,6 +235,12 @@ def test_port_runs_without_jax():
     shape, dz, scale_loss, kept, dims = res["poses"]
     assert shape == [3, 4, 4] and dz == 0.0 and -2.0 <= scale_loss < -0.5
     assert 0 < kept <= 80 and dims == pytest.approx([3.88, 1.63, 1.526])
+    for module in ("parallel.dist", "waymo.tfrecord", "waymo.frame_utils",
+                   "sowa.visualization"):
+        assert "monosowa_tpu_torch." + module in res["modules"], module
+    # the port's own schema module, not the JAX package's
+    assert res["waymo"] == ["Frame", "monosowa_torch.waymo", False]
+    assert res["dp"] == [0, 1, True]
     assert res["loaded"] == []
 
 
@@ -272,36 +287,52 @@ def test_cuda_request_raises_without_gpu():
     assert resolve_device("cpu").type == "cpu"
 
 
-def test_unshipped_flags_raise():
+def test_unshipped_flags_raise(tmp_path):
     """What the port still refuses: a feature-level count other than 4
-    (the JAX model cannot run one either), the one-hot MSDA backend,
-    use_dn and no box refinement in a yaml (the JAX ``build_monodetr``
-    ignores both), the prediction renders (``visu``), and the auction
-    kernel past 1,024 rows (the two-stage encoder match).  The variants
-    the JAX ``build_monodetr`` reads are built
+    (the JAX model cannot run one either), use_dn and no box refinement in
+    a yaml (the JAX ``build_monodetr`` ignores both), and the auction
+    kernel past 1,024 rows (the two-stage encoder match).  The one-hot MSDA
+    backend and the prediction renders (``visu``,
+    ``tester.visu_predictions``) are ported: a model with
+    ``msda_backend: onehot`` builds and answers, and inference with either
+    flag writes its renders (tests/test_torch_msda_onehot.py and
+    tests/test_torch_visualization.py hold them against the JAX package).
+    The variants the JAX ``build_monodetr`` reads are built
     (tests/test_torch_detector_variants.py holds them)."""
     from monosowa_tpu_torch.models.monodetr import MonoDETR, build_monodetr
     from monosowa_tpu_torch.ops import lap
     from monosowa_tpu_torch.train import tester
+    from monosowa_tpu_torch.train.sample import (SampleDataset,
+                                                 write_sample_labels)
 
     tiny = dict(enc_layers=1, dec_layers=1, d_model=64, d_ffn=64, nheads=4,
                 num_queries=5, num_depth_bins=8)
     for levels in (3, 5):
         with pytest.raises(NotImplementedError):
             MonoDETR(device="cpu", num_feature_levels=levels, **tiny)
-    with pytest.raises(NotImplementedError):
-        MonoDETR(device="cpu", msda_backend="onehot", **tiny)
     for flag, value in (("use_dn", True), ("with_box_refine", False)):
         with pytest.raises(NotImplementedError):
             build_monodetr({flag: value}, device="cpu")
     for flags in ({"two_stage": True}, {"use_dab": True}, {"use_depth": True},
                   {"position_embedding": "learned"}):
         MonoDETR(device="cpu", **tiny, **flags)
-    with pytest.raises(NotImplementedError):
-        tester.run_inference(None, [], {"trainer": {}}, visu=True)
-    with pytest.raises(NotImplementedError):
-        tester.run_inference(None, [], {"trainer": {}, "tester": {
-            "visu_predictions": True}})
+    onehot = build_monodetr({"enc_layers": 1, "dec_layers": 1,
+                             "hidden_dim": 64, "dim_feedforward": 64,
+                             "nheads": 4, "num_queries": 5,
+                             "num_depth_bins": 8, "msda_backend": "onehot"},
+                            device="cpu")
+    ds_cfg = {"resolution": [96, 64], "max_objs": 4, "batch_size": 2,
+              "root_dir": str(tmp_path)}
+    ds = SampleDataset(2, ds_cfg)
+    write_sample_labels(str(tmp_path / "training" / "label_2"), ds)
+    for i, tester_cfg in enumerate(({}, {"visu_predictions": True})):
+        cfg = {"dataset": ds_cfg, "trainer": {"save_path": str(
+            tmp_path / f"out{i}")}, "tester": {"topk": 5, **tester_cfg}}
+        out = tester.run_inference(onehot, tester.dataset_batches(ds, 2),
+                                   cfg, lambda s: None, visu=i == 0)
+        assert sorted(os.listdir(out)) == ["000000.txt", "000001.txt"]
+        assert sorted(os.listdir(tmp_path / f"out{i}" / "outputs" /
+                                 "visu")) == ["000000.png", "000001.png"]
     tall = torch.zeros(1, lap.AUCTION_MAX_Q + 1, 50)
     with pytest.raises(ValueError, match="lap_auction"):
         lap._launch_auction(tall, torch.ones(1, dtype=torch.int64),

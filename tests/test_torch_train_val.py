@@ -209,14 +209,36 @@ def test_ap_dict_matches_jax(both_tests, kitti_root):
     assert got["car_3d_strict"]["ap40"] == pytest.approx([0.0, 2.5, 2.5])
 
 
-def test_visualisation_is_refused_not_skipped(both_tests):
-    cfg = both_tests["cfgs"]["torch"]
+def test_visualisation_is_refused_not_skipped(both_tests, tmp_path):
+    """``visu`` (and ``tester.visu_predictions``) render, as in the JAX
+    tester: one BEV PNG an image under outputs/visu, the same names as the
+    JAX tester writes, and the same pixels as the JAX package's
+    ``visualize_results`` over the same result files and ground truth."""
+    quiet = lambda s: None                                   # noqa: E731
     tm = MonoDETR(device="cpu", **TINY)
-    with pytest.raises(NotImplementedError, match="visualization"):
-        tester.test(tm, both_tests["t_ds"], cfg, visu=True)
-    with pytest.raises(NotImplementedError, match="visualization"):
-        tester.run_inference(tm, [], {**cfg, "tester": {
-            "visu_predictions": True}})
+    cfgs = {name: {**cfg, "trainer": {"save_path": str(tmp_path / name)}}
+            for name, cfg in both_tests["cfgs"].items()}
+    tester.test(tm, both_tests["t_ds"], cfgs["torch"], quiet, visu=True)
+    visu = tmp_path / "torch" / "outputs" / "visu"
+    names = sorted(os.listdir(visu))
+    assert names == ["000002.png", "000003.png"]
+    results = str(tmp_path / "torch" / "outputs" / "data")
+    jax_tester.visualize_results(both_tests["j_ds"], results, cfgs["jax"],
+                                 quiet)
+    jax_visu = tmp_path / "jax" / "outputs" / "visu"
+    assert sorted(os.listdir(jax_visu)) == names
+    for name in names:
+        got = np.asarray(Image.open(visu / name).convert("RGBA"))
+        want = np.asarray(Image.open(jax_visu / name).convert("RGBA"))
+        np.testing.assert_array_equal(got, want)
+    # the tester section's flag, with no ground truth drawn
+    cfg = {**cfgs["torch"], "trainer": {"save_path": str(tmp_path / "flag")},
+           "tester": {**cfgs["torch"]["tester"], "visu_predictions": True,
+                      "visu_ground_truth": False}}
+    tester.run_inference(tm, tester.dataset_batches(both_tests["t_ds"], 2),
+                         cfg, quiet)
+    assert sorted(os.listdir(tmp_path / "flag" / "outputs" / "visu")) \
+        == names
 
 
 def test_dataset_batches_cover_the_dataset_in_order():

@@ -10,6 +10,7 @@ tracking, and the ``tester.mode: all`` sweep.
 
     python tools/train_val_torch.py --config configs/monodetr_kitti.yaml
     python tools/train_val_torch.py --config <yaml> -e [--ckpt <path>]
+    torchrun --nproc_per_node N tools/train_val_torch.py --config <yaml>
 
 Runs on one CUDA device unless ``--device cpu`` is given: the train step of
 ``monosowa_tpu_torch.train.trainer`` (hand-written CUDA kernels for
@@ -17,6 +18,13 @@ multi-scale deformable attention, forward and backward), host-side numpy
 data loading with threaded prefetch, torch checkpoints, KITTI AP through
 ``monosowa_tpu_torch.evalkitti``.  ``run`` is ``main`` without the files:
 it takes a config dict and two datasets.
+
+Under ``torchrun`` each process trains on a card (``cuda:LOCAL_RANK``, or
+the CPU with ``--device cpu``) as the JAX trainer's data mesh does
+(``monosowa_tpu_torch.parallel``): the first ``n`` ranks, ``n`` the largest
+count that divides the batch, each take their slice of every global batch,
+and the step is the one a single process takes on the whole batch.  Rank 0
+alone logs, writes checkpoints and result files, and evaluates.
 """
 
 from __future__ import annotations
@@ -48,14 +56,18 @@ def parse_args(argv=None):
 
 def run(cfg: Dict[str, Any], train_ds, val_ds, device=None,
         evaluate_only: bool = False, ckpt: Optional[str] = None,
-        logger: Callable[[str], None] = print) -> Dict[str, Any]:
+        logger: Callable[[str], None] = print,
+        data_parallel=None) -> Dict[str, Any]:
     """Everything after the datasets: model, optimizer and schedule, resume,
     then either the evaluation(s) or the epoch loop.  Returns a record of
     what ran: ``evaluated`` (one entry per evaluation: checkpoint name or
     None, epoch, AP dict, seconds of inference and of AP scoring),
     ``epochs`` (per epoch: every step's ``loss_total``, the last step's loss
     dict, seconds in all, waiting for the loader, in steps, in the
-    checkpoint) and ``best_ap``."""
+    checkpoint) and ``best_ap``.  With ``data_parallel`` (a
+    ``parallel.DataParallel`` of a training group) the model lives on its
+    device, each rank steps on its slice of the batches, and ranks other
+    than 0 neither log, save nor evaluate."""
     import torch
 
     from monosowa_tpu_torch.data.loader import build_loader
@@ -68,6 +80,11 @@ def run(cfg: Dict[str, Any], train_ds, val_ds, device=None,
     from monosowa_tpu_torch.train.trainer import (criterion_config_from_yaml,
                                                   make_train_step)
 
+    lead = data_parallel is None or data_parallel.rank == 0
+    if data_parallel is not None:
+        device = data_parallel.device
+    if not lead:
+        logger = lambda s: None                              # noqa: E731
     seed = int(cfg.get("random_seed", 444))
     np.random.seed(seed)
     model = build_monodetr(cfg["model"], device=device, seed=seed)
@@ -107,6 +124,8 @@ def run(cfg: Dict[str, Any], train_ds, val_ds, device=None,
         return res
 
     if evaluate_only:
+        if not lead:
+            return record
         # tester.mode 'all' (tester_helper.py:28-78): evaluate the best
         # checkpoint first when present, then EVERY epoch checkpoint in
         # epoch order; 'single' evaluates the resumed/--ckpt state only
@@ -128,8 +147,11 @@ def run(cfg: Dict[str, Any], train_ds, val_ds, device=None,
 
     train_step = make_train_step(
         model, criterion_config_from_yaml(model, cfg["model"]), optimizer,
-        schedule)
-    loader = build_loader(train_ds, batch_size, shuffle=True)
+        schedule, data_parallel)
+    loader = build_loader(train_ds, batch_size, shuffle=True,
+                          shard=(data_parallel.shard(batch_size)
+                                 if data_parallel is not None
+                                 else slice(None)))
     max_epoch = int(cfg["trainer"].get("max_epoch", 195))
     save_freq = int(cfg["trainer"].get("save_frequency", 1))
     # dropout's stream; the JAX package's key stream cannot be reproduced
@@ -161,7 +183,7 @@ def run(cfg: Dict[str, Any], train_ds, val_ds, device=None,
         ep["train_s"] = time.perf_counter() - t0
         logger(f"epoch {epoch} done in {ep['train_s']:.0f}s")
         record["epochs"].append(ep)
-        if (epoch + 1) % save_freq == 0:
+        if lead and (epoch + 1) % save_freq == 0:
             def save(**kw):
                 t_ck = time.perf_counter()
                 path = ckpt_io.save_checkpoint(
@@ -192,8 +214,22 @@ def main(argv=None) -> Dict[str, Any]:
                                      ds_cfg)
     val_ds = KittiDetectionDataset(root, ds_cfg.get("test_split", "val"),
                                    ds_cfg)
-    return run(cfg, train_ds, val_ds, args.device, args.evaluate_only,
-               args.ckpt)
+
+    import torch.distributed as dist
+
+    from monosowa_tpu_torch.parallel import setup
+
+    dp = setup(int(ds_cfg.get("batch_size", 16)), args.device)
+    try:
+        if not dp.trains:
+            return {"device": str(dp.device), "rank": dp.rank,
+                    "trained": False}
+        return run(cfg, train_ds, val_ds, dp.device, args.evaluate_only,
+                   args.ckpt, data_parallel=(dp if dp.group is not None
+                                             else None))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
