@@ -31,11 +31,14 @@ Phases, each printing one JSON line:
             with error, times, the least time the card could take and,
             where one PyTorch call computes the same function, its time.
    msda_bf16 — the MSDA kernels' bf16 forms (bf16 value rows, float32
-            sums) against their plain versions on the same bf16 value at
-            the encoder's shape and the decoder's Q=50 and 550 (out, dloc,
-            daw within 1e-5 of their magnitude; dvalue within one bf16
-            step plus that), with both clocks, the bound at 2-byte rows
-            and the float32 forms' numbers of this run beside them.
+            sums; the forward ``csrc/msda_fwd_bf16.cu``) against their
+            plain versions on the same bf16 value at the encoder's shape
+            with near and wide offsets and the decoder's Q=50, 550 and 800
+            (out, dloc, daw within 1e-5 of their magnitude; dvalue within
+            one bf16 step plus that), with both clocks, the bound at
+            2-byte rows and the float32 forms' numbers of this run beside
+            them; each bf16 instantiation's registers and spill stores
+            from ``ptxas -v`` (none may spill).
 4. serve  — the full-width MonoDETR (ResNet-50, d_model 256, 3+3 layers,
             seeded random weights, ``compute_dtype="float32"``) answers
             three requests of two 384x1280 images through
@@ -89,6 +92,11 @@ Phases, each printing one JSON line:
             bound, and the tall ``lap_jv`` on the recorded encoder match:
             equal to the plain JV on the card, at scipy's optimum, its
             times, the plain version's, the scipy route's and the bound.
+            Last, (a) and (c) under "auto" (bf16 on the card): the kernels'
+            step against the plain-MSDA step on ``train_bf16``'s bars, one
+            training step with 6 + 6 bf16 launches (counted, every one
+            recorded) and both bf16 kernels replayed on those launches on
+            ``msda_bf16``'s bars.
    train_add — the same model trained on pseudo-label cars
             (``SampleDataset`` with ``use_add_data``, its cars written as
             the labeller's ``optimized_cars`` cache; ``use_tfl`` and
@@ -344,7 +352,8 @@ ENC_SHAPES = ((48, 160), (24, 80), (12, 40), (6, 20))   # 384x1280 pyramid
 M_HEADS, D_HEAD, N_POINTS = 8, 32, 4
 IMG_H, IMG_W, BATCH, REQUESTS = 384, 1280, 2, 3
 MSDA_PER_FORWARD = 6          # 3 encoder + 3 decoder layers
-KERNELS = ("msda_fwd", "msda_bwd", "tfl_counts", "row_fetch", "lap")
+KERNELS = ("msda_fwd", "msda_fwd_bf16", "msda_bwd", "tfl_counts",
+           "row_fetch", "lap")
 TRAIN_STEPS = 3
 TRAIN_QUERIES = 50 * 11       # num_queries x group_num
 LAP_PER_STEP = 3              # matches a step: the final and 2 aux layers
@@ -443,6 +452,7 @@ def ptxas_registers(log: str) -> dict:
         if spill and name:
             out[name]["spill_bytes"] = int(spill.group(1)) \
                 + int(spill.group(2))
+            out[name]["spill_stores"] = int(spill.group(1))
         used = re.search(r"Used (\d+) registers", line)
         if used and name:
             out[name]["registers"] = int(used.group(1))
@@ -549,6 +559,7 @@ def msda_report(label, q, value, loc, err, kernel, plain, bound, rows_moved,
         "resident_bytes": plan.resident_bytes,
         "grad_levels_in_shared": list(plan.grad),
         "grad_bytes": plan.grad_bytes,
+        "levels_sorted_in_block_bf16": list(plan.sort),
     }
     res["corner_rate_TBps"] = rows_moved * res["corner_row_bytes"] \
         / res["ms"] / 1e9
@@ -2951,7 +2962,14 @@ def train(dev) -> dict:
 # below it may round one step apart too: 1e-3 plus BF16_STEPS such steps of
 # each gradient's scale, its floor 1e-2 of the largest gradient (the float32
 # floor, 1e-4, times the ratio of bf16's rounding noise on an exactly zero
-# gradient to float32's is above 1)
+# gradient to float32's is above 1).  The three runs use PyTorch's
+# deterministic algorithms: with them two plain-backward steps give the same
+# bits, and the statistic moves from run to run only with the kernels' own
+# dvalue sum order (L2 atomics).  Without them the plain backward's
+# index_add_ sums in its own changing order too, and the two orders together
+# now and then move a backbone conv weight's gradient by four bf16 steps of
+# its scale, past the bar; tools/bf16_grad_spread_torch.py repeats the
+# kernel-alone comparison with and without them and counts such runs
 BF16_LOSS_BAR = 0.15
 BF16_STEPS = 4
 BF16_BWD_GRAD_BAR = 1e-3 + BF16_STEPS * 2.0 ** -8
@@ -2960,16 +2978,25 @@ BF16_GRAD_FLOOR = 1e-2
 
 def bf16_step_comparison(model, inputs, targets, ccfg, floor_rel: float,
                          add_data=None):
-    """Loss dicts and gradients of one forward and backward from the current
-    weights, dropout off (with ``add_data``, the pseudo-label cars' losses
-    too): the kernels ("k"), the plain MSDA ("p"), the forward kernel with
-    the plain backward ("kp").  Returns the loss
-    statistic |a - b| / (|a| + 1) of k against p, and each parameter's
-    max |difference| over its scale (floored at ``floor_rel`` of the largest
-    gradient) of k against p and against kp, and k's loss dict."""
+    """``bf16_grads_vs_plain`` of the criterion on ``inputs`` (with
+    ``add_data``, the pseudo-label cars' losses too)."""
+    from monosowa_tpu_torch.models.criterion import criterion
+
+    return bf16_grads_vs_plain(
+        model, lambda: criterion(model(*inputs), targets, ccfg,
+                                 add_data=add_data), floor_rel)
+
+
+def bf16_grads_vs_plain(model, loss_of, floor_rel: float = None):
+    """Loss dicts and gradients of one forward and backward of ``loss_of()``
+    from the current weights, dropout off: the kernels ("k"), the plain
+    MSDA ("p"), the forward kernel with the plain backward ("kp").  Returns
+    the loss statistic |a - b| / (|a| + 1) of k against p, and each
+    parameter's max |difference| over its scale (floored at ``floor_rel``,
+    default BF16_GRAD_FLOOR, of the largest gradient) of k against p and
+    against kp, and k's loss dict."""
     import torch
 
-    from monosowa_tpu_torch.models.criterion import criterion
     from monosowa_tpu_torch.models.layers import Dropout
     from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
     from monosowa_tpu_torch.ops import msda
@@ -3014,19 +3041,30 @@ def bf16_step_comparison(model, inputs, targets, ccfg, floor_rel: float,
         for mod in attn:
             mod.msda = fn
         model.zero_grad(set_to_none=True)
-        losses = criterion(model(*inputs), targets, ccfg,
-                           add_data=add_data)
+        losses = loss_of()
         losses["loss_total"].backward()
         torch.cuda.synchronize()
         return ({k: float(v.detach()) for k, v in losses.items()},
                 {n: p.grad.detach().clone()
-                 for n, p in model.named_parameters()})
+                 for n, p in model.named_parameters() if p.grad is not None})
 
+    # PyTorch's deterministic algorithms for the three runs: the plain
+    # backward's index_add_ then sums in the same order every run, as does
+    # every other op of the step, so the MSDA kernels' own sum order is the
+    # one thing that differs from run to run (see the bars above)
+    settings = (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled(),
+                torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
     try:
         runs = {"k": grads_with(msda.ms_deform_attn),
                 "p": grads_with(plain(False)),
                 "kp": grads_with(plain(True))}
     finally:
+        torch.use_deterministic_algorithms(settings[0],
+                                           warn_only=settings[1])
+        torch.backends.cudnn.deterministic = settings[2]
         for mod in attn:
             mod.msda = msda.ms_deform_attn
         for mod, p_drop in zip(dropouts, dropout_p):
@@ -3034,7 +3072,13 @@ def bf16_step_comparison(model, inputs, targets, ccfg, floor_rel: float,
         model.zero_grad(set_to_none=True)
     losses_k, grads_k = runs["k"]
 
+    if floor_rel is None:
+        floor_rel = BF16_GRAD_FLOOR
+
     def rel(want):
+        if sorted(want) != sorted(grads_k):
+            raise AssertionError("the runs have gradients for other "
+                                 "parameters")
         floor = floor_rel * max(float(g.abs().max()) for g in want.values())
         return {n: float((grads_k[n] - g).abs().max())
                 / max(float(g.abs().max()), floor) for n, g in want.items()}
@@ -4191,19 +4235,10 @@ def detector_variants(dev) -> dict:
     ``prepare_dn``, the forward, the criterion plus ``dn_loss`` of the last
     layer, backward and an AdamW step.  Then K1 and K2/K3 replayed on the
     recorded decoder launches and the tall ``lap_jv`` on the recorded
-    encoder matches."""
+    encoder matches.  Last, (a) and (c) under "auto" (bf16 on the card):
+    ``variant_bf16_step``."""
     import numpy as np
     import torch
-
-    from monosowa_tpu_torch.models.criterion import CriterionConfig, criterion
-    from monosowa_tpu_torch.models.dn_components import (DNConfig, dn_loss,
-                                                         prepare_dn)
-    from monosowa_tpu_torch.models.matcher import MatcherConfig
-    from monosowa_tpu_torch.models.monodetr import MonoDETR, build_monodetr
-    from monosowa_tpu_torch.train.optim import make_optimizer
-    from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
-                                                  make_train_step,
-                                                  targets_from_batch)
 
     t_phase = time.perf_counter()
     shipped = {**shipped_model_config(), "compute_dtype": "float32"}
@@ -4214,32 +4249,16 @@ def detector_variants(dev) -> dict:
     runs = {}
 
     def through_trainer(name, flags, use_depth=False):
-        model = build_monodetr({**shipped, **flags}, device=dev, seed=0)
-        batch = variant_batch(use_depth)
-        inputs = [torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
-                  for k in MODEL_INPUTS]
-        targets = targets_from_batch(batch, dev)
-        ccfg = CriterionConfig(group_num=model.group_num,
-                               num_queries=model.num_queries,
-                               num_classes=model.num_classes,
-                               matcher=MatcherConfig(backend="jv"))
-
-        def loss_of():
-            model.train()
-            return criterion(model(*inputs), targets, ccfg)
-
-        step_fn = make_train_step(model, None,
-                                  make_optimizer(model, 2e-4, 1e-4))
-        gen = torch.Generator(device=dev).manual_seed(0)
+        model, _, loss_of, step, _ = trainer_variant(
+            dev, {**shipped, **flags}, use_depth)
         request = sample_batch(rng, 0)
         if use_depth:
             request["image"] = variant_batch(True)["image"]
         want = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD,
                 "lap_jv": LAP_PER_STEP + bool(flags.get("two_stage")),
                 "lap_jv_tall": int(bool(flags.get("two_stage")))}
-        runs[name] = run_variant(name, model, lambda: step_fn(batch, gen),
-                                 loss_of, want, request)
-        del model, step_fn
+        runs[name] = run_variant(name, model, step, loss_of, want, request)
+        del model, step
         torch.cuda.empty_cache()
 
     through_trainer("two_stage", {"two_stage": True})
@@ -4247,8 +4266,117 @@ def detector_variants(dev) -> dict:
                                           "position_embedding": "learned",
                                           "use_depth": True}, use_depth=True)
 
-    # (c) DN-DETR, written out; MonoDETR's defaults are the shipped widths
-    model = MonoDETR(use_dn=True, compute_dtype="float32", device=dev,
+    # (c) DN-DETR, written out
+    model, _, dn_fixed_losses, dn_step = dn_variant(dev, "float32")
+    runs["dn"] = run_variant(
+        "dn", model, dn_step, dn_fixed_losses,
+        {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD,
+         "lap_jv": LAP_PER_STEP})
+    del model, dn_step, dn_fixed_losses
+    torch.cuda.empty_cache()
+
+    # the recorded launches: K1 and K2/K3 at the decoder's shapes, the
+    # tall JV on the encoder matches
+    fwd, bwd = {}, {}
+    for name, res in runs.items():
+        recs_f, recs_b = res.pop("_fwd"), res.pop("_bwd")
+        q = recs_f[0][2].shape[1]
+        label = f"{name} decoder Q={q}"
+        fwd[label] = check_msda_recorded(label, recs_f)
+        bwd[label] = check_msda_bwd_recorded(label, recs_b)
+    tall = [r for res in runs.values() for r in res.pop("_tall")]
+    if len(tall) != 1:
+        raise AssertionError(f"{len(tall)} encoder matches recorded")
+    tall_runs = {"two_stage encoder match": check_tall_jv(
+        "two_stage encoder match", *tall[0])}
+    torch.cuda.empty_cache()
+    out.update(variants=runs,
+               msda_fwd={k: {f: v.get(f) for f in (
+                   "shape", "max_abs_err", "ms", "ms_launched_from_python",
+                   "plain_ms", "bound_ms", "bound_by")}
+                   for k, v in fwd.items()},
+               msda_bwd={k: {f: v.get(f) for f in (
+                   "shape", "max_abs_err", "ms", "ms_launched_from_python",
+                   "plain_ms", "bound_ms", "bound_by")}
+                   for k, v in bwd.items()},
+               lap_jv_tall=tall_runs,
+               launches={k: sum(r["launches"][k] for r in runs.values())
+                         for k in ("msda_fwd", "msda_bwd", "lap_jv",
+                                   "lap_jv_tall")},
+               seconds=time.perf_counter() - t_phase)
+    # under bf16 ("auto" on the card): a step each of two_stage (decoder
+    # Q = 550) and DN-DETR (Q = 800), the bf16 kernels replayed on its
+    # recorded launches
+    bf16 = {"two_stage": variant_bf16_step(
+                dev, "two_stage", *trainer_variant(
+                    dev, {**shipped_model_config(), "two_stage": True})[:4]),
+            "dn": variant_bf16_step(dev, "dn", *dn_variant(dev, "auto"))}
+    fwd16, bwd16 = {}, {}
+    for name, res in bf16.items():
+        fwd16.update(res.pop("_fwd"))
+        bwd16.update(res.pop("_bwd"))
+    out.update(bf16_steps=bf16, launches_bf16={
+        k: sum(r["launches"][k] for r in bf16.values())
+        for k in ("msda_fwd_bf16", "msda_bwd_bf16")},
+        seconds=time.perf_counter() - t_phase)
+    out["_fwd"], out["_bwd"], out["_tall"] = fwd, bwd, tall_runs
+    out["_fwd16"], out["_bwd16"] = fwd16, bwd16
+    return out
+
+
+def trainer_variant(dev, cfg: dict, use_depth: bool = False):
+    """A variant of the shipped detector through ``build_monodetr`` and
+    ``make_train_step`` (JV matcher) on ``variant_batch``: (model, batch,
+    loss_of, step, generator); loss_of is one forward and criterion from
+    the current weights."""
+    import torch
+
+    from monosowa_tpu_torch.models.criterion import CriterionConfig, criterion
+    from monosowa_tpu_torch.models.matcher import MatcherConfig
+    from monosowa_tpu_torch.models.monodetr import build_monodetr
+    from monosowa_tpu_torch.train.optim import make_optimizer
+    from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
+                                                  make_train_step,
+                                                  targets_from_batch)
+
+    model = build_monodetr(cfg, device=dev, seed=0)
+    batch = variant_batch(use_depth)
+    inputs = [torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
+              for k in MODEL_INPUTS]
+    targets = targets_from_batch(batch, dev)
+    ccfg = CriterionConfig(group_num=model.group_num,
+                           num_queries=model.num_queries,
+                           num_classes=model.num_classes,
+                           matcher=MatcherConfig(backend="jv"))
+
+    def loss_of():
+        model.train()
+        return criterion(model(*inputs), targets, ccfg)
+
+    step_fn = make_train_step(model, None, make_optimizer(model, 2e-4, 1e-4))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    return model, batch, loss_of, lambda: step_fn(batch, gen), gen
+
+
+def dn_variant(dev, compute_dtype: str):
+    """DN-DETR written out as the JAX package's tests/test_dn_wiring.py
+    does (5 groups of 50 slots before the 550 queries: 800 decoder queries
+    an image), at the shipped widths (MonoDETR's defaults): (model, batch,
+    loss_of with fixed DN queries, step of ``prepare_dn``, the forward, the
+    criterion plus ``dn_loss`` of the last layer, backward, AdamW)."""
+    import torch
+
+    from monosowa_tpu_torch.models.criterion import CriterionConfig, criterion
+    from monosowa_tpu_torch.models.dn_components import (DNConfig, dn_loss,
+                                                         prepare_dn)
+    from monosowa_tpu_torch.models.matcher import MatcherConfig
+    from monosowa_tpu_torch.models.monodetr import MonoDETR
+    from monosowa_tpu_torch.train.optim import make_optimizer
+    from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
+                                                  targets_from_batch)
+
+    shipped = shipped_model_config()
+    model = MonoDETR(use_dn=True, compute_dtype=compute_dtype, device=dev,
                      seed=0)
     if (model.d_model, model.num_queries, model.dec_layers) != (
             shipped["hidden_dim"], shipped["num_queries"],
@@ -4296,44 +4424,80 @@ def detector_variants(dev) -> dict:
                            + [grad_norm]).cpu().tolist()
         return dict(zip(list(losses) + ["grad_norm"], vals))
 
-    runs["dn"] = run_variant(
-        "dn", model, dn_step, lambda: dn_losses(fixed),
-        {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD,
-         "lap_jv": LAP_PER_STEP})
-    del model, opt
-    torch.cuda.empty_cache()
+    return model, batch, lambda: dn_losses(fixed), dn_step
 
-    # the recorded launches: K1 and K2/K3 at the decoder's shapes, the
-    # tall JV on the encoder matches
-    fwd, bwd = {}, {}
-    for name, res in runs.items():
-        recs_f, recs_b = res.pop("_fwd"), res.pop("_bwd")
-        q = recs_f[0][2].shape[1]
-        label = f"{name} decoder Q={q}"
-        fwd[label] = check_msda_recorded(label, recs_f)
-        bwd[label] = check_msda_bwd_recorded(label, recs_b)
-    tall = [r for res in runs.values() for r in res.pop("_tall")]
-    if len(tall) != 1:
-        raise AssertionError(f"{len(tall)} encoder matches recorded")
-    tall_runs = {"two_stage encoder match": check_tall_jv(
-        "two_stage encoder match", *tall[0])}
+
+def variant_bf16_step(dev, name: str, model, batch, loss_of, step) -> dict:
+    """A variant under "auto" (bf16 on the card): from the seeded weights,
+    dropout off, its kernels' forward and backward against the plain MSDA's
+    (``bf16_step_comparison``'s loss statistic and gradients, on
+    ``train_bf16``'s bars); then one training step, the main path, with
+    every MSDA launch recorded and the counts read (6 bf16 forward and 6
+    bf16 backward launches, no float32 one), its losses finite; then both
+    bf16 kernels replayed on the recorded launches against the plain
+    versions on ``msda_bf16``'s bars."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.models.layers import resolve_dtype
+    from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
+
+    if resolve_dtype(model.compute_dtype, dev) != torch.bfloat16:
+        raise AssertionError(f"{name}: {model.compute_dtype} is not bf16 "
+                             "on the card")
+    loss, grad_p, grad_kp, _ = bf16_grads_vs_plain(model, loss_of)
+    worst_loss = max(loss, key=loss.get)
+    worst_kp = max(grad_kp, key=grad_kp.get)
+    worst_p = max(grad_p, key=grad_p.get)
+    if loss[worst_loss] >= BF16_LOSS_BAR:
+        raise AssertionError(f"{name} bf16: kernels vs plain MSDA, "
+                             f"{worst_loss}: {loss[worst_loss]}")
+    if grad_kp[worst_kp] > BF16_BWD_GRAD_BAR:
+        raise AssertionError(f"{name} bf16: backward kernel vs plain "
+                             f"backward, gradient of {worst_kp}: "
+                             f"{grad_kp[worst_kp]} of its scale")
     torch.cuda.empty_cache()
-    out.update(variants=runs,
-               msda_fwd={k: {f: v.get(f) for f in (
-                   "shape", "max_abs_err", "ms", "ms_launched_from_python",
-                   "plain_ms", "bound_ms", "bound_by")}
-                   for k, v in fwd.items()},
-               msda_bwd={k: {f: v.get(f) for f in (
-                   "shape", "max_abs_err", "ms", "ms_launched_from_python",
-                   "plain_ms", "bound_ms", "bound_by")}
-                   for k, v in bwd.items()},
-               lap_jv_tall=tall_runs,
-               launches={k: sum(r["launches"][k] for r in runs.values())
-                         for k in ("msda_fwd", "msda_bwd", "lap_jv",
-                                   "lap_jv_tall")},
-               seconds=time.perf_counter() - t_phase)
-    out["_fwd"], out["_bwd"], out["_tall"] = fwd, bwd, tall_runs
-    return out
+    attn = [m for m in model.modules() if isinstance(m, MSDeformAttnModule)]
+    fwd_rec, restore = recording_msda(attn)
+    reset_variant_counts()
+    try:
+        with recording_msda_bwd() as bwd_rec:
+            t0 = time.perf_counter()
+            losses = step()
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = variant_counts()
+    want = {"msda_fwd_bf16": MSDA_PER_FORWARD,
+            "msda_bwd_bf16": MSDA_PER_FORWARD, "msda_fwd": 0, "msda_bwd": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"{name} bf16 step launched {launches}")
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{name} bf16 step: {losses}")
+    fwd, bwd = {}, {}
+    for label, keep in (("encoder", lambda q: q == ENC_TOKENS),
+                        ("decoder", lambda q: q != ENC_TOKENS)):
+        recs_f = [r for r in fwd_rec if keep(r[2].shape[1])]
+        recs_b = [r for r in bwd_rec if keep(r[2].shape[1])]
+        key = f"{name} bf16 {label} Q={recs_f[0][2].shape[1]}"
+        fwd[key] = check_msda_recorded(key, recs_f)
+        bwd[key] = check_msda_bwd_recorded(key, recs_b)
+    del fwd_rec, bwd_rec, model
+    torch.cuda.empty_cache()
+    return {"variant": name, "compute_dtype": "auto (bf16)",
+            "step_s": step_s, "loss_total": losses["loss_total"],
+            "launches": launches,
+            "kernel_vs_plain_loss_max_err": loss[worst_loss],
+            "kernel_vs_plain_loss_worst": worst_loss,
+            "kernel_vs_plain_grad_max_rel_reported": grad_p[worst_p],
+            "kernel_vs_plain_grad_worst": worst_p,
+            "bwd_kernel_vs_plain_bwd_grad_max_rel": grad_kp[worst_kp],
+            "bwd_kernel_vs_plain_bwd_grad_worst": worst_kp,
+            "replayed": {k: {f: v.get(f) for f in (
+                "shape", "max_abs_err", "max_rel_err", "launches_checked")}
+                for k, v in {**fwd, **bwd}.items()},
+            "_fwd": fwd, "_bwd": bwd}
 
 
 def mask2former_config():
@@ -6790,24 +6954,46 @@ def main() -> int:
         emit({"phase": "kernel", "name": "row_fetch", **res})
     # 3b. msda_bf16: the kernels' bf16 forms (bf16 value rows, float32
     # sums) against their plain versions on the same bf16 value, at the
-    # encoder's shape and the decoder's Q = 50 and 550, beside the float32
-    # forms' times of this run
+    # encoder's shape with near and wide offsets and the decoder's Q = 50,
+    # 550 and 800 (DN-DETR), beside the float32 forms' times of this run;
+    # every bf16 instantiation's registers and spill stores from ptxas
     def bf16_cases(check):
         return {"encoder": check(rng, s, enc_ref, "encoder", dev,
                                  bf16=True),
+                "encoder wide": check(rng, s, enc_ref, "encoder wide", dev,
+                                      wide=True, bf16=True),
                 "decoder": check(rng, 50, dec_ref(50), "decoder", dev,
                                  bf16=True),
                 "train decoder": check(rng, TRAIN_QUERIES,
                                        dec_ref(TRAIN_QUERIES),
-                                       "train decoder", dev, bf16=True)}
+                                       "train decoder", dev, bf16=True),
+                "DN decoder": check(rng, DN_QUERIES, dec_ref(DN_QUERIES),
+                                    "DN decoder", dev, bf16=True)}
 
+    bf16_regs = {"msda_fwd_bf16": registers["msda_fwd_bf16"],
+                 "msda_bwd_bf16": {k: v for k, v in
+                                   registers["msda_bwd"].items()
+                                   if "bfloat16" in k}}
+    spilled = {k: v for regs in bf16_regs.values() for k, v in regs.items()
+               if v.get("spill_stores", 0)}
+    if spilled:
+        raise AssertionError(f"bf16 instantiations that spill: {spilled}")
+    # an empty log: the library was built before this run
+    emit({"phase": "msda_bf16", "ptxas": bf16_regs,
+          "compiled_in_this_run": all(bf16_regs.values())})
     fwd16, bwd16 = bf16_cases(check_msda), bf16_cases(check_msda_bwd)
+    f32_extra = {"DN decoder": {
+        "msda_fwd": check_msda(rng, DN_QUERIES, dec_ref(DN_QUERIES),
+                               "DN decoder", dev),
+        "msda_bwd": check_msda_bwd(rng, DN_QUERIES, dec_ref(DN_QUERIES),
+                                   "DN decoder", dev)}}
     for name, runs16, runs32 in (("msda_fwd", fwd16, fwd),
                                  ("msda_bwd", bwd16, bwd)):
         for key, res in runs16.items():
+            res32 = runs32[key] if key in runs32 else f32_extra[key][name]
             emit({"phase": "msda_bf16", "name": name + "_bf16",
-                  "registers": registers[name], **res,
-                  "float32": {k: runs32[key][k] for k in (
+                  "registers": bf16_regs[name + "_bf16"], **res,
+                  "float32": {k: res32[k] for k in (
                       "ms", "ms_launched_from_python", "bound_ms",
                       "compulsory_bytes")}})
     # hand the plain versions' large temporaries back, so the phases below
@@ -6834,15 +7020,20 @@ def main() -> int:
     dvr = detector_variants(dev)
     dv_fwd, dv_bwd, dv_tall = dvr.pop("_fwd"), dvr.pop("_bwd"), \
         dvr.pop("_tall")
+    dv_fwd16, dv_bwd16 = dvr.pop("_fwd16"), dvr.pop("_bwd16")
     dvr["train_phase_step_ms_mean"] = trn["train_step_ms_mean"]
     emit(dvr)
-    for name, runs in (("msda_fwd", dv_fwd), ("msda_bwd", dv_bwd)):
+    for name, runs in (("msda_fwd", dv_fwd), ("msda_bwd", dv_bwd),
+                       ("msda_fwd_bf16", dv_fwd16),
+                       ("msda_bwd_bf16", dv_bwd16)):
         for res in runs.values():
             emit({"phase": "kernel", "name": name, **res})
     for res in dv_tall.values():
         emit({"phase": "kernel", "name": "lap_jv", **res})
     fwd.update(dv_fwd)
     bwd.update(dv_bwd)
+    fwd16.update(dv_fwd16)
+    bwd16.update(dv_bwd16)
     torch.cuda.empty_cache()
 
     # 5b. train_add, float32 and under the bf16 policy
@@ -7000,21 +7191,25 @@ def main() -> int:
                "detector_variants": dvr["launches"]["msda_bwd"],
                "ddp": dpr["launches"]["msda_bwd"],
                "epoch": epc["msda_bwd_launches"]}, bwd),
-        entry("msda_fwd_bf16", "monosowa_tpu_torch/ops/csrc/msda_fwd.cu",
+        entry("msda_fwd_bf16", "monosowa_tpu_torch/ops/csrc/msda_fwd_bf16.cu",
               "monosowa_tpu/ops/msda_mxu.py:378 (K1 ms_deform_attn_mxu, "
               "bf16 quad rows :235); monosowa_tpu/ops/msda_pallas.py:71 (K4 "
               "ms_deform_attn_pallas, bf16 value :98)",
               {"serve_bf16": srv16["msda_launches"],
                "train_bf16": trn16["launches"]["msda_fwd_bf16"],
                "train_add_bf16": tra16["launches"]["msda_fwd_bf16"],
-               "msda_onehot": onehot["launches"]["msda_fwd_bf16"]}, fwd16),
+               "msda_onehot": onehot["launches"]["msda_fwd_bf16"],
+               "detector_variants_bf16":
+                   dvr["launches_bf16"]["msda_fwd_bf16"]}, fwd16),
         entry("msda_bwd_bf16", "monosowa_tpu_torch/ops/csrc/msda_bwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:306 (K2 msda_gdot_mxu, bf16 quad "
               "rows :331); monosowa_tpu/ops/msda_mxu.py:544 (K3 "
               "msda_dvalue_mxu, cast to value's dtype :635)",
               {"train_bf16": trn16["launches"]["msda_bwd_bf16"],
                "train_add_bf16": tra16["launches"]["msda_bwd_bf16"],
-               "msda_onehot": onehot["launches"]["msda_bwd_bf16"]}, bwd16),
+               "msda_onehot": onehot["launches"]["msda_bwd_bf16"],
+               "detector_variants_bf16":
+                   dvr["launches_bf16"]["msda_bwd_bf16"]}, bwd16),
         entry("tfl_counts", "monosowa_tpu_torch/ops/csrc/tfl_counts.cu",
               "monosowa_tpu/ops/tfl_pallas.py:67 (K5 "
               "binary_both_way_counts_pallas)",

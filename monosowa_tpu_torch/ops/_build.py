@@ -88,11 +88,16 @@ def _lib_path(name: str, src_dir: str) -> str:
 def build(name: str, src_dir: str = CSRC) -> str:
     """Compile ``<src_dir>/<name>.cu`` or ``.cpp`` unless its library
     exists.  Returns the compiler's output (for nvcc the ptxas register
-    counts), "" when nothing was built.  Raises with the compiler's output
-    when the build fails."""
+    counts), kept beside the library for a later call that finds it built
+    ("" where there is none).  Raises with the compiler's output when the
+    build fails."""
     path = _lib_path(name, src_dir)
     if os.path.exists(path):
-        return ""
+        try:
+            with open(path + ".log") as f:
+                return f.read()
+        except OSError:
+            return ""
     src, flags = _source(name, src_dir)
     compiler = _nvcc() if src.endswith(".cu") else _cxx()
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -104,6 +109,9 @@ def build(name: str, src_dir: str = CSRC) -> str:
         raise RuntimeError(f"native build failed: {name}: "
                            f"{os.path.basename(compiler)} exit "
                            f"{proc.returncode}\n{proc.stdout}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(proc.stdout)
+    os.replace(f"{tmp}.log", path + ".log")
     os.replace(tmp, path)
     return proc.stdout
 

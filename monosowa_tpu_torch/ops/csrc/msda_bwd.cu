@@ -43,6 +43,17 @@
 // a launch.  The adds are the limit on the H100: they take over a third of
 // the encoder's launch, whichever memory they go to.
 //
+// The bf16 form, measured on an H100 at the encoder's shape with
+// tools/tune_msda_torch.py --dtype bf16 (the levers are in
+// tools/csrc/msda_bwd_levers.cu; PERF.md has the numbers): the adds alone
+// take about 0.37 of the 0.39 ms of this walk and the dots alone 0.21, so
+// the launch is its adds, about the same for each of levels 0, 1 and 2.
+// Four neighbouring queries of a warp share few rows at one sample, so
+// merging their adds in registers (by __match_any_sync or by pairs of lane
+// groups) costs more than it saves.  A block's run shares many rows of the
+// coarse levels, and at the encoder the bf16 form sums those in the block
+// by a counting sort (msda_bwd_bf16_sorted_kernel below, 0.35 ms).
+//
 // Design (the block map, the lane groups and the resident levels are set
 // out in msda_common.cuh; the forward, msda_fwd.cu, shares them):
 // * A block owns one (image, head) and a run of neighbouring queries, so L1
@@ -390,6 +401,308 @@ static int msda_bwd_any(const void* value, const void* loc, const void* aw,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 form at the encoder: the levels of sort_mask summed in the block
+// by a counting sort (msda_bwd_bf16 takes this path where the plan gives a
+// sort_mask: queries in tiles, a head of 32 channels, 16-byte aligned
+// tensors).  A block's run adds into each row of the coarse levels many
+// times (at the encoder about 18 and 26 times into levels 2 and 3), so
+// each in-bounds corner of those levels writes an entry (row among the
+// sorted levels' rows, weight: 6 bytes) into a slot of its own and counts
+// its row by an integer add that returns nothing; a scan of the counts
+// gives each row its place, a scatter puts the entries in row order (query
+// of the run, weight), and one lane group sums a row's entries from the
+// run's dout rows (kept in shared memory) and adds the sum into dvalue by
+// one 16-byte vector atomic a lane: one add a row a block in place of one
+// a corner, and no float atomic in shared memory.  The other levels add by vector atomics as above.  Blocks of
+// MSDA_BWD16_SORT_THREADS threads, two to an SM, so that one block's
+// scan, scatter and sums overlap the other's walk.  The scatter's integer
+// atomics order a row's entries differently from run to run, as the
+// float atomics order the adds.
+// ---------------------------------------------------------------------------
+
+#define MSDA_BWD16_SORT_THREADS 512
+
+// of each sorted level: its first row among the sorted rows, and its first
+// sample among a query's samples of the sorted levels
+struct SortedLevels {
+  int row[MSDA_MAX_LEVELS];
+  int sample[MSDA_MAX_LEVELS];
+};
+
+__global__ void __launch_bounds__(MSDA_BWD16_SORT_THREADS, 2)
+msda_bwd_bf16_sorted_kernel(
+    const __nv_bfloat16* __restrict__ value, const float* __restrict__ loc,
+    const float* __restrict__ aw, const float* __restrict__ dout,
+    float* __restrict__ dvalue, float* __restrict__ dloc,
+    float* __restrict__ daw, const int* __restrict__ order,
+    const int* __restrict__ runs, const Levels lv, int n_levels,
+    int n_points, int n_runs, int S, int Q, int M, int max_run,
+    int sort_mask, const SortedLevels so, int rows, int sorted_samples) {
+  constexpr int G = 8, D = 32;  // four channels a lane
+  extern __shared__ float4 smem4[];
+  char* base = reinterpret_cast<char*>(smem4);
+  const __nv_bfloat16* sm = reinterpret_cast<const __nv_bfloat16*>(base);
+  const int n_samples = n_levels * n_points;
+  const int cap = max_run * sorted_samples * 4;
+  // counts of the rows, then where each row's entries start (after the
+  // scatter: where the next row's start)
+  size_t at = msda_grad_start<__nv_bfloat16>(lv);
+  int* off = reinterpret_cast<int*>(base + at);
+  at += ((size_t)(rows + 1) * sizeof(int) + 15) / 16 * 16;
+  float* sdout = reinterpret_cast<float*>(base + at);  // the run's dout
+  at += (size_t)max_run * D * sizeof(float);
+  // entries by corner (row, weight) and by row (query's place, weight)
+  float* ent_w = reinterpret_cast<float*>(base + at);
+  at += (size_t)cap * sizeof(float);
+  float* sorted_w = reinterpret_cast<float*>(base + at);
+  at += (size_t)cap * sizeof(float);
+  unsigned short* ent_row = reinterpret_cast<unsigned short*>(base + at);
+  at += (size_t)cap * sizeof(unsigned short);
+  unsigned short* sorted_q = reinterpret_cast<unsigned short*>(base + at);
+  __shared__ int part[33];
+
+  const int run = blockIdx.x % n_runs;
+  const int bm = blockIdx.x / n_runs;
+  const int b = bm / M, m = bm - b * M;
+  const int first = runs[2 * run], count = runs[2 * run + 1];
+  const size_t bm_off = ((size_t)b * S * M + m) * D;
+  const __nv_bfloat16* v_bm = value + bm_off;
+  float* dv_bm = dvalue + bm_off;
+  if (lv.resident_mask)
+    msda_stage_levels<__nv_bfloat16, 4>(
+        reinterpret_cast<__nv_bfloat16*>(base), value, lv, n_levels, S, M,
+        D, b, m);
+  for (int i = threadIdx.x; i <= rows; i += blockDim.x) off[i] = 0;
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int group = warp * (32 / G) + (threadIdx.x & 31) / G;
+  const int n_groups = (blockDim.x >> 5) * (32 / G);
+  const int gl = threadIdx.x % G, c = gl * 4;
+  // every lane of a warp takes every trip (the shuffles need them all)
+  for (int i0 = 0; i0 < count; i0 += n_groups) {
+    const int ql = i0 + group;
+    const bool live = ql < count;
+    const int q = order[first + (live ? ql : 0)];
+    const size_t bqm = ((size_t)b * Q + q) * M + m;
+    const float* loc_q = loc + bqm * n_samples * 2;
+    const float* aw_q = aw + bqm * n_samples;
+    float g[4];
+    {
+      Row<4> r;
+      r.load_global(dout + bqm * D + c);
+      if (live) r.store(sdout + ql * D + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) g[e] = live ? r.v[e] : 0.f;
+    }
+    for (int s0 = 0; s0 < n_samples; s0 += G) {
+      const int si = s0 + gl;
+      float lx = 0.f, ly = 0.f, a = 0.f;
+      if (si < n_samples) {
+        const float2 xy = __ldg(reinterpret_cast<const float2*>(loc_q) + si);
+        lx = xy.x, ly = xy.y;
+        a = __ldg(aw_q + si);
+      }
+      const int l_own = min(si, n_samples - 1) / n_points;
+      const SamplePlace own(lx, ly, lv.h[l_own], lv.w[l_own]);
+      const int ns = min(G, n_samples - s0);
+      float tot_w = 0.f, tot_x = 0.f, tot_y = 0.f;
+#pragma unroll 1
+      for (int j = 0; j < ns; ++j) {
+        const float dx = __shfl_sync(0xffffffffu, own.dx, j, G);
+        const float dy = __shfl_sync(0xffffffffu, own.dy, j, G);
+        const int code = __shfl_sync(0xffffffffu, own.code, j, G);
+        const float aj = __shfl_sync(0xffffffffu, a, j, G);
+        const int l = (s0 + j) / n_points;
+        const Corners cn(dx, dy, code, lv.w[l]);
+        const bool res = (lv.resident_mask >> l) & 1;
+        const bool sort = (sort_mask >> l) & 1;
+        const __nv_bfloat16* rows_l =
+            res ? sm + lv.sm_off[l] + c
+                : v_bm + (size_t)lv.start[l] * M * D + c;
+        const int stride = res ? D : M * D;
+        float* drows = dv_bm + (size_t)lv.start[l] * M * D + c;
+        float pw = 0.f, px = 0.f, py = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (!(live && cn.inb[k])) continue;
+          ValueRow<__nv_bfloat16, 4> r;
+          if (res)
+            r.load_shared(rows_l + cn.tok[k] * stride);
+          else
+            r.load_global(rows_l + (size_t)cn.tok[k] * stride);
+          float vg = 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) vg += r.v[e] * g[e];
+          pw += cn.cw[k] * vg;
+          px += cn.dwx[k] * vg;
+          py += cn.dwy[k] * vg;
+          if (!sort) {
+            Row<4> d;
+            const float coef = aj * cn.cw[k];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) d.v[e] = coef * g[e];
+            d.add_global(drows + (size_t)cn.tok[k] * M * D);
+          }
+        }
+        // lane k of the group writes corner k's slot and counts its row
+        if (sort && live && gl < 4) {
+          int tok = cn.tok[0], in = cn.inb[0];
+          float w = cn.cw[0];
+#pragma unroll
+          for (int k = 1; k < 4; ++k)
+            if (gl == k) tok = cn.tok[k], in = cn.inb[k], w = cn.cw[k];
+          const int e = (ql * sorted_samples + so.sample[l] + s0 + j -
+                         l * n_points) * 4 + gl;
+          const int row = so.row[l] + tok;
+          ent_row[e] = in ? (unsigned short)row : (unsigned short)0xffffu;
+          ent_w[e] = aj * w;
+          if (in) atomicAdd(off + row, 1);
+        }
+        pw = group_sum<G>(pw);
+        px = group_sum<G>(px);
+        py = group_sum<G>(py);
+        if (gl == j) {
+          tot_w += pw;
+          tot_x += px;
+          tot_y += py;
+        }
+      }
+      if (live && si < n_samples) {
+        const int l = si / n_points;
+        daw[bqm * n_samples + si] = tot_w;
+        reinterpret_cast<float2*>(dloc + bqm * n_samples * 2)[si] =
+            make_float2(a * (float)lv.w[l] * tot_x,
+                        a * (float)lv.h[l] * tot_y);
+      }
+    }
+  }
+  __syncthreads();
+  // the counts' exclusive scan: a contiguous share of rows a thread
+  {
+    const int per = (rows + blockDim.x - 1) / blockDim.x;
+    const int lo = min(rows, (int)threadIdx.x * per);
+    const int hi = min(rows, lo + per);
+    int mine = 0;
+    for (int i = lo; i < hi; ++i) mine += off[i];
+    const int lane = threadIdx.x & 31;
+    int inc = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += y;
+    }
+    if (lane == 31) part[warp] = inc;
+    __syncthreads();
+    if (warp == 0) {
+      const int own = lane < (int)(blockDim.x >> 5) ? part[lane] : 0;
+      int w = own;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      part[lane] = w - own;
+      if (lane == 31) part[32] = w;
+    }
+    __syncthreads();
+    int place = part[warp] + inc - mine;
+    for (int i = lo; i < hi; ++i) {
+      const int n = off[i];
+      off[i] = place;
+      place += n;
+    }
+    if (threadIdx.x == 0) off[rows] = part[32];
+  }
+  __syncthreads();
+  // the entries into row order, each with its query's place in the run
+  const int slots = count * sorted_samples * 4;
+  for (int e = threadIdx.x; e < slots; e += blockDim.x) {
+    const int row = ent_row[e];
+    if (row == 0xffff) continue;
+    const int to = atomicAdd(off + row, 1);
+    sorted_q[to] = (unsigned short)(e / (sorted_samples * 4));
+    sorted_w[to] = ent_w[e];
+  }
+  __syncthreads();
+  // one lane group a row: its entries summed, one add into dvalue
+  for (int r = group; r < rows; r += n_groups) {
+    const int lo = r ? off[r - 1] : 0, hi = off[r];
+    if (lo == hi) continue;
+    Row<4> acc;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc.v[e] = 0.f;
+#pragma unroll 4
+    for (int i = lo; i < hi; ++i) {
+      const float coef = sorted_w[i];
+      const float4 gg =
+          *reinterpret_cast<const float4*>(sdout + sorted_q[i] * D + c);
+      acc.v[0] += coef * gg.x, acc.v[1] += coef * gg.y;
+      acc.v[2] += coef * gg.z, acc.v[3] += coef * gg.w;
+    }
+    int l = 0;
+    while (l + 1 < n_levels && (!((sort_mask >> l) & 1) ||
+                                r >= so.row[l] + lv.h[l] * lv.w[l]))
+      ++l;
+    acc.add_global(dv_bm + (size_t)(lv.start[l] + r - so.row[l]) * M * D +
+                   c);
+  }
+}
+
+// The sorted form's launch: dvalue zeroed, then one launch; the arguments
+// as msda_bwd_any's.  Refuses what it was not built for.
+static int launch_bwd_bf16_sorted(const void* value, const void* loc,
+                                  const void* aw, const void* dout,
+                                  void* dvalue, void* dloc, void* daw,
+                                  const void* order, const void* runs,
+                                  const void* level_hw, int n_levels,
+                                  int n_runs, int max_run, int resident_mask,
+                                  int sort_mask, int B, int S, int Q, int M,
+                                  int D, int P, cudaStream_t st) {
+  static size_t granted = 48 * 1024;
+  Levels lv = {};
+  if (n_levels < 1 || n_levels > MSDA_MAX_LEVELS || P < 1 || D != 32 ||
+      !order || !runs || n_runs < 1 || max_run < 1 ||
+      (sort_mask >> n_levels) || !msda_aligned16(value) ||
+      !msda_aligned16(dout) || !msda_aligned16(dvalue) ||
+      ((reinterpret_cast<size_t>(loc) | reinterpret_cast<size_t>(dloc)) &
+       7) ||
+      msda_fill_levels(&lv, static_cast<const int*>(level_hw), n_levels,
+                       resident_mask, 0, D) != S ||
+      (long long)B * M * n_runs > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  SortedLevels so = {};
+  int rows = 0, sorted_samples = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    so.row[l] = rows;
+    so.sample[l] = sorted_samples;
+    if ((sort_mask >> l) & 1) rows += lv.h[l] * lv.w[l], sorted_samples += P;
+  }
+  // rows and places fit the entries' 16-bit fields
+  if (rows >= 0xffff || max_run >= 0xffff) return (int)cudaErrorInvalidValue;
+  const size_t cap = (size_t)max_run * sorted_samples * 4;
+  const size_t smem = msda_grad_start<__nv_bfloat16>(lv) +
+                      ((size_t)(rows + 1) * sizeof(int) + 15) / 16 * 16 +
+                      (size_t)max_run * D * sizeof(float) +
+                      cap * 2 * (sizeof(float) + sizeof(unsigned short));
+  cudaError_t err =
+      msda_grant_smem(msda_bwd_bf16_sorted_kernel, smem, &granted);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(dvalue, 0, (size_t)B * S * M * D * sizeof(float), st);
+  if (err != cudaSuccess) return (int)err;
+  msda_bwd_bf16_sorted_kernel<<<(unsigned)((long long)B * M * n_runs),
+                                MSDA_BWD16_SORT_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(value),
+      static_cast<const float*>(loc), static_cast<const float*>(aw),
+      static_cast<const float*>(dout), static_cast<float*>(dvalue),
+      static_cast<float*>(dloc), static_cast<float*>(daw),
+      static_cast<const int*>(order), static_cast<const int*>(runs), lv,
+      n_levels, P, n_runs, S, Q, M, max_run, sort_mask, so, rows,
+      sorted_samples);
+  return (int)cudaGetLastError();
+}
+
 // Zeroes dvalue and launches on `stream`; returns the first CUDA error
 // (0 on success).  level_hw is a host array of n_levels (H, W) pairs; order
 // (Q,) and runs (n_runs, 2) are int32 device arrays, the block map of
@@ -409,13 +722,25 @@ extern "C" int msda_bwd(const void* value, const void* loc, const void* aw,
                              stream);
 }
 
+// The bf16 form: the levels of sort_mask summed in the block where the
+// plan gives them and the tensors allow (a head of 32 channels, 16-byte
+// aligned, queries in tiles; that path reads no grad_mask), else the walk
+// above.
 extern "C" int msda_bwd_bf16(const void* value, const void* loc,
                              const void* aw, const void* dout, void* dvalue,
                              void* dloc, void* daw, const void* order,
                              const void* runs, const void* level_hw,
                              int n_levels, int n_runs, int max_run,
-                             int resident_mask, int grad_mask, int B, int S,
-                             int Q, int M, int D, int P, void* stream) {
+                             int resident_mask, int grad_mask, int sort_mask,
+                             int B, int S, int Q, int M, int D, int P,
+                             void* stream) {
+  if (sort_mask && D == 32 && order && runs && msda_aligned16(value) &&
+      msda_aligned16(dout) && msda_aligned16(dvalue)) {
+    return launch_bwd_bf16_sorted(value, loc, aw, dout, dvalue, dloc, daw,
+                                  order, runs, level_hw, n_levels, n_runs,
+                                  max_run, resident_mask, sort_mask, B, S, Q,
+                                  M, D, P, static_cast<cudaStream_t>(stream));
+  }
   return msda_bwd_any<__nv_bfloat16>(value, loc, aw, dout, dvalue, dloc, daw,
                                      order, runs, level_hw, n_levels, n_runs,
                                      max_run, resident_mask, grad_mask, B, S,

@@ -177,30 +177,6 @@ struct ValueRow;
 template <int VEC>
 struct ValueRow<float, VEC> : Row<VEC> {};
 
-// eight bf16 channels: one 16-byte load, converted in pairs by the
-// intrinsics
-template <>
-struct ValueRow<__nv_bfloat16, 8> {
-  float v[8];
-  __device__ __forceinline__ void load_global(const __nv_bfloat16* p) {
-    convert(__ldg(reinterpret_cast<const uint4*>(p)));
-  }
-  __device__ __forceinline__ void load_shared(const __nv_bfloat16* p) {
-    convert(*reinterpret_cast<const uint4*>(p));
-  }
-  __device__ __forceinline__ void convert(uint4 t) {
-    const unsigned u[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      __nv_bfloat162 h;
-      h.x = __ushort_as_bfloat16((unsigned short)(u[i] & 0xffffu));
-      h.y = __ushort_as_bfloat16((unsigned short)(u[i] >> 16));
-      const float2 f = __bfloat1622float2(h);
-      v[2 * i] = f.x, v[2 * i + 1] = f.y;
-    }
-  }
-};
-
 // four bf16 channels: one 8-byte load (the backward's lanes, laid out as
 // its float32 form's: dout and dvalue stay 16 bytes a lane)
 template <>

@@ -4,9 +4,11 @@
 //                     * bilinear(value_l[b, :, m, :], loc[b, q, m, l, p])
 //
 // with grid_sample semantics (align_corners=False, zero padding: pixel
-// x = loc_x * W_l - 0.5).  value (B, S, M, D) float32 (entry point
-// msda_fwd) or bfloat16 (msda_fwd_bf16), loc (B, Q, M, L, P, 2), aw
-// (B, Q, M, L, P), out (B, Q, M * D) float32, all contiguous.
+// x = loc_x * W_l - 0.5).  value (B, S, M, D), loc (B, Q, M, L, P, 2), aw
+// (B, Q, M, L, P), out (B, Q, M * D), all float32 and contiguous (entry
+// point msda_fwd).  The kernel is a template over value's type, built here
+// for float only: a bfloat16 value has a kernel of its own,
+// msda_fwd_bf16.cu.
 //
 // Replaces the TPU kernels ms_deform_attn_mxu
 // (monosowa_tpu/ops/msda_mxu.py:378, kernel _fwd_kernel :238) and
@@ -14,12 +16,7 @@
 // corners through quad rows and one-hot matrix products, or a scalar loop
 // over a copy of the pyramid in fast memory, because a TPU serialises
 // gathers; both read value in bf16 (msda_mxu.py:235, msda_pallas.py:98)
-// and sum in float32.  This kernel gathers rows directly, in value's own
-// type: the bf16 form reads a head's 32 channels as four 16-byte lanes of
-// eight, converts them with the bf16 intrinsics and sums in float32, so it
-// moves half the value bytes of the float32 form (about 62.7 MB against
-// 73.1 MB compulsory at the encoder's shape, and half the corner-row
-// traffic: 64 bytes a corner where float32 reads 128).
+// and sum in float32.  This kernel gathers float32 rows directly.
 //
 // What bounds it: memory traffic, and not the compulsory bytes.  value, loc
 // and aw read once and out written once are about 73 MB at the encoder's
@@ -37,8 +34,8 @@
 //   encoder), so consecutive queries read nearly the same rows of the same
 //   head and L1 serves the re-reads.  Short runs, many blocks: 1,312 blocks
 //   at the encoder's shape, sized so that the card's SMs end together.
-// * G lanes share a query, 16 bytes a lane (8 lanes for D = 32 in float32,
-//   4 in bf16): a warp has four (eight) queries in flight per load
+// * G lanes share a query, 16 bytes a lane (8 lanes for D = 32): a warp
+//   has four queries in flight per load
 //   instruction, and the channel sum stays in the lane's registers: no
 //   reduction across lanes at all.  D that is no multiple of the lane's
 //   channels, or a pointer off 16 bytes, takes the same kernel with one
@@ -203,9 +200,8 @@ static int msda_fwd_any(const void* value, const void* loc, const void* aw,
   const int* ord = static_cast<const int*>(order);
   const int* rn = static_cast<const int*>(runs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 16-byte lanes of value (4 floats or 8 bf16) where the rows allow them,
-  // else one element a lane.  Measured on an H100 at the encoder's shape,
-  // the bf16 form: 0.110 ms with 16-byte lanes, 0.169 with 8-byte ones
+  // 16-byte lanes of value where the rows allow them, else one element a
+  // lane
   constexpr int LANE = 16 / sizeof(T);
   const int vec = (D % LANE == 0 && msda_aligned16(value) &&
                    msda_aligned16(out))
@@ -218,9 +214,6 @@ static int msda_fwd_any(const void* value, const void* loc, const void* aw,
   if (vec == V && g == G_)                                                \
     return launch_fwd<T, V, G_>(v, lo, a, o, ord, rn, lv, n_levels, P,    \
                                 n_runs, max_run, B, S, Q, M, D, st);
-  if constexpr (LANE == 8) {
-    MSDA_FWD_CASE(LANE, 4)
-  }
   MSDA_FWD_CASE(LANE, 8)
   MSDA_FWD_CASE(LANE, 16)
   MSDA_FWD_CASE(LANE, 32)
@@ -235,8 +228,7 @@ static int msda_fwd_any(const void* value, const void* loc, const void* aw,
 // level_hw is a host array of n_levels (H, W) pairs; order (Q,) and runs
 // (n_runs, 2) are int32 device arrays, the block map of msda_common.cuh,
 // and max_run the longest run's length; bit l of resident_mask puts level l
-// into shared memory.  msda_fwd takes a float32 value, msda_fwd_bf16 a
-// bfloat16 one; loc, aw and out are float32 in both.
+// into shared memory.  Every tensor is float32.
 extern "C" int msda_fwd(const void* value, const void* loc, const void* aw,
                         void* out, const void* order, const void* runs,
                         const void* level_hw, int n_levels, int n_runs,
@@ -245,15 +237,4 @@ extern "C" int msda_fwd(const void* value, const void* loc, const void* aw,
   return msda_fwd_any<float>(value, loc, aw, out, order, runs, level_hw,
                              n_levels, n_runs, max_run, resident_mask, B, S,
                              Q, M, D, P, stream);
-}
-
-extern "C" int msda_fwd_bf16(const void* value, const void* loc,
-                             const void* aw, void* out, const void* order,
-                             const void* runs, const void* level_hw,
-                             int n_levels, int n_runs, int max_run,
-                             int resident_mask, int B, int S, int Q, int M,
-                             int D, int P, void* stream) {
-  return msda_fwd_any<__nv_bfloat16>(value, loc, aw, out, order, runs,
-                                     level_hw, n_levels, n_runs, max_run,
-                                     resident_mask, B, S, Q, M, D, P, stream);
 }

@@ -21,9 +21,10 @@ value gradient comes back in value's dtype, summed in float32 and rounded
 once (``ops/msda.py:474``, ``msda_mxu.py:635``).
 
 ``ms_deform_attn`` goes through ``MSDAFunction`` on every device.  For CUDA
-tensors its forward launches ``csrc/msda_fwd.cu`` and its backward
-``csrc/msda_bwd.cu`` (entry points ``msda_fwd`` / ``msda_bwd`` for a float32
-value, ``msda_fwd_bf16`` / ``msda_bwd_bf16`` for a bfloat16 one); for CPU
+tensors its forward launches ``csrc/msda_fwd.cu`` (entry point
+``msda_fwd``) for a float32 value and ``csrc/msda_fwd_bf16.cu``
+(``msda_fwd_bf16``) for a bfloat16 one, its backward ``csrc/msda_bwd.cu``
+(``msda_bwd`` / ``msda_bwd_bf16``); for CPU
 tensors it runs the plain versions (``ms_deform_attn_plain``,
 ``msda_grad_loc_aw_plain``, ``msda_grad_value_plain``).  There is no other
 path.  ``launches`` and ``bwd_launches`` count the float32 kernels'
@@ -32,7 +33,11 @@ launches, ``launches_bf16`` and ``bwd_launches_bf16`` the bfloat16 ones.
 The kernels take their block map from ``msda_plan``: the order in which
 queries are walked (image tiles where the queries are the pyramid's own
 tokens), each block's run of it, and the coarse levels a block keeps whole
-in shared memory.  It is built once per shape and device.
+in shared memory; for the bf16 forward also its lanes, how many lane
+groups share a query's samples and its block size; for the bf16 backward
+the coarse levels it sums in the block by a counting sort.  It is built
+once per shape, value element size, number of (image, head) pairs and
+device.
 """
 
 from __future__ import annotations
@@ -276,6 +281,26 @@ RESIDENT_MIN_READS = 12
 # and head), and by vector atomics in global memory otherwise: measured,
 # shared-memory atomics pay only for the hottest rows
 GRAD_MIN_ADDS = 512
+# the bf16 forward (csrc/msda_fwd_bf16.cu) reads a head's row as lanes of
+# BF16_LANE_CHANNELS channels (one 16-byte load: four lanes to a head of
+# 32).  A launch whose lane groups fill less than the card is spread: a
+# query gets up to FWD16_MAX_SPLIT lane groups of one warp while split x
+# lanes stays within SPLIT_FILL of the card's threads.  A block has at most
+# FWD16_THREADS threads (the kernel's launch bound)
+BF16_LANE_CHANNELS = 8
+FWD16_MAX_SPLIT = 8
+SPLIT_FILL = 0.5
+FWD16_THREADS = 512
+# the bf16 backward (csrc/msda_bwd.cu) sums in the block, by a counting
+# sort, the levels whose rows a launch adds into at least SORT_MIN_ADDS
+# times (per image and head), where the queries are the pyramid's own
+# tokens and a head has SORT_CHANNELS channels, finest dropped first while
+# the sort's shared memory exceeds SORT_SMEM_BUDGET (two blocks an SM)
+SORT_MIN_ADDS = 256
+SORT_CHANNELS = 32
+SORT_SMEM_BUDGET = 113 * 1024
+# the H100's threads (132 SMs x 2,048), for plans made off the card
+CARD_THREADS = 132 * 2048
 
 
 def query_order(spatial_shapes: SpatialShapes, q: int
@@ -335,6 +360,85 @@ def grad_levels(spatial_shapes: SpatialShapes, resident: Sequence[int],
                  * spatial_shapes[lvl][0] * spatial_shapes[lvl][1])
 
 
+def sort_smem_bytes(spatial_shapes: SpatialShapes, levels: Sequence[int],
+                    resident: Sequence[int], run_len: int, n_points: int,
+                    d: int) -> int:
+    """Shared memory of the bf16 backward's counting sort over ``levels``
+    (``msda_bwd.cu`` ``launch_bwd_bf16_sorted``): bf16 resident rows, the
+    counts and places of the levels' rows, the run's float32 dout rows,
+    and two entries of 6 bytes a corner of the run's samples on them."""
+    def up16(n):
+        return -(-n // 16) * 16
+
+    rows = sum(spatial_shapes[lvl][0] * spatial_shapes[lvl][1]
+               for lvl in levels)
+    return (up16(sum(spatial_shapes[lvl][0] * spatial_shapes[lvl][1]
+                     for lvl in resident) * d * 2)
+            + up16((rows + 1) * 4) + run_len * d * 4
+            + 2 * run_len * len(levels) * n_points * 4 * 6)
+
+
+def sorted_levels(spatial_shapes: SpatialShapes, resident: Sequence[int],
+                  q: int, run_len: int, n_points: int, d: int
+                  ) -> Tuple[int, ...]:
+    """The levels the bf16 backward sums in the block: those whose rows get
+    SORT_MIN_ADDS adds or more (``q`` queries, four corners to each of
+    ``n_points`` samples, over the level's rows), for a head of
+    SORT_CHANNELS channels, the finest dropped while the sort's shared
+    memory exceeds SORT_SMEM_BUDGET."""
+    if d != SORT_CHANNELS:
+        return ()
+    levels = [lvl for lvl, (h, w) in enumerate(spatial_shapes)
+              if q * n_points * 4 >= SORT_MIN_ADDS * h * w]
+    levels.sort(key=lambda lvl: spatial_shapes[lvl][0]
+                * spatial_shapes[lvl][1])
+    while levels and sort_smem_bytes(spatial_shapes, levels, resident,
+                                     run_len, n_points,
+                                     d) > SORT_SMEM_BUDGET:
+        levels.pop()
+    return tuple(sorted(levels))
+
+
+def group_lanes(d: int, vec: int) -> int:
+    """Lanes that share a query for a head of ``d`` channels at ``vec``
+    channels a lane (``msda_common.cuh`` ``msda_group_lanes``): 8 at the
+    least, 4 for lanes of BF16_LANE_CHANNELS bf16 channels, at most
+    32."""
+    g = 4 if vec == BF16_LANE_CHANNELS else 8
+    while g < 32 and d > g * vec:
+        g *= 2
+    return g
+
+
+def block_threads(max_run: int, lanes: int, most: int) -> int:
+    """Threads of a block: ``lanes`` for each query of the longest run, in
+    whole warps, at least one warp and at most ``most``
+    (``msda_block_threads``)."""
+    want = -(-max_run * lanes // 32) * 32
+    return max(32, min(most, want))
+
+
+def sample_split(lanes: int, card_threads: int, most: int) -> int:
+    """How many lane groups of a warp share a query's samples: the largest
+    power of two up to ``most`` at which the launch's ``lanes``, so
+    multiplied, stay within SPLIT_FILL of ``card_threads``.
+    A launch that fills the card keeps 1: its time is the card's work, not
+    one group's chain of dependent loads."""
+    split = 1
+    while split * 2 <= most and \
+            split * 2 * lanes <= SPLIT_FILL * card_threads:
+        split *= 2
+    return split
+
+
+def card_threads(device: torch.device) -> int:
+    """Threads the card runs at once (CARD_THREADS off the card)."""
+    if device.type != "cuda":
+        return CARD_THREADS
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
 @dataclasses.dataclass(frozen=True)
 class MSDAPlan:
     """What a launch hands the kernels beside the tensors."""
@@ -350,19 +454,31 @@ class MSDAPlan:
     grad_mask: int
     grad_bytes: int               # float32 whatever value's dtype
     level_hw: ctypes.Array        # host array of (H, W) pairs
+    # the bf16 forward only: lanes a query's group, lane groups of a warp
+    # that share a query's samples, threads a block
+    lanes: int
+    fwd_split: int
+    fwd_threads: int
+    # the bf16 backward only: the levels it sums in the block by a
+    # counting sort (tiled queries), and the same as bits
+    sort: Tuple[int, ...]
+    sort_mask: int
 
 
 @functools.lru_cache(maxsize=None)
 def msda_plan(spatial_shapes: Tuple[Tuple[int, int], ...], q: int,
               n_points: int, d: int, device: torch.device,
-              elem_size: int = 4) -> MSDAPlan:
-    """The block map for one shape, value element size (bytes) and device,
-    built once."""
+              elem_size: int = 4, pairs: int = 1) -> MSDAPlan:
+    """The block map for one shape, value element size (bytes), number of
+    (image, head) ``pairs`` and device, built once."""
     order, runs = query_order(spatial_shapes, q)
     run_len = int(runs[:, 1].max()) if len(runs) else 0
     resident = resident_levels(spatial_shapes, run_len, n_points, d,
                                elem_size)
     grad = grad_levels(spatial_shapes, resident, q, n_points)
+    identity = q != sum(h * w for h, w in spatial_shapes)
+    sort = () if identity or elem_size != 2 else sorted_levels(
+        spatial_shapes, resident, q, run_len, n_points, d)
     hw = (ctypes.c_int * (2 * len(spatial_shapes)))(
         *[int(v) for hw_l in spatial_shapes for v in hw_l])
 
@@ -376,40 +492,69 @@ def msda_plan(spatial_shapes: Tuple[Tuple[int, int], ...], q: int,
     return MSDAPlan(
         order=torch.from_numpy(order).to(device),
         runs=torch.from_numpy(runs).to(device), n_runs=len(runs),
-        max_run=run_len,
-        identity=q != sum(h * w for h, w in spatial_shapes),
+        max_run=run_len, identity=identity,
         resident=resident, resident_mask=mask(resident),
         resident_bytes=nbytes(resident, elem_size), grad=grad,
-        grad_mask=mask(grad), grad_bytes=nbytes(grad, 4), level_hw=hw)
+        grad_mask=mask(grad), grad_bytes=nbytes(grad, 4), level_hw=hw,
+        sort=sort, sort_mask=mask(sort),
+        **bf16_launch(q, d, run_len, pairs, card_threads(device)))
+
+
+def bf16_launch(q: int, d: int, max_run: int, pairs: int,
+                threads_on_card: int) -> dict:
+    """The bf16 forward's lanes, split and block size for a launch of
+    ``pairs`` (image, head) pairs of ``q`` queries."""
+    lanes = group_lanes(d, BF16_LANE_CHANNELS)
+    split = sample_split(pairs * q * lanes, threads_on_card,
+                         min(FWD16_MAX_SPLIT, 32 // lanes))
+    return {"lanes": lanes, "fwd_split": split,
+            "fwd_threads": block_threads(max_run, lanes * split,
+                                         FWD16_THREADS)}
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernels (csrc/msda_fwd.cu, csrc/msda_bwd.cu), bound with ctypes
+# the CUDA kernels, bound with ctypes: csrc/msda_fwd.cu for a float32 value,
+# csrc/msda_fwd_bf16.cu for a bfloat16 one; csrc/msda_bwd.cu for both
 # ---------------------------------------------------------------------------
 
-# the entry point of each source for each value dtype
+# the entry point of each kernel for each value dtype, and its source
 ENTRY = {("msda_fwd", torch.float32): "msda_fwd",
          ("msda_fwd", torch.bfloat16): "msda_fwd_bf16",
          ("msda_bwd", torch.float32): "msda_bwd",
          ("msda_bwd", torch.bfloat16): "msda_bwd_bf16"}
+SOURCE = {"msda_fwd": "msda_fwd", "msda_fwd_bf16": "msda_fwd_bf16",
+          "msda_bwd": "msda_bwd", "msda_bwd_bf16": "msda_bwd"}
+# each entry point's pointers (the tensors, then order, runs and the host
+# array level_hw) and ints (n_levels, n_runs, max_run, the plan's masks and
+# launch shape, B, S, Q, M, D, P); a stream last
+_SIGNATURE = {"msda_fwd": (7, 10), "msda_bwd": (10, 11),
+              "msda_fwd_bf16": (7, 12), "msda_bwd_bf16": (10, 12)}
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(source: str, entry: str):
-    """The bound C entry point ``entry`` of ``csrc/<source>.cu``, built at
-    first use."""
+def _kernel(entry: str):
+    """The bound C entry point ``entry`` of its source, built at first
+    use."""
     from monosowa_tpu_torch.ops._build import load_library
 
-    fn = getattr(load_library(source), entry)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # the tensors (value, loc, aw, out for the forward; value, loc, aw,
-    # dout, dvalue, dloc, daw for the backward), then order, runs, level_hw
-    # (host), n_levels, n_runs, max_run, resident_mask, (the backward:
-    # grad_mask,) B, S, Q, M, D, P, stream
-    n_tensors, n_ints = (4, 10) if source == "msda_fwd" else (7, 11)
-    fn.argtypes = [p] * (n_tensors + 3) + [i] * n_ints + [p]
+    fn = getattr(load_library(SOURCE[entry]), entry)
+    n_ptr, n_int = _SIGNATURE[entry]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _plan_ints(entry: str, plan: MSDAPlan) -> tuple:
+    """The plan's ints an entry point takes after n_levels, n_runs and
+    max_run."""
+    if entry == "msda_fwd":
+        return (plan.resident_mask,)
+    if entry == "msda_fwd_bf16":
+        return plan.resident_mask, plan.fwd_split, plan.fwd_threads
+    if entry == "msda_bwd_bf16":
+        return plan.resident_mask, plan.grad_mask, plan.sort_mask
+    return plan.resident_mask, plan.grad_mask
 
 
 def _launch(source: str, tensors, out_tensors, spatial_shapes):
@@ -429,25 +574,24 @@ def _launch(source: str, tensors, out_tensors, spatial_shapes):
     b, s, m, d = value.shape
     q, n_levels, p = loc.shape[1], loc.shape[3], loc.shape[4]
     plan = msda_plan(tuple((int(h), int(w)) for h, w in spatial_shapes), q,
-                     p, d, value.device, value.element_size())
-    kernel = _kernel(source, entry)
+                     p, d, value.device, value.element_size(), b * m)
+    kernel = _kernel(entry)
     # index order needs no arrays: the kernels then count for themselves
     order_runs = (None, None) if plan.identity else \
         (plan.order.data_ptr(), plan.runs.data_ptr())
-    masks = (plan.resident_mask,) if source == "msda_fwd" else \
-        (plan.resident_mask, plan.grad_mask)
     with torch.cuda.device(value.device):
         err = kernel(*[t.data_ptr() for t in (*tensors, *out_tensors)],
                      *order_runs,
                      ctypes.addressof(plan.level_hw), n_levels, plan.n_runs,
-                     plan.max_run, *masks, b, s, q, m, d, p,
-                     torch.cuda.current_stream().cuda_stream)
+                     plan.max_run, *_plan_ints(entry, plan), b, s, q, m, d,
+                     p, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
 def _launch_fwd(value, spatial_shapes, loc, aw):
-    """out (B, Q, M * D) float32 from one call of ``csrc/msda_fwd.cu``."""
+    """out (B, Q, M * D) float32 from one call of ``csrc/msda_fwd.cu`` or,
+    for a bfloat16 value, ``csrc/msda_fwd_bf16.cu``."""
     global launches, launches_bf16
     b, _, m, d = value.shape
     out = torch.empty(b, loc.shape[1], m * d, device=value.device,

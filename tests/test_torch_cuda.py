@@ -382,6 +382,138 @@ def test_msda_bf16_kernels_refuse_what_they_cannot_take(cuda):
     assert (msda.launches_bf16, msda.bwd_launches_bf16) == before
 
 
+def _near_inputs(seed, shapes, q, b, m, d, p, dev, wide=False):
+    """value, loc, aw with loc near a reference point of each query (a
+    ring of offsets with jitter, or with ``wide`` a standard deviation of 4
+    pixels of each level) and 2% of the samples redrawn in [-0.15, 1.15],
+    so out-of-bounds corners are covered; aw a softmax over the samples."""
+    rng = np.random.default_rng(seed)
+    s = sum(h * w for h, w in shapes)
+    n_lv = len(shapes)
+    norm = np.array([[w, h] for h, w in shapes], np.float64)
+    ref = rng.uniform(0.05, 0.95, (b, q, 1, 1, 1, 2))
+    if wide:
+        offs = rng.normal(0, 4.0, (b, q, m, n_lv, p, 2))
+    else:
+        ang = 2 * np.pi * np.arange(m) / m
+        ring = np.stack([np.cos(ang), np.sin(ang)], -1)[:, None, None] \
+            * (np.arange(p) + 1)[:, None]
+        offs = ring[None, None] * rng.uniform(0.5, 1.5, (b, q, m, n_lv, p,
+                                                         1)) \
+            + rng.normal(0, 0.5, (b, q, m, n_lv, p, 2))
+    loc = ref + offs / norm[:, None, :]
+    wild = rng.random(loc.shape[:-1]) < 0.02
+    loc[wild] = rng.uniform(-0.15, 1.15, (int(wild.sum()), 2))
+    logits = rng.normal(size=(b, q, m, n_lv * p))
+    aw = (np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)).reshape(
+        b, q, m, n_lv, p)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev)
+            for a in (rng.normal(size=(b, s, m, d)), loc, aw)]
+
+
+# the bf16 forward's split (lane groups of a warp sharing a query's
+# samples) at the decoder's Q = 50, 550 and 800 of the shipped pyramid; its
+# lanes of eight channels with idle lanes (D = 24, 40); three levels (12
+# samples: a ragged share per group); wide offsets; every case with 2% of
+# its samples anywhere in [-0.15, 1.15]
+@pytest.mark.parametrize("shapes,q,b,m,d,p,wide", [
+    (SHIPPED, 50, 2, 8, 32, 4, False),
+    (SHIPPED, 550, 2, 8, 32, 4, False),
+    (SHIPPED, 800, 2, 8, 32, 4, False),
+    (SHIPPED, 800, 2, 8, 32, 4, True),
+    (SHIPPED, None, 1, 2, 32, 4, True),
+    (RAGGED, 300, 2, 4, 24, 4, False),
+    (RAGGED, None, 2, 3, 40, 4, False),
+    (RAGGED[:3], 70, 2, 4, 32, 4, False),
+    (RAGGED[:3], None, 1, 4, 32, 3, True),
+])
+def test_msda_bf16_kernels_at_the_decoders_shapes(cuda, shapes, q, b, m, d,
+                                                  p, wide):
+    q = q or _tokens(shapes)
+    value, loc, aw = _near_inputs(41, shapes, q, b, m, d, p, cuda, wide)
+    outside = ((loc < 0) | (loc > 1)).any(-1).float().mean()
+    assert float(outside) > 0.01
+    plan = msda.msda_plan(shapes, q, p, d, value.device, 2, b * m)
+    assert plan.lanes * plan.fwd_split <= 32
+    _check_fwd_bwd_bf16(shapes, value.to(torch.bfloat16), loc, aw,
+                        _dout(42, q, b, m, d, cuda))
+
+
+# the bf16 backward's counting sort in the block (tiled queries, a head of
+# 32 channels): the plan's levels at the shipped pyramid, every level of a
+# ragged pyramid (SORT_MIN_ADDS 1, the shared-memory budget of one block an
+# SM), near and wide offsets, three levels of three points; a value 2 bytes
+# off 16 takes the walk, with the same bars
+@pytest.mark.parametrize("shapes,b,m,p,wide,min_adds,offset", [
+    (SHIPPED, 1, 2, 4, False, None, 0),
+    (RAGGED, 2, 3, 4, False, 1, 0),
+    (RAGGED, 2, 3, 4, True, 1, 0),
+    (RAGGED[:3], 1, 4, 3, False, 1, 0),
+    (RAGGED, 2, 3, 4, False, 1, 1),
+])
+def test_msda_bf16_backward_sorts_in_the_block(cuda, monkeypatch, shapes, b,
+                                               m, p, wide, min_adds,
+                                               offset):
+    if min_adds is not None:
+        monkeypatch.setattr(msda, "SORT_MIN_ADDS", min_adds)
+        monkeypatch.setattr(msda, "SORT_SMEM_BUDGET", 200 * 1024)
+    msda.msda_plan.cache_clear()
+    try:
+        q = _tokens(shapes)
+        plan = msda.msda_plan(shapes, q, p, 32, cuda, 2, b * m)
+        assert plan.sort and (min_adds is None
+                              or plan.sort == tuple(range(len(shapes))))
+        value, loc, aw = _near_inputs(48, shapes, q, b, m, 32, p, cuda, wide)
+        v16 = torch.empty(value.numel() + offset, device=cuda,
+                          dtype=torch.bfloat16)[offset:].view_as(value)
+        v16.copy_(value)
+        _check_fwd_bwd_bf16(shapes, v16, loc, aw, _dout(49, q, b, m, 32,
+                                                        cuda))
+    finally:
+        msda.msda_plan.cache_clear()
+
+
+def test_msda_bf16_split_gives_the_same_bits_every_run(cuda):
+    # the groups that share a query sum their parts in a fixed order
+    value, loc, aw = _near_inputs(43, SHIPPED, 50, 2, 8, 32, 4, cuda)
+    v16 = value.to(torch.bfloat16)
+    assert msda.msda_plan(SHIPPED, 50, 4, 32, cuda, 2, 16).fwd_split > 1
+    first = msda.ms_deform_attn(v16, SHIPPED, loc, aw)
+    for _ in range(3):
+        assert torch.equal(msda.ms_deform_attn(v16, SHIPPED, loc, aw),
+                           first)
+
+
+def test_msda_bf16_decoder_takes_a_view_off_16_bytes(cuda):
+    # a bf16 value 2 bytes into its storage at Q = 50: one element a lane,
+    # as many groups a query as a warp holds
+    value, loc, aw = _near_inputs(44, SHIPPED, 50, 2, 8, 32, 4, cuda)
+    shifted = torch.empty(value.numel() + 1, device=cuda,
+                          dtype=torch.bfloat16)[1:].view_as(value)
+    shifted.copy_(value)
+    assert shifted.data_ptr() % 16 == 2 and shifted.is_contiguous()
+    _check_fwd_bwd_bf16(SHIPPED, shifted, loc, aw,
+                        _dout(45, 50, 2, 8, 32, cuda))
+
+
+def test_msda_bf16_refused_launch_raises(cuda):
+    """A launch the entry points refuse (loc 4 bytes off the 8 its float2
+    loads need) raises; nothing falls back and nothing is counted."""
+    value, loc, aw = _near_inputs(46, RAGGED, 40, 2, 2, 32, 4, cuda)
+    v16 = value.to(torch.bfloat16)
+    off = torch.empty(loc.numel() + 1, device=cuda)[1:].view_as(loc)
+    off.copy_(loc)
+    assert off.data_ptr() % 8 == 4 and off.is_contiguous()
+    dout = _dout(47, 40, 2, 2, 32, cuda)
+    before = (msda.launches_bf16, msda.bwd_launches_bf16)
+    with pytest.raises(RuntimeError, match="msda_fwd_bf16"):
+        msda.ms_deform_attn(v16, RAGGED, off, aw)
+    with pytest.raises(RuntimeError, match="msda_bwd_bf16"):
+        msda._launch_bwd(v16, RAGGED, off, aw, dout)
+    torch.cuda.synchronize()
+    assert (msda.launches_bf16, msda.bwd_launches_bf16) == before
+
+
 def _tfl_inputs(seed, b, s, n_valid, p, t, dev):
     """Per car a scan near the origin and posed clouds around it, with
     planted near-coincident points; the scan's tail past ``n_valid[b]`` is

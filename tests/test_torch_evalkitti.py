@@ -170,6 +170,19 @@ def test_build_failure_raises_with_the_compilers_output(tmp_path):
         _build.build("absent", str(tmp_path))
 
 
+def test_a_built_library_keeps_its_compilers_output(tmp_path):
+    # the output (for nvcc the ptxas register and spill counts) is given
+    # again by a later call that finds the library built
+    (tmp_path / "noisy_lib.cpp").write_text(
+        '#warning "built from noisy_lib"\nextern "C" int f() { return 1; }\n')
+    first = _build.build("noisy_lib", str(tmp_path))
+    assert "built from noisy_lib" in first
+    assert _build.build("noisy_lib", str(tmp_path)) == first
+    path = _build._lib_path("noisy_lib", str(tmp_path))
+    assert os.path.isfile(path) and os.path.isfile(path + ".log")
+    assert _build.load_library("noisy_lib", str(tmp_path)).f() == 1
+
+
 @pytest.mark.parametrize("criterion", [-1, 0, 1])
 def test_native_overlaps_equal_the_jax_packages(criterion):
     rng = np.random.default_rng(criterion + 5)

@@ -197,3 +197,147 @@ def test_shared_memory_a_block_asks_for(shapes, q, elem):
     # the grad levels are float32 whatever value's type
     assert plan.grad_bytes == 32 * 4 * sum(shapes[lvl][0] * shapes[lvl][1]
                                            for lvl in plan.grad)
+
+
+# the bf16 forward's lanes, split and block size (csrc/msda_fwd_bf16.cu
+# reads them from the plan): four lanes of eight channels to a head of 32,
+# a query's samples shared by lane groups of one warp where the launch
+# leaves the card mostly idle
+@pytest.mark.parametrize("d,lanes,f32_lanes", [
+    (32, 4, 8), (24, 4, 8), (8, 4, 8), (40, 8, 16), (64, 8, 16),
+    (128, 16, 32), (256, 32, 32)])
+def test_bf16_lanes_cover_the_head(d, lanes, f32_lanes):
+    assert msda.group_lanes(d, msda.BF16_LANE_CHANNELS) == lanes
+    assert lanes * msda.BF16_LANE_CHANNELS >= d or lanes == 32
+    assert lanes == 4 or (lanes // 2) * msda.BF16_LANE_CHANNELS < d
+    # the float32 kernels keep their lanes of four channels, 8 at least
+    assert msda.group_lanes(d, 4) == f32_lanes
+
+
+@pytest.mark.parametrize("q,pairs,split", [
+    (50, 16, 8),         # the decoder at serving: 3,200 lanes
+    (550, 16, 2),        # in training: 35,200 lanes
+    (800, 16, 2),        # DN-DETR: 51,200 lanes
+    (10200, 16, 1),      # the encoder fills the card
+    (1, 1, 8),
+])
+def test_bf16_split_by_launch_size(q, pairs, split):
+    plan = msda.msda_plan(SHIPPED, q, 4, 32, CPU, 2, pairs)
+    assert plan.lanes == 4 and plan.fwd_split == split
+    lanes = pairs * q * plan.lanes
+    # the largest power of two that keeps the launch within SPLIT_FILL
+    assert split * lanes <= msda.SPLIT_FILL * msda.CARD_THREADS or \
+        split == 1
+    assert split == msda.FWD16_MAX_SPLIT or \
+        2 * split * lanes > msda.SPLIT_FILL * msda.CARD_THREADS
+    # a query's groups stay in one warp
+    assert plan.lanes * plan.fwd_split <= 32
+
+
+def test_sample_split_rule():
+    card = 132 * 2048
+    assert msda.sample_split(1, card, 8) == 8
+    assert msda.sample_split(1, card, 4) == 4
+    assert msda.sample_split(card, card, 8) == 1
+    half = int(msda.SPLIT_FILL * card)
+    assert msda.sample_split(half // 2, card, 8) == 2
+    assert msda.sample_split(half // 2 + 1, card, 8) == 1
+    # the card's size decides, where it is known
+    assert msda.sample_split(35200, 2 * card, 8) == 4
+
+
+@pytest.mark.parametrize("q,pairs,threads", [
+    (10200, 16, 512),    # runs of 128 queries x 4 lanes
+    (50, 16, 512),       # 16 queries x 32 lanes, capped
+    (550, 16, 128),      # 16 queries x 8 lanes
+    (33, 2, 512),
+])
+def test_bf16_block_threads(q, pairs, threads):
+    plan = msda.msda_plan(SHIPPED, q, 4, 32, CPU, 2, pairs)
+    assert plan.fwd_threads == threads
+    assert plan.fwd_threads % 32 == 0
+    assert plan.fwd_threads <= msda.FWD16_THREADS
+    # a block holds at least one query's groups
+    assert plan.fwd_threads >= plan.lanes * plan.fwd_split
+    assert plan.fwd_threads == min(
+        msda.FWD16_THREADS,
+        -(-plan.max_run * plan.lanes * plan.fwd_split // 32) * 32)
+
+
+def test_block_threads_rule():
+    assert msda.block_threads(0, 4, 512) == 32
+    assert msda.block_threads(5, 4, 512) == 32
+    assert msda.block_threads(9, 4, 512) == 64
+    assert msda.block_threads(128, 8, 512) == 512
+    assert msda.block_threads(128, 8, 1024) == 1024
+
+
+def test_the_launch_size_changes_only_the_bf16_fields():
+    """The pairs (B x M) a launch has decide the bf16 split and nothing of
+    the block map the float32 kernels read."""
+    a = msda.msda_plan(SHIPPED, 550, 4, 32, CPU, 2, 16)
+    b = msda.msda_plan(SHIPPED, 550, 4, 32, CPU, 2, 1)
+    assert a is not b and a.fwd_split == 2 and b.fwd_split == 8
+    for field in ("n_runs", "max_run", "identity", "resident", "grad",
+                  "resident_bytes", "grad_bytes"):
+        assert getattr(a, field) == getattr(b, field), field
+    np.testing.assert_array_equal(a.order.numpy(), b.order.numpy())
+
+
+def test_card_threads_off_the_card():
+    assert msda.card_threads(CPU) == msda.CARD_THREADS == 132 * 2048
+
+
+def test_bf16_block_cap_is_the_kernels_launch_bound():
+    """FWD16_THREADS caps the plan's blocks at the bf16 forward's launch
+    bound, MSDA_FWD16_THREADS in its source; the two numbers are one."""
+    import os
+    import re
+
+    src = os.path.join(os.path.dirname(msda.__file__), "csrc",
+                       "msda_fwd_bf16.cu")
+    with open(src) as f:
+        bound = re.search(r"^#define MSDA_FWD16_THREADS (\d+)$", f.read(),
+                          re.MULTILINE)
+    assert bound and int(bound.group(1)) == msda.FWD16_THREADS
+
+
+def test_bf16_backward_sorts_the_coarse_levels_at_the_encoder():
+    """The bf16 backward sums levels 2 and 3 in the block at the shipped
+    encoder (their rows get 340 and 1,360 adds a launch, an image and a
+    head); never for the float32 kernels, the decoder's index order or a
+    head that is not 32 channels."""
+    s = _tokens(SHIPPED)
+    plan = msda.msda_plan(SHIPPED, s, 4, 32, CPU, 2, 16)
+    assert plan.sort == (2, 3) and plan.sort_mask == 0b1100
+    assert msda.sort_smem_bytes(SHIPPED, plan.sort, plan.resident,
+                                plan.max_run, 4, 32) \
+        <= msda.SORT_SMEM_BUDGET
+    assert msda.msda_plan(SHIPPED, s, 4, 32, CPU, 4, 16).sort == ()
+    for q in (50, 550, 800):
+        assert msda.msda_plan(SHIPPED, q, 4, 32, CPU, 2, 16).sort == ()
+    assert msda.msda_plan(SHIPPED, s, 4, 24, CPU, 2, 16).sort == ()
+
+
+@pytest.mark.parametrize("min_adds,budget,want", [
+    (256, 113 * 1024, (2, 3)),
+    (1, 113 * 1024, (1, 2, 3)),     # level 0 does not fit
+    (1, 1 << 30, (0, 1, 2, 3)),
+    (1000, 113 * 1024, (3,)),
+    (10 ** 9, 113 * 1024, ()),
+    (256, 50 * 1024, (3,)),         # the finest sorted level goes first
+])
+def test_sorted_levels_rule(monkeypatch, min_adds, budget, want):
+    monkeypatch.setattr(msda, "SORT_MIN_ADDS", min_adds)
+    monkeypatch.setattr(msda, "SORT_SMEM_BUDGET", budget)
+    assert msda.sorted_levels(SHIPPED, (3,), _tokens(SHIPPED), 128, 4,
+                              32) == want
+
+
+def test_sort_smem_bytes():
+    # bf16 level 3 (6 x 20 rows of 32), the places of levels 2-3's 600 rows,
+    # 128 float32 dout rows, and two 6-byte entries a corner of 128 queries
+    # x 8 samples
+    assert msda.sort_smem_bytes(SHIPPED, (2, 3), (3,), 128, 4, 32) == \
+        7680 + 2416 + 128 * 32 * 4 + 2 * 128 * 8 * 4 * 6
+
