@@ -73,9 +73,10 @@ Phases, each printing one JSON line:
             ``build_monodetr`` reads: (a) ``two_stage`` and (b)
             ``use_dab`` + learned position embedding + ``use_depth``
             (4-channel images), each through
-            ``build_monodetr``, ``make_train_step`` (JV matcher: a tall
-            ``lap_jv`` launch a two_stage step for the encoder match of
-            10,200 tokens x 50 padded targets, 12 and 7 valid) and
+            ``build_monodetr``, ``make_train_step`` (JV matcher: a
+            cluster-form ``lap_jv`` launch a two_stage step for the
+            encoder match of 10,200 tokens x 50 padded targets, 12 and 7
+            valid) and
             ``run_inference``; (c) DN-DETR, 5 groups of 50 slots before
             the 550 queries (800 decoder queries an image), written out as
             the JAX package's tests/test_dn_wiring.py does: ``prepare_dn``,
@@ -89,9 +90,11 @@ Phases, each printing one JSON line:
             (launch counts held), a request of two images.  Then K1 and
             K2/K3 replayed on the recorded decoder launches (Q = 550, 800;
             1e-5 of each output's magnitude) with both clocks and the
-            bound, and the tall ``lap_jv`` on the recorded encoder match:
-            equal to the plain JV on the card, at scipy's optimum, its
-            times, the plain version's, the scipy route's and the bound.
+            bound, and ``lap_jv`` on the recorded encoder match, in its
+            planned (cluster) form and the tall form: each equal to the
+            plain JV on the card, at scipy's optimum, its times, steps
+            and us a step, the plain version's, the scipy route's and the
+            bound.
             Last, (a) and (c) under "auto" (bf16 on the card): the kernels'
             step against the plain-MSDA step on ``train_bf16``'s bars, one
             training step with 6 + 6 bf16 launches (counted, every one
@@ -128,15 +131,20 @@ Phases, each printing one JSON line:
             ``gloo`` with CUDA tensors on the one card, each with half
             the batch (each loss within 2e-4 of itself, gradients within
             2e-4 of the largest; each tensor's own share reported).
-   lap    — both LAP kernels (``lap_jv``, ``lap_auction``) against their
-            plain versions on the card, assignment for assignment, on 22
+   lap    — both LAP kernels (``lap_jv`` in each of its forms, warp,
+            cluster and tall, and ``lap_auction``) against their plain
+            versions on the card, assignment for assignment, on 22
             problems of 50 x 50 from a generator (n_valid 0..50, padding
-            columns, ties) and on the three cost batches a train_add step
-            solved; against scipy (JV at the optimum within rel 1e-6 /
-            abs 1e-5, the auction within 5% where no column is padding
-            and within its guarantee elsewhere); the kernels' times, the
-            plain versions', the host route's and the bound; and the
-            device match under torch's sync debug mode.
+            columns, ties), on the three cost batches a train_add step
+            solved and on those of train's auction-matcher step; against
+            scipy (JV at the optimum within rel 1e-6 / abs 1e-5, the
+            auction within 5% where no column is padding and within its
+            guarantee elsewhere); each form's launches and time, the
+            dependent steps (the longest problem's Dijkstra steps or
+            auction rounds, counted on the host by copies of the plain
+            loops) and us a step, the plain versions' times, the host
+            route's and the bound; and the device match under torch's
+            sync debug mode.
 6. fit    — ``fit_cars_conv`` at the full grid (41 x 41 translations,
             40 thetas, 360 fine thetas) on 16 synthetic cars at known
             poses, standing and moving: x and z within 0.35 m, yaw within
@@ -2176,6 +2184,27 @@ def recording_lap():
         lap._launch_jv = launch
 
 
+@contextlib.contextmanager
+def recording_auction():
+    """Wrap ``lap._launch_auction``: a copy of every auction launch's
+    (cost, n_valid), for checking the kernel on the costs of a real
+    step."""
+    from monosowa_tpu_torch.ops import lap
+
+    recorded = []
+    launch = lap._launch_auction
+
+    def recording_launch(cost, n_valid, *args):
+        recorded.append((cost.clone(), n_valid.clone()))
+        return launch(cost, n_valid, *args)
+
+    lap._launch_auction = recording_launch
+    try:
+        yield recorded
+    finally:
+        lap._launch_auction = launch
+
+
 def lap_problems(rng, dev):
     """LAP_PROBLEMS problems of 50 x 50 as the matcher makes them: costs
     of random scales, n_valid in 0..50 (0 and 50 included) with the
@@ -2201,15 +2230,208 @@ def lap_problems(rng, dev):
             torch.from_numpy(m.astype(np.int64)).to(dev))
 
 
-def check_lap(label, cost, n_valid) -> dict:
-    """Both LAP kernels on one batch of problems against their plain
-    versions on the card (assignments equal) and scipy (JV's total cost at
-    the optimum within rel 1e-6 / abs 1e-5; the auction's within 5% where
-    no column is padding, else within its guarantee), with
-    their times, the plain versions', the host route's (copy to the host,
-    a scipy solve per problem, copy back) and the bound."""
-    import numpy as np
+def jv_steps(cost, n_valid):
+    """Each problem's Dijkstra steps under ``lap.solve_lap_jv``, counted on
+    the host by a copy of its loop: (N,) int64, the chain a kernel form
+    walks one step after another."""
     import torch
+
+    from monosowa_tpu_torch.ops import lap
+
+    cost, n_valid = cost.cpu(), n_valid.cpu()
+    n, q, mmax = cost.shape
+    c = cost.transpose(1, 2)
+    m = lap._valid_counts(cost, n_valid)
+    rows = torch.arange(n)
+    inf = torch.tensor(float("inf"))
+    u, v = cost.new_zeros(n, mmax), cost.new_zeros(n, q)
+    p = torch.full((n, q), -1, dtype=torch.long)
+    steps = torch.zeros(n, dtype=torch.long)
+    for i in range(mmax):
+        active = i < m
+        if not bool(active.any()):
+            break
+        minv = c[:, i] - u[:, i:i + 1] - v
+        way = torch.full_like(p, -1)
+        used = torch.zeros(n, q, dtype=torch.bool)
+        j_end = torch.full((n,), -1, dtype=torch.long)
+        run = active.clone()
+        while bool(run.any()):
+            steps += run
+            mv = torch.where(used, inf, minv)
+            j1 = mv.argmin(1)
+            delta = mv.gather(1, j1[:, None])
+            owners = torch.where(used & (p >= 0), p, mmax)
+            u_pad = torch.cat([u, u.new_zeros(n, 1)], 1).scatter_add(
+                1, owners, torch.where(used, delta, 0.0))
+            u_new = u_pad[:, :mmax].clone()
+            u_new[:, i] = u_new[:, i] + delta[:, 0]
+            v_new = torch.where(used, v - delta, v)
+            minv_new = torch.where(used, minv, minv - delta)
+            used_new = used.scatter(1, j1[:, None], True)
+            p_j1 = p.gather(1, j1[:, None])[:, 0]
+            done = p_j1 < 0
+            i2 = p_j1.clamp(min=0)
+            cur = c[rows, i2] - u_new[rows, i2][:, None] - v_new
+            better = (cur < minv_new) & ~used_new & ~done[:, None]
+            minv_new = torch.where(better, cur, minv_new)
+            way_new = torch.where(better, j1[:, None], way)
+            r = run[:, None]
+            u = torch.where(r, u_new, u)
+            v = torch.where(r, v_new, v)
+            minv = torch.where(r, minv_new, minv)
+            way = torch.where(r, way_new, way)
+            used = torch.where(r, used_new, used)
+            j_end = torch.where(run, j1, j_end)
+            run = run & ~done
+        j = j_end
+        while bool((j >= 0).any()):
+            live = j >= 0
+            js = j.clamp(min=0)
+            jprev = way.gather(1, js[:, None])[:, 0]
+            newp = torch.where(jprev < 0, i,
+                               p.gather(1, jprev.clamp(min=0)[:, None])[:, 0])
+            p = torch.where(live[:, None], p.scatter(1, js[:, None],
+                                                     newp[:, None]), p)
+            j = torch.where(live, jprev, j)
+    return steps, p
+
+
+def auction_rounds(cost, n_valid):
+    """Each problem's rounds (all phases) under ``lap.solve_lap_auction``,
+    counted on the host by a copy of its loop: (N,) int64."""
+    import torch
+
+    from monosowa_tpu_torch.ops import lap
+
+    cost, n_valid = cost.cpu(), n_valid.cpu()
+    n, q, mmax = cost.shape
+    m = lap._valid_counts(cost, n_valid)
+    col_ids = torch.arange(q)
+    real = col_ids[None, :mmax, None] < m[:, None, None]
+    benefit = cost.new_zeros(n, q, q)
+    benefit[:, :mmax] = torch.where(real, -cost.transpose(1, 2), 0.0)
+    is_real = col_ids[None, :] < m[:, None]
+    eps_all = lap.auction_eps(cost)
+    ninf = torch.tensor(float("-inf"))
+    prices = cost.new_zeros(n, q)
+    rounds = torch.zeros(n, dtype=torch.long)
+    assigned = torch.full((n, q), -1, dtype=torch.long)
+    for phase in range(lap.AUCTION_PHASES):
+        eps = eps_all[:, phase:phase + 1]
+        owner = torch.full((n, q), -1, dtype=torch.long)
+        assigned = torch.full((n, q), -1, dtype=torch.long)
+        run = torch.ones(n, dtype=torch.bool)
+        for _ in range(lap.AUCTION_ROUNDS):
+            rounds += run
+            unassigned = assigned < 0
+            vals = benefit - prices[:, None, :]
+            best = vals.argmax(2)
+            best_val = vals.amax(2)
+            second_val = vals.scatter(2, best[..., None],
+                                      float("-inf")).amax(2)
+            bid = prices.gather(1, best) + best_val - second_val + eps
+            bids_on = ((col_ids[None, :, None] == best[:, None, :])
+                       & unassigned[:, None, :])
+            bid_mat = torch.where(bids_on, bid[:, None, :], ninf)
+            win_val = bid_mat.amax(2)
+            win_col = bid_mat.argmax(2)
+            has_bid = torch.isfinite(win_val)
+            disp = (has_bid[:, :, None]
+                    & (owner[:, :, None] == col_ids[None, None, :])
+                    & (win_col[:, :, None] != col_ids[None, None, :])
+                    ).any(1)
+            new_assigned = torch.where(disp, -1, assigned)
+            padded = torch.cat([new_assigned,
+                                new_assigned.new_full((n, 1), -1)], 1)
+            idx = torch.where(has_bid, win_col, q)
+            padded = padded.scatter(
+                1, idx, torch.where(has_bid, col_ids[None, :], -1))
+            r = run[:, None]
+            assigned = torch.where(r, padded[:, :q], assigned)
+            owner = torch.where(r & has_bid, win_col, owner)
+            prices = torch.where(r & has_bid, win_val, prices)
+            run = run & (assigned < 0).any(1)
+            if not bool(run.any()):
+                break
+    rows = torch.where(assigned >= 0, assigned, 0)
+    vals = torch.where((assigned >= 0) & is_real, col_ids[None, :], -1)
+    out = torch.full((n, q), -1, dtype=torch.long).scatter_reduce(
+        1, rows, vals, "amax")
+    return rounds, out
+
+
+def host_clock_ms(fn, reps: int) -> float:
+    """Mean wall time of fn() in ms, the card synchronized around the
+    loop (a plain version's or the host route's time)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def jv_form_runs(label, cost, n_valid, want, reps) -> dict:
+    """Every form of ``lap_jv`` that can take the shape (``lap.jv_forms``),
+    launched by its plan: equal to the plain version's ``want`` assignment
+    for assignment, its own launch counter moved by one and no other, its
+    graph ms."""
+    import dataclasses
+
+    import torch
+
+    from monosowa_tpu_torch.ops import lap
+
+    def counters():
+        return {f: getattr(lap, f"jv_{f}_launches") for f in lap.JV_FORMS}
+
+    runs = {}
+    for form, plan in lap.jv_forms(*cost.shape[1:]).items():
+        before = counters()
+        got = lap._launch_jv(cost, n_valid, plan)
+        torch.cuda.synchronize()
+        moved = {f: n - before[f] for f, n in counters().items()}
+        if moved != {f: int(f == form) for f in lap.JV_FORMS}:
+            raise AssertionError(f"lap_jv {label}, {form} form: launches "
+                                 f"{moved}")
+        differ = int((got != want).sum())
+        if differ:
+            raise AssertionError(f"lap_jv {label}, {form} form: {differ} "
+                                 "assignments differ from the plain "
+                                 "version's")
+        runs[form] = {"plan": dataclasses.asdict(plan),
+                      "launches": moved[form],
+                      "ms": device_ms(
+                          lambda: lap._launch_jv(cost, n_valid, plan), reps)}
+    return runs
+
+
+def dependent_steps(solver, cost, n_valid, want) -> int:
+    """The longest problem's chain: its Dijkstra steps (``jv``) or auction
+    rounds, counted on the host by a copy of the plain loop whose result
+    must equal the plain version's ``want``."""
+    count = jv_steps if solver == "jv" else auction_rounds
+    steps, got = count(cost, n_valid)
+    if not (got == want.cpu()).all():
+        raise AssertionError(f"the counting copy of the {solver} loop "
+                             "differs from the plain version")
+    return int(steps.max())
+
+
+def check_lap(label, cost, n_valid, solvers=("lap_jv", "lap_auction")
+              ) -> dict:
+    """The LAP kernels on one batch of problems against their plain
+    versions on the card (assignments equal; for JV every form that can
+    take the shape) and scipy (JV's total cost at the optimum within rel
+    1e-6 / abs 1e-5; the auction's within 5% where no column is padding,
+    else within its guarantee), with each form's graph ms and launches,
+    the dependent steps and us a step, the plain versions' times, the host
+    route's (copy to the host, a scipy solve per problem, copy back) and
+    the bound."""
+    import numpy as np
 
     from monosowa_tpu_torch.ops import lap
 
@@ -2224,22 +2446,15 @@ def check_lap(label, cost, n_valid) -> dict:
         return np.array([costs[k, a[k] >= 0, a[k][a[k] >= 0]].sum()
                          for k in range(n)])
 
-    def host_clock_ms(fn, reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps
-
     opt = total(host)
     out = {}
     for name, kernel, plain, reps in (
             ("lap_jv", lap.lap_jv, lap.solve_lap_jv, 50),
             ("lap_auction", lap.lap_auction, lap.solve_lap_auction, 10)):
+        if name not in solvers:
+            continue
         got = kernel(cost, n_valid)
         want = plain(cost, n_valid)
-        torch.cuda.synchronize()
         differ = int((got != want).sum())
         if differ:
             raise AssertionError(f"{name} {label}: {differ} assignments "
@@ -2263,6 +2478,14 @@ def check_lap(label, cost, n_valid) -> dict:
         if not ok.all():
             raise AssertionError(f"{name} {label}: total cost {val[~ok]} "
                                  f"against scipy's {opt[~ok]}")
+        if name == "lap_jv":
+            forms = jv_form_runs(label, cost, n_valid, want, reps)
+            planned = lap.jv_plan(q, mmax).form
+            ms = forms[planned]["ms"]
+        else:
+            forms, planned = {}, "auction"
+            ms = device_ms(lambda: kernel(cost, n_valid), reps)
+        steps = dependent_steps(name[4:], cost, n_valid, want)
         out[name] = {
             "label": label, "shape": f"N={n} Q={q} M={mmax}",
             "n_valid": counts.tolist(), "assignments_differing": differ,
@@ -2272,7 +2495,8 @@ def check_lap(label, cost, n_valid) -> dict:
             "max_rel_cost_over_optimum_unpadded": float(np.max(
                 ((val - opt) / np.maximum(np.abs(opt), 1e-12))[
                     counts.numpy() == mmax], initial=0.0)),
-            "ms": device_ms(lambda: kernel(cost, n_valid), reps),
+            "form": planned, "forms": forms, "ms": ms,
+            "dependent_steps": steps, "us_a_step": ms * 1e3 / max(steps, 1),
             "ms_launched_from_python": cuda_ms(lambda: kernel(cost, n_valid),
                                                reps),
             "plain_ms": host_clock_ms(lambda: plain(cost, n_valid), 1),
@@ -2310,20 +2534,26 @@ def check_match_syncs_nothing(dev) -> None:
                                  f"{(idx >= 0).sum(1).tolist()}")
 
 
-def lap_phase(dev, recorded) -> dict:
-    """The LAP kernels on the generator's problems and on the three cost
-    batches recorded from a train step; the device match's sync check."""
+def lap_phase(dev, recorded, auction_recorded) -> dict:
+    """The LAP kernels on the generator's problems, on the three cost
+    batches recorded from a train step and on the three that train's
+    auction-matcher step solved; the device match's sync check."""
     import numpy as np
 
-    if len(recorded) != LAP_PER_STEP:
-        raise AssertionError(f"{len(recorded)} JV launches recorded in a "
-                             "train step")
+    for what, rec in (("JV", recorded), ("auction", auction_recorded)):
+        if len(rec) != LAP_PER_STEP:
+            raise AssertionError(f"{len(rec)} {what} launches recorded in "
+                                 "a train step")
     runs = {"generator": check_lap("generator", *lap_problems(
         np.random.default_rng(8), dev))}
     for i, (cost, n_valid) in enumerate(recorded):
         layer = "final layer" if i == 0 else f"aux layer {i - 1}"
         runs[f"train step, {layer}"] = check_lap(f"train step, {layer}",
                                                  cost, n_valid)
+    for i, (cost, n_valid) in enumerate(auction_recorded):
+        layer = "final layer" if i == 0 else f"aux layer {i - 1}"
+        label = f"auction step, {layer}"
+        runs[label] = check_lap(label, cost, n_valid, ("lap_auction",))
     check_match_syncs_nothing(dev)
     return runs
 
@@ -2866,7 +3096,7 @@ def train(dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     msda.launches = msda.bwd_launches = 0
     msda.launches_bf16 = msda.bwd_launches_bf16 = 0
-    lap.jv_launches = lap.auction_launches = 0
+    lap.jv_launches = lap.jv_warp_launches = lap.auction_launches = 0
     history, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -2875,12 +3105,15 @@ def train(dev) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
     fwd_launches, bwd_launches = msda.launches, msda.bwd_launches
     jv_launches, auction_launches = lap.jv_launches, lap.auction_launches
+    jv_warp_launches = lap.jv_warp_launches
     step_peak = torch.cuda.max_memory_allocated()
     if msda.launches_bf16 or msda.bwd_launches_bf16:
         raise AssertionError("the float32 train step launched a bf16 form")
-    if (jv_launches, auction_launches) != (LAP_PER_STEP * TRAIN_STEPS, 0):
+    if (jv_launches, jv_warp_launches, auction_launches) != (
+            LAP_PER_STEP * TRAIN_STEPS, LAP_PER_STEP * TRAIN_STEPS, 0):
         raise AssertionError(f"{TRAIN_STEPS} train steps launched lap_jv "
-                             f"{jv_launches} and lap_auction "
+                             f"{jv_launches} times ({jv_warp_launches} of "
+                             f"the warp form) and lap_auction "
                              f"{auction_launches} times")
 
     # the same steps with the host matcher (scipy, PR 7's route), and one
@@ -2904,7 +3137,8 @@ def train(dev) -> dict:
 
     host_ms = steps_with("host", TRAIN_STEPS)
     lap.auction_launches = 0
-    auction_ms = steps_with("auction", 1)
+    with recording_auction() as auction_costs:
+        auction_ms = steps_with("auction", 1)
     auction_path = lap.auction_launches
     if auction_path != LAP_PER_STEP:
         raise AssertionError(f"a step with the auction matcher launched "
@@ -2929,6 +3163,7 @@ def train(dev) -> dict:
             "msda_fwd_launches": fwd_launches,
             "msda_bwd_launches": bwd_launches,
             "lap_jv_launches": jv_launches,
+            "lap_jv_warp_launches": jv_warp_launches,
             "train_step_ms_host_matcher": host_ms,
             "train_step_ms_host_matcher_mean": sum(host_ms) / len(host_ms),
             "train_step_ms_auction_matcher": auction_ms,
@@ -2940,7 +3175,8 @@ def train(dev) -> dict:
             "bwd_kernel_vs_plain_bwd_grad_max_rel": rel_b,
             "bwd_kernel_vs_plain_bwd_grad_worst": worst_b,
             "kernel_step_peak_mem_GB": peak_k / 1e9,
-            "plain_step_peak_mem_GB": peak_p / 1e9}
+            "plain_step_peak_mem_GB": peak_p / 1e9,
+            "_auction_costs": auction_costs}
 
 
 # bars of train_bf16, which compares the kernels' step with two others from
@@ -4065,27 +4301,29 @@ def check_msda_bwd_recorded(label: str, recorded) -> dict:
 
 
 def check_tall_jv(label: str, cost, n_valid) -> dict:
-    """The tall form of ``lap_jv`` on one encoder match's costs (N images x
-    10,200 tokens x 50 padded targets): equal to the plain
-    ``solve_lap_jv`` on the card, its total cost at scipy's optimum within
-    rel 1e-6 / abs 1e-5, every valid target assigned; its ms from a
-    replayed graph and from Python, the plain version's, the scipy route's
-    and the bound (the cost read once, the counts read and the assignment
-    written once)."""
+    """``lap_jv`` on one encoder match's costs (N images x 10,200 tokens x
+    50 padded targets), past the warp form: through the wrapper in its
+    planned form and in every form that can take the shape (the cluster
+    and the tall form), each equal to the plain ``solve_lap_jv`` on the
+    card; its total cost at scipy's optimum within rel 1e-6 / abs 1e-5,
+    every valid target assigned; its ms from a replayed graph and from
+    Python, each form's, the dependent steps and us a step, the plain
+    version's, the scipy route's and the bound (the cost read once, the
+    counts read and the assignment written once)."""
     import numpy as np
     import torch
 
     from monosowa_tpu_torch.ops import lap
 
     n, q, mmax = cost.shape
-    if lap.jv_smem_bytes(q, mmax) <= lap.SMEM_LIMIT:
-        raise AssertionError(f"{label}: Q={q} M={mmax} is not tall")
-    launches = lap.jv_tall_launches
+    planned = lap.jv_plan(q, mmax).form
+    if planned == "warp":
+        raise AssertionError(f"{label}: Q={q} M={mmax} takes the warp form")
+    launches = getattr(lap, f"jv_{planned}_launches")
     got = lap.lap_jv(cost, n_valid)
-    if lap.jv_tall_launches != launches + 1:
-        raise AssertionError(f"{label}: the tall form did not launch")
+    if getattr(lap, f"jv_{planned}_launches") != launches + 1:
+        raise AssertionError(f"{label}: the {planned} form did not launch")
     want = lap.solve_lap_jv(cost, n_valid)
-    torch.cuda.synchronize()
     differ = int((got != want).sum())
     if differ:
         raise AssertionError(f"lap_jv {label}: {differ} assignments differ "
@@ -4103,21 +4341,16 @@ def check_tall_jv(label: str, cost, n_valid) -> dict:
         if abs(val - opt) > 1e-5 + 1e-6 * abs(opt):
             raise AssertionError(f"lap_jv {label}: total cost {val} against "
                                  f"scipy's {opt}")
-
-    def host_clock_ms(fn, reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / reps
-
+    forms = jv_form_runs(label, cost, n_valid, want, 20)
+    steps = dependent_steps("jv", cost, n_valid, want)
+    ms = device_ms(lambda: lap.lap_jv(cost, n_valid), 20)
+    torch.cuda.synchronize()
     nbytes = cost.numel() * 4 + n * 4 + n * q * 8
-    return {"label": label, "form": "tall (one block of 1,024 threads a "
-            "problem)", "shape": f"{label}: N={n} Q={q} M={mmax}",
+    return {"label": label, "form": planned, "forms": forms,
+            "shape": f"{label}: N={n} Q={q} M={mmax}",
             "n_valid": counts.tolist(), "assignments_differing": differ,
-            "max_abs_err": 0.0,
-            "ms": device_ms(lambda: lap.lap_jv(cost, n_valid), 20),
+            "max_abs_err": 0.0, "ms": ms,
+            "dependent_steps": steps, "us_a_step": ms * 1e3 / max(steps, 1),
             "ms_launched_from_python": cuda_ms(
                 lambda: lap.lap_jv(cost, n_valid), 20),
             "plain_ms": host_clock_ms(
@@ -4134,7 +4367,9 @@ def variant_counts() -> dict:
     return {"msda_fwd": msda.launches, "msda_bwd": msda.bwd_launches,
             "msda_fwd_bf16": msda.launches_bf16,
             "msda_bwd_bf16": msda.bwd_launches_bf16,
-            "lap_jv": lap.jv_launches, "lap_jv_tall": lap.jv_tall_launches,
+            "lap_jv": lap.jv_launches,
+            "lap_jv_cluster": lap.jv_cluster_launches,
+            "lap_jv_tall": lap.jv_tall_launches,
             "lap_auction": lap.auction_launches}
 
 
@@ -4143,7 +4378,8 @@ def reset_variant_counts() -> None:
 
     msda.launches = msda.bwd_launches = 0
     msda.launches_bf16 = msda.bwd_launches_bf16 = 0
-    lap.jv_launches = lap.jv_tall_launches = lap.auction_launches = 0
+    lap.jv_launches = lap.auction_launches = 0
+    lap.jv_warp_launches = lap.jv_cluster_launches = lap.jv_tall_launches = 0
 
 
 def run_variant(name: str, model, step, loss_of, want: dict,
@@ -4234,7 +4470,7 @@ def detector_variants(dev) -> dict:
     image) written out as the JAX package's tests/test_dn_wiring.py does:
     ``prepare_dn``, the forward, the criterion plus ``dn_loss`` of the last
     layer, backward and an AdamW step.  Then K1 and K2/K3 replayed on the
-    recorded decoder launches and the tall ``lap_jv`` on the recorded
+    recorded decoder launches and ``lap_jv``'s tall forms on the recorded
     encoder matches.  Last, (a) and (c) under "auto" (bf16 on the card):
     ``variant_bf16_step``."""
     import numpy as np
@@ -4256,7 +4492,7 @@ def detector_variants(dev) -> dict:
             request["image"] = variant_batch(True)["image"]
         want = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD,
                 "lap_jv": LAP_PER_STEP + bool(flags.get("two_stage")),
-                "lap_jv_tall": int(bool(flags.get("two_stage")))}
+                "lap_jv_cluster": int(bool(flags.get("two_stage")))}
         runs[name] = run_variant(name, model, step, loss_of, want, request)
         del model, step
         torch.cuda.empty_cache()
@@ -4275,8 +4511,8 @@ def detector_variants(dev) -> dict:
     del model, dn_step, dn_fixed_losses
     torch.cuda.empty_cache()
 
-    # the recorded launches: K1 and K2/K3 at the decoder's shapes, the
-    # tall JV on the encoder matches
+    # the recorded launches: K1 and K2/K3 at the decoder's shapes, JV's
+    # tall forms on the encoder matches
     fwd, bwd = {}, {}
     for name, res in runs.items():
         recs_f, recs_b = res.pop("_fwd"), res.pop("_bwd")
@@ -4299,10 +4535,10 @@ def detector_variants(dev) -> dict:
                    "shape", "max_abs_err", "ms", "ms_launched_from_python",
                    "plain_ms", "bound_ms", "bound_by")}
                    for k, v in bwd.items()},
-               lap_jv_tall=tall_runs,
+               lap_jv_encoder=tall_runs,
                launches={k: sum(r["launches"][k] for r in runs.values())
                          for k in ("msda_fwd", "msda_bwd", "lap_jv",
-                                   "lap_jv_tall")},
+                                   "lap_jv_cluster")},
                seconds=time.perf_counter() - t_phase)
     # under bf16 ("auto" on the card): a step each of two_stage (decoder
     # Q = 550) and DN-DETR (Q = 800), the bf16 kernels replayed on its
@@ -7010,6 +7246,7 @@ def main() -> int:
 
     # 5. train, float32 and bf16
     trn = train(dev)
+    auction_recorded = trn.pop("_auction_costs")
     emit(trn)
     trn16 = train_bf16(dev)
     trn16["float32_train"] = {k: trn[k] for k in (
@@ -7066,14 +7303,14 @@ def main() -> int:
 
     # 5c. the LAP kernels on the generator's problems and on the costs a
     # train_add step solved
-    lap_runs = lap_phase(dev, recorded)
-    del recorded
+    lap_runs = lap_phase(dev, recorded, auction_recorded)
+    del recorded, auction_recorded
     for res in lap_runs.values():
-        for name in ("lap_jv", "lap_auction"):
-            emit({"phase": "kernel", "name": name, **res[name]})
-    # the tall form on the two-stage encoder match (detector_variants)
-    lap_runs.update({f"{key} (tall form)": {"lap_jv": res}
-                     for key, res in dv_tall.items()})
+        for name, run in res.items():
+            emit({"phase": "kernel", "name": name, **run})
+    # the cluster and tall forms on the two-stage encoder match
+    # (detector_variants)
+    lap_runs.update({key: {"lap_jv": res} for key, res in dv_tall.items()})
     torch.cuda.empty_cache()
 
     # 6. fit
@@ -7160,13 +7397,18 @@ def main() -> int:
                 "other_shapes": [{k: r.get(k) for k in keys}
                                  for key, r in runs.items() if key != first]}
 
-    def lap_entry(name, replaces, launches):
+    def lap_entry(name, replaces, launches, first, by_form):
         runs = {key: res[name] for key, res in lap_runs.items()
                 if name in res}
         out = entry(name, "monosowa_tpu_torch/ops/csrc/lap.cu", replaces,
-                    launches, runs, "train step, final layer")
-        out["host_route_ms"] = runs["train step, final layer"][
-            "host_route_ms"]
+                    launches, runs, first)
+        out["host_route_ms"] = runs[first]["host_route_ms"]
+        out["launches_by_form"] = by_form
+        # each shape's chain and each form's time on it
+        out["steps"] = {key: {k: r[k] for k in (
+            "form", "dependent_steps", "us_a_step")} | {
+            "forms_ms": {f: v["ms"] for f, v in r["forms"].items()}}
+            for key, r in runs.items()}
         return out
 
     kernels = [
@@ -7233,10 +7475,17 @@ def main() -> int:
                    "msda_onehot": onehot["launches"]["lap_jv"],
                    "ddp": dpr["launches"]["lap_jv"],
                    "detector_variants": dvr["launches"]["lap_jv"],
-                   "epoch": epc["lap_jv_launches"]}),
+                   "epoch": epc["lap_jv_launches"]},
+                  "train step, final layer",
+                  {"warp (train)": trn["lap_jv_warp_launches"],
+                   "cluster (detector_variants two_stage)":
+                   dvr["launches"]["lap_jv_cluster"]}),
         lap_entry("lap_auction", "monosowa_tpu/ops/lap.py:219 "
                   "solve_lap_auction (XLA, not Pallas)",
                   {"train (auction matcher)":
+                   trn["lap_auction_launches_auction_step"]},
+                  "auction step, final layer",
+                  {"auction (train)":
                    trn["lap_auction_launches_auction_step"]}),
     ]
     idle = [k["name"] for k in kernels if not k["launches"] > 0]

@@ -15,12 +15,17 @@ problem per (image, Group-DETR group).
 * ``solve_lap_auction`` — Jacobi auction with epsilon scaling on the
   squared problem (JAX ``solve_lap_auction`` :219), near-optimal.
 
-``lap_jv`` has two forms, both hand-written kernels of ``csrc/lap.cu``,
-chosen by ``jv_smem_bytes``: a problem whose transposed cost and state fit
-a block's shared memory (the decoder's 50 x 50 matches) takes the one-warp
-form; a tall one (the two-stage encoder match, 10,200 tokens x 50
-targets) takes ``lap_jv_tall``, one block of 1,024 threads a problem with
-the cost in device memory.
+``lap_jv`` has three forms, hand-written kernels of ``csrc/lap.cu``, and
+``jv_plan`` picks one from the shape alone (never from the counts or the
+costs, so a match waits for nothing): ``warp``, one warp a problem with its
+state in registers and its cost in shared memory (the decoder's 50 x 50
+matches, up to 512 rows); ``cluster``, a cluster of up to 16 blocks a
+problem, each holding a slice of the cost in its shared memory (the
+two-stage encoder match, 10,200 tokens x 50 targets); ``tall``, one block of
+1,024 threads a problem with the cost in device memory, past what a
+cluster holds.  ``auction_plan`` sizes ``lap_auction``'s block: a warp a
+real column, and the rounds in which only the zero-benefit columns bid
+run in one warp on the rows held sorted by price in its registers.
 
 ``solve_lap_jv`` and ``solve_lap_auction`` are the plain versions: they
 follow the JAX functions step by step (the same float32 operations in the
@@ -30,8 +35,8 @@ have stopped), so they give the JAX solvers' assignments, not merely
 assignments of the same cost.  ``lap_jv`` and ``lap_auction`` launch the
 hand-written kernels of ``csrc/lap.cu`` for CUDA tensors and run the plain
 versions for CPU tensors; there is no other path.  ``jv_launches`` and
-``auction_launches`` count kernel launches (``jv_launches`` those of both
-forms, ``jv_tall_launches`` those of the tall form alone).
+``auction_launches`` count kernel launches, ``jv_warp_launches``,
+``jv_cluster_launches`` and ``jv_tall_launches`` those of each JV form.
 
 One departure: a problem with more valid columns than rows is solved over
 its first Q columns.  The JAX solvers never end on such a problem (JV) or
@@ -42,6 +47,7 @@ assigns Q of the columns.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -50,11 +56,22 @@ import torch
 AUCTION_PHASES = 10
 AUCTION_ROUNDS = 200
 SMEM_LIMIT = 227 * 1024       # dynamic shared memory a Hopper block may have
-AUCTION_MAX_Q = 1024          # one thread per row and per column
+AUCTION_MAX_Q = 1024          # one thread a row
+SLOTS = (1, 2, 4, 8, 16)      # objects a lane (JV warp) or thread (cluster)
+AUCTION_SLOTS = SLOTS + (32,)  # rows a lane of the auction's zero rounds
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # blocks a problem of the cluster form
+CLUSTER_THREADS = 256         # a cluster form block
+CLUSTER_MAX_Q = 65534         # its candidates' indices: 16 bits
+WARP_THREADS = 128            # the warp form's block (one warp past the load)
+TALL_THREADS = 1024
+TALL_STATIC_BYTES = 4 * 66    # the tall form's reduction partials
+JV_FORMS = ("warp", "cluster", "tall")
 
-# kernel launches of lap_jv and lap_auction (read and reset by callers that
-# must show a run went through the kernels)
+# kernel launches of lap_jv (all forms, and each form) and lap_auction (read
+# and reset by callers that must show a run went through the kernels)
 jv_launches = 0
+jv_warp_launches = 0
+jv_cluster_launches = 0
 jv_tall_launches = 0
 auction_launches = 0
 
@@ -295,23 +312,117 @@ def lap_auction(cost: torch.Tensor, n_valid: torch.Tensor,
                            rounds_per_phase)
 
 
-def jv_smem_bytes(q: int, mmax: int) -> int:
-    """Shared memory of one block of the one-warp ``lap_jv``: the
-    transposed cost, u, and v, minv, p, way, used."""
-    return 4 * (mmax * q + mmax + 5 * q)
+@dataclasses.dataclass(frozen=True)
+class LapPlan:
+    """One launch's shape: the form, a block's threads, blocks a problem
+    (the cluster), objects a lane or thread (``slots``; the auction's rows
+    a lane in its zero rounds), dynamic shared memory a block, and for the
+    tall form whether its state fits shared memory."""
+    form: str
+    threads: int
+    cluster: int
+    slots: int
+    smem_bytes: int
+    state_in_smem: bool = True
+
+
+def _slots(objects: int, lanes: int, slots=SLOTS) -> int:
+    """The least of ``slots`` that gives ``objects`` a place over
+    ``lanes`` lanes, else 0."""
+    return next((k for k in slots if k * lanes >= objects), 0)
+
+
+def _cost_stride(q: int, mmax: int) -> int:
+    """A cost row's words in shared memory: the min(Q, M) persons that can
+    take part, at an odd stride (32 lanes on 32 banks)."""
+    return min(q, mmax) | 1
+
+
+def jv_warp_smem_bytes(q: int, mmax: int) -> int:
+    """The warp form's block: the cost (Q rows) and the owners'
+    potentials, persons and path links, a word each an object."""
+    return 4 * (q * _cost_stride(q, mmax) + 3 * q)
+
+
+def jv_cluster_smem_bytes(q: int, mmax: int, cluster: int) -> int:
+    """A cluster form block: two buffers of the cluster's candidates (16
+    bytes a warp), the cost of the block's ceil(Q / cluster) objects as in
+    the warp form, and an augmentation's steps (at most min(Q, M): the
+    object, its way, its owner and the owner's potential, a word each)."""
+    qc = -(-q // cluster)
+    return 16 * 2 * cluster * (CLUSTER_THREADS // 32) \
+        + 4 * (qc * _cost_stride(q, mmax) + 4 * min(q, mmax))
 
 
 def jv_tall_smem_bytes(q: int, mmax: int, state_in_smem: bool) -> int:
-    """Shared memory of one ``lap_jv_tall`` block: the reduction's
-    partials and broadcast (66 words, static), u, and with
-    ``state_in_smem`` v, minv, p, way, used."""
-    return 4 * (66 + mmax + (5 * q if state_in_smem else 0))
+    """The tall form's dynamic shared memory: u, and with
+    ``state_in_smem`` v, minv, p, way, used (its reduction's partials,
+    ``TALL_STATIC_BYTES``, are static)."""
+    return 4 * (mmax + (5 * q if state_in_smem else 0))
 
 
-def auction_smem_bytes(q: int) -> int:
-    """Shared memory of one ``lap_auction`` block: the transposed squared
-    benefit and ten arrays of one value a row or column."""
-    return 4 * (q * q + 10 * q)
+def jv_forms(q: int, mmax: int) -> dict:
+    """{form: LapPlan} of every JV form that can take a (Q, M) problem."""
+    forms = {}
+    slots = _slots(q, 32)
+    if slots and jv_warp_smem_bytes(q, mmax) <= SMEM_LIMIT:
+        forms["warp"] = LapPlan("warp", WARP_THREADS, 1, slots,
+                                jv_warp_smem_bytes(q, mmax))
+    for cluster in CLUSTER_SIZES:
+        slots = _slots(-(-q // cluster), CLUSTER_THREADS)
+        smem = jv_cluster_smem_bytes(q, mmax, cluster)
+        if slots and smem <= SMEM_LIMIT and q <= CLUSTER_MAX_Q:
+            forms["cluster"] = LapPlan("cluster", CLUSTER_THREADS, cluster,
+                                       slots, smem)
+            break
+    for in_smem in (True, False):
+        smem = jv_tall_smem_bytes(q, mmax, in_smem)
+        if smem + TALL_STATIC_BYTES <= SMEM_LIMIT:
+            forms["tall"] = LapPlan("tall", TALL_THREADS, 1, 0, smem,
+                                    in_smem)
+            break
+    return forms
+
+
+def jv_plan(q: int, mmax: int, form: str | None = None) -> LapPlan:
+    """The JV launch for a (Q, M) problem, from its shape alone: the first
+    of warp, cluster, tall that can take it, or ``form`` where the caller
+    names one (to hold each form against the plain version).  Raises where
+    no form, or not the named one, can take it."""
+    forms = jv_forms(int(q), int(mmax))
+    name = form or next((f for f in JV_FORMS if f in forms), None)
+    if name not in forms:
+        raise ValueError(f"lap_jv: no {form or 'form'} takes Q = {q}, "
+                         f"M = {mmax}")
+    return forms[name]
+
+
+def auction_smem_bytes(q: int, mmax: int) -> int:
+    """``lap_auction``'s block: a row's best real bid (8 bytes), the
+    negated cost of the min(Q, M) real columns, prices, owners, the real
+    columns' rows, the zero columns' bitmask (32 words), the round's
+    zero-column bid (3 words) and the round's counts (5 words)."""
+    persons = min(q, mmax)
+    return 8 * q + 4 * (persons * q + 2 * q + persons + 40)
+
+
+def auction_plan(q: int, mmax: int) -> LapPlan:
+    """``lap_auction``'s launch for a (Q, M) problem: one block, a warp a
+    real column and one for the zero columns (at most 32), at least a
+    thread a row, and the rows a lane of the zero columns' warp holds in
+    its rounds alone (``slots``).  Raises where the kernel cannot take the
+    shape."""
+    if mmax > q:
+        raise ValueError(f"auction: M = {mmax} target columns for Q = {q} "
+                         "rows; the squared problem needs M <= Q")
+    smem = auction_smem_bytes(q, mmax)
+    if q > AUCTION_MAX_Q or smem > SMEM_LIMIT:
+        raise ValueError(f"lap_auction: Q = {q}, M = {mmax}; the kernel "
+                         f"takes at most {AUCTION_MAX_Q} rows and "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    warps = max(-(-q // 32), min(32, min(q, mmax) + 1))
+    return LapPlan("auction", 32 * warps, 1, _slots(q, 32, AUCTION_SLOTS),
+                   smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -320,63 +431,72 @@ def _kernels():
     from monosowa_tpu_torch.ops._build import load_library
 
     lib = load_library("lap")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    # cost, n_valid, out, N, Q, M, stream
-    lib.lap_jv.argtypes = [p, p, p, i, i, i, p]
-    # costT, n_valid, out, scratch, N, Q, M, stream
-    lib.lap_jv_tall.argtypes = [p, p, p, p, i, i, i, p]
-    # cost, n_valid, eps, out, N, Q, M, phases, rounds, stream
-    lib.lap_auction.argtypes = [p, p, p, p, i, i, i, i, i, p]
-    for fn in (lib.lap_jv, lib.lap_jv_tall, lib.lap_auction):
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # cost, n_valid, out, N, Q, M, slots, smem, stream
+    lib.lap_jv_warp.argtypes = [p, p, p, i, i, i, i, ll, p]
+    # cost, n_valid, out, N, Q, M, cluster, slots, smem, stream
+    lib.lap_jv_cluster.argtypes = [p, p, p, i, i, i, i, i, ll, p]
+    # costT, n_valid, out, scratch, N, Q, M, smem, stream
+    lib.lap_jv_tall.argtypes = [p, p, p, p, i, i, i, ll, p]
+    # cost, n_valid, eps, out, N, Q, M, phases, rounds, threads, slots,
+    # smem, stream
+    lib.lap_auction.argtypes = [p, p, p, p, i, i, i, i, i, i, i, ll, p]
+    for fn in (lib.lap_jv_warp, lib.lap_jv_cluster, lib.lap_jv_tall,
+               lib.lap_auction):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _launch_jv(cost, n_valid):
-    """One launch of the one-warp form where a problem fits a block's
-    shared memory, else of the tall form."""
-    global jv_launches, jv_tall_launches
+def _launch_jv(cost, n_valid, plan: LapPlan | None = None):
+    """One launch of the form ``jv_plan`` gives the shape, or of ``plan``."""
+    global jv_launches, jv_warp_launches, jv_cluster_launches, \
+        jv_tall_launches
     n, q, mmax = cost.shape
+    plan = plan or jv_plan(q, mmax)
     counts = n_valid.to(torch.int32).contiguous()
     out = torch.empty(n, q, dtype=torch.int64, device=cost.device)
     if n == 0:
         return out
-    tall = jv_smem_bytes(q, mmax) > SMEM_LIMIT
-    if tall:
+    if plan.form == "tall":
         # a person's row of objects contiguous; the state in shared memory
         # where it fits, else in a scratch of device memory
         cost_t = cost.transpose(1, 2).contiguous()
-        in_smem = jv_tall_smem_bytes(q, mmax, True) <= SMEM_LIMIT
-        scratch = None if in_smem else torch.empty(
+        scratch = None if plan.state_in_smem else torch.empty(
             n * 5 * q, dtype=torch.float32, device=cost.device)
+    lib = _kernels()
     with torch.cuda.device(cost.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if tall:
-            err = _kernels().lap_jv_tall(
+        if plan.form == "warp":
+            err = lib.lap_jv_warp(cost.data_ptr(), counts.data_ptr(),
+                                  out.data_ptr(), n, q, mmax, plan.slots,
+                                  plan.smem_bytes, stream)
+        elif plan.form == "cluster":
+            err = lib.lap_jv_cluster(cost.data_ptr(), counts.data_ptr(),
+                                     out.data_ptr(), n, q, mmax,
+                                     plan.cluster, plan.slots,
+                                     plan.smem_bytes, stream)
+        else:
+            err = lib.lap_jv_tall(
                 cost_t.data_ptr(), counts.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), n, q, mmax,
-                stream)
-        else:
-            err = _kernels().lap_jv(cost.data_ptr(), counts.data_ptr(),
-                                    out.data_ptr(), n, q, mmax, stream)
+                plan.smem_bytes, stream)
     if err != 0:
-        raise RuntimeError(f"lap_jv{'_tall' if tall else ''} launch failed: "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"lap_jv ({plan.form} form) launch failed: CUDA "
+                           f"error {err}")
     jv_launches += 1
-    jv_tall_launches += tall
+    if plan.form == "warp":
+        jv_warp_launches += 1
+    elif plan.form == "cluster":
+        jv_cluster_launches += 1
+    else:
+        jv_tall_launches += 1
     return out
 
 
 def _launch_auction(cost, n_valid, num_phases, rounds_per_phase):
     global auction_launches
     n, q, mmax = cost.shape
-    if mmax > q:
-        raise ValueError(f"auction: M = {mmax} target columns for Q = {q} "
-                         "rows; the squared problem needs M <= Q")
-    if q > AUCTION_MAX_Q or auction_smem_bytes(q) > SMEM_LIMIT:
-        raise ValueError(f"lap_auction: Q = {q} rows; the kernel takes at "
-                         f"most {AUCTION_MAX_Q} and {SMEM_LIMIT} bytes of "
-                         "shared memory")
+    plan = auction_plan(q, mmax)
     counts = n_valid.to(torch.int32).contiguous()
     eps = auction_eps(cost, num_phases).contiguous()
     out = torch.empty(n, q, dtype=torch.int64, device=cost.device)
@@ -386,7 +506,8 @@ def _launch_auction(cost, n_valid, num_phases, rounds_per_phase):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels().lap_auction(
             cost.data_ptr(), counts.data_ptr(), eps.data_ptr(),
-            out.data_ptr(), n, q, mmax, num_phases, rounds_per_phase, stream)
+            out.data_ptr(), n, q, mmax, num_phases, rounds_per_phase,
+            plan.threads, plan.slots, plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"lap_auction launch failed: CUDA error {err}")
     auction_launches += 1

@@ -886,40 +886,89 @@ def _lap_problems(seed, n, q, mmax):
     return torch.from_numpy(cost), torch.from_numpy(m)
 
 
+def _signed_zeros(seed, n, q, mmax):
+    """Problems of +0.0 and -0.0 costs with a few -1.0: ties that only
+    the sign of a zero tells apart, which no solver may do."""
+    rng = np.random.default_rng(seed)
+    cost = np.where(rng.random((n, q, mmax)) < 0.5, -0.0, 0.0)
+    cost[rng.random((n, q, mmax)) < 0.05] = -1.0
+    m = np.full(n, mmax)
+    m[0] = mmax // 2
+    return torch.from_numpy(cost.astype(np.float32)), torch.from_numpy(m)
+
+
+def _form_launches():
+    return {f: getattr(lap, f"jv_{f}_launches") for f in lap.JV_FORMS}
+
+
 @pytest.mark.parametrize("n,q,mmax", [(22, 50, 50), (7, 20, 8), (3, 33, 1),
-                                      (4, 100, 90)])
+                                      (4, 100, 90), (3, 47, 50),
+                                      (2, 512, 50)])
 def test_lap_jv_kernel_equals_plain(cuda, n, q, mmax):
     cost, m = _lap_problems(n, n, q, mmax)
-    before = lap.jv_launches
+    before, forms = lap.jv_launches, _form_launches()
     got = lap.lap_jv(cost.to(cuda), m.to(cuda))
     torch.cuda.synchronize()
     assert lap.jv_launches == before + 1
+    form = lap.jv_plan(q, mmax).form
+    assert _form_launches() == {**forms, form: forms[form] + 1}
     assert got.dtype == torch.int64 and got.shape == (n, q)
+    torch.testing.assert_close(got.cpu(), lap.solve_lap_jv(cost, m),
+                               rtol=0, atol=0)
+
+
+# every form that can take the shape, on the decoder's problems, Q not a
+# multiple of 32, the warp form's 512 rows, one column, signed zeros
+@pytest.mark.parametrize("form", ["warp", "cluster", "tall"])
+@pytest.mark.parametrize("n,q,mmax,zeros", [
+    (22, 50, 50, False), (7, 20, 8, False), (3, 33, 1, False),
+    (3, 47, 50, False), (2, 512, 50, False), (2, 513, 50, False),
+    (4, 50, 50, True), (2, 300, 40, True)])
+def test_lap_jv_each_form_equals_plain(cuda, form, n, q, mmax, zeros):
+    make = _signed_zeros if zeros else _lap_problems
+    cost, m = make(n + 7, n, q, mmax)
+    if form not in lap.jv_forms(q, mmax):
+        with pytest.raises(ValueError, match="lap_jv"):
+            lap.jv_plan(q, mmax, form)
+        return
+    plan = lap.jv_plan(q, mmax, form)
+    forms = _form_launches()
+    got = lap._launch_jv(cost.to(cuda).contiguous(), m.to(cuda), plan)
+    torch.cuda.synchronize()
+    assert _form_launches() == {**forms, form: forms[form] + 1}
     torch.testing.assert_close(got.cpu(), lap.solve_lap_jv(cost, m),
                                rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("n,q,mmax", [(4, 2000, 50), (2, 10200, 50),
                                       (2, 12000, 50), (3, 5000, 7),
-                                      (2, 300, 300)])
+                                      (2, 300, 300), (2, 17840, 50),
+                                      (2, 17841, 50)])
 def test_lap_jv_tall_form_equals_plain(cuda, n, q, mmax):
-    """Problems too tall for the one-warp form's shared memory take
-    ``lap_jv_tall``: the two-stage encoder match (10,200 x 50), its state
-    in shared memory; past about 11,600 rows in device memory."""
+    """Problems too tall for the warp form: the two-stage encoder match
+    (10,200 x 50) and up to 17,840 rows at M = 50 take a cluster of
+    blocks, each holding a slice of the cost; past that the tall form,
+    its state in device memory."""
     cost, m = _lap_problems(n + 200, n, q, mmax)
-    assert lap.jv_smem_bytes(q, mmax) > lap.SMEM_LIMIT
-    before, tall = lap.jv_launches, lap.jv_tall_launches
+    form = lap.jv_plan(q, mmax).form
+    assert form == ("tall" if q > 17840 else "cluster")
+    before, forms = lap.jv_launches, _form_launches()
     got = lap.lap_jv(cost.to(cuda), m.to(cuda))
     torch.cuda.synchronize()
-    assert (lap.jv_launches, lap.jv_tall_launches) == (before + 1, tall + 1)
+    assert lap.jv_launches == before + 1
+    assert _form_launches() == {**forms, form: forms[form] + 1}
     torch.testing.assert_close(
         got.cpu(), lap.solve_lap_jv(cost.to(cuda), m.to(cuda)).cpu(),
         rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("n,q,mmax", [(22, 50, 50), (7, 20, 8), (3, 33, 1)])
-def test_lap_auction_kernel_equals_plain(cuda, n, q, mmax):
-    cost, m = _lap_problems(n + 100, n, q, mmax)
+@pytest.mark.parametrize("n,q,mmax,zeros", [
+    (22, 50, 50, False), (7, 20, 8, False), (3, 33, 1, False),
+    (3, 1, 1, False), (3, 47, 47, False), (2, 1024, 50, False),
+    (4, 50, 50, True)])
+def test_lap_auction_kernel_equals_plain(cuda, n, q, mmax, zeros):
+    make = _signed_zeros if zeros else _lap_problems
+    cost, m = make(n + 100, n, q, mmax)
     before = lap.auction_launches
     got = lap.lap_auction(cost.to(cuda), m.to(cuda))
     torch.cuda.synchronize()
@@ -951,19 +1000,25 @@ def test_device_match_syncs_nothing(cuda):
 
 
 def test_lap_kernels_refuse_what_they_cannot_take(cuda):
-    """The auction refuses more columns than rows, JV counts on another
-    device and a cost that is not (N, Q, M); a problem too large for the
-    one-warp JV's shared memory is no longer refused: the tall form takes
-    it (test_lap_jv_tall_form_equals_plain)."""
+    """The auction refuses more columns than rows and a problem past its
+    shared memory, JV counts on another device, a cost that is not (N, Q,
+    M) and a form that cannot take the shape; a problem too large for the
+    warp form is no longer refused: a cluster or the tall form takes it
+    (test_lap_jv_tall_form_equals_plain)."""
     cost = torch.zeros(2, 4, 6, device=cuda)
     m = torch.zeros(2, dtype=torch.int64, device=cuda)
     before = lap.auction_launches, lap.jv_launches
     with pytest.raises(ValueError):
         lap.lap_auction(cost, m)
+    with pytest.raises(ValueError, match="lap_auction"):
+        lap.lap_auction(torch.zeros(1, 300, 300, device=cuda), m[:1])
     with pytest.raises(ValueError):
         lap.lap_jv(cost, m.cpu())
     with pytest.raises(ValueError):
         lap.lap_jv(torch.zeros(300, 300, device=cuda), m[:1])
+    with pytest.raises(ValueError, match="lap_jv"):
+        lap._launch_jv(torch.zeros(1, 600, 50, device=cuda), m[:1],
+                       lap.jv_plan(600, 50, "warp"))
     assert (lap.auction_launches, lap.jv_launches) == before
 
 

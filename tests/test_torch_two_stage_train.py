@@ -260,13 +260,19 @@ def test_plain_jv_on_tall_problems_matches_jax_and_scipy():
 
 
 def test_tall_problems_take_the_tall_form():
-    """The wrapper's choice between the two hand-written forms: the
-    decoder's 50 x 50 problem fits one block's shared memory (one-warp
-    form), the encoder match of 10,200 x 50 does not (tall form) and its
-    state of 20 bytes an object fits the tall block's shared memory, up to
-    about 11,600 rows."""
-    assert lap.jv_smem_bytes(50, 50) <= lap.SMEM_LIMIT
-    assert lap.jv_smem_bytes(10200, 50) > lap.SMEM_LIMIT
+    """The wrapper's choice among the hand-written forms (``jv_plan``, from
+    the shape alone): the decoder's 50 x 50 problem takes the warp form;
+    the encoder match of 10,200 x 50 is past the warp form's 512 rows and
+    takes a cluster of 16 blocks, each holding 638 objects' costs in its
+    shared memory; the tall form still takes it where asked, its state of
+    20 bytes an object in the block's shared memory up to about 11,600
+    rows."""
+    assert lap.jv_plan(50, 50).form == "warp"
+    assert "warp" not in lap.jv_forms(10200, 50)
+    plan = lap.jv_plan(10200, 50)
+    assert (plan.form, plan.cluster) == ("cluster", 16)
+    assert plan.smem_bytes <= lap.SMEM_LIMIT
+    assert lap.jv_plan(10200, 50, "tall").state_in_smem
     assert lap.jv_tall_smem_bytes(10200, 50, True) <= lap.SMEM_LIMIT
     assert lap.jv_tall_smem_bytes(12000, 50, True) > lap.SMEM_LIMIT
     assert lap.jv_tall_smem_bytes(12000, 50, False) < 1024
