@@ -334,6 +334,27 @@ Phases, each printing one JSON line:
             pass of (d) and (e) launches ``tfl_counts``: counted (in the
             ``kernels`` line) and each launch replayed against the plain
             version.
+    import_zoo — public checkpoints into the port without JAX: the
+            full-width layouts of ``monosowa_tpu_torch/sowa/hf_manifests``
+            (Mask2Former Swin-B, Depth Anything V2 Large, SAM ViT-H,
+            EfficientLoFTR: ``config.json`` and ``model.safetensors``,
+            seeded values at std 1 / sqrt(fan in)) each turned into a zoo
+            ``.npz`` by ``tools/import_zoo_checkpoint_torch.py`` in a
+            process of its own (``--no-compress``; the phase fails if it
+            loaded ``jax``, ``flax``, ``transformers``, ``safetensors`` or
+            the JAX package) and loaded through ``sowa/zoo.py``'s backends
+            (``load_zoo_params`` holds every leaf's name and shape); one
+            frame of ``zoo.mask_backend`` from the imported Swin-B file (6
+            K1 launches, K1 held on them against the plain MSDA); the
+            shipped detector with a torchvision-layout ResNet-50 ``.pth``
+            through ``load_torch_resnet_state``: K1-K3 against the plain
+            MSDA on the train phase's bars, one train step (6 + 6 MSDA, 3
+            JV launches), one request through ``run_inference``, the frozen
+            BatchNorm buffers unchanged by the step; ``backends.depth:
+            metric3d_hub`` with ``torch.hub.load`` given a stub network:
+            the encode / decode on the card against the CPU (1e-5).
+            Prints each kind's seconds to write, read, import, save and
+            load, the tool's peak resident memory and the bytes.
 11. kernels — one line listing every ported kernel with its numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
@@ -7086,6 +7107,280 @@ def optional_stages(dev, icp_rng: int = ICP_RNG, fit_cfg=None) -> dict:
     return out
 
 
+# the releases, smallest first
+IMPORT_KINDS = ("loftr", "mask2former", "depth_anything", "sam")
+# the import tool on each release in one process of its own; its last line
+# lists what it loaded of the packages the card's machine does without
+IMPORT_TOOL_CHILD = r"""
+import json, os, runpy, sys
+root, work = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+tool = os.path.join(root, "tools", "import_zoo_checkpoint_torch.py")
+try:
+    for kind in sys.argv[3:]:
+        sys.argv = [tool, "--kind", kind, "--hf",
+                    os.path.join(work, "hf", kind), "--out",
+                    os.path.join(work, "imported", kind + ".npz"),
+                    "--no-compress"]
+        try:
+            runpy.run_path(tool, run_name="__main__")
+        except SystemExit as e:
+            if e.code not in (0, None):
+                raise
+finally:
+    print(json.dumps({"forbidden_loaded": sorted(
+        m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "flax", "transformers", "safetensors",
+            "monosowa_tpu"))}), flush=True)
+"""
+
+
+class StubMetric3D:
+    """torch.hub's Metric3D stand-in for the route's check (the real
+    model's files are not in the repository): canonical depth a smooth
+    function of the encoded image."""
+
+    def to(self, device):
+        return self
+
+    def eval(self):
+        return self
+
+    def inference(self, batch):
+        import torch
+
+        x = batch["input"]
+        return 25.0 + 10.0 * torch.tanh(x.float().mean(1, keepdim=True)), \
+            None, {}
+
+
+def import_releases(root: str, dev) -> dict:
+    """Each release's layout as a seeded checkpoint directory, the import
+    tool on all of them in one process of its own, each ``.npz`` through
+    its zoo backend on ``dev``; -> {kind: numbers}, the Mask2Former
+    backend under ``"_mask_backend"``."""
+    import shutil
+
+    import torch
+
+    from monosowa_tpu_torch.config import Config
+    from monosowa_tpu_torch.sowa import hf_checkpoint, zoo
+
+    out = {}
+    for kind in IMPORT_KINDS:
+        t0 = time.perf_counter()
+        nbytes = hf_checkpoint.write_seeded_checkpoint(
+            kind, os.path.join(root, "hf", kind), seed=19)
+        out[kind] = {"kind": kind, "source": hf_checkpoint.KINDS[kind][2],
+                     "weights_bytes": nbytes,
+                     "write_seeded_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", IMPORT_TOOL_CHILD,
+         os.path.dirname(os.path.abspath(__file__)), root, *IMPORT_KINDS],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    tool_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"import tool: {proc.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    if lines[-1]["forbidden_loaded"]:
+        raise AssertionError(f"the import tool loaded "
+                             f"{lines[-1]['forbidden_loaded']}")
+    for tool in lines[:-1]:
+        out[tool["kind"]].update({k: tool[k] for k in (
+            "read_s", "import_s", "write_s", "tensors_read",
+            "bytes_written", "rss_before_GB", "peak_rss_GB")})
+    if sorted(t["kind"] for t in lines[:-1]) != sorted(IMPORT_KINDS):
+        raise AssertionError(f"the tool wrote {lines[:-1]}")
+    shutil.rmtree(os.path.join(root, "hf"))
+    for kind in IMPORT_KINDS:
+        npz = os.path.join(root, "imported", f"{kind}.npz")
+        backends = {"mask2former": {"mask": "mask2former",
+                                    "mask_checkpoint": npz,
+                                    "mask_input_hw": list(MASK_INPUT_HW)},
+                    "depth_anything": {"depth": "depth_anything",
+                                       "depth_checkpoint": npz},
+                    "sam": {"sam_checkpoint": npz},
+                    "loftr": {"matcher": "loftr",
+                              "matcher_checkpoint": npz}}
+        cfg = Config({"backends": backends[kind],
+                      "frames_creation": {"use_SAM": kind == "sam"}})
+        t0 = time.perf_counter()
+        backend = {
+            "mask2former": lambda: zoo.mask_backend(cfg, device=dev),
+            "depth_anything": lambda: zoo.depth_backend(cfg, root,
+                                                        device=dev),
+            "sam": lambda: zoo.sam_refine_backend(cfg, device=dev),
+            "loftr": lambda: zoo.matcher_backend(cfg, device=dev)}[kind]()
+        torch.cuda.synchronize()
+        out[kind]["zoo_load_s"] = time.perf_counter() - t0
+        out[kind]["params"] = sum(p.numel()
+                                  for p in backend.model.parameters())
+        placed = {p.device.type for p in backend.model.parameters()}
+        if placed != {torch.device(dev).type}:
+            raise AssertionError(f"{kind}: parameters on {placed}")
+        if kind == "mask2former":
+            out["_mask_backend"] = backend
+        os.remove(npz)
+        del backend
+        torch.cuda.empty_cache()
+    out["tool_process_s"] = tool_s
+    return out
+
+
+def import_zoo(dev, root: str, frames: dict) -> dict:
+    """Public checkpoints into the port without JAX (see the module
+    docstring's ``import_zoo``)."""
+    import numpy as np
+    import torch
+
+    from monosowa_tpu_torch.config import Config
+    from monosowa_tpu_torch.kittiio import read_label_file
+    from monosowa_tpu_torch.models.backbone import load_torch_resnet_state
+    from monosowa_tpu_torch.models.layers import FrozenBatchNorm
+    from monosowa_tpu_torch.ops import msda
+    from monosowa_tpu_torch.sowa import depth as depth_mod
+    from monosowa_tpu_torch.sowa import hf_checkpoint, zoo
+    from monosowa_tpu_torch.train.tester import run_inference
+
+    t_phase = time.perf_counter()
+    kinds = import_releases(root, dev)
+    mask_backend = kinds.pop("_mask_backend")
+    out = {"phase": "import_zoo",
+           "tool_process_s": kinds.pop("tool_process_s"), "kinds": kinds,
+           "releases_s": time.perf_counter() - t_phase}
+
+    # one frame of the imported Mask2Former: K1 at the pixel decoder
+    fid = sorted(frames)[0]
+    layers = list(mask_backend.model.pixel_decoder.encoder_layers)
+    recorded, restore = recording_msda(layers)
+    msda.launches = msda.launches_bf16 = 0
+    try:
+        t0 = time.perf_counter()
+        masks, scores = mask_backend.predict_masks_scores(frames[fid])
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        restore()
+    mask_launches = msda.launches
+    if mask_launches != mask_backend.cfg.encoder_layers \
+            or msda.launches_bf16 or len(recorded) != mask_launches:
+        raise AssertionError(f"imported mask2former: {mask_launches} MSDA "
+                             f"launches, {len(recorded)} recorded")
+    cls, logits = mask_backend.forward(frames[fid])
+    if not (torch.isfinite(cls).all() and torch.isfinite(logits).all()):
+        raise AssertionError("imported mask2former: non-finite outputs")
+    k1 = check_msda_recorded("imported pixel decoder", recorded)
+    del recorded, mask_backend
+    out["mask_frame"] = {"frame_ms": frame_ms, "msda_launches": mask_launches,
+                         "masks_kept": len(masks),
+                         "k1_max_abs_err": k1["max_abs_err"]}
+    torch.cuda.empty_cache()
+
+    # the shipped detector from a torchvision-layout ResNet-50
+    pth = os.path.join(root, "imported", "resnet50.pth")
+    t0 = time.perf_counter()
+    hf_checkpoint.write_seeded_resnet50(pth, seed=19)
+    resnet_write_s = time.perf_counter() - t0
+    model, _, loss_of, step, _ = trainer_variant(
+        dev, {**shipped_model_config(), "compute_dtype": "float32"})
+    t0 = time.perf_counter()
+    load_torch_resnet_state(model.backbone, pth)
+    torch.cuda.synchronize()
+    resnet_load_s = time.perf_counter() - t0
+    sd = torch.load(pth, weights_only=True)
+    if not (torch.equal(model.backbone.layer3_2.conv2.weight.cpu(),
+                        sd["layer3.2.conv2.weight"])
+            and torch.equal(model.backbone.layer4_0.down_bn.var.cpu(),
+                            sd["layer4.0.downsample.1.running_var"])):
+        raise AssertionError("load_torch_resnet_state: tensors differ")
+    frozen = {n: b.detach().clone() for n, b in model.backbone.named_buffers()
+              if isinstance(model.backbone.get_submodule(
+                  n.rpartition(".")[0]), FrozenBatchNorm)}
+    conv = model.backbone.layer2_0.conv1.weight.detach().clone()
+    det = {"resnet50_write_s": resnet_write_s,
+           "resnet50_load_s": resnet_load_s,
+           **kernel_vs_plain_step(model, loss_of, "imported resnet50")}
+    reset_variant_counts()
+    t0 = time.perf_counter()
+    losses = step()
+    torch.cuda.synchronize()
+    det["train_step_ms"] = (time.perf_counter() - t0) * 1e3
+    det["train_launches"] = variant_counts()
+    want = {"msda_fwd": MSDA_PER_FORWARD, "msda_bwd": MSDA_PER_FORWARD,
+            "lap_jv": LAP_PER_STEP}
+    if {k: v for k, v in det["train_launches"].items() if v} != want \
+            or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"imported resnet50 step: "
+                             f"{det['train_launches']}, {losses}")
+    changed = [n for n, b in model.backbone.named_buffers()
+               if n in frozen and not torch.equal(b, frozen[n])]
+    if changed:
+        raise AssertionError(f"frozen buffers changed by the step: "
+                             f"{changed[:5]}")
+    det["frozen_buffers_unchanged"] = len(frozen)
+    det["backbone_conv_trained"] = not torch.equal(
+        model.backbone.layer2_0.conv1.weight, conv)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = {"tester": {"threshold": 0.0, "topk": 50},
+               "trainer": {"save_path": tmp}, "dataset": {}}
+        reset_variant_counts()
+        t0 = time.perf_counter()
+        out_dir = run_inference(model, [sample_batch(
+            np.random.default_rng(19), 0)], cfg, logger=lambda s: None)
+        torch.cuda.synchronize()
+        det["request_ms"] = (time.perf_counter() - t0) * 1e3
+        det["request_launches"] = variant_counts()
+        rows = [read_label_file(os.path.join(out_dir, f))
+                for f in sorted(os.listdir(out_dir))]
+    if det["request_launches"]["msda_fwd"] != MSDA_PER_FORWARD or \
+            len(rows) != BATCH or any(
+                len(r) != 50 or not np.isfinite(r.pos).all() for r in rows):
+        raise AssertionError(f"imported resnet50 request: "
+                             f"{det['request_launches']}, "
+                             f"{[len(r) for r in rows]} rows")
+    out["detector"] = det
+    del model, step, loss_of
+    torch.cuda.empty_cache()
+
+    # backends.depth: metric3d_hub, the hub's network a stub
+    load = torch.hub.load
+    torch.hub.load = lambda *a, **k: StubMetric3D()
+    try:
+        hub = zoo.depth_backend(Config({"backends": {
+            "depth": "metric3d_hub"}}), root, device=dev)
+        hub_cpu = depth_mod.TorchHubMetric3DBackend(device="cpu")
+    finally:
+        torch.hub.load = load
+    img = frames[fid]
+    t0 = time.perf_counter()
+    got = hub.predict_depth(img)
+    metric3d_ms = (time.perf_counter() - t0) * 1e3
+    want_d = hub_cpu.predict_depth(img)
+    intr = [721.5377, 721.5377, 609.5593, 172.854]
+    pts, metric = depth_mod.compute_pseudo_lidar(
+        img, intr, hub._infer_canonical, device=dev)
+    pts_c, metric_c = depth_mod.compute_pseudo_lidar(
+        img, intr, hub_cpu._infer_canonical, device="cpu")
+    errs = {k: float(np.abs(a - b).max() / np.abs(b).max()) for k, a, b in (
+        ("depth", got, want_d), ("points", pts, pts_c),
+        ("metric", metric, metric_c))}
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"metric3d route, card vs CPU: {errs}")
+    out["metric3d"] = {"predict_depth_ms": metric3d_ms,
+                       "card_vs_cpu_max_rel": errs,
+                       "points": int(pts.shape[0])}
+    out["msda_fwd_launches"] = mask_launches + det["train_launches"][
+        "msda_fwd"] + det["request_launches"]["msda_fwd"]
+    out["msda_bwd_launches"] = det["train_launches"]["msda_bwd"]
+    out["lap_jv_launches"] = det["train_launches"]["lap_jv"]
+    out["seconds"] = time.perf_counter() - t_phase
+    out["_k1"] = k1
+    return out
+
+
 def main() -> int:
     # one card: the first of those visible
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -7371,6 +7666,18 @@ def main() -> int:
         emit(wmo)
         emit({"phase": "kernel", "name": "msda_fwd",
               "registers": registers["msda_fwd"], **fwd["waymo canvas"]})
+        torch.cuda.empty_cache()
+        # public checkpoints into the port: the import tool, the zoo
+        # backends, K1 from the imported Swin-B, K1-K3 from the imported
+        # ResNet-50
+        imz = import_zoo(dev, zroot, frames)
+        fwd["imported pixel decoder"] = imz.pop("_k1")
+        imz["nvidia_smi"] = smi
+        emit(imz)
+        emit({"phase": "kernel", "name": "msda_fwd",
+              "registers": registers["msda_fwd"],
+              **fwd["imported pixel decoder"]})
+        torch.cuda.empty_cache()
 
     # 10b. optional_stages: ICP, region growing, the deformable mesh, the
     # gather-field fit, the custom-dataset harness
@@ -7424,7 +7731,8 @@ def main() -> int:
                "epoch": epc["msda_fwd_launches"],
                "masks": msk["msda_launches"],
                "sam": smp["msda_launches"],
-               "waymo": wmo["msda_launches"]}, fwd),
+               "waymo": wmo["msda_launches"],
+               "import_zoo": imz["msda_fwd_launches"]}, fwd),
         entry("msda_bwd", "monosowa_tpu_torch/ops/csrc/msda_bwd.cu",
               "monosowa_tpu/ops/msda_mxu.py:306 (K2 msda_gdot_mxu); "
               "monosowa_tpu/ops/msda_mxu.py:544 (K3 msda_dvalue_mxu)",
@@ -7432,7 +7740,8 @@ def main() -> int:
                "train_add": tra["launches"]["msda_bwd"],
                "detector_variants": dvr["launches"]["msda_bwd"],
                "ddp": dpr["launches"]["msda_bwd"],
-               "epoch": epc["msda_bwd_launches"]}, bwd),
+               "epoch": epc["msda_bwd_launches"],
+               "import_zoo": imz["msda_bwd_launches"]}, bwd),
         entry("msda_fwd_bf16", "monosowa_tpu_torch/ops/csrc/msda_fwd_bf16.cu",
               "monosowa_tpu/ops/msda_mxu.py:378 (K1 ms_deform_attn_mxu, "
               "bf16 quad rows :235); monosowa_tpu/ops/msda_pallas.py:71 (K4 "
@@ -7475,7 +7784,8 @@ def main() -> int:
                    "msda_onehot": onehot["launches"]["lap_jv"],
                    "ddp": dpr["launches"]["lap_jv"],
                    "detector_variants": dvr["launches"]["lap_jv"],
-                   "epoch": epc["lap_jv_launches"]},
+                   "epoch": epc["lap_jv_launches"],
+                   "import_zoo": imz["lap_jv_launches"]},
                   "train step, final layer",
                   {"warp (train)": trn["lap_jv_warp_launches"],
                    "cluster (detector_variants two_stage)":

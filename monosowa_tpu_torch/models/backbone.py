@@ -6,6 +6,7 @@ torchvision ResNet-50 with FrozenBatchNorm2d, returning layer2/3/4 features
 package's (``layer{stage}_{block}``, ``down_conv``/``down_bn``) so the
 weight bridge maps them one to one.  Every convolution computes in
 ``compute_dtype`` (the JAX package's backbone.py:28-90).
+``load_torch_resnet_state`` fills it from torchvision's ImageNet weights.
 """
 
 from __future__ import annotations
@@ -95,3 +96,49 @@ class ResNet50(nn.Module):
             if stage >= 1:
                 outputs.append(y)
         return tuple(outputs)
+
+
+def load_torch_resnet_state(backbone: ResNet50, state_path: str
+                            ) -> ResNet50:
+    """A torchvision ResNet-50 state dict (a ``.pth`` saved with
+    ``torch.save``) into ``backbone`` in place: convolution weights as
+    they are (both OIHW), each BatchNorm's weight / bias / running mean /
+    running variance into the ``FrozenBatchNorm`` buffers ``scale`` /
+    ``bias`` / ``mean`` / ``var``; ``num_batches_tracked`` and ``fc.*``
+    are not read.  A 4-channel RGB-D stem keeps its fresh conv1 (the
+    reference replaces conv1 after the pretrained load, backbone.py:
+    109-111; the JAX package's backbone.py:128-132).  Any missing tensor or
+    shape that differs raises ``KeyError`` / ``ValueError`` before
+    anything is written.  Returns ``backbone``."""
+    sd = torch.load(state_path, map_location="cpu", weights_only=True)
+    pairs = []                                  # (port tensor, source)
+
+    def put(tensor, name):
+        src = sd[name]
+        if tuple(src.shape) != tuple(tensor.shape):
+            raise ValueError(f"{name}: {tuple(src.shape)} for "
+                             f"{tuple(tensor.shape)}")
+        pairs.append((tensor, src))
+
+    def put_bn(bn: FrozenBatchNorm, src: str):
+        for dst, key in (("scale", "weight"), ("bias", "bias"),
+                         ("mean", "running_mean"), ("var", "running_var")):
+            put(getattr(bn, dst), f"{src}.{key}")
+
+    if backbone.conv1.weight.shape[1] == sd["conv1.weight"].shape[1]:
+        put(backbone.conv1.weight, "conv1.weight")
+    put_bn(backbone.bn1, "bn1")
+    for stage, blocks in enumerate(backbone.stage_sizes):
+        for b in range(blocks):
+            pre = f"layer{stage + 1}.{b}"
+            blk = getattr(backbone, f"layer{stage + 1}_{b}")
+            for i in (1, 2, 3):
+                put(getattr(blk, f"conv{i}").weight, f"{pre}.conv{i}.weight")
+                put_bn(getattr(blk, f"bn{i}"), f"{pre}.bn{i}")
+            if blk.downsample:
+                put(blk.down_conv.weight, f"{pre}.downsample.0.weight")
+                put_bn(blk.down_bn, f"{pre}.downsample.1")
+    with torch.no_grad():
+        for tensor, src in pairs:
+            tensor.copy_(src)
+    return backbone

@@ -10,20 +10,24 @@ residual units, a bilinear ``align_corners=True`` resize to the next map's
 size or twice the size), and the head (a resize to the patch grid times
 the patch, ReLU, then sigmoid times ``max_depth`` for metric checkpoints
 or ReLU times it for relative ones).  Submodules are named after the JAX
-param tree, so ``convert.load_zoo_params`` fills them by path.
+param tree, so ``convert.load_zoo_params`` fills them by path;
+``import_hf_depth_anything`` writes that tree from a transformers state
+dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
 from monosowa_tpu_torch.device import resolve_device
 from monosowa_tpu_torch.models import zoo_layers as zl
-from monosowa_tpu_torch.models.dinov2 import Dinov2, Dinov2Config
+from monosowa_tpu_torch.models.dinov2 import (Dinov2, Dinov2Config,
+                                              config_from_hf,
+                                              import_hf_dinov2)
 from monosowa_tpu_torch.ops.resize import resize_bilinear_torch
 
 
@@ -155,3 +159,62 @@ class DepthAnything(nn.Module):
         else:
             y = torch.relu(y) * cfg.max_depth
         return y[..., 0]
+
+
+# ---------------------------------------------------------------- import
+
+
+def import_hf_depth_anything(state: Dict[str, Any],
+                             cfg: DepthAnythingConfig) -> Dict[str, Any]:
+    """``DepthAnythingForDepthEstimation.state_dict()`` -> the zoo's param
+    tree (the JAX package's ``import_hf_depth_anything`` tree, leaf for
+    leaf: convolutions OIHW -> HWIO, transposed convolutions IOHW ->
+    HWIO)."""
+    def cv(name, transpose=False):
+        return zl.hf_conv(state, name, bias=None, transpose=transpose)
+
+    reassemble = []
+    for i, f in enumerate(cfg.reassemble_factors):
+        base = f"neck.reassemble_stage.layers.{i}."
+        rp = {"projection": cv(base + "projection")}
+        if f > 1:
+            rp["resize"] = cv(base + "resize", transpose=True)
+        elif f < 1:
+            rp["resize"] = cv(base + "resize")
+        reassemble.append(rp)
+    fusion = []
+    for i in range(len(cfg.neck_hidden_sizes)):
+        base = f"neck.fusion_stage.layers.{i}."
+        fusion.append({
+            "projection": cv(base + "projection"),
+            **{f"residual_layer{r}": {
+                "convolution1": cv(base + f"residual_layer{r}.convolution1"),
+                "convolution2": cv(base + f"residual_layer{r}.convolution2")}
+               for r in (1, 2)},
+        })
+    return {
+        "backbone": import_hf_dinov2(state, cfg.backbone,
+                                     prefix="backbone."),
+        "reassemble": reassemble,
+        "neck_convs": [cv(f"neck.convs.{i}")
+                       for i in range(len(cfg.neck_hidden_sizes))],
+        "fusion": fusion,
+        "head": {f"conv{i}": cv(f"head.conv{i}") for i in (1, 2, 3)},
+    }
+
+
+def config_from_hf_depth_anything(hf_cfg: Any) -> DepthAnythingConfig:
+    """A transformers ``DepthAnythingConfig`` (or
+    ``sowa/hf_checkpoint.py``'s tree of its ``config.json``) ->
+    :class:`DepthAnythingConfig`."""
+    return DepthAnythingConfig(
+        backbone=config_from_hf(hf_cfg.backbone_config),
+        out_indices=tuple(hf_cfg.backbone_config.out_indices),
+        reassemble_factors=tuple(hf_cfg.reassemble_factors),
+        neck_hidden_sizes=tuple(hf_cfg.neck_hidden_sizes),
+        fusion_hidden_size=hf_cfg.fusion_hidden_size,
+        head_hidden_size=hf_cfg.head_hidden_size,
+        head_in_index=hf_cfg.head_in_index,
+        depth_estimation_type=hf_cfg.depth_estimation_type,
+        max_depth=hf_cfg.max_depth,
+    )

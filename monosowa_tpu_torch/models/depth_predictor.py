@@ -35,6 +35,22 @@ def lid_bin_values(num_bins: int, depth_min: float, depth_max: float) -> np.ndar
     return np.concatenate([value, [depth_max]]).astype(np.float32)
 
 
+def lid_bin_index(depth: torch.Tensor, num_bins: int, depth_min: float,
+                  depth_max: float) -> torch.Tensor:
+    """Depth map -> int32 LID bin index (ddn_loss.py:68-103 'LID' mode;
+    the JAX package's ``lid_bin_index``): floor(-0.5 + 0.5 * sqrt(1 +
+    8 * (d - depth_min) / bin_size)), clipped to [0, num_bins]; a depth
+    outside [depth_min, depth_max] or a non-finite index maps to num_bins
+    (the background bin).  The DDN loss (``criterion.py``) bins its target
+    as the JAX criterion does, with the out-of-range test on the index."""
+    bin_size = 2 * (depth_max - depth_min) / (num_bins * (1 + num_bins))
+    idx = torch.floor(-0.5 + 0.5 * torch.sqrt(
+        1 + 8 * (depth - depth_min) / bin_size))
+    oob = (depth < depth_min) | (depth > depth_max) | ~torch.isfinite(idx)
+    return torch.where(oob, torch.full_like(idx, num_bins),
+                       idx.clamp(0, num_bins)).to(torch.int32)
+
+
 # the depth encoder's own dropout, not the detector's ``dropout`` (JAX
 # package depth_predictor.py:52, the reference's fixed 0.1)
 DEPTH_ENCODER_DROPOUT = 0.1

@@ -7,14 +7,16 @@ grid with torch's bicubic (antialiased for the with-registers variant),
 pre-norm layers with layer scale, the GELU or SwiGLU FFN, and a float32
 softmax.  Submodules are named after the JAX param tree (``layer_3.
 attention.query``, ``patch_proj``, ``final_norm``), so
-``convert.load_zoo_params`` fills them by path.
+``convert.load_zoo_params`` fills them by path; ``import_hf_dinov2``
+writes that tree from a transformers state dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import Any, Dict, List, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -154,3 +156,76 @@ class Dinov2(nn.Module):
         states = self.hidden_states(pixels)
         return [self.final_norm(states[i]) if apply_layernorm else states[i]
                 for i in out_indices]
+
+
+# ---------------------------------------------------------------- import
+
+
+def import_hf_dinov2(state: Dict[str, Any], cfg: Dinov2Config,
+                     prefix: str = "") -> Dict[str, Any]:
+    """A transformers Dinov2(WithRegisters)(Model|Backbone) state dict
+    (optionally under ``prefix``, e.g. ``backbone.``) -> the zoo's param
+    tree (the JAX package's ``import_hf_dinov2`` tree, leaf for leaf); a
+    state without the final layer norm gets the identity one."""
+    def g(n):
+        return zl.hf_array(state, prefix + n)
+
+    def lin(n):
+        return zl.hf_dense(state, prefix + n)
+
+    p: Dict[str, Any] = {
+        "cls_token": g("embeddings.cls_token"),
+        "position_embeddings": g("embeddings.position_embeddings"),
+        "patch_proj": {
+            "kernel": g("embeddings.patch_embeddings.projection.weight"
+                        ).transpose(2, 3, 1, 0),
+            "bias": g("embeddings.patch_embeddings.projection.bias")},
+    }
+    if cfg.num_register_tokens:
+        p["register_tokens"] = g("embeddings.register_tokens")
+    if prefix + "layernorm.weight" in state:
+        p["final_norm"] = {"scale": g("layernorm.weight"),
+                           "bias": g("layernorm.bias")}
+    else:
+        p["final_norm"] = {"scale": np.ones(cfg.hidden_size, np.float32),
+                           "bias": np.zeros(cfg.hidden_size, np.float32)}
+    for i in range(cfg.num_hidden_layers):
+        base = f"encoder.layer.{i}."
+        mlp = ({"weights_in": lin(base + "mlp.weights_in"),
+                "weights_out": lin(base + "mlp.weights_out")}
+               if cfg.use_swiglu_ffn else
+               {"fc1": lin(base + "mlp.fc1"), "fc2": lin(base + "mlp.fc2")})
+        p[f"layer_{i}"] = {
+            "norm1": {"scale": g(base + "norm1.weight"),
+                      "bias": g(base + "norm1.bias")},
+            "norm2": {"scale": g(base + "norm2.weight"),
+                      "bias": g(base + "norm2.bias")},
+            "attention": {
+                "query": lin(base + "attention.attention.query"),
+                "key": lin(base + "attention.attention.key"),
+                "value": lin(base + "attention.attention.value"),
+                "out": lin(base + "attention.output.dense")},
+            "layer_scale1": g(base + "layer_scale1.lambda1"),
+            "layer_scale2": g(base + "layer_scale2.lambda1"),
+            "mlp": mlp,
+        }
+    return p
+
+
+def config_from_hf(hf_cfg: Any) -> Dinov2Config:
+    """A transformers Dinov2Config / Dinov2WithRegistersConfig (or
+    ``sowa/hf_checkpoint.py``'s tree of its ``config.json``) ->
+    :class:`Dinov2Config`."""
+    return Dinov2Config(
+        hidden_size=hf_cfg.hidden_size,
+        num_hidden_layers=hf_cfg.num_hidden_layers,
+        num_attention_heads=hf_cfg.num_attention_heads,
+        mlp_ratio=hf_cfg.mlp_ratio,
+        patch_size=hf_cfg.patch_size,
+        num_channels=hf_cfg.num_channels,
+        pos_grid=hf_cfg.image_size // hf_cfg.patch_size,
+        layer_norm_eps=hf_cfg.layer_norm_eps,
+        use_swiglu_ffn=hf_cfg.use_swiglu_ffn,
+        num_register_tokens=getattr(hf_cfg, "num_register_tokens", 0),
+        antialias_pos_interp=getattr(hf_cfg, "num_register_tokens", 0) > 0,
+    )

@@ -8,7 +8,7 @@ names of the JAX param tree, so ``convert.load_zoo_params`` fills it from a
 
 * ``backbone.<stage>.<block>``: one biased 3 x 3 convolution a RepVGG block
   (the three branches and their BatchNorms folded at import,
-  ``import_hf_efficientloftr`` of the JAX package);
+  ``import_hf_efficientloftr``);
 * ``transformer.<layer>.{self,cross}_attention``: the aggregated attention
   (a depthwise 4 x 4 stride-4 query convolution, a 4 x 4 max-pool of the
   keys and values, a shared LayerNorm, projections ``attn.{q,k,v,o}_proj``
@@ -34,14 +34,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from monosowa_tpu_torch.models.zoo_layers import _normal_, constant
+from monosowa_tpu_torch.models.zoo_layers import (_normal_, constant, hf_array,
+                                                  hf_norm)
 from monosowa_tpu_torch.ops.resize import resize_bilinear_torch
 
 
@@ -504,3 +505,89 @@ class EfficientLoFTR(nn.Module):
         fine_kp = fine_kp / torch.tensor([ww, hh], dtype=fine_kp.dtype,
                                          device=fine_kp.device)
         return fine_kp, sc, idx
+
+
+# ---------------------------------------------------------------- import
+
+
+def _fuse_conv_bn(w: np.ndarray, state, bn_prefix: str, eps: float = 1e-5):
+    """Fold an eval-mode BatchNorm into the bias-free convolution before
+    it (w OIHW numpy), in float32 and in the JAX package's order."""
+    gamma = hf_array(state, bn_prefix + ".weight")
+    beta = hf_array(state, bn_prefix + ".bias")
+    mean = hf_array(state, bn_prefix + ".running_mean")
+    var = hf_array(state, bn_prefix + ".running_var")
+    scale = gamma / np.sqrt(var + eps)
+    return w * scale[:, None, None, None], beta - mean * scale
+
+
+def import_hf_efficientloftr(state: Dict[str, Any],
+                             cfg: EfficientLoFTRConfig,
+                             prefix: str = "efficientloftr."
+                             ) -> Dict[str, Any]:
+    """``EfficientLoFTRForKeypointMatching.state_dict()`` -> the zoo's
+    param tree (the JAX package's ``import_hf_efficientloftr`` tree, leaf
+    for leaf): each RepVGG block's three branches and their BatchNorms
+    fused into one biased 3 x 3 convolution (the architecture's deploy-time
+    reparameterisation), the fine fusion's BatchNorm folded into its
+    convolution."""
+    def hwio(name):
+        return hf_array(state, name).transpose(2, 3, 1, 0)
+
+    backbone: List[List[Dict[str, Any]]] = []
+    in_ch = [1] + list(cfg.out_features[:-1])
+    for si, nblocks in enumerate(cfg.stage_num_blocks):
+        stage = []
+        for bi in range(nblocks):
+            base = f"{prefix}backbone.stages.{si}.blocks.{bi}."
+            cin = in_ch[si] if bi == 0 else cfg.out_features[si]
+            cout = cfg.out_features[si]
+            stride = cfg.stage_stride[si] if bi == 0 else 1
+            w3, b3 = _fuse_conv_bn(hf_array(state, base + "conv1.conv.weight"),
+                                   state, base + "conv1.norm")
+            w1, b1 = _fuse_conv_bn(hf_array(state, base + "conv2.conv.weight"),
+                                   state, base + "conv2.norm")
+            w = w3.copy()
+            w[:, :, 1:2, 1:2] += w1
+            bias = b3 + b1
+            if cin == cout and stride == 1:
+                ident = np.zeros_like(w3)
+                ident[np.arange(cout), np.arange(cout), 1, 1] = 1.0
+                wi, bi_ = _fuse_conv_bn(ident, state, base + "identity")
+                w += wi
+                bias += bi_
+            stage.append({"kernel": w.transpose(2, 3, 1, 0), "bias": bias})
+        backbone.append(stage)
+
+    def agg(base):
+        return {
+            "q_aggregation": {"kernel": hwio(
+                base + "aggregation.q_aggregation.weight")},
+            "norm": hf_norm(state, base + "aggregation.norm"),
+            "attn": {k: hf_array(state, base + f"attention.{k}.weight").T
+                     for k in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "mlp": {"fc1": hf_array(state, base + "mlp.fc1.weight").T,
+                    "fc2": hf_array(state, base + "mlp.fc2.weight").T,
+                    "layer_norm": hf_norm(state, base + "mlp.layer_norm")},
+        }
+
+    transformer = []
+    for i in range(cfg.num_attention_layers):
+        base = f"{prefix}local_feature_transformer.layers.{i}."
+        transformer.append({
+            "self_attention": agg(base + "self_attention."),
+            "cross_attention": agg(base + "cross_attention.")})
+
+    out_layers = []
+    for i in range(1, len(cfg.fine_fusion_dims)):
+        base = f"refinement_layer.out_conv_layers.{i - 1}."
+        w2, b2 = _fuse_conv_bn(hf_array(state, base + "out_conv2.weight"),
+                               state, base + "batch_norm")
+        out_layers.append({
+            "out_conv1": hwio(base + "out_conv1.weight"),
+            "out_conv2": {"kernel": w2.transpose(2, 3, 1, 0), "bias": b2},
+            "out_conv3": hwio(base + "out_conv3.weight")})
+    fine = {"out_conv": hwio("refinement_layer.out_conv.weight"),
+            "out_conv_layers": out_layers}
+    return {"backbone": backbone, "transformer": transformer,
+            "fine_fusion": fine}

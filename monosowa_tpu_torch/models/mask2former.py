@@ -19,14 +19,15 @@ zoo serves a float32 checkpoint:
 
 Sine position embeddings and reference points are numpy constants of the
 shapes.  Submodules are named after the JAX param tree, so
-``convert.load_zoo_params`` fills them by path.
+``convert.load_zoo_params`` fills them by path; ``import_hf_mask2former``
+writes that tree from a transformers state dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Sequence, Tuple, Union
+from typing import Any, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,7 +35,9 @@ from torch import nn
 
 from monosowa_tpu_torch.device import resolve_device
 from monosowa_tpu_torch.models import zoo_layers as zl
-from monosowa_tpu_torch.models.swin import SwinBackbone, SwinConfig
+from monosowa_tpu_torch.models.swin import (SwinBackbone, SwinConfig,
+                                            config_from_hf_swin,
+                                            import_hf_swin_backbone)
 from monosowa_tpu_torch.ops.msda import ms_deform_attn
 from monosowa_tpu_torch.ops.resize import resize_bilinear_torch
 
@@ -359,3 +362,114 @@ class Mask2Former(nn.Module):
         mask_features, multi_scale = self.pixel_decoder(feats)
         classes, masks = self.transformer(multi_scale, mask_features)
         return classes[-1], masks[-1]
+
+
+# ---------------------------------------------------------------- import
+
+
+def import_hf_mask2former(state: Dict[str, Any],
+                          cfg: Mask2FormerConfig) -> Dict[str, Any]:
+    """``Mask2FormerForUniversalSegmentation.state_dict()`` -> the zoo's
+    param tree (the JAX package's ``import_hf_mask2former`` tree, leaf for
+    leaf): ``nn.MultiheadAttention``'s packed in_proj is split into q, k,
+    v; the FPN's convolutions are listed coarse to fine."""
+    pfx = "model.pixel_level_module.decoder."
+    nl = cfg.num_feature_levels
+    lin, nrm, cv = zl.hf_dense, zl.hf_norm, zl.hf_conv
+    enc_layers = []
+    for i in range(cfg.encoder_layers):
+        b = pfx + f"encoder.layers.{i}."
+        enc_layers.append({
+            "sampling_offsets": lin(state, b + "self_attn.sampling_offsets"),
+            "attention_weights": lin(state,
+                                     b + "self_attn.attention_weights"),
+            "value_proj": lin(state, b + "self_attn.value_proj"),
+            "output_proj": lin(state, b + "self_attn.output_proj"),
+            "self_attn_layer_norm": nrm(state, b + "self_attn_layer_norm"),
+            "fc1": lin(state, b + "fc1"), "fc2": lin(state, b + "fc2"),
+            "final_layer_norm": nrm(state, b + "final_layer_norm"),
+        })
+    n_fpn = cfg.n_fpn()
+    pd = {
+        "level_embed": zl.hf_array(state, pfx + "level_embed"),
+        "input_projections": [cv(state, pfx + f"input_projections.{i}.0")
+                              for i in range(nl)],
+        "input_projections_gn": [nrm(state, pfx + f"input_projections.{i}.1")
+                                 for i in range(nl)],
+        "encoder_layers": enc_layers,
+        "mask_projection": cv(state, pfx + "mask_projection"),
+        "lateral_convs": [cv(state, pfx + f"adapter_{i + 1}.0", bias=False)
+                          for i in range(n_fpn)][::-1],
+        "lateral_convs_gn": [nrm(state, pfx + f"adapter_{i + 1}.1")
+                             for i in range(n_fpn)][::-1],
+        "output_convs": [cv(state, pfx + f"layer_{i + 1}.0", bias=False)
+                         for i in range(n_fpn)][::-1],
+        "output_convs_gn": [nrm(state, pfx + f"layer_{i + 1}.1")
+                            for i in range(n_fpn)][::-1],
+    }
+
+    tfx = "model.transformer_module."
+    hd = cfg.hidden_dim
+    dec_layers = []
+    for i in range(cfg.decoder_layers - 1):
+        b = tfx + f"decoder.layers.{i}."
+        inw = zl.hf_array(state, b + "cross_attn.in_proj_weight")
+        inb = zl.hf_array(state, b + "cross_attn.in_proj_bias")
+        cross = {
+            "q": {"kernel": inw[:hd].T, "bias": inb[:hd]},
+            "k": {"kernel": inw[hd:2 * hd].T, "bias": inb[hd:2 * hd]},
+            "v": {"kernel": inw[2 * hd:].T, "bias": inb[2 * hd:]},
+            "out": lin(state, b + "cross_attn.out_proj"),
+        }
+        dec_layers.append({
+            "cross_attn": cross,
+            "cross_attn_layer_norm": nrm(state, b + "cross_attn_layer_norm"),
+            "self_attn": {
+                "q": lin(state, b + "self_attn.q_proj"),
+                "k": lin(state, b + "self_attn.k_proj"),
+                "v": lin(state, b + "self_attn.v_proj"),
+                "out": lin(state, b + "self_attn.out_proj")},
+            "self_attn_layer_norm": nrm(state, b + "self_attn_layer_norm"),
+            "fc1": lin(state, b + "fc1"), "fc2": lin(state, b + "fc2"),
+            "final_layer_norm": nrm(state, b + "final_layer_norm"),
+        })
+    tr = {
+        "level_embed": zl.hf_array(state, tfx + "level_embed.weight"),
+        "queries_embedder": zl.hf_array(state,
+                                        tfx + "queries_embedder.weight"),
+        "queries_features": zl.hf_array(state,
+                                        tfx + "queries_features.weight"),
+        "decoder_layers": dec_layers,
+        "decoder_norm": nrm(state, tfx + "decoder.layernorm"),
+        "mask_predictor": {"mask_embedder": [
+            lin(state, tfx + f"decoder.mask_predictor.mask_embedder.{i}.0")
+            for i in range(3)]},
+        "class_predictor": lin(state, "class_predictor"),
+    }
+    return {
+        "backbone": import_hf_swin_backbone(
+            state, cfg.backbone, prefix="model.pixel_level_module.encoder."),
+        "pixel_decoder": pd,
+        "transformer": tr,
+    }
+
+
+def config_from_hf_mask2former(hf_cfg: Any) -> Mask2FormerConfig:
+    """A transformers ``Mask2FormerConfig`` (or ``sowa/hf_checkpoint.py``'s
+    tree of its ``config.json``) -> :class:`Mask2FormerConfig`."""
+    return Mask2FormerConfig(
+        backbone=config_from_hf_swin(hf_cfg.backbone_config),
+        feature_size=hf_cfg.feature_size,
+        mask_feature_size=hf_cfg.mask_feature_size,
+        hidden_dim=hf_cfg.hidden_dim,
+        encoder_layers=hf_cfg.encoder_layers,
+        decoder_layers=hf_cfg.decoder_layers,
+        num_attention_heads=hf_cfg.num_attention_heads,
+        encoder_feedforward_dim=hf_cfg.encoder_feedforward_dim,
+        dim_feedforward=hf_cfg.dim_feedforward,
+        num_queries=hf_cfg.num_queries,
+        num_labels=hf_cfg.num_labels,
+        pre_norm=hf_cfg.pre_norm,
+        common_stride=hf_cfg.common_stride,
+        feature_strides=tuple(hf_cfg.feature_strides),
+    )

@@ -26,7 +26,8 @@ no Pallas kernel): float32 matrix products (TF32 off, ``device.py``) and a
 softmax in float32 or wider.  Submodules are named after the JAX param
 tree (``vision.layer_3.attn.qkv``, ``decoder.block_0.self_attn.q_proj``,
 ``decoder.hyper_mlps.2.layers.0``), so ``convert.load_zoo_params`` fills
-them by path.  Public functions take NHWC images.
+them by path; ``import_hf_sam`` writes that tree from a transformers
+state dict.  Public functions take NHWC images.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Sequence, Tuple, Union
+from typing import Any, Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -491,3 +492,120 @@ class Sam(nn.Module):
         -> (low-res masks (B, nb, M, 4g, 4g), iou (B, nb, M))."""
         return self.decode_boxes(self.vision_forward(pixels), boxes,
                                  multimask_output)
+
+
+# ---------------------------------------------------------------- import
+
+
+def _ffn_import(state, base: str, depth: int) -> Dict[str, Any]:
+    return {"proj_in": zl.hf_dense(state, base + ".proj_in"),
+            "layers": [zl.hf_dense(state, f"{base}.layers.{i}")
+                       for i in range(depth - 2)],
+            "proj_out": zl.hf_dense(state, base + ".proj_out")}
+
+
+def import_hf_sam(state: Dict[str, Any], cfg: SamConfig) -> Dict[str, Any]:
+    """``transformers.SamModel.state_dict()`` -> the zoo's param tree (the
+    JAX package's ``import_hf_sam`` tree, leaf for leaf)."""
+    lin, nrm, cv = zl.hf_dense, zl.hf_norm, zl.hf_conv
+    v: Dict[str, Any] = {
+        "patch_proj": cv(state, "vision_encoder.patch_embed.projection"),
+        "neck": {
+            "conv1": cv(state, "vision_encoder.neck.conv1", bias=False),
+            "layer_norm1": nrm(state, "vision_encoder.neck.layer_norm1"),
+            "conv2": cv(state, "vision_encoder.neck.conv2", bias=False),
+            "layer_norm2": nrm(state, "vision_encoder.neck.layer_norm2"),
+        },
+    }
+    if cfg.vision.use_abs_pos:
+        v["pos_embed"] = zl.hf_array(state, "vision_encoder.pos_embed")
+    for i in range(cfg.vision.num_hidden_layers):
+        base = f"vision_encoder.layers.{i}."
+        attn = {"qkv": lin(state, base + "attn.qkv"),
+                "proj": lin(state, base + "attn.proj")}
+        if cfg.vision.use_rel_pos:
+            attn["rel_pos_h"] = zl.hf_array(state, base + "attn.rel_pos_h")
+            attn["rel_pos_w"] = zl.hf_array(state, base + "attn.rel_pos_w")
+        v[f"layer_{i}"] = {
+            "norm1": nrm(state, base + "layer_norm1"),
+            "norm2": nrm(state, base + "layer_norm2"),
+            "attn": attn,
+            "mlp": {"lin1": lin(state, base + "mlp.lin1"),
+                    "lin2": lin(state, base + "mlp.lin2")},
+        }
+
+    prompt = {
+        "shared_embedding": zl.hf_array(
+            state, "shared_image_embedding.positional_embedding"),
+        "point_embed": np.stack([
+            zl.hf_array(state, f"prompt_encoder.point_embed.{i}.weight")[0]
+            for i in range(4)]),
+        "no_mask_embed": zl.hf_array(
+            state, "prompt_encoder.no_mask_embed.weight")[0],
+    }
+
+    dc = cfg.decoder
+    attn_keys = ("q_proj", "k_proj", "v_proj", "out_proj")
+    d: Dict[str, Any] = {
+        "iou_token": zl.hf_array(state, "mask_decoder.iou_token.weight"),
+        "mask_tokens": zl.hf_array(state, "mask_decoder.mask_tokens.weight"),
+        "upscale_conv1": cv(state, "mask_decoder.upscale_conv1",
+                            transpose=True),
+        "upscale_conv2": cv(state, "mask_decoder.upscale_conv2",
+                            transpose=True),
+        "upscale_layer_norm": nrm(state, "mask_decoder.upscale_layer_norm"),
+        "final_attn": {
+            k: lin(state, "mask_decoder.transformer."
+                          "final_attn_token_to_image." + k)
+            for k in attn_keys},
+        "final_norm": nrm(state,
+                          "mask_decoder.transformer.layer_norm_final_attn"),
+        "hyper_mlps": [
+            _ffn_import(state,
+                        f"mask_decoder.output_hypernetworks_mlps.{i}", 3)
+            for i in range(dc.num_multimask_outputs + 1)],
+        "iou_head": _ffn_import(state, "mask_decoder.iou_prediction_head",
+                                dc.iou_head_depth),
+    }
+    for i in range(dc.num_hidden_layers):
+        base = f"mask_decoder.transformer.layers.{i}."
+        blk = {a: {k: lin(state, base + a + "." + k) for k in attn_keys}
+               for a in ("self_attn", "cross_attn_token_to_image",
+                         "cross_attn_image_to_token")}
+        for j in range(1, 5):
+            blk[f"layer_norm{j}"] = nrm(state, base + f"layer_norm{j}")
+        blk["mlp"] = {"lin1": lin(state, base + "mlp.lin1"),
+                      "lin2": lin(state, base + "mlp.lin2")}
+        d[f"block_{i}"] = blk
+
+    return {"vision": v, "prompt": prompt, "decoder": d}
+
+
+def config_from_hf_sam(hf_cfg: Any) -> SamConfig:
+    """A transformers ``SamConfig`` (or ``sowa/hf_checkpoint.py``'s tree of
+    its ``config.json``) -> :class:`SamConfig`."""
+    vc, dc, pc = (hf_cfg.vision_config, hf_cfg.mask_decoder_config,
+                  hf_cfg.prompt_encoder_config)
+    return SamConfig(
+        vision=SamVisionConfig(
+            hidden_size=vc.hidden_size,
+            num_hidden_layers=vc.num_hidden_layers,
+            num_attention_heads=vc.num_attention_heads,
+            image_size=vc.image_size, patch_size=vc.patch_size,
+            window_size=vc.window_size,
+            global_attn_indexes=tuple(vc.global_attn_indexes),
+            output_channels=vc.output_channels, mlp_dim=vc.mlp_dim,
+            layer_norm_eps=vc.layer_norm_eps,
+            use_abs_pos=vc.use_abs_pos, use_rel_pos=vc.use_rel_pos),
+        decoder=SamDecoderConfig(
+            hidden_size=dc.hidden_size,
+            num_attention_heads=dc.num_attention_heads,
+            num_hidden_layers=dc.num_hidden_layers, mlp_dim=dc.mlp_dim,
+            attention_downsample_rate=dc.attention_downsample_rate,
+            num_multimask_outputs=dc.num_multimask_outputs,
+            iou_head_depth=dc.iou_head_depth,
+            iou_head_hidden_dim=dc.iou_head_hidden_dim,
+            layer_norm_eps=dc.layer_norm_eps),
+        prompt_image_size=pc.image_size,
+        embedding_size=pc.image_embedding_size,
+    )

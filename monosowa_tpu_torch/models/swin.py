@@ -11,14 +11,15 @@ Hugging Face drops it where the map fits in one window).
 
 Submodules are named after the JAX param tree (``stage_0.block_1.attn.
 query``, ``stage_0.downsample.reduction``, ``out_norm_1``), so
-``convert.load_zoo_params`` fills them by path.
+``convert.load_zoo_params`` fills them by path.  ``import_hf_swin_backbone``
+writes that tree from a ``transformers.SwinBackbone`` state dict.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -207,3 +208,68 @@ class SwinBackbone(nn.Module):
                 x = stage.downsample(x, (h, w))
                 h, w = (h + 1) // 2, (w + 1) // 2
         return out
+
+
+# ---------------------------------------------------------------- import
+
+
+def import_hf_swin_backbone(state: Dict[str, Any], cfg: SwinConfig,
+                            prefix: str = "") -> Dict[str, Any]:
+    """A ``transformers.SwinBackbone`` state dict (optionally under
+    ``prefix``, e.g. Mask2Former's ``model.pixel_level_module.encoder.``)
+    -> the zoo's param tree (the JAX package's ``import_hf_swin_backbone``
+    tree, leaf for leaf)."""
+    def g(n):
+        return zl.hf_array(state, prefix + n)
+
+    p: Dict[str, Any] = {
+        "patch_proj": {
+            "kernel": g("embeddings.patch_embeddings.projection.weight"
+                        ).transpose(2, 3, 1, 0),
+            "bias": g("embeddings.patch_embeddings.projection.bias")},
+        "embed_norm": zl.hf_norm(state, prefix + "embeddings.norm"),
+    }
+    for i in cfg.out_indices:
+        p[f"out_norm_{i}"] = zl.hf_norm(
+            state, prefix + f"hidden_states_norms.stage{i}")
+    for si, depth in enumerate(cfg.depths):
+        sp: Dict[str, Any] = {}
+        for bi in range(depth):
+            base = prefix + f"encoder.layers.{si}.blocks.{bi}."
+            sp[f"block_{bi}"] = {
+                "norm1": zl.hf_norm(state, base + "layernorm_before"),
+                "norm2": zl.hf_norm(state, base + "layernorm_after"),
+                "attn": {
+                    "query": zl.hf_dense(state, base + "attention.self.query"),
+                    "key": zl.hf_dense(state, base + "attention.self.key"),
+                    "value": zl.hf_dense(state, base + "attention.self.value"),
+                    "proj": zl.hf_dense(state,
+                                        base + "attention.output.dense"),
+                    "rel_bias_table": zl.hf_array(
+                        state,
+                        base + "attention.self.relative_position_bias_table"),
+                },
+                "fc1": zl.hf_dense(state, base + "intermediate.dense"),
+                "fc2": zl.hf_dense(state, base + "output.dense"),
+            }
+        ds = prefix + f"encoder.layers.{si}.downsample."
+        if any(k.startswith(ds) for k in state):
+            sp["downsample"] = {
+                "reduction": zl.hf_array(state, ds + "reduction.weight").T,
+                "norm": zl.hf_norm(state, ds + "norm"),
+            }
+        p[f"stage_{si}"] = sp
+    return p
+
+
+def config_from_hf_swin(hf_cfg: Any) -> SwinConfig:
+    """A ``SwinConfig`` of transformers (or ``sowa/hf_checkpoint.py``'s
+    tree of its ``config.json``) -> :class:`SwinConfig`."""
+    name_to_idx = {f"stage{i}": i for i in range(1, 1 + len(hf_cfg.depths))}
+    out = tuple(sorted(name_to_idx[n] for n in hf_cfg.out_features))
+    return SwinConfig(
+        embed_dim=hf_cfg.embed_dim, depths=tuple(hf_cfg.depths),
+        num_heads=tuple(hf_cfg.num_heads), window_size=hf_cfg.window_size,
+        mlp_ratio=hf_cfg.mlp_ratio, patch_size=hf_cfg.patch_size,
+        num_channels=hf_cfg.num_channels,
+        layer_norm_eps=hf_cfg.layer_norm_eps, out_indices=out)

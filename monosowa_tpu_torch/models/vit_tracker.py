@@ -8,7 +8,8 @@ submodules carry the names of the JAX param tree (``patch_proj``,
 ``pos_z``, ``pos_x``, ``track_token``, ``block_<i>.{norm1,qkv,proj,norm2,
 fc1,fc2}``, ``final_norm``, ``{score,offset,size}_head.convs.<j>``), so
 ``convert.load_zoo_params`` fills it from a ``vit_tracker`` zoo checkpoint
-and ``zoo_params`` writes one.  Crops are NHWC, as in the JAX module.
+and ``zoo_params`` writes one; ``import_torch_tracker`` writes that tree
+from a torch tracker's state dict.  Crops are NHWC, as in the JAX module.
 
 Random weights are drawn on the host from an explicit ``torch.Generator``
 with the distribution of the JAX ``init_tracker_params``: normal with std
@@ -19,13 +20,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from monosowa_tpu_torch.models.zoo_layers import conv, linear, param
+from monosowa_tpu_torch.models.zoo_layers import (conv, hf_array, hf_conv,
+                                                  hf_dense, hf_norm, linear,
+                                                  param)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,3 +161,35 @@ class ViTTracker(nn.Module):
         cy = (iy.to(off.dtype) + off[:, 1]) / gs
         box = torch.stack([cx, cy, sz[:, 0], sz[:, 1]], -1)
         return box, score, new_track
+
+
+# ---------------------------------------------------------------- import
+
+
+def import_torch_tracker(state: Dict[str, Any],
+                         cfg: ViTTrackerConfig) -> Dict[str, Any]:
+    """A torch tracker's state dict in the layout of the JAX package's
+    torch mirror (tests/test_vit_tracker_parity.py: ``patch_proj``
+    Conv2d, ``pos_z`` / ``pos_x`` / ``track_token`` tables,
+    ``blocks.{i}.{norm1,qkv,proj,norm2,fc1,fc2}``, ``final_norm``,
+    ``{score,offset,size}_head.{0,2}`` Conv2d) -> the zoo's param tree
+    (the JAX package's ``import_torch_tracker`` tree, leaf for leaf)."""
+    p: Dict[str, Any] = {
+        "patch_proj": hf_conv(state, "patch_proj"),
+        "pos_z": hf_array(state, "pos_z"),
+        "pos_x": hf_array(state, "pos_x"),
+        "track_token": hf_array(state, "track_token"),
+        "final_norm": hf_norm(state, "final_norm"),
+    }
+    for head in ("score_head", "offset_head", "size_head"):
+        p[head] = {"convs": [hf_conv(state, f"{head}.0"),
+                             hf_conv(state, f"{head}.2")]}
+    for i in range(cfg.num_layers):
+        b = f"blocks.{i}."
+        p[f"block_{i}"] = {
+            "norm1": hf_norm(state, b + "norm1"),
+            "norm2": hf_norm(state, b + "norm2"),
+            **{k: hf_dense(state, b + k)
+               for k in ("qkv", "proj", "fc1", "fc2")},
+        }
+    return p

@@ -21,6 +21,7 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -104,3 +105,39 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         logits.dtype, torch.float32)), -1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, nq,
                                                              heads * d)
+
+
+# ---------------------------------------------------------------------------
+# Hugging Face / torch state dict -> zoo param tree leaves
+# ---------------------------------------------------------------------------
+# The importers (``import_hf_*`` of each network, ``import_torch_tracker``)
+# write the JAX package's tree from a state dict of torch tensors or numpy
+# arrays: float32 numpy leaves, dense kernels (in, out), convolution
+# kernels HWIO, norms ``scale`` / ``bias``.
+
+def hf_array(state, name: str) -> np.ndarray:
+    v = state[name]
+    return np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach")
+                      else v, np.float32)
+
+
+def hf_dense(state, name: str) -> dict:
+    return {"kernel": hf_array(state, name + ".weight").T,
+            "bias": hf_array(state, name + ".bias")}
+
+
+def hf_norm(state, name: str) -> dict:
+    return {"scale": hf_array(state, name + ".weight"),
+            "bias": hf_array(state, name + ".bias")}
+
+
+def hf_conv(state, name: str, bias: Optional[bool] = True,
+            transpose: bool = False) -> dict:
+    """Conv2d OIHW (ConvTranspose2d IOHW with ``transpose``) -> HWIO; the
+    bias always, never, or (``bias=None``) where the state holds one."""
+    w = hf_array(state, name + ".weight")
+    p = {"kernel": w.transpose(2, 3, 0, 1) if transpose
+         else w.transpose(2, 3, 1, 0)}
+    if bias or (bias is None and name + ".bias" in state):
+        p["bias"] = hf_array(state, name + ".bias")
+    return p

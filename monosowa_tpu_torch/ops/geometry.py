@@ -2,13 +2,15 @@
 
 Counterparts of the JAX package's ``ops/geometry.py``: yaw rotations, rigid
 transforms, pinhole projection, depth back-projection, the masked median,
-3D box corners, oriented-box containment and the voxel downsample of
-region growing.  Point sets are padded to
+3D box corners, oriented-box containment, the voxel downsample of
+region growing and the random downsample.  Point sets are padded to
 fixed shapes with a validity mask; batch dimensions are explicit (leading
 ``...``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -100,6 +102,28 @@ def voxel_downsample_mask(pts: torch.Tensor, mask: torch.Tensor,
     keep = torch.zeros_like(mask)
     keep[order] = first
     return keep & mask
+
+
+def random_downsample_mask(mask: torch.Tensor, max_points: int,
+                           scores: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> torch.Tensor:
+    """Keep at most ``max_points`` valid entries of ``mask`` at random,
+    the JAX package's ``random_downsample_mask`` (:100): the valid entries
+    whose uniform score is at or below the ``max_points``-th smallest (all
+    of them where there are no more).  The scores are given (``scores``,
+    e.g. the JAX key's draws, so that both packages keep the same points)
+    or drawn from ``generator``; torch cannot repeat the JAX key's
+    stream.  No host sync."""
+    if scores is None:
+        scores = torch.rand(mask.shape, generator=generator,
+                            device=mask.device)
+    scores = torch.where(mask, scores, torch.full_like(scores, 2.0))
+    n = mask.sum()
+    kth_idx = (torch.clamp(n, max=max_points) - 1).clamp(min=0)
+    kth = torch.sort(scores.reshape(-1)).values.gather(0, kth_idx[None])[0]
+    keep = (scores <= kth) & mask
+    return torch.where(n <= max_points, mask, keep)
 
 
 def box3d_corners(center: torch.Tensor, lwh: torch.Tensor,

@@ -14,6 +14,8 @@ problem per (image, Group-DETR group).
   (Jonker-Volgenant style, JAX ``solve_lap_jv`` :54).
 * ``solve_lap_auction`` — Jacobi auction with epsilon scaling on the
   squared problem (JAX ``solve_lap_auction`` :219), near-optimal.
+* ``solve_lap_auction_fast`` — the asymmetric forward auction (JAX
+  ``solve_lap_auction_fast`` :133); plain torch, no caller.
 
 ``lap_jv`` has three forms, hand-written kernels of ``csrc/lap.cu``, and
 ``jv_plan`` picks one from the shape alone (never from the counts or the
@@ -197,15 +199,16 @@ def solve_lap_jv(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     return p
 
 
-def auction_eps(cost: torch.Tensor, num_phases: int = AUCTION_PHASES
-                ) -> torch.Tensor:
+def auction_eps(cost: torch.Tensor, num_phases: int = AUCTION_PHASES,
+                final: float = 1e-4) -> torch.Tensor:
     """(N, num_phases) float32: each problem's epsilon in each phase, from
     the spread of its whole padded cost, as the JAX package's
-    ``solve_lap_auction`` computes it (``eps0 * shrink ** phase``).  The
+    ``solve_lap_auction`` computes it (``eps0 * shrink ** phase``, the last
+    ``final`` times the spread; 1e-5 for ``solve_lap_auction_fast``).  The
     kernel takes these values from here, so that it and the plain version
     bid with the same epsilons."""
     spread = (cost.amax((1, 2)) - cost.amin((1, 2))).clamp(min=1.0)
-    eps_final = spread * 1e-4
+    eps_final = spread * final
     eps0 = spread / 2.0
     shrink = (eps_final / eps0) ** (1.0 / max(num_phases - 1, 1))
     phase = torch.arange(num_phases, dtype=torch.float32, device=cost.device)
@@ -285,6 +288,77 @@ def solve_lap_auction(cost: torch.Tensor, n_valid: torch.Tensor,
     vals = torch.where((assigned >= 0) & is_real, col_ids[None, :], -1)
     return torch.full((n, q), -1, dtype=torch.long, device=dev).scatter_reduce(
         1, rows, vals, "amax")
+
+
+def solve_lap_auction_fast(cost: torch.Tensor, n_valid: torch.Tensor,
+                           num_phases: int = 6,
+                           rounds_per_phase: int = 100) -> torch.Tensor:
+    """Asymmetric forward auction, the JAX package's
+    ``solve_lap_auction_fast`` (:133) batched over problems: only the
+    ``n_valid`` real columns bid (for rows), with no dummy columns.
+
+    Each round every unassigned valid column bids for its best row (the
+    row's price plus the margin over its second-best row plus eps), each
+    row takes its highest bid (the first column on ties), a column
+    displaced by a new winner loses its row.  A phase ends when every valid
+    column holds a row or after ``rounds_per_phase`` rounds; prices persist
+    across phases (epsilon from the spread down to 1e-5 of it), assignments
+    do not.  Plain torch: no caller in either package (the matcher's
+    backends are JV, the squared auction and scipy), so no kernel; one
+    would come with a matcher backend that reaches it."""
+    _check_args(cost, n_valid)
+    n, q, mmax = cost.shape
+    dev = cost.device
+    m = _valid_counts(cost, n_valid)
+    benefit = -cost.transpose(1, 2)                          # (N, M, Q)
+    person_ids = torch.arange(mmax, device=dev)
+    person_valid = person_ids[None, :] < m[:, None]          # (N, M)
+    row_ids = torch.arange(q, device=dev)
+    eps_all = auction_eps(cost, num_phases, final=1e-5)
+    ninf = torch.tensor(float("-inf"), device=dev)
+
+    prices = cost.new_zeros(n, q)
+    assigned = torch.full((n, mmax), -1, dtype=torch.long, device=dev)
+    for phase in range(num_phases):
+        eps = eps_all[:, phase:phase + 1]
+        owner = torch.full((n, q), -1, dtype=torch.long, device=dev)
+        assigned = torch.full((n, mmax), -1, dtype=torch.long, device=dev)
+        run = ((assigned < 0) & person_valid).any(1)
+        for _ in range(rounds_per_phase):
+            if not bool(run.any()):
+                break
+            unassigned = (assigned < 0) & person_valid       # (N, M)
+            vals = benefit - prices[:, None, :]              # (N, M, Q)
+            best = vals.argmax(2)
+            best_val = vals.amax(2)
+            second_val = vals.scatter(2, best[..., None],
+                                      float("-inf")).amax(2)
+            bid = prices.gather(1, best) + best_val - second_val + eps
+            bids_on = ((row_ids[None, :, None] == best[:, None, :])
+                       & unassigned[:, None, :])             # (N, Q, M)
+            bid_mat = torch.where(bids_on, bid[:, None, :], ninf)
+            win_val = bid_mat.amax(2)
+            win_person = bid_mat.argmax(2)
+            has_bid = torch.isfinite(win_val)
+            disp = (has_bid[:, :, None]
+                    & (owner[:, :, None] == person_ids[None, None, :])
+                    & (win_person[:, :, None] != person_ids[None, None, :])
+                    ).any(1)
+            new_assigned = torch.where(disp, -1, assigned)
+            padded = torch.cat([new_assigned,
+                                new_assigned.new_full((n, 1), -1)], 1)
+            idx = torch.where(has_bid, win_person, mmax)
+            padded = padded.scatter(
+                1, idx, torch.where(has_bid, row_ids[None, :], -1))
+            r = run[:, None]
+            assigned = torch.where(r, padded[:, :mmax], assigned)
+            owner = torch.where(r & has_bid, win_person, owner)
+            prices = torch.where(r & has_bid, win_val, prices)
+            run = run & ((assigned < 0) & person_valid).any(1)
+    rows = torch.where((assigned >= 0) & person_valid, assigned, q)
+    vals = torch.where(person_valid, person_ids[None, :], -1)
+    out = torch.full((n, q + 1), -1, dtype=torch.long, device=dev)
+    return out.scatter_reduce(1, rows, vals, "amax")[:, :q]
 
 
 # ---------------------------------------------------------------------------

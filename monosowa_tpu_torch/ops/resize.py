@@ -61,10 +61,17 @@ def _interpolate_nhwc(x: torch.Tensor, out_hw: Sequence[int],
 
 
 def resize_bilinear_torch(x: torch.Tensor, out_hw,
-                          align_corners: bool = False) -> torch.Tensor:
-    """``F.interpolate(mode='bilinear')`` of (..., H, W, C)."""
+                          align_corners: bool = False,
+                          antialias: bool = False) -> torch.Tensor:
+    """``F.interpolate(mode='bilinear')`` of (..., H, W, C); with
+    ``antialias`` an axis that shrinks takes the triangle filter widened to
+    the shrink factor (``jax.image.resize``'s "linear"), one that grows the
+    plain half-pixel rule."""
+    if antialias and align_corners:
+        raise NotImplementedError("torch AA path is align_corners=False")
     return _interpolate_nhwc(x, out_hw, mode="bilinear",
-                             align_corners=align_corners)
+                             align_corners=align_corners,
+                             antialias=antialias)
 
 
 def resize_bicubic_torch(x: torch.Tensor, out_hw, align_corners: bool = False,

@@ -543,6 +543,27 @@ class KittiObjectDriver:
             job["get_depth"] = get_depth
         return job
 
+    def _optimize_frame(self, labeler: PseudoLabeler, fid: str) -> int:
+        """One frame through the full pipeline on its own (the JAX
+        driver's ``_optimize_frame``, the per-frame route beside the
+        grouped ``_optimize_frames``): the merged-cars cache or a finished
+        label file first, else ``label_and_write`` over the window's
+        pseudo-LiDAR (``pcds/<offset>.npz``, the reference frame's flat
+        ``<fid>.npz`` where the window has none) and masks.  Returns the
+        frames written (0 or 1)."""
+        cached = self._optimize_frame_cached(labeler, fid)
+        if cached is not None:
+            return cached
+        window, get_points, get_masks, transforms = \
+            self._window_accessors(fid)
+        ped_masks = (self._ped_masks(fid)
+                     if self.pcfg.extract_pedestrians else None)
+        labeler.label_and_write(
+            os.path.join(self.labels_path, f"{fid}.txt"), window,
+            self.pcfg.nscans_before, get_points, get_masks, transforms,
+            self._calib(fid).P2, self._image_hw(fid), ped_masks=ped_masks)
+        return 1
+
     def _ped_masks(self, fid: str):
         """The frame's person-class masks from the pedestrians/ cache
         (prepare_dirs taxonomy, output.py:141-143), or None."""

@@ -15,11 +15,24 @@ by z).
 Counterpart of the JAX package's ``sowa/depth.py``: ``CachedDepthBackend``
 reads precomputed depth maps, so the pipeline runs without a depth
 checkpoint; ``DepthAnythingBackend`` (its ``FlaxDepthAnythingBackend``)
-runs Depth Anything on the card from a zoo checkpoint (``sowa/zoo.py``).
-Canonical-depth protocol: ``predict_depth_for`` / ``predict_depth`` return
-canonical depth at the ORIGINAL resolution, so metric depth = value * fx /
-1000.  ``TorchHubMetric3DBackend`` and the Metric3D encode / decode need a
-``torch.hub`` download and are not ported (``zoo.depth_backend`` raises).
+runs Depth Anything on the card from a zoo checkpoint (``sowa/zoo.py``);
+``TorchHubMetric3DBackend`` runs the reference's Metric3D model from
+``torch.hub`` on the card.  Canonical-depth protocol: ``predict_depth_for``
+/ ``predict_depth`` return canonical depth at the ORIGINAL resolution, so
+metric depth = value * fx / 1000.
+
+The Metric3D route (metric3d.py:280-345) runs on the image's device:
+``encode_image`` keeps the aspect ratio into 616 x 1064, scales all four
+intrinsics by the same factor, pads to the centre with the ImageNet mean
+and normalises (values in 0-255).  OpenCV's ``resize`` and
+``copyMakeBorder`` are rebuilt in torch (``ops/resize.py``'s INTER_LINEAR
+rules; the card's machine may have no OpenCV): on a uint8 image the border
+value is rounded to uint8, [124, 116, 104], as ``copyMakeBorder`` rounds
+it.  ``metric3d_decode_lift`` crops the padding, resizes bilinearly with
+half-pixel centres to the image (antialiased where it shrinks, as
+``jax.image.resize``), de-canonicalises with the SCALED focal length,
+clamps to [0, 300] m and back-projects the full pixel grid through the
+ORIGINAL intrinsics.
 """
 
 from __future__ import annotations
@@ -35,6 +48,90 @@ from monosowa_tpu_torch.ops.geometry import backproject_depth
 
 MAX_DEPTH = 300.0
 CANONICAL_FOCAL = 1000.0
+METRIC3D_INPUT_SIZE = (616, 1064)  # ViT models (metric3d.py:294)
+IMAGENET_MEAN = (123.675, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+
+
+def encode_image(img, intrinsic, device=None):
+    """``Metric3D.encode_img`` (metric3d.py:290-317) on ``device`` (None:
+    the card).
+
+    img: (H, W, 3) RGB, uint8 or float32 (0-255), numpy or a tensor;
+    intrinsic: [fx, fy, cx, cy].  Returns (normalised float32 (3, 616,
+    1064) tensor on the device, pad_info [top, bottom, left, right],
+    intrinsic_scaled, scale)."""
+    from monosowa_tpu_torch.ops.resize import cv2_resize_linear
+
+    dev = resolve_device(device)
+    ih, iw = METRIC3D_INPUT_SIZE
+    x = torch.as_tensor(img, device=dev)
+    h, w = x.shape[:2]
+    scale = min(ih / h, iw / w)
+    rgb = cv2_resize_linear(x, (int(h * scale), int(w * scale)))
+    intrinsic_scaled = [float(v) * scale for v in intrinsic[:4]]
+    hs, ws = rgb.shape[:2]
+    pad_h, pad_w = ih - hs, iw - ws
+    ph0, pw0 = pad_h // 2, pad_w // 2
+    pad_info = [ph0, pad_h - ph0, pw0, pad_w - pw0]
+    fill = np.asarray(IMAGENET_MEAN, np.float32)
+    if rgb.dtype == torch.uint8:
+        fill = np.clip(np.rint(fill), 0, 255)     # copyMakeBorder's rounding
+    padded = torch.as_tensor(fill, device=dev).to(rgb.dtype).expand(
+        ih, iw, 3).clone()
+    padded[ph0:ph0 + hs, pw0:pw0 + ws] = rgb
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
+                        device=dev)[:, None, None]
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
+                       device=dev)[:, None, None]
+    chw = (padded.permute(2, 0, 1).float() - mean) / std
+    return chw, pad_info, intrinsic_scaled, scale
+
+
+def metric3d_decode_lift(pred_depth: torch.Tensor, pad_info, orig_hw,
+                         fx_scaled: torch.Tensor,
+                         intrinsic_orig: torch.Tensor):
+    """``Metric3D.decode_img`` geometry (metric3d.py:319-345) on the
+    prediction's device.
+
+    pred_depth: (616, 1064) canonical depth from the model; fx_scaled =
+    fx * encode scale and intrinsic_orig = [fx, fy, cx, cy] as float32
+    tensors on its device.  Returns (points (H*W, 3) over the FULL pixel
+    grid, depth-0 pixels kept as the reference keeps them, metric depth
+    (H, W))."""
+    from monosowa_tpu_torch.ops.resize import resize_bilinear_torch
+
+    t, b, l, r = pad_info
+    h616, w1064 = pred_depth.shape
+    cropped = pred_depth[t:h616 - b, l:w1064 - r]
+    # the crop shrinks on both axes or on neither (one scale for both);
+    # torch's antialiased path matches jax.image.resize only where it
+    # shrinks
+    shrink = cropped.shape[0] > orig_hw[0] or cropped.shape[1] > orig_hw[1]
+    depth = resize_bilinear_torch(cropped[..., None], orig_hw,
+                                  antialias=shrink)[..., 0]
+    metric = torch.clamp(depth * fx_scaled / CANONICAL_FOCAL, 0.0,
+                         MAX_DEPTH)
+    fu, fv, cu, cv = intrinsic_orig.unbind()
+    return backproject_depth(metric, fu, fv, cu, cv), metric
+
+
+def compute_pseudo_lidar(img, intrinsic, model_fn, device=None):
+    """``Metric3D.compute_pseudo_lidar`` (metric3d.py:280-288) on
+    ``device`` (None: the card).
+
+    model_fn: normalised (3, 616, 1064) tensor -> (616, 1064) canonical
+    depth (a tensor or array).  Returns (points (H*W, 3), metric depth
+    (H, W)), float32 numpy."""
+    dev = resolve_device(device)
+    chw, pad_info, intr_s, _ = encode_image(img, intrinsic, dev)
+    pred = torch.as_tensor(model_fn(chw), dtype=torch.float32, device=dev)
+    pts, metric = metric3d_decode_lift(
+        pred, pad_info, tuple(img.shape[:2]),
+        torch.tensor(np.float32(intr_s[0]), device=dev),
+        torch.tensor([float(v) for v in intrinsic[:4]], dtype=torch.float32,
+                     device=dev))
+    return pts.cpu().numpy(), metric.cpu().numpy()
 
 
 class CachedDepthBackend:
@@ -51,6 +148,48 @@ class CachedDepthBackend:
             return None
         with np.load(path) as z:
             return np.asarray(z[self.key], np.float32)
+
+
+class TorchHubMetric3DBackend:
+    """The reference's Metric3D (yvanyin/metric3d through ``torch.hub``,
+    metric3d.py:17-37) on ``device`` (None: the card), with the encode and
+    decode above.  Needs the hub's files on disk (or a network); raises
+    ``RuntimeError`` with guidance otherwise."""
+
+    def __init__(self, model_name: str = "metric3d_vit_giant2",
+                 device=None):
+        self.device = resolve_device(device)
+        try:
+            self.model = torch.hub.load("yvanyin/metric3d", model_name,
+                                        pretrain=True)
+        except Exception as e:  # zero-egress environments
+            raise RuntimeError(
+                "Metric3D weights unavailable (offline). Use "
+                "CachedDepthBackend with precomputed depth maps.") from e
+        self.model = self.model.to(self.device).eval()
+
+    def _infer_canonical(self, chw: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            depth, *_ = self.model.inference({"input": chw[None].float()})
+        return torch.as_tensor(depth, device=self.device).squeeze().float()
+
+    def predict_depth(self, image: np.ndarray) -> np.ndarray:
+        """Canonical depth at the original resolution, the encode factor
+        folded in (metric = result * fx_orig / 1000, the reference's
+        upsampled * fx_scaled / 1000); the crop resized with OpenCV's
+        float32 INTER_LINEAR rule on the card."""
+        from monosowa_tpu_torch.ops.resize import cv2_resize_linear
+
+        h, w = image.shape[:2]
+        # the intrinsics do not change the canonical prediction: a unit
+        # intrinsic reuses the resize / pad / normalise
+        chw, pad_info, _, scale = encode_image(image, [1.0, 1.0, 0.0, 0.0],
+                                               self.device)
+        pred = self._infer_canonical(chw)
+        t, b, l, r = pad_info
+        d = pred[t:pred.shape[0] - b, l:pred.shape[1] - r]
+        d = cv2_resize_linear(d[..., None].contiguous(), (h, w))[..., 0]
+        return (d * np.float32(scale)).cpu().numpy().astype(np.float32)
 
 
 class DepthAnythingBackend:

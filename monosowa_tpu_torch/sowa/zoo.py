@@ -37,9 +37,12 @@ Ported: ``cached`` depth and masks, ``depth_anything``
 and the Waymo stitching path's ``loftr`` (``models/efficientloftr.py``,
 ``backends.matcher``; ``orb`` runs OpenCV on the host) and
 ``vit_tracker`` (``models/vit_tracker.py``, ``backends.tracker``;
-``template`` matching by default).  ``metric3d_hub`` (a ``torch.hub``
-download) raises ``NotImplementedError``.  The networks run on the card
-unless ``device`` names another.
+``template`` matching by default), and ``metric3d_hub`` (the reference's
+Metric3D through ``torch.hub``, ``metric3d.model`` naming it; its files
+must be on disk).  The networks run on the card unless ``device`` names
+another.  ``tools/import_zoo_checkpoint_torch.py`` writes these
+checkpoints from public releases' local checkpoint directories
+(``sowa/hf_checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -155,14 +158,18 @@ def _cfg_from_jsonable(data: Any, classes: Dict[str, type]) -> Any:
 # checkpoint file
 # ---------------------------------------------------------------------------
 
-def save_checkpoint(path: str, kind: str, params: Any, cfg: Any) -> None:
-    """Serialise a model-zoo checkpoint (see the module docstring)."""
+def save_checkpoint(path: str, kind: str, params: Any, cfg: Any,
+                    compress: bool = True) -> None:
+    """Serialise a model-zoo checkpoint (see the module docstring);
+    ``compress=False`` stores the arrays undeflated (the same ``.npz``
+    to ``load_checkpoint``)."""
     _config_classes(kind)     # validate kind early
     meta = json.dumps({"kind": kind, "config": _cfg_to_jsonable(cfg)})
     flat = flatten_params(params)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez_compressed(path, __config__=np.frombuffer(
-        meta.encode(), dtype=np.uint8), **flat)
+    save = np.savez_compressed if compress else np.savez
+    save(path, __config__=np.frombuffer(meta.encode(), dtype=np.uint8),
+         **flat)
 
 
 def load_checkpoint(path: str) -> Tuple[str, Any, Any]:
@@ -204,10 +211,9 @@ def depth_backend(cfg, depth_dir: str, device=None):
     if kind == "cached":
         return depth_mod.CachedDepthBackend(depth_dir)
     if kind == "metric3d_hub":
-        raise NotImplementedError(
-            "backends.depth 'metric3d_hub': TorchHubMetric3DBackend of the "
-            "JAX package's sowa/depth.py loads Metric3D through torch.hub "
-            "(a download); not ported")
+        model = (cfg.metric3d or type(cfg)({})).get("model",
+                                                    "metric3d_vit_giant2")
+        return depth_mod.TorchHubMetric3DBackend(model, device=device)
     if kind == "depth_anything":
         params, dcfg = _load_checked(b.get("depth_checkpoint"),
                                      "depth_anything")

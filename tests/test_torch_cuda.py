@@ -1199,3 +1199,60 @@ def test_growing_on_the_card_matches_the_cpu(cuda):
     got = growing.connected_components(p_gpu, m_gpu, 0.3)
     assert torch.equal(got.cpu(), want)
     assert 1000 < len(torch.unique(want)) < len(pts) // 2
+
+
+@pytest.mark.parametrize("hw,dtype", [((375, 1242), np.uint8),
+                                      ((640, 480), np.float32),
+                                      ((100, 150), np.uint8)])
+def test_metric3d_route_on_the_card_matches_the_cpu(cuda, hw, dtype):
+    """``encode_image`` (uint8 equal, float32 4e-6) and
+    ``metric3d_decode_lift`` (1e-5 of the magnitude; the 100 x 150 crop is
+    resized down, antialiased) on the card against the CPU."""
+    from monosowa_tpu_torch.sowa import depth
+
+    rng = np.random.default_rng(3)
+    img = (rng.integers(0, 256, (*hw, 3)).astype(np.uint8)
+           if dtype == np.uint8 else
+           rng.uniform(0, 255, (*hw, 3)).astype(np.float32))
+    intr = [721.5377, 721.5377, 609.5593, 172.854]
+    got = depth.encode_image(img, intr, device=cuda)
+    want = depth.encode_image(img, intr, device="cpu")
+    assert got[1:] == want[1:]
+    tol = 0.0 if dtype == np.uint8 else 4e-6
+    assert float((got[0].cpu() - want[0]).abs().max()) <= tol
+    pred = torch.from_numpy(rng.uniform(5, 60, (616, 1064)).astype(
+        np.float32))
+    outs = [depth.metric3d_decode_lift(
+        pred.to(dev), want[1], hw, torch.tensor(np.float32(want[2][0]),
+                                                device=dev),
+        torch.tensor(intr, device=dev)) for dev in (cuda, "cpu")]
+    for g, w in zip(*outs):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * scale
+
+
+def test_resnet_import_into_a_card_backbone(cuda, tmp_path):
+    """``load_torch_resnet_state`` into a backbone on the card gives the
+    CPU backbone's tensors, and C3-C5 within 1e-4 of their magnitude
+    (float32 sums in another order through 53 convolutions)."""
+    from monosowa_tpu_torch.device import resolve_device
+    from monosowa_tpu_torch.models.backbone import (ResNet50,
+                                                    load_torch_resnet_state)
+    from monosowa_tpu_torch.sowa.hf_checkpoint import write_seeded_resnet50
+
+    resolve_device(cuda)        # TF32 off, as the entry points set it
+    path = str(tmp_path / "resnet50.pth")
+    write_seeded_resnet50(path, seed=2)
+    nets = [load_torch_resnet_state(
+        ResNet50(torch.Generator().manual_seed(0)).to(dev), path)
+        for dev in (cuda, "cpu")]
+    for (n, a), (_, b) in zip(nets[0].state_dict().items(),
+                              nets[1].state_dict().items()):
+        assert torch.equal(a.cpu(), b), n
+    x = torch.randn(1, 3, 96, 160, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        got = nets[0](x.to(cuda))
+        want = nets[1](x)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale

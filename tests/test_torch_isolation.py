@@ -337,3 +337,74 @@ def test_unshipped_flags_raise(tmp_path):
     with pytest.raises(ValueError, match="lap_auction"):
         lap._launch_auction(tall, torch.ones(1, dtype=torch.int64),
                             lap.AUCTION_PHASES, lap.AUCTION_ROUNDS)
+
+
+TOOLS_CHILD = r"""
+import json, os, runpy, sys
+# none of these importable, as on the card's machine
+for name in ("jax", "jaxlib", "flax", "optax", "transformers",
+             "safetensors", "monosowa_tpu"):
+    sys.modules[name] = None
+root, work = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+
+
+def run(tool, *args):
+    sys.argv = [tool, *args]
+    try:
+        runpy.run_path(os.path.join(root, "tools", tool), run_name="__main__")
+    except SystemExit as e:
+        if e.code not in (0, None):
+            raise
+
+
+for kind in ("mask2former", "depth_anything", "sam", "loftr"):
+    run("import_zoo_checkpoint_torch.py", "--kind", kind, "--hf",
+        os.path.join(work, kind), "--out", os.path.join(work, kind + ".npz"))
+run("kitti_raw_transforms_torch.py", work, "drive0",
+    os.path.join(work, "transforms"), "--range", "2")
+run("eval_dimensions_torch.py", os.path.join(work, "labels"),
+    os.path.join(work, "labels"))
+from monosowa_tpu_torch.sowa import zoo
+kinds = [zoo.load_checkpoint(os.path.join(work, k + ".npz"))[0]
+         for k in ("mask2former", "depth_anything", "sam", "loftr")]
+print(json.dumps({"kinds": kinds,
+                  "transforms": sorted(os.listdir(os.path.join(
+                      work, "transforms"))),
+                  "loaded": sorted(m for m in sys.modules
+                                   if sys.modules[m] is not None and
+                                   m.split(".")[0] in %r)}))
+""" % (FORBIDDEN + ("transformers", "safetensors"),)
+
+
+def test_tools_run_without_jax_or_transformers(tmp_path):
+    """The import tool on four ``save_pretrained`` directories (the JAX
+    parity tests' tiny models), the raw-sequence transforms tool and the
+    dimension evaluation, in a fresh interpreter where ``jax``, ``flax``,
+    ``optax``, ``transformers``, ``safetensors`` and the JAX package cannot
+    be imported."""
+    transformers = pytest.importorskip("transformers")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_raw_calib import _write_calibs
+    from test_torch_import_hf import tiny_model
+
+    for kind in ("mask2former", "depth_anything", "sam", "loftr"):
+        tiny_model(kind).save_pretrained(str(tmp_path / kind))
+    _write_calibs(tmp_path)
+    oxts = tmp_path / "drive0" / "oxts" / "data"
+    oxts.mkdir(parents=True)
+    for i in range(3):
+        vals = [49.0 + i * 1e-5, 8.43, 110.0, 0.0, 0.0, 1.5] + [0.0] * 24
+        (oxts / f"{i:010d}.txt").write_text(" ".join(map(str, vals)))
+    (tmp_path / "labels").mkdir()
+    (tmp_path / "labels" / "000000.txt").write_text(
+        "Car 0.00 0 0.00 10 10 50 50 1.5 1.6 3.9 1.00 1.60 9.00 0.10\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", TOOLS_CHILD, ROOT,
+                           str(tmp_path)], env=env, capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["kinds"] == ["mask2former", "depth_anything", "sam", "loftr"]
+    assert res["transforms"] == [f"{i:010d}.npy" for i in range(3)]
+    assert res["loaded"] == []

@@ -140,15 +140,21 @@ def test_kinds_not_ported_raise(tmp_path):
         zoo.save_checkpoint(str(tmp_path / "x.npz"), "resnet", {}, None)
 
 
-def test_backends_from_config(ckpts, tmp_path):
+def test_backends_from_config(ckpts, tmp_path, monkeypatch):
     cfg = Config({})
     assert zoo.mask_backend(cfg) is None
     assert zoo.sam_refine_backend(cfg) is None
     assert isinstance(zoo.depth_backend(cfg, str(tmp_path)),
                       depth.CachedDepthBackend)
-    with pytest.raises(NotImplementedError, match="metric3d|Metric3D"):
+    # metric3d_hub builds the torch.hub backend (held against the JAX one
+    # in tests/test_torch_metric3d.py); here the hub is offline
+    def offline(*args, **kwargs):
+        raise OSError("offline")
+
+    monkeypatch.setattr(torch.hub, "load", offline)
+    with pytest.raises(RuntimeError, match="Metric3D weights unavailable"):
         zoo.depth_backend(Config({"backends": {"depth": "metric3d_hub"}}),
-                          str(tmp_path))
+                          str(tmp_path), device="cpu")
     with pytest.raises(ValueError):
         zoo.depth_backend(Config({"backends": {"depth": "lidar"}}), "")
     with pytest.raises(ValueError):
