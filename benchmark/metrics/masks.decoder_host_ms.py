@@ -1,0 +1,10 @@
+"""Mean host ms of a mask frame in the port's span ``m2f.decoder`` (the
+masked-attention decoder and its predictions, ``Mask2Former.forward``)
+less the waits on the card inside it (its ``sync.*`` spans), over the
+window's untraced frames."""
+
+from port_spans import frame_host_ms
+
+
+def read(ctx):
+    return frame_host_ms(ctx, "m2f.decoder")

@@ -445,6 +445,24 @@ AP_KEYS = tuple(f"car_{m}_{s}" for s in ("strict", "loose")
                 for m in ("bbox", "bev", "3d"))
 
 
+def launch_count(name: str) -> int:
+    """The tracer's counter ``name`` (``utils/timing.py``): a kernel's
+    launches in this process, since the last ``reset_launch_counts``."""
+    from monosowa_tpu_torch.utils import timing
+
+    return timing.counter(name)
+
+
+def launch_counts(*names: str):
+    return tuple(launch_count(n) for n in names)
+
+
+def reset_launch_counts(*names: str) -> None:
+    from monosowa_tpu_torch.utils import timing
+
+    timing.reset_counters(*names)
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -871,12 +889,12 @@ def fit_check(dev, n_cars: int = FIT_CARS, fit_cfg=None) -> dict:
     tmpl = torch.as_tensor(template, device=dev)
     fitting.fit_cars_conv(batch, tmpl, occ, memb, spec, cfg)     # warm-up
     torch.cuda.synchronize()
-    before = tfl.launches
+    before = launch_count("tfl.launches")
     t0 = time.perf_counter()
     res = fitting.fit_cars_conv(batch, tmpl, occ, memb, spec, cfg)
     torch.cuda.synchronize()
     fit_ms = (time.perf_counter() - t0) * 1e3
-    launches = tfl.launches - before
+    launches = launch_count("tfl.launches") - before
     if launches != TFL_PER_FIT:
         raise AssertionError(f"fit_cars_conv launched tfl_counts {launches} "
                              f"times, not {TFL_PER_FIT}")
@@ -983,8 +1001,6 @@ def timed_fits(module, record: bool = False):
     fall inside the fit's device time), for ``check_recorded_launches``."""
     import torch
 
-    from monosowa_tpu_torch.ops import tfl
-
     fits = []
     inner = module.fit_cars_conv
     with (recording_tfl() if record else contextlib.nullcontext([])) \
@@ -993,13 +1009,13 @@ def timed_fits(module, record: bool = False):
         def timed_fit(batch, *args):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            before = tfl.launches
+            before = launch_count("tfl.launches")
             recorded.clear()
             start.record()
             res = inner(batch, *args)
             end.record()
             fits.append({"cars": len(batch.points), "events": (start, end),
-                         "tfl_launches": tfl.launches - before,
+                         "tfl_launches": launch_count("tfl.launches") - before,
                          "tfl_inputs": list(recorded)})
             return res
 
@@ -1074,17 +1090,15 @@ def run_group(labeler, jobs, fit_module, check_launches: bool = False
     plain version afterwards, on its own inputs."""
     import torch
 
-    from monosowa_tpu_torch.ops import tfl
-
     with timed_fits(fit_module, record=check_launches) as fits:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        tfl.launches = 0
+        reset_launch_counts("tfl.launches")
         t0 = time.perf_counter()
         n_written = labeler.label_frames(jobs)          # the main path
         torch.cuda.synchronize()
         label_s = time.perf_counter() - t0
-        launches = tfl.launches
+        launches = launch_count("tfl.launches")
     if n_written != len(jobs):
         raise AssertionError(f"{n_written} frames written, not {len(jobs)}")
     stages = dict(labeler.stage_seconds)
@@ -1877,7 +1891,6 @@ def label_k360(dev, n_frames: int = K360_FRAMES,
     import numpy as np
     import torch
 
-    from monosowa_tpu_torch.ops import tfl
     from monosowa_tpu_torch.sowa import aggregation, cache as cache_mod
     from monosowa_tpu_torch.sowa import (cli, dimensions, filtering, fitting,
                                          pipeline, sample, scale, transforms)
@@ -1944,9 +1957,9 @@ def label_k360(dev, n_frames: int = K360_FRAMES,
                                      f"candidates, {len(merged[0])} cars")
             merged_cars.append(len(merged[0]))
         # 4. optimization over the merged cars
-        tfl.launches = 0
+        reset_launch_counts("tfl.launches")
         labels = main("opt", "optimization")
-        out["optimization_tfl_launches"] = tfl.launches
+        out["optimization_tfl_launches"] = launch_count("tfl.launches")
         cars, worst, _ = k360_labels(labels, refs, frames, scene_cars)
         out.update(cars_per_frame=cars, max_dist_to_scene_car_m=worst,
                    zero_matrices_per_window=zero_windows,
@@ -1956,9 +1969,9 @@ def label_k360(dev, n_frames: int = K360_FRAMES,
         with recording_tfl() as rec_demo, \
                 recording_calls(scale, "optimize_scale") as rec_scale, \
                 recording_calls(scale, "bbox_reduce") as rec_reduce:
-            tfl.launches = 0
+            reset_launch_counts("tfl.launches")
             labels = main("demo", "demo")
-            out["demo_tfl_launches"] = tfl.launches
+            out["demo_tfl_launches"] = launch_count("tfl.launches")
         cars, worst, sets = k360_labels(labels, refs, frames, scene_cars)
         out.update(demo_cars_per_frame=cars, demo_max_dist_m=worst,
                    demo_lengths_m=[float(v) for s in sets
@@ -1986,10 +1999,10 @@ def label_k360(dev, n_frames: int = K360_FRAMES,
         steps["demo launches vs plain"] = clock() - t0
         # 6. optimization with the robust fit over the same merged cars
         with recording_tfl() as rec_rob:
-            tfl.launches = 0
+            reset_launch_counts("tfl.launches")
             labels = main("robust", "optimization", extra={
                 "optimization": {"robust_optimization": True}})
-            out["robust_tfl_launches"] = tfl.launches
+            out["robust_tfl_launches"] = launch_count("tfl.launches")
         cars, worst, _ = k360_labels(labels, refs, frames, scene_cars)
         out.update(robust_cars_per_frame=cars, robust_max_dist_m=worst)
         t0 = clock()
@@ -2173,9 +2186,9 @@ def bench_row_fetch() -> dict:
     from monosowa_tpu_torch.ops import row_fetch as rf
     from tools import bench_gather_micro_torch as bench
 
-    rf.launches = 0
+    reset_launch_counts("row_fetch.launches")
     runs = [bench.run(form) for form in rf.FORMS]   # the main path
-    launches = rf.launches
+    launches = launch_count("row_fetch.launches")
     for r in runs:
         if not (r["on_card"] and r["max_err"] == 0.0
                 and r["coverage"] == 1.0):
@@ -2407,7 +2420,7 @@ def jv_form_runs(label, cost, n_valid, want, reps) -> dict:
     from monosowa_tpu_torch.ops import lap
 
     def counters():
-        return {f: getattr(lap, f"jv_{f}_launches") for f in lap.JV_FORMS}
+        return {f: launch_count(f"lap.jv_{f}_launches") for f in lap.JV_FORMS}
 
     runs = {}
     for form, plan in lap.jv_forms(*cost.shape[1:]).items():
@@ -2616,7 +2629,6 @@ def epoch(dev, n_train: int = EPOCH_TRAIN, n_val: int = EPOCH_VAL,
 
     from monosowa_tpu_torch.evalkitti import eval as kitti_eval
     from monosowa_tpu_torch.kittiio import read_label_file
-    from monosowa_tpu_torch.ops import lap, msda
     from monosowa_tpu_torch.train import checkpoint as ckpt_io
     from monosowa_tpu_torch.train import tester
     from monosowa_tpu_torch.train.sample import (SampleDataset,
@@ -2643,14 +2655,15 @@ def epoch(dev, n_train: int = EPOCH_TRAIN, n_val: int = EPOCH_VAL,
             write_sample_labels(label_dir, val_ds)
 
             # the main path: one epoch, its checkpoint, its evaluation
-            msda.launches = msda.bwd_launches = 0
-            lap.jv_launches = lap.auction_launches = 0
+            reset_launch_counts("msda.fwd_launches", "msda.bwd_launches")
+            reset_launch_counts("lap.jv_launches", "lap.auction_launches")
             t0 = time.perf_counter()
             record = train_val_torch.run(cfg, train_ds, val_ds, dev,
                                          logger=quiet)
             run_s = time.perf_counter() - t0
-            fwd_launches, bwd_launches = msda.launches, msda.bwd_launches
-            jv_launches = lap.jv_launches
+            fwd_launches, bwd_launches = launch_counts(
+                "msda.fwd_launches", "msda.bwd_launches")
+            jv_launches = launch_count("lap.jv_launches")
 
             steps = n_train // BATCH
             val_batches = -(-n_val // BATCH)
@@ -2668,7 +2681,7 @@ def epoch(dev, n_train: int = EPOCH_TRAIN, n_val: int = EPOCH_VAL,
                     "times")
             # one match a decoder layer and step
             if jv_launches != int(cfg["model"]["dec_layers"]) * steps \
-                    or lap.auction_launches:
+                    or launch_count("lap.auction_launches"):
                 raise AssertionError(f"{steps} steps launched lap_jv "
                                      f"{jv_launches} times")
             save_path = cfg["trainer"]["save_path"]
@@ -2882,13 +2895,13 @@ def serve(dev, bf16: bool = False) -> dict:
             policy_dtypes(model) as seen:
         cfg = {"tester": {"threshold": 0.0, "topk": 50},
                "trainer": {"save_path": tmp}, "dataset": {}}
-        msda.launches = msda.launches_bf16 = 0
+        reset_launch_counts("msda.fwd_launches", "msda.fwd_launches_bf16")
         t0 = time.perf_counter()
         out_dir = run_inference(model, batches, cfg, logger=lambda s: None)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
-        launches = {"msda_fwd": msda.launches,
-                    "msda_fwd_bf16": msda.launches_bf16}
+        launches = {"msda_fwd": launch_count("msda.fwd_launches"),
+                    "msda_fwd_bf16": launch_count("msda.fwd_launches_bf16")}
         files = sorted(os.listdir(out_dir))
         n_rows = 0
         for f in files:
@@ -3037,7 +3050,7 @@ def train(dev) -> dict:
     from monosowa_tpu_torch.models.matcher import MatcherConfig
     from monosowa_tpu_torch.models.monodetr import MonoDETR
     from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
-    from monosowa_tpu_torch.ops import lap, msda
+    from monosowa_tpu_torch.ops import msda
     from monosowa_tpu_torch.train.optim import make_optimizer
     from monosowa_tpu_torch.train.sample import sample_batch as train_batch
     from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
@@ -3115,20 +3128,23 @@ def train(dev) -> dict:
     # the main path: TRAIN_STEPS steps of make_train_step (the JV matcher
     # on the card, as the JAX trainer's)
     torch.cuda.reset_peak_memory_stats()
-    msda.launches = msda.bwd_launches = 0
-    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
-    lap.jv_launches = lap.jv_warp_launches = lap.auction_launches = 0
+    reset_launch_counts("msda.fwd_launches", "msda.bwd_launches")
+    reset_launch_counts("msda.fwd_launches_bf16", "msda.bwd_launches_bf16")
+    reset_launch_counts("lap.jv_launches", "lap.jv_warp_launches",
+                        "lap.auction_launches")
     history, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         history.append(step(batch, gen))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    fwd_launches, bwd_launches = msda.launches, msda.bwd_launches
-    jv_launches, auction_launches = lap.jv_launches, lap.auction_launches
-    jv_warp_launches = lap.jv_warp_launches
+    fwd_launches, bwd_launches = launch_counts("msda.fwd_launches",
+                                               "msda.bwd_launches")
+    jv_launches, auction_launches = launch_counts("lap.jv_launches",
+                                                  "lap.auction_launches")
+    jv_warp_launches = launch_count("lap.jv_warp_launches")
     step_peak = torch.cuda.max_memory_allocated()
-    if msda.launches_bf16 or msda.bwd_launches_bf16:
+    if any(launch_counts("msda.fwd_launches_bf16", "msda.bwd_launches_bf16")):
         raise AssertionError("the float32 train step launched a bf16 form")
     if (jv_launches, jv_warp_launches, auction_launches) != (
             LAP_PER_STEP * TRAIN_STEPS, LAP_PER_STEP * TRAIN_STEPS, 0):
@@ -3157,10 +3173,10 @@ def train(dev) -> dict:
         return times
 
     host_ms = steps_with("host", TRAIN_STEPS)
-    lap.auction_launches = 0
+    reset_launch_counts("lap.auction_launches")
     with recording_auction() as auction_costs:
         auction_ms = steps_with("auction", 1)
-    auction_path = lap.auction_launches
+    auction_path = launch_count("lap.auction_launches")
     if auction_path != LAP_PER_STEP:
         raise AssertionError(f"a step with the auction matcher launched "
                              f"lap_auction {auction_path} times")
@@ -3358,7 +3374,6 @@ def train_bf16(dev) -> dict:
 
     from monosowa_tpu_torch.models.criterion import CriterionConfig
     from monosowa_tpu_torch.models.monodetr import build_monodetr
-    from monosowa_tpu_torch.ops import lap, msda
     from monosowa_tpu_torch.train.optim import make_optimizer
     from monosowa_tpu_torch.train.sample import sample_batch as train_batch
     from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
@@ -3373,11 +3388,11 @@ def train_bf16(dev) -> dict:
     ccfg = CriterionConfig(group_num=model.group_num,
                            num_queries=model.num_queries,
                            num_classes=model.num_classes)
-    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
+    reset_launch_counts("msda.fwd_launches_bf16", "msda.bwd_launches_bf16")
     loss, grad_p, grad_kp, _ = bf16_step_comparison(
         model, inputs, targets_from_batch(batch, dev), ccfg, BF16_GRAD_FLOOR)
     # the kernels' step and the forward kernel of the kernel-plain step
-    if (msda.launches_bf16, msda.bwd_launches_bf16) != (
+    if launch_counts("msda.fwd_launches_bf16", "msda.bwd_launches_bf16") != (
             2 * MSDA_PER_FORWARD, MSDA_PER_FORWARD):
         raise AssertionError("the kernels' step did not go through the bf16 "
                              "kernels")
@@ -3403,9 +3418,9 @@ def train_bf16(dev) -> dict:
 
     # the main path: TRAIN_STEPS steps of make_train_step under "auto"
     torch.cuda.reset_peak_memory_stats()
-    msda.launches = msda.bwd_launches = 0
-    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
-    lap.jv_launches = lap.auction_launches = 0
+    reset_launch_counts("msda.fwd_launches", "msda.bwd_launches")
+    reset_launch_counts("msda.fwd_launches_bf16", "msda.bwd_launches_bf16")
+    reset_launch_counts("lap.jv_launches", "lap.auction_launches")
     history, step_ms = [], []
     with policy_dtypes(model) as seen:
         for _ in range(TRAIN_STEPS):
@@ -3413,10 +3428,11 @@ def train_bf16(dev) -> dict:
             history.append(step(batch, gen))
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"msda_fwd_bf16": msda.launches_bf16,
-                "msda_bwd_bf16": msda.bwd_launches_bf16,
-                "msda_fwd": msda.launches, "msda_bwd": msda.bwd_launches,
-                "lap_jv": lap.jv_launches}
+    launches = {"msda_fwd_bf16": launch_count("msda.fwd_launches_bf16"),
+                "msda_bwd_bf16": launch_count("msda.bwd_launches_bf16"),
+                "msda_fwd": launch_count("msda.fwd_launches"),
+                "msda_bwd": launch_count("msda.bwd_launches"),
+                "lap_jv": launch_count("lap.jv_launches")}
     step_peak = torch.cuda.max_memory_allocated()
     check_policy(seen, "torch.bfloat16", "train_bf16")
     want = {"msda_fwd_bf16": MSDA_PER_FORWARD * TRAIN_STEPS,
@@ -3601,11 +3617,11 @@ def train_add(dev) -> dict:
                 {n: p.grad.detach().clone()
                  for n, p in model.named_parameters()}, tfl_norm)
 
-    jv0 = lap.jv_launches
+    jv0 = launch_count("lap.jv_launches")
     losses_k, grads_k, tfl_norm = grads_with(msda.ms_deform_attn, jv_kernel)
-    if lap.jv_launches - jv0 != LAP_PER_STEP:
+    if launch_count("lap.jv_launches") - jv0 != LAP_PER_STEP:
         raise AssertionError(f"the kernel step launched lap_jv "
-                             f"{lap.jv_launches - jv0} times")
+                             f"{launch_count('lap.jv_launches') - jv0} times")
     losses_p, grads_p, _ = grads_with(msda.ms_deform_attn_plain,
                                       lap.solve_lap_jv)
     for mod in attn:
@@ -3649,18 +3665,19 @@ def train_add(dev) -> dict:
 
     # the main path: TRAIN_STEPS steps of make_train_step with add data
     torch.cuda.reset_peak_memory_stats()
-    msda.launches = msda.bwd_launches = 0
-    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
-    lap.jv_launches = lap.auction_launches = 0
+    reset_launch_counts("msda.fwd_launches", "msda.bwd_launches")
+    reset_launch_counts("msda.fwd_launches_bf16", "msda.bwd_launches_bf16")
+    reset_launch_counts("lap.jv_launches", "lap.auction_launches")
     history, step_ms = [], []
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         history.append(step(batch, gen))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"msda_fwd": msda.launches, "msda_bwd": msda.bwd_launches,
-                "lap_jv": lap.jv_launches,
-                "lap_auction": lap.auction_launches}
+    launches = {"msda_fwd": launch_count("msda.fwd_launches"),
+                "msda_bwd": launch_count("msda.bwd_launches"),
+                "lap_jv": launch_count("lap.jv_launches"),
+                "lap_auction": launch_count("lap.auction_launches")}
     peak = torch.cuda.max_memory_allocated()
     for losses in history:
         if not all(np.isfinite(v) for v in losses.values()) \
@@ -3709,7 +3726,6 @@ def train_add_bf16(dev) -> dict:
 
     from monosowa_tpu_torch.models.layers import Dropout
     from monosowa_tpu_torch.models.monodetr import MonoDETR
-    from monosowa_tpu_torch.ops import msda
     from monosowa_tpu_torch.train.optim import make_optimizer
     from monosowa_tpu_torch.train.trainer import (MODEL_INPUTS,
                                                   _tfl_templates,
@@ -3732,10 +3748,10 @@ def train_add_bf16(dev) -> dict:
     live = live_add_data(model, inputs, targets, add, ccfg)
     for mod, p_drop in zip(dropouts, dropout_p):
         mod.p = p_drop
-    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
+    reset_launch_counts("msda.fwd_launches_bf16", "msda.bwd_launches_bf16")
     loss, grad_p, grad_kp, losses_k = bf16_step_comparison(
         model, inputs, targets, ccfg, BF16_GRAD_FLOOR, add_data=live)
-    if (msda.launches_bf16, msda.bwd_launches_bf16) != (
+    if launch_counts("msda.fwd_launches_bf16", "msda.bwd_launches_bf16") != (
             2 * MSDA_PER_FORWARD, MSDA_PER_FORWARD):
         raise AssertionError("the kernels' step did not go through the bf16 "
                              "kernels")
@@ -4340,9 +4356,9 @@ def check_tall_jv(label: str, cost, n_valid) -> dict:
     planned = lap.jv_plan(q, mmax).form
     if planned == "warp":
         raise AssertionError(f"{label}: Q={q} M={mmax} takes the warp form")
-    launches = getattr(lap, f"jv_{planned}_launches")
+    launches = launch_count(f"lap.jv_{planned}_launches")
     got = lap.lap_jv(cost, n_valid)
-    if getattr(lap, f"jv_{planned}_launches") != launches + 1:
+    if launch_count(f"lap.jv_{planned}_launches") != launches + 1:
         raise AssertionError(f"{label}: the {planned} form did not launch")
     want = lap.solve_lap_jv(cost, n_valid)
     differ = int((got != want).sum())
@@ -4383,24 +4399,22 @@ def check_tall_jv(label: str, cost, n_valid) -> dict:
 
 
 def variant_counts() -> dict:
-    from monosowa_tpu_torch.ops import lap, msda
-
-    return {"msda_fwd": msda.launches, "msda_bwd": msda.bwd_launches,
-            "msda_fwd_bf16": msda.launches_bf16,
-            "msda_bwd_bf16": msda.bwd_launches_bf16,
-            "lap_jv": lap.jv_launches,
-            "lap_jv_cluster": lap.jv_cluster_launches,
-            "lap_jv_tall": lap.jv_tall_launches,
-            "lap_auction": lap.auction_launches}
+    return {"msda_fwd": launch_count("msda.fwd_launches"),
+            "msda_bwd": launch_count("msda.bwd_launches"),
+            "msda_fwd_bf16": launch_count("msda.fwd_launches_bf16"),
+            "msda_bwd_bf16": launch_count("msda.bwd_launches_bf16"),
+            "lap_jv": launch_count("lap.jv_launches"),
+            "lap_jv_cluster": launch_count("lap.jv_cluster_launches"),
+            "lap_jv_tall": launch_count("lap.jv_tall_launches"),
+            "lap_auction": launch_count("lap.auction_launches")}
 
 
 def reset_variant_counts() -> None:
-    from monosowa_tpu_torch.ops import lap, msda
-
-    msda.launches = msda.bwd_launches = 0
-    msda.launches_bf16 = msda.bwd_launches_bf16 = 0
-    lap.jv_launches = lap.auction_launches = 0
-    lap.jv_warp_launches = lap.jv_cluster_launches = lap.jv_tall_launches = 0
+    reset_launch_counts("msda.fwd_launches", "msda.bwd_launches",
+                        "msda.fwd_launches_bf16", "msda.bwd_launches_bf16",
+                        "lap.jv_launches", "lap.auction_launches",
+                        "lap.jv_warp_launches", "lap.jv_cluster_launches",
+                        "lap.jv_tall_launches")
 
 
 def run_variant(name: str, model, step, loss_of, want: dict,
@@ -5032,15 +5046,15 @@ def masks(dev, root: str, frames: dict) -> dict:
     driver = zoo_driver(root, "mask_tracking", dev, frames, {
         "backends": {"mask": "mask2former", "mask_checkpoint": ckpt,
                      "mask_input_hw": list(MASK_INPUT_HW)}})
-    msda.launches = msda.launches_bf16 = 0
+    reset_launch_counts("msda.fwd_launches", "msda.fwd_launches_bf16")
     t0 = time.perf_counter()
     written = driver.run(None, None)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = msda.launches
+    launches = launch_count("msda.fwd_launches")
     # one launch per encoder layer of the pixel decoder and frame
     if written != len(frames) or launches != cfg.encoder_layers \
-            * len(frames) or msda.launches_bf16:
+            * len(frames) or launch_count("msda.fwd_launches_bf16"):
         raise AssertionError(f"mask_tracking wrote {written} frames with "
                              f"{launches} MSDA launches")
     backend = driver.mask_backend
@@ -5267,13 +5281,11 @@ def images_to_labels(dev, root: str, frames: dict) -> dict:
     networks' weights are random)."""
     import torch
 
-    from monosowa_tpu_torch.ops import tfl
-
     fids = sorted(frames)[:DEPTH_FRAMES]
     sub = {fid: frames[fid] for fid in fids}
     driver = zoo_driver(root, "optimization", dev, sub, {
         "frames_creation": {"nscans_before": 0, "nscans_after": 0}})
-    tfl.launches = 0
+    reset_launch_counts("tfl.launches")
     t0 = time.perf_counter()
     written = driver.run(None, None)
     torch.cuda.synchronize()
@@ -5285,7 +5297,8 @@ def images_to_labels(dev, root: str, frames: dict) -> dict:
             for f in files]
     return {"phase": "images_to_labels", "frames": len(fids),
             "label_files": files, "label_rows": rows,
-            "optimization_s": run_s, "tfl_launches": tfl.launches}
+            "optimization_s": run_s,
+            "tfl_launches": launch_count("tfl.launches")}
 
 
 def sam_encoder_work(cfg) -> dict:
@@ -5419,7 +5432,6 @@ def sam(dev, root: str, frames: dict) -> dict:
 
     from monosowa_tpu_torch.convert import load_zoo_params, zoo_params
     from monosowa_tpu_torch.models.sam import Sam, vit_h
-    from monosowa_tpu_torch.ops import msda
     from monosowa_tpu_torch.ops.resize import (cv2_resize_linear,
                                                resize_bilinear_torch)
     from monosowa_tpu_torch.sowa import masks as masks_mod
@@ -5450,15 +5462,15 @@ def sam(dev, root: str, frames: dict) -> dict:
     driver.cache = os.path.join(root, "cache_sam")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    msda.launches = msda.launches_bf16 = 0
+    reset_launch_counts("msda.fwd_launches", "msda.fwd_launches_bf16")
     t0 = time.perf_counter()
     written = driver.run(None, None)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = msda.launches
+    launches = launch_count("msda.fwd_launches")
     peak_run = torch.cuda.max_memory_allocated()
     if written != len(frames) or launches != MSDA_PER_FORWARD * len(frames) \
-            or msda.launches_bf16:
+            or launch_count("msda.fwd_launches_bf16"):
         raise AssertionError(f"mask_tracking with SAM wrote {written} "
                              f"frames with {launches} MSDA launches")
     backend, refine = driver.mask_backend, driver.refine_backend
@@ -5990,7 +6002,6 @@ def waymo_window(dev, root: str, layout, homos_dir: str) -> dict:
     import numpy as np
     import torch
 
-    from monosowa_tpu_torch.ops import tfl
     from monosowa_tpu_torch.sowa import masks as masks_mod
 
     n = 2 * WAYMO_WINDOW + 1
@@ -6025,13 +6036,13 @@ def waymo_window(dev, root: str, layout, homos_dir: str) -> dict:
                                                            WAYMO_WINDOW):
         raise AssertionError("the window run's window is "
                              f"{drv.pcfg.nscans_before, drv.pcfg.nscans_after}")
-    tfl.launches = 0
+    reset_launch_counts("tfl.launches")
     t0 = time.perf_counter()
     written = drv.run(None, None)
     torch.cuda.synchronize()
     step_s["optimization"] = time.perf_counter() - t0
     out["optimization_stage_s"] = dict(drv.stage_seconds)
-    out["tfl_launches"] = tfl.launches
+    out["tfl_launches"] = launch_count("tfl.launches")
     cars = label_cars(os.path.join(lab, f"{ref:06d}.txt"))
     want = WAYMO_CARS[0]
     off = min((max(abs(x - want["x"]), abs(z - want["z"]))
@@ -6065,7 +6076,6 @@ def waymo(dev, root: str, mask_ckpt: str, n_frames: int = WAYMO_FRAMES,
         EfficientLoFTR, EfficientLoFTRConfig)
     from monosowa_tpu_torch.models.vit_tracker import (ViTTracker,
                                                        ViTTrackerConfig)
-    from monosowa_tpu_torch.ops import msda, tfl
     from monosowa_tpu_torch.sowa import masks as masks_mod
     from monosowa_tpu_torch.sowa import tracker2d, waymo2d, zoo
 
@@ -6126,13 +6136,13 @@ def waymo(dev, root: str, mask_ckpt: str, n_frames: int = WAYMO_FRAMES,
     # optimization at the shipped grid: K5 counted and replayed
     drv = waymo_driver(root, "optimization", dev, scene, "cache",
                        extra=grid and {"optimization": grid})
-    tfl.launches = 0
+    reset_launch_counts("tfl.launches")
     with recording_tfl() as recorded:
         t0 = time.perf_counter()
         written = drv.run(None, None)
         torch.cuda.synchronize()
         step_s["optimization"] = time.perf_counter() - t0
-        k5 = tfl.launches
+        k5 = launch_count("tfl.launches")
     out["tfl_launches"] = k5
     out["tfl_replayed"] = replay_tfl_launches(recorded, "waymo")
     del recorded
@@ -6202,12 +6212,12 @@ def waymo(dev, root: str, mask_ckpt: str, n_frames: int = WAYMO_FRAMES,
                                            "mask_checkpoint": mask_ckpt,
                                            "mask_input_hw": hw},
                               "filtering": {"score_detectron_thresh": thr}})
-    msda.launches = 0
+    reset_launch_counts("msda.fwd_launches")
     t0 = time.perf_counter()
     drv.run(None, None)
     torch.cuda.synchronize()
     live_s = time.perf_counter() - t0
-    k1 = msda.launches
+    k1 = launch_count("msda.fwd_launches")
     backend = drv._mask_backend_cache
     per_canvas = backend.cfg.encoder_layers
     if k1 != per_canvas * 4 * n_frames:
@@ -6969,12 +6979,12 @@ def gather_stage(dev, root: str, cfg=None) -> dict:
     with recording_tfl() as rec_batch:                          # warm-up
         fitting.fit_cars(batch(every), tmpl[dev], field[dev], cfg)
     torch.cuda.synchronize()
-    tfl.launches = 0
+    reset_launch_counts("tfl.launches")
     t0 = time.perf_counter()
     res = fitting.fit_cars(batch(every), tmpl[dev], field[dev], cfg)
     torch.cuda.synchronize()
     fit_ms = (time.perf_counter() - t0) * 1e3
-    fit_launches = tfl.launches
+    fit_launches = launch_count("tfl.launches")
     if fit_launches != 1 or len(rec_batch) != 1:
         raise AssertionError(f"fit_cars launched tfl_counts {fit_launches} "
                              f"times ({len(rec_batch)} recorded), not once")
@@ -7043,11 +7053,11 @@ def gather_stage(dev, root: str, cfg=None) -> dict:
                                                    for i in standing]))):
         raise AssertionError("custom_dataset: the loaded pairs differ")
     with recording_tfl() as rec_harness:
-        tfl.launches = 0
+        reset_launch_counts("tfl.launches")
         t0 = time.perf_counter()
         ious = custom_dataset.evaluate_fitting_on_pairs(out_dir, fit_fn)
         harness_s = time.perf_counter() - t0
-        harness_launches = tfl.launches
+        harness_launches = launch_count("tfl.launches")
     if harness_launches != len(standing):
         raise AssertionError(f"the harness launched tfl_counts "
                              f"{harness_launches} times for "
@@ -7240,7 +7250,6 @@ def import_zoo(dev, root: str, frames: dict) -> dict:
     from monosowa_tpu_torch.kittiio import read_label_file
     from monosowa_tpu_torch.models.backbone import load_torch_resnet_state
     from monosowa_tpu_torch.models.layers import FrozenBatchNorm
-    from monosowa_tpu_torch.ops import msda
     from monosowa_tpu_torch.sowa import depth as depth_mod
     from monosowa_tpu_torch.sowa import hf_checkpoint, zoo
     from monosowa_tpu_torch.train.tester import run_inference
@@ -7256,7 +7265,7 @@ def import_zoo(dev, root: str, frames: dict) -> dict:
     fid = sorted(frames)[0]
     layers = list(mask_backend.model.pixel_decoder.encoder_layers)
     recorded, restore = recording_msda(layers)
-    msda.launches = msda.launches_bf16 = 0
+    reset_launch_counts("msda.fwd_launches", "msda.fwd_launches_bf16")
     try:
         t0 = time.perf_counter()
         masks, scores = mask_backend.predict_masks_scores(frames[fid])
@@ -7264,9 +7273,10 @@ def import_zoo(dev, root: str, frames: dict) -> dict:
         frame_ms = (time.perf_counter() - t0) * 1e3
     finally:
         restore()
-    mask_launches = msda.launches
+    mask_launches = launch_count("msda.fwd_launches")
     if mask_launches != mask_backend.cfg.encoder_layers \
-            or msda.launches_bf16 or len(recorded) != mask_launches:
+            or launch_count("msda.fwd_launches_bf16") \
+            or len(recorded) != mask_launches:
         raise AssertionError(f"imported mask2former: {mask_launches} MSDA "
                              f"launches, {len(recorded)} recorded")
     cls, logits = mask_backend.forward(frames[fid])

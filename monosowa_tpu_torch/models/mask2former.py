@@ -40,6 +40,7 @@ from monosowa_tpu_torch.models.swin import (SwinBackbone, SwinConfig,
                                             import_hf_swin_backbone)
 from monosowa_tpu_torch.ops.msda import ms_deform_attn
 from monosowa_tpu_torch.ops.resize import resize_bilinear_torch
+from monosowa_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,10 +358,14 @@ class Mask2Former(nn.Module):
     def forward(self, pixels: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """pixels (B, H, W, 3) normalised NHWC -> (class logits (B, Q,
-        num_labels + 1), mask logits (B, Q, H/4, W/4))."""
-        feats = self.backbone(pixels)
-        mask_features, multi_scale = self.pixel_decoder(feats)
-        classes, masks = self.transformer(multi_scale, mask_features)
+        num_labels + 1), mask logits (B, Q, H/4, W/4)); the three stages
+        are spans of the tracer (``utils/timing.py``)."""
+        with timing.span("m2f.backbone"):
+            feats = self.backbone(pixels)
+        with timing.span("m2f.pixel_decoder"):
+            mask_features, multi_scale = self.pixel_decoder(feats)
+        with timing.span("m2f.decoder"):
+            classes, masks = self.transformer(multi_scale, mask_features)
         return classes[-1], masks[-1]
 
 

@@ -36,9 +36,10 @@ and a per-problem mask that freezes a problem where its ``while_loop`` would
 have stopped), so they give the JAX solvers' assignments, not merely
 assignments of the same cost.  ``lap_jv`` and ``lap_auction`` launch the
 hand-written kernels of ``csrc/lap.cu`` for CUDA tensors and run the plain
-versions for CPU tensors; there is no other path.  ``jv_launches`` and
-``auction_launches`` count kernel launches, ``jv_warp_launches``,
-``jv_cluster_launches`` and ``jv_tall_launches`` those of each JV form.
+versions for CPU tensors; there is no other path.  The tracer's counters
+(``utils/timing.py``) ``lap.jv_launches`` and ``lap.auction_launches``
+count kernel launches, ``lap.jv_warp_launches``, ``lap.jv_cluster_launches``
+and ``lap.jv_tall_launches`` those of each JV form.
 
 One departure: a problem with more valid columns than rows is solved over
 its first Q columns.  The JAX solvers never end on such a problem (JV) or
@@ -55,6 +56,8 @@ import functools
 import numpy as np
 import torch
 
+from monosowa_tpu_torch.utils import timing
+
 AUCTION_PHASES = 10
 AUCTION_ROUNDS = 200
 SMEM_LIMIT = 227 * 1024       # dynamic shared memory a Hopper block may have
@@ -68,14 +71,6 @@ WARP_THREADS = 128            # the warp form's block (one warp past the load)
 TALL_THREADS = 1024
 TALL_STATIC_BYTES = 4 * 66    # the tall form's reduction partials
 JV_FORMS = ("warp", "cluster", "tall")
-
-# kernel launches of lap_jv (all forms, and each form) and lap_auction (read
-# and reset by callers that must show a run went through the kernels)
-jv_launches = 0
-jv_warp_launches = 0
-jv_cluster_launches = 0
-jv_tall_launches = 0
-auction_launches = 0
 
 
 def _check_args(cost: torch.Tensor, n_valid: torch.Tensor) -> None:
@@ -523,8 +518,6 @@ def _kernels():
 
 def _launch_jv(cost, n_valid, plan: LapPlan | None = None):
     """One launch of the form ``jv_plan`` gives the shape, or of ``plan``."""
-    global jv_launches, jv_warp_launches, jv_cluster_launches, \
-        jv_tall_launches
     n, q, mmax = cost.shape
     plan = plan or jv_plan(q, mmax)
     counts = n_valid.to(torch.int32).contiguous()
@@ -557,18 +550,12 @@ def _launch_jv(cost, n_valid, plan: LapPlan | None = None):
     if err != 0:
         raise RuntimeError(f"lap_jv ({plan.form} form) launch failed: CUDA "
                            f"error {err}")
-    jv_launches += 1
-    if plan.form == "warp":
-        jv_warp_launches += 1
-    elif plan.form == "cluster":
-        jv_cluster_launches += 1
-    else:
-        jv_tall_launches += 1
+    timing.count("lap.jv_launches")
+    timing.count(f"lap.jv_{plan.form}_launches")
     return out
 
 
 def _launch_auction(cost, n_valid, num_phases, rounds_per_phase):
-    global auction_launches
     n, q, mmax = cost.shape
     plan = auction_plan(q, mmax)
     counts = n_valid.to(torch.int32).contiguous()
@@ -584,5 +571,5 @@ def _launch_auction(cost, n_valid, num_phases, rounds_per_phase):
             plan.threads, plan.slots, plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"lap_auction launch failed: CUDA error {err}")
-    auction_launches += 1
+    timing.count("lap.auction_launches")
     return out

@@ -27,8 +27,10 @@ tensors its forward launches ``csrc/msda_fwd.cu`` (entry point
 (``msda_bwd`` / ``msda_bwd_bf16``); for CPU
 tensors it runs the plain versions (``ms_deform_attn_plain``,
 ``msda_grad_loc_aw_plain``, ``msda_grad_value_plain``).  There is no other
-path.  ``launches`` and ``bwd_launches`` count the float32 kernels'
-launches, ``launches_bf16`` and ``bwd_launches_bf16`` the bfloat16 ones.
+path.  The tracer's counters (``utils/timing.py``)
+``msda.fwd_launches`` and ``msda.bwd_launches`` count the float32 kernels'
+launches, ``msda.fwd_launches_bf16`` and ``msda.bwd_launches_bf16`` the
+bfloat16 ones.
 
 The kernels take their block map from ``msda_plan``: the order in which
 queries are walked (image tiles where the queries are the pyramid's own
@@ -50,17 +52,11 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from monosowa_tpu_torch.utils import timing
+
 SpatialShapes = Sequence[Tuple[int, int]]
 # value's dtypes on every device (the kernels' two forms)
 VALUE_DTYPES = (torch.float32, torch.bfloat16)
-
-# kernel launches made by the forward and the backward, float32 and
-# bfloat16 value (read and reset by callers that must show a run went
-# through the kernels)
-launches = 0
-bwd_launches = 0
-launches_bf16 = 0
-bwd_launches_bf16 = 0
 
 
 def _corner_geometry(loc: torch.Tensor, h: int, w: int):
@@ -592,15 +588,12 @@ def _launch(source: str, tensors, out_tensors, spatial_shapes):
 def _launch_fwd(value, spatial_shapes, loc, aw):
     """out (B, Q, M * D) float32 from one call of ``csrc/msda_fwd.cu`` or,
     for a bfloat16 value, ``csrc/msda_fwd_bf16.cu``."""
-    global launches, launches_bf16
     b, _, m, d = value.shape
     out = torch.empty(b, loc.shape[1], m * d, device=value.device,
                       dtype=torch.float32)
     _launch("msda_fwd", (value, loc, aw), (out,), spatial_shapes)
-    if value.dtype == torch.bfloat16:
-        launches_bf16 += 1
-    else:
-        launches += 1
+    timing.count("msda.fwd_launches_bf16" if value.dtype == torch.bfloat16
+                 else "msda.fwd_launches")
     return out
 
 
@@ -609,7 +602,6 @@ def _launch_bwd(value, spatial_shapes, loc, aw, dout):
     ``csrc/msda_bwd.cu``.  dvalue is summed in a float32 scratch (zeroed by
     the call) and, for a bfloat16 value, rounded to bfloat16 once after it,
     as the JAX package casts K3's float32 sums (``msda_mxu.py:635``)."""
-    global bwd_launches, bwd_launches_bf16
     dvalue = torch.empty(value.shape, device=value.device,
                          dtype=torch.float32)
     dloc = torch.empty_like(loc)
@@ -617,7 +609,7 @@ def _launch_bwd(value, spatial_shapes, loc, aw, dout):
     _launch("msda_bwd", (value, loc, aw, dout), (dvalue, dloc, daw),
             spatial_shapes)
     if value.dtype == torch.bfloat16:
-        bwd_launches_bf16 += 1
+        timing.count("msda.bwd_launches_bf16")
         return dvalue.to(torch.bfloat16), dloc, daw
-    bwd_launches += 1
+    timing.count("msda.bwd_launches")
     return dvalue, dloc, daw

@@ -15,7 +15,8 @@ For block i of ``bq`` consecutive output rows:
 CUDA tensors (``direct``: rows straight from global memory / L2; ``staged``:
 the window staged through shared memory chunk by chunk) and runs the plain
 version ``row_fetch_plain`` for CPU tensors.  There is no other path.
-``launches`` counts kernel launches.
+The tracer's counter ``row_fetch.launches`` (``utils/timing.py``) counts
+kernel launches.
 
 The TPU tool carries idx as (N, 128) int32 with 128 equal columns, a lane
 layout of that machine; here idx is one int32 per row.
@@ -29,16 +30,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from monosowa_tpu_torch.utils import timing
+
 FORMS = ("direct", "staged")
 # (block, k_win) of the TPU tool's gather and onehot bodies: the same
 # 1024-row window, cut into other chunks
 FORM_DEFAULTS = {"direct": (256, 4), "staged": (512, 2)}
 NO_INDEX = 2 ** 30
 SMEM_LIMIT = 227 * 1024       # dynamic shared memory a Hopper block may have
-
-# kernel launches of row_fetch (read and reset by callers that must show a
-# run went through the kernel)
-launches = 0
 
 
 def window_params(form: str, block: Optional[int] = None,
@@ -132,7 +131,6 @@ def _kernels():
 
 def _launch(bank, idx, bq, block, k_win, form):
     """One launch of the form's kernel."""
-    global launches
     t_total, d = bank.shape
     n = idx.shape[0]
     if d % 8:
@@ -158,5 +156,5 @@ def _launch(bank, idx, bq, block, k_win, form):
     if err != 0:
         raise RuntimeError(f"row_fetch {form} launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    timing.count("row_fetch.launches")
     return out

@@ -11,7 +11,8 @@ optimizer.py:53-112).  Two evaluators, as in the JAX package's
    ``csrc/tfl_counts.cu`` (which replaces the TPU kernel
    ``binary_both_way_counts_pallas``); for CPU tensors it runs the plain
    version ``binary_both_way_counts_plain``.  There is no other path.
-   ``launches`` counts kernel launches.  Used to rescore the coarse grid's
+   The tracer's counter ``tfl.launches`` (``utils/timing.py``) counts
+   kernel launches.  Used to rescore the coarse grid's
    best translations and for the fine theta pass.
 
 2. ``grid_pose_losses_conv``: the whole (theta x dx x dz) grid as two
@@ -39,11 +40,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-BIG = 1e9
+from monosowa_tpu_torch.utils import timing
 
-# kernel launches of binary_both_way_counts (read and reset by callers that
-# must show a run went through the kernel)
-launches = 0
+BIG = 1e9
 
 # elements of the plain version's (chunk, T, S) distance tensor
 _PLAIN_CHUNK_ELEMS = 1 << 25
@@ -579,7 +578,6 @@ def _kernel():
 def _launch_counts(scan, scan_mask, templates, radius):
     """(t_count, s_count), each (B, P) float32, from one launch of
     ``csrc/tfl_counts.cu``."""
-    global launches
     b, p, t, _ = templates.shape
     s = scan.shape[1]
     plan = tfl_cell_plan(s, radius)
@@ -598,7 +596,7 @@ def _launch_counts(scan, scan_mask, templates, radius):
                      stream)
     if err != 0:
         raise RuntimeError(f"tfl_counts launch failed: CUDA error {err}")
-    launches += 1
+    timing.count("tfl.launches")
     return t_count, s_count
 
 

@@ -67,7 +67,7 @@ from monosowa_tpu_torch.sowa import masks as masks_mod
 from monosowa_tpu_torch.sowa import transforms as transforms_mod
 from monosowa_tpu_torch.sowa.fitting import FitConfig
 from monosowa_tpu_torch.sowa.pipeline import PipelineConfig, PseudoLabeler
-
+from monosowa_tpu_torch.utils import timing
 
 
 def parse_args(argv: Optional[List[str]] = None):
@@ -612,8 +612,10 @@ class WaymoSegmentDriver:
     (``backends.mask``), the tracker (``backends.tracker``), the LoFTR
     matcher (``backends.matcher: loftr``) and the fit run on ``device``
     (default the card); RANSAC, the LiDAR gather, tracking bookkeeping and
-    the cache files on the host.  ``stage_seconds`` sums the wall seconds
-    of each stage."""
+    the cache files on the host.  Each stage is a span of the tracer
+    (``utils/timing.py``), ``waymo.<stage>``, and ``stage_seconds`` sums the
+    wall seconds of each; the ``masks`` stage holds the mask network's
+    ``masks.frame`` units."""
 
     def __init__(self, cfg: Config, flags: PipelineFlags, device=None):
         from monosowa_tpu_torch.sowa import waymo2d
@@ -631,11 +633,12 @@ class WaymoSegmentDriver:
 
     @contextlib.contextmanager
     def _stage(self, name: str):
-        t0 = time.perf_counter()
+        span = timing.span(f"waymo.{name}")
         try:
-            yield
+            with span:
+                yield
         finally:
-            self.stage_seconds[name] += time.perf_counter() - t0
+            self.stage_seconds[name] += span.seconds
 
     def segments(self) -> List[str]:
         return sorted(d for d in os.listdir(self.waymo_path)

@@ -7,6 +7,13 @@ Counterpart of the JAX package's ``sowa/masks.py``: ``Mask2FormerBackend``
 (its ``FlaxMask2FormerBackend``), ``SamRefineBackend`` (its
 ``FlaxSamRefineBackend``: the reference's SAM ViT-H box refinement,
 run_SAM_batch filtering.py:112-148), ``refine_masks`` and the cache I/O.
+
+A ``Mask2FormerBackend.predict_masks_multi`` call is one unit of the
+tracer (``utils/timing.py``), ``masks.frame``: its spans are
+``masks.encode``, the network's ``m2f.backbone``, ``m2f.pixel_decoder`` and
+``m2f.decoder`` (``models/mask2former.py``) and ``masks.keep``; each wait
+on the card is a ``sync.*`` span (``sync.upload``, ``sync.group_ids``,
+``sync.nonzero``, ``sync.d2h``).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import numpy as np
 import torch
 
 from monosowa_tpu_torch.device import resolve_device
+from monosowa_tpu_torch.utils import timing
 
 SCORE_THRESHOLD = 0.7  # filtering.score_detectron_thresh
 
@@ -64,10 +72,16 @@ class Mask2FormerBackend:
         device."""
         from monosowa_tpu_torch.ops.resize import cv2_resize_linear
 
-        img = image.to(self.device) if isinstance(image, torch.Tensor) \
-            else torch.tensor(np.asarray(image), device=self.device)
-        img = cv2_resize_linear(img, self.input_hw)
-        return (img.float() / 255.0 - self._mean) / self._std
+        with timing.span("masks.encode"):
+            if isinstance(image, torch.Tensor) \
+                    and image.device.type == self.device.type:
+                img = image.to(self.device)     # a canvas on the card
+            else:
+                # a blocking copy from pageable memory
+                with timing.sync("upload", self.device):
+                    img = torch.tensor(np.asarray(image), device=self.device)
+            img = cv2_resize_linear(img, self.input_hw)
+            return (img.float() / 255.0 - self._mean) / self._std
 
     def forward(self, image: np.ndarray):
         """One forward: (class logits (Q, labels + 1), mask logits (Q,
@@ -80,24 +94,37 @@ class Mask2FormerBackend:
         """ONE forward, several class filters: for each group of label ids
         the (masks, scores) of the queries whose largest class probability
         over the group clears the threshold (the car classes and, with
-        extract_pedestrians, the person class from the same forward)."""
+        extract_pedestrians, the person class from the same forward).
+        One unit of the tracer, ``masks.frame``."""
+        with timing.unit("masks.frame"):
+            h, w = image.shape[:2]
+            classes, mask_logits = self.forward(image)
+            with timing.span("masks.keep"):
+                return self._keep(classes, mask_logits, label_groups, h, w)
+
+    def _keep(self, classes, mask_logits, label_groups, h, w):
         from monosowa_tpu_torch.ops.resize import cv2_resize_linear
 
-        h, w = image.shape[:2]
-        classes, mask_logits = self.forward(image)
+        dev = self.device
         probs = torch.softmax(classes.float(), -1)[:, :-1]  # drop null
         out = []
         for ids in label_groups:
-            prob = probs[:, list(ids)].max(-1).values
-            keep = torch.nonzero(prob > self.score_threshold)[:, 0]
+            # the ids' index tensor is copied to the card and waited for
+            with timing.sync("group_ids", dev):
+                group = probs[:, list(ids)]
+            prob = group.max(-1).values
+            with timing.sync("nonzero", dev):
+                keep = torch.nonzero(prob > self.score_threshold)[:, 0]
             g_masks, g_scores = [], []
             if len(keep):
                 with torch.no_grad():
                     full = cv2_resize_linear(
                         mask_logits[keep].permute(1, 2, 0).contiguous(),
                         (h, w)) > 0.0     # sigmoid(x) > 0.5 <=> x > 0
-                full = full.permute(2, 0, 1).cpu().numpy()
-                scores = prob[keep].cpu().numpy()
+                with timing.sync("d2h", dev):
+                    full = full.permute(2, 0, 1).cpu().numpy()
+                with timing.sync("d2h", dev):
+                    scores = prob[keep].cpu().numpy()
                 for m, s in zip(full, scores):
                     if m.any():
                         g_masks.append(m)

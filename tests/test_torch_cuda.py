@@ -12,8 +12,16 @@ import pytest
 import torch
 
 from monosowa_tpu_torch.ops import lap, msda, row_fetch, tfl
+from monosowa_tpu_torch.utils import timing
 
 pytestmark = pytest.mark.cuda
+# the kernels' launch counters in the tracer (utils/timing.py)
+FWD, BWD = "msda.fwd_launches", "msda.bwd_launches"
+FWD16, BWD16 = "msda.fwd_launches_bf16", "msda.bwd_launches_bf16"
+
+
+def _launches(*names):
+    return tuple(timing.counter(n) for n in names)
 
 
 @pytest.fixture
@@ -43,11 +51,11 @@ def _inputs(seed, shapes, q, b, m, d, p, dev):
 ])
 def test_msda_kernel_matches_plain(cuda, shapes, q, m, d, p):
     value, loc, aw = _inputs(0, shapes, q, 2, m, d, p, cuda)
-    before = msda.launches
+    before = timing.counter(FWD)
     got = msda.ms_deform_attn(value, shapes, loc, aw)
     want = msda.ms_deform_attn_plain(value, shapes, loc, aw)
     torch.cuda.synchronize()
-    assert msda.launches == before + 1
+    assert timing.counter(FWD) == before + 1
     assert got.shape == (2, q, m * d)
     # float32 sums in another order
     scale = float(want.abs().max())
@@ -57,10 +65,10 @@ def test_msda_kernel_matches_plain(cuda, shapes, q, m, d, p):
 def test_msda_kernel_rejects_other_dtypes(cuda):
     shapes = ((4, 4),)
     value, loc, aw = _inputs(1, shapes, 5, 1, 2, 8, 2, cuda)
-    before = msda.launches
+    before = timing.counter(FWD)
     with pytest.raises(TypeError):
         msda.ms_deform_attn(value.half(), shapes, loc, aw)
-    assert msda.launches == before
+    assert timing.counter(FWD) == before
 
 
 def _dout(seed, q, b, m, d, dev):
@@ -82,13 +90,13 @@ def _dout(seed, q, b, m, d, dev):
 def test_msda_bwd_kernel_matches_plain(cuda, shapes, q, m, d, p):
     value, loc, aw = _inputs(2, shapes, q, 2, m, d, p, cuda)
     dout = _dout(3, q, 2, m, d, cuda)
-    before = msda.bwd_launches
+    before = timing.counter(BWD)
     got = msda._launch_bwd(value, shapes, loc, aw, dout)
     dloc, daw = msda.msda_grad_loc_aw_plain(value, shapes, loc, aw, dout)
     want = (msda.msda_grad_value_plain(value.shape, shapes, loc, aw, dout),
             dloc, daw)
     torch.cuda.synchronize()
-    assert msda.bwd_launches == before + 1
+    assert timing.counter(BWD) == before + 1
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
@@ -99,13 +107,12 @@ def test_msda_gradient_goes_through_the_kernels(cuda):
     value, loc, aw = (t.requires_grad_() for t in
                       _inputs(4, shapes, 37, 2, 4, 8, 4, cuda))
     dout = _dout(5, 37, 2, 4, 8, cuda)
-    before = (msda.launches, msda.bwd_launches)
+    before = _launches(FWD, BWD)
     out = msda.ms_deform_attn(value, shapes, loc, aw)
     assert out.grad_fn is not None
     out.backward(dout)
     torch.cuda.synchronize()
-    assert (msda.launches, msda.bwd_launches) == (before[0] + 1,
-                                                   before[1] + 1)
+    assert _launches(FWD, BWD) == (before[0] + 1, before[1] + 1)
     dloc, daw = msda.msda_grad_loc_aw_plain(value.detach(), shapes,
                                             loc.detach(), aw.detach(), dout)
     dvalue = msda.msda_grad_value_plain(value.shape, shapes, loc.detach(),
@@ -119,14 +126,14 @@ def test_msda_bwd_kernel_rejects_other_dtypes(cuda):
     shapes = ((4, 4),)
     value, loc, aw = _inputs(6, shapes, 5, 1, 2, 8, 2, cuda)
     dout = _dout(7, 5, 1, 2, 8, cuda)
-    before = msda.bwd_launches
+    before = timing.counter(BWD)
     with pytest.raises(TypeError):
         msda._launch_bwd(value.double(), shapes, loc.double(), aw.double(),
                          dout.double())
     with pytest.raises(TypeError):      # float64 runs on the CPU only
         msda.ms_deform_attn(value.double(), shapes, loc.double(),
                             aw.double())
-    assert msda.bwd_launches == before
+    assert timing.counter(BWD) == before
 
 
 RAGGED = ((13, 21), (7, 11), (4, 6), (2, 3))
@@ -202,11 +209,12 @@ def test_msda_kernel_at_the_pixel_decoders_shape(cuda):
     value, loc, aw = (torch.from_numpy(a.astype(np.float32)).to(cuda)
                       for a in (rng.normal(size=(1, q, m, d)), loc, aw))
     assert msda.msda_plan(shapes, q, p, d, value.device).resident == ()
-    before = msda.launches
+    before = timing.counter(FWD)
     got = msda.ms_deform_attn(value, shapes, loc, aw)
     want = msda.ms_deform_attn_plain(value, shapes, loc, aw)
     torch.cuda.synchronize()
-    assert msda.launches == before + 1 and got.shape == (1, q, m * d)
+    assert timing.counter(FWD) == before + 1
+    assert got.shape == (1, q, m * d)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
@@ -283,8 +291,7 @@ def _bf16_ulp(x):
 
 def _check_fwd_bwd_bf16(shapes, value, loc, aw, dout):
     assert value.dtype == torch.bfloat16
-    before = (msda.launches_bf16, msda.bwd_launches_bf16,
-              msda.launches, msda.bwd_launches)
+    before = _launches(FWD16, BWD16, FWD, BWD)
     got = (msda.ms_deform_attn(value, shapes, loc, aw),
            *msda._launch_bwd(value, shapes, loc, aw, dout))
     dloc, daw = msda.msda_grad_loc_aw_plain(value, shapes, loc, aw, dout)
@@ -292,8 +299,8 @@ def _check_fwd_bwd_bf16(shapes, value, loc, aw, dout):
             msda.msda_grad_value_plain(value.shape, shapes, loc, aw, dout,
                                        value.dtype), dloc, daw)
     torch.cuda.synchronize()
-    assert (msda.launches_bf16, msda.bwd_launches_bf16, msda.launches,
-            msda.bwd_launches) == (before[0] + 1, before[1] + 1, *before[2:])
+    assert _launches(FWD16, BWD16, FWD, BWD) == (before[0] + 1,
+                                                 before[1] + 1, *before[2:])
     for name, g, w in zip(("out", "dvalue", "dloc", "daw"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, name
         assert g.dtype == (torch.bfloat16 if name == "dvalue"
@@ -354,13 +361,12 @@ def test_msda_bf16_gradient_goes_through_the_kernels(cuda):
     loc.requires_grad_()
     aw.requires_grad_()
     dout = _dout(36, 37, 2, 4, 32, cuda)
-    before = (msda.launches_bf16, msda.bwd_launches_bf16)
+    before = _launches(FWD16, BWD16)
     out = msda.ms_deform_attn(value, shapes, loc, aw)
     out.backward(dout)
     torch.cuda.synchronize()
     assert out.dtype == torch.float32
-    assert (msda.launches_bf16, msda.bwd_launches_bf16) == (before[0] + 1,
-                                                             before[1] + 1)
+    assert _launches(FWD16, BWD16) == (before[0] + 1, before[1] + 1)
     assert (value.grad.dtype, loc.grad.dtype, aw.grad.dtype) == (
         torch.bfloat16, torch.float32, torch.float32)
 
@@ -370,7 +376,7 @@ def test_msda_bf16_kernels_refuse_what_they_cannot_take(cuda):
     value, loc, aw = _inputs(37, shapes, 5, 1, 2, 8, 2, cuda)
     dout = _dout(38, 5, 1, 2, 8, cuda)
     v16 = value.to(torch.bfloat16)
-    before = (msda.launches_bf16, msda.bwd_launches_bf16)
+    before = _launches(FWD16, BWD16)
     with pytest.raises(TypeError):          # loc and aw stay float32
         msda.ms_deform_attn(v16, shapes, loc.to(torch.bfloat16), aw)
     with pytest.raises(TypeError):
@@ -379,7 +385,7 @@ def test_msda_bf16_kernels_refuse_what_they_cannot_take(cuda):
         msda._launch_bwd(v16, shapes, loc, aw, dout.to(torch.bfloat16))
     with pytest.raises(TypeError):          # no float16 form
         msda._launch_fwd(value.half(), shapes, loc, aw)
-    assert (msda.launches_bf16, msda.bwd_launches_bf16) == before
+    assert _launches(FWD16, BWD16) == before
 
 
 def _near_inputs(seed, shapes, q, b, m, d, p, dev, wide=False):
@@ -505,13 +511,13 @@ def test_msda_bf16_refused_launch_raises(cuda):
     off.copy_(loc)
     assert off.data_ptr() % 8 == 4 and off.is_contiguous()
     dout = _dout(47, 40, 2, 2, 32, cuda)
-    before = (msda.launches_bf16, msda.bwd_launches_bf16)
+    before = _launches(FWD16, BWD16)
     with pytest.raises(RuntimeError, match="msda_fwd_bf16"):
         msda.ms_deform_attn(v16, RAGGED, off, aw)
     with pytest.raises(RuntimeError, match="msda_bwd_bf16"):
         msda._launch_bwd(v16, RAGGED, off, aw, dout)
     torch.cuda.synchronize()
-    assert (msda.launches_bf16, msda.bwd_launches_bf16) == before
+    assert _launches(FWD16, BWD16) == before
 
 
 def _tfl_inputs(seed, b, s, n_valid, p, t, dev):
@@ -542,13 +548,13 @@ def _tfl_inputs(seed, b, s, n_valid, p, t, dev):
 ])
 def test_tfl_counts_kernel_equals_plain(cuda, b, s, n_valid, p, t):
     scan, mask, poses = _tfl_inputs(8, b, s, n_valid, p, t, cuda)
-    before = tfl.launches
+    before = timing.counter("tfl.launches")
     t_frac, s_frac = tfl.binary_both_way_counts(scan, mask, poses, 0.2)
     t_count, s_count = tfl.binary_both_way_counts_plain(scan, mask, poses,
                                                         0.2)
     want_t, want_s = tfl._fractions(t_count, s_count, mask, t)
     torch.cuda.synchronize()
-    assert tfl.launches == before + 1
+    assert timing.counter("tfl.launches") == before + 1
     assert t_frac.shape == s_frac.shape == (b, p)
     # counts of pairs under the same float32 d2: equal, not close
     assert torch.equal(t_frac, want_t) and torch.equal(s_frac, want_s)
@@ -564,22 +570,22 @@ def test_tfl_counts_kernel_equals_plain(cuda, b, s, n_valid, p, t):
 
 def test_tfl_counts_kernel_rejects_other_dtypes(cuda):
     scan, mask, poses = _tfl_inputs(9, 1, 64, (64,), 2, 50, cuda)
-    before = tfl.launches
+    before = timing.counter("tfl.launches")
     with pytest.raises(TypeError):
         tfl.binary_both_way_counts(scan.double(), mask, poses.double(), 0.2)
     with pytest.raises(ValueError):
         tfl.binary_both_way_counts(scan, mask, poses.cpu(), 0.2)
-    assert tfl.launches == before
+    assert timing.counter("tfl.launches") == before
 
 
 def _tfl_equal_plain(scan, mask, poses, radius=0.2):
     """One launch; fractions equal to the plain version's, bit for bit."""
-    before = tfl.launches
+    before = timing.counter("tfl.launches")
     got = tfl.binary_both_way_counts(scan, mask, poses, radius)
     want = tfl._fractions(*tfl.binary_both_way_counts_plain(
         scan, mask, poses, radius), mask, poses.shape[2])
     torch.cuda.synchronize()
-    assert tfl.launches == before + 1
+    assert timing.counter("tfl.launches") == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w), (g - w).abs().max()
     return got
@@ -663,12 +669,12 @@ def test_tfl_counts_at_the_largest_scan_and_past_it(cuda):
     assert tfl.tfl_cell_plan(s, 0.2).cell_cap < tfl.CELL_CAP
     _tfl_equal_plain(scan, mask, poses)
     pad = torch.zeros(2, 1, 3, device=scan.device)
-    before = tfl.launches
+    before = timing.counter("tfl.launches")
     with pytest.raises(ValueError, match="at most"):
         tfl.binary_both_way_counts(
             torch.cat([scan, pad], 1),
             torch.cat([mask, mask[:, :1]], 1), poses, 0.2)
-    assert tfl.launches == before
+    assert timing.counter("tfl.launches") == before
 
 
 def test_tfl_counts_car_limit(cuda):
@@ -677,18 +683,18 @@ def test_tfl_counts_car_limit(cuda):
     mask = torch.ones(65535, 4, dtype=torch.bool, device=cuda)
     poses = torch.zeros(65535, 1, 1, 3, device=cuda)
     poses[-1, 0, 0, 0] = 5.0
-    before = tfl.launches
+    before = timing.counter("tfl.launches")
     t_frac, s_frac = tfl.binary_both_way_counts(scan, mask, poses, 0.2)
-    assert tfl.launches == before + 1
+    assert timing.counter("tfl.launches") == before + 1
     want = torch.ones(65535, 1, device=cuda)
     want[-1] = 0
     assert torch.equal(t_frac, want) and torch.equal(s_frac, want)
-    before = tfl.launches
+    before = timing.counter("tfl.launches")
     with pytest.raises(ValueError, match="65,535"):
         tfl.binary_both_way_counts(torch.cat([scan, scan[:1]]),
                                    torch.cat([mask, mask[:1]]),
                                    torch.cat([poses, poses[:1]]), 0.2)
-    assert tfl.launches == before
+    assert timing.counter("tfl.launches") == before
 
 
 @pytest.mark.parametrize("path", ["scale 3200", "scale 160", "robust"])
@@ -762,11 +768,11 @@ def test_row_fetch_kernels_equal_plain(cuda, form, t, d, n, bq, block, k_win,
     bank = torch.from_numpy(rng.standard_normal((t, d)).astype(
         np.float32)).to(cuda).to(dtype)
     blk, k = row_fetch.window_params(form, block, k_win)
-    before = row_fetch.launches
+    before = timing.counter("row_fetch.launches")
     got = row_fetch.row_fetch(bank, idx, bq, block, k_win, form)
     want = row_fetch.row_fetch_plain(bank, idx, bq, blk, k)
     torch.cuda.synchronize()
-    assert row_fetch.launches == before + 1
+    assert timing.counter("row_fetch.launches") == before + 1
     assert got.shape == (n, d) and got.dtype == torch.float32
     # a copy and an exact conversion: equal, not close
     assert torch.equal(got, want)
@@ -793,11 +799,11 @@ def test_row_fetch_kernels_out_of_window_and_uneven_split(cuda, form, dtype,
     bank = torch.from_numpy(rng.standard_normal((t, d)).astype(
         np.float32)).to(cuda).to(dtype)
     blk, k = row_fetch.window_params(form, 256, 2)
-    before = row_fetch.launches
+    before = timing.counter("row_fetch.launches")
     got = row_fetch.row_fetch(bank, idx, bq, blk, k, form)
     want = row_fetch.row_fetch_plain(bank, idx, bq, blk, k)
     torch.cuda.synchronize()
-    assert row_fetch.launches == before + 1
+    assert timing.counter("row_fetch.launches") == before + 1
     assert torch.equal(got, want)
     if fill != "bq 100":
         assert float(got.abs().max()) == 0
@@ -806,7 +812,7 @@ def test_row_fetch_kernels_out_of_window_and_uneven_split(cuda, form, dtype,
 def test_row_fetch_kernel_refuses_what_it_cannot_take(cuda):
     bank = torch.zeros(2048, 128, device=cuda, dtype=torch.float32)
     idx = torch.zeros(256, device=cuda, dtype=torch.int32)
-    before = row_fetch.launches
+    before = timing.counter("row_fetch.launches")
     with pytest.raises(ValueError, match="shared memory"):
         row_fetch.row_fetch(bank, idx, form="staged")   # 512 x 128 x 4 bytes
     with pytest.raises(ValueError, match="multiple of 8"):
@@ -815,7 +821,7 @@ def test_row_fetch_kernel_refuses_what_it_cannot_take(cuda):
         row_fetch.row_fetch(bank.half(), idx)
     with pytest.raises(ValueError):
         row_fetch.row_fetch(bank, idx.cpu())
-    assert row_fetch.launches == before
+    assert timing.counter("row_fetch.launches") == before
 
 
 @pytest.mark.parametrize("w", [160, 1242])
@@ -898,7 +904,7 @@ def _signed_zeros(seed, n, q, mmax):
 
 
 def _form_launches():
-    return {f: getattr(lap, f"jv_{f}_launches") for f in lap.JV_FORMS}
+    return {f: timing.counter(f"lap.jv_{f}_launches") for f in lap.JV_FORMS}
 
 
 @pytest.mark.parametrize("n,q,mmax", [(22, 50, 50), (7, 20, 8), (3, 33, 1),
@@ -906,10 +912,10 @@ def _form_launches():
                                       (2, 512, 50)])
 def test_lap_jv_kernel_equals_plain(cuda, n, q, mmax):
     cost, m = _lap_problems(n, n, q, mmax)
-    before, forms = lap.jv_launches, _form_launches()
+    before, forms = timing.counter("lap.jv_launches"), _form_launches()
     got = lap.lap_jv(cost.to(cuda), m.to(cuda))
     torch.cuda.synchronize()
-    assert lap.jv_launches == before + 1
+    assert timing.counter("lap.jv_launches") == before + 1
     form = lap.jv_plan(q, mmax).form
     assert _form_launches() == {**forms, form: forms[form] + 1}
     assert got.dtype == torch.int64 and got.shape == (n, q)
@@ -952,10 +958,10 @@ def test_lap_jv_tall_form_equals_plain(cuda, n, q, mmax):
     cost, m = _lap_problems(n + 200, n, q, mmax)
     form = lap.jv_plan(q, mmax).form
     assert form == ("tall" if q > 17840 else "cluster")
-    before, forms = lap.jv_launches, _form_launches()
+    before, forms = timing.counter("lap.jv_launches"), _form_launches()
     got = lap.lap_jv(cost.to(cuda), m.to(cuda))
     torch.cuda.synchronize()
-    assert lap.jv_launches == before + 1
+    assert timing.counter("lap.jv_launches") == before + 1
     assert _form_launches() == {**forms, form: forms[form] + 1}
     torch.testing.assert_close(
         got.cpu(), lap.solve_lap_jv(cost.to(cuda), m.to(cuda)).cpu(),
@@ -969,10 +975,10 @@ def test_lap_jv_tall_form_equals_plain(cuda, n, q, mmax):
 def test_lap_auction_kernel_equals_plain(cuda, n, q, mmax, zeros):
     make = _signed_zeros if zeros else _lap_problems
     cost, m = make(n + 100, n, q, mmax)
-    before = lap.auction_launches
+    before = timing.counter("lap.auction_launches")
     got = lap.lap_auction(cost.to(cuda), m.to(cuda))
     torch.cuda.synchronize()
-    assert lap.auction_launches == before + 1
+    assert timing.counter("lap.auction_launches") == before + 1
     torch.testing.assert_close(
         got.cpu(), lap.solve_lap_auction(cost.to(cuda), m.to(cuda)).cpu(),
         rtol=0, atol=0)
@@ -1007,7 +1013,7 @@ def test_lap_kernels_refuse_what_they_cannot_take(cuda):
     (test_lap_jv_tall_form_equals_plain)."""
     cost = torch.zeros(2, 4, 6, device=cuda)
     m = torch.zeros(2, dtype=torch.int64, device=cuda)
-    before = lap.auction_launches, lap.jv_launches
+    before = _launches("lap.auction_launches", "lap.jv_launches")
     with pytest.raises(ValueError):
         lap.lap_auction(cost, m)
     with pytest.raises(ValueError, match="lap_auction"):
@@ -1019,7 +1025,7 @@ def test_lap_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="lap_jv"):
         lap._launch_jv(torch.zeros(1, 600, 50, device=cuda), m[:1],
                        lap.jv_plan(600, 50, "warp"))
-    assert (lap.auction_launches, lap.jv_launches) == before
+    assert _launches("lap.auction_launches", "lap.jv_launches") == before
 
 
 def _sam_tree(cfg, seed=0):
@@ -1256,3 +1262,56 @@ def test_resnet_import_into_a_card_backbone(cuda, tmp_path):
     for g, w in zip(got, want):
         scale = float(w.abs().max())
         assert float((g.cpu() - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("threshold", [0.0, 1.0])
+def test_every_wait_of_a_mask_frame_is_a_sync_span(cuda, threshold):
+    """One frame of a small ``Mask2FormerBackend`` under
+    ``set_sync_debug_mode("warn")``: each warning comes while a ``sync.*``
+    span is open, and their number is the frame's ``sync`` count (every
+    query kept, so each group copies its masks and scores to the host; or
+    none kept).  The frame's record carries its K1 launches."""
+    import warnings
+
+    from monosowa_tpu_torch.convert import zoo_params
+    from monosowa_tpu_torch.models import mask2former, swin
+    from monosowa_tpu_torch.sowa.masks import Mask2FormerBackend
+
+    cfg = mask2former.Mask2FormerConfig(
+        backbone=swin.SwinConfig(embed_dim=16, depths=(1, 1, 2, 1),
+                                 num_heads=(1, 2, 4, 8), window_size=4),
+        feature_size=32, mask_feature_size=32, hidden_dim=32,
+        encoder_layers=2, decoder_layers=3, num_attention_heads=2,
+        encoder_feedforward_dim=32, dim_feedforward=32, num_queries=6,
+        num_labels=3)
+    backend = Mask2FormerBackend(
+        zoo_params(mask2former.Mask2Former(cfg, device="cpu")), cfg,
+        score_threshold=threshold, input_hw=(96, 160), device=cuda)
+    image = np.random.default_rng(3).integers(0, 256, (90, 150, 3),
+                                              np.uint8)
+    groups = [(0,), (1, 2)]
+    backend.predict_masks_multi(image, groups)     # tables to the card
+    torch.cuda.synchronize()
+    where = []
+
+    def show(message, *args, **kwargs):
+        if "called a synchronizing" in str(message):
+            top = timing.TRACER._local.top
+            where.append(None if top is None else top.name)
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = backend.predict_masks_multi(image, groups)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    rec = timing.TRACER.records[-1]
+    assert rec.name == "masks.frame"
+    assert where and all(w is not None and w.startswith("sync.")
+                         for w in where), where
+    assert len(where) == rec.counts["sync"]
+    assert rec.counts["sync"] == (9 if threshold == 0.0 else 5)
+    assert rec.counts[FWD] == cfg.encoder_layers
+    assert (sum(len(m) for m, _ in out) > 0) == (threshold == 0.0)

@@ -28,6 +28,7 @@ from monosowa_tpu.ops import lap as jax_lap
 from monosowa_tpu_torch.models import matcher
 from monosowa_tpu_torch.models.matcher import MatcherConfig, hungarian_match
 from monosowa_tpu_torch.ops import lap
+from monosowa_tpu_torch.utils import timing
 
 PAD = 1e6         # the matcher's cost of an invalid target column
 
@@ -163,12 +164,13 @@ def test_no_column_and_every_column(m):
 def test_wrappers_take_the_plain_versions_on_the_cpu():
     cases = _tie_cases()
     cost, m = _batch(cases)
-    jv0, auc0 = lap.jv_launches, lap.auction_launches
+    names = ("lap.jv_launches", "lap.auction_launches")
+    before = [timing.counter(n) for n in names]
     np.testing.assert_array_equal(lap.lap_jv(cost, m),
                                   lap.solve_lap_jv(cost, m))
     np.testing.assert_array_equal(lap.lap_auction(cost, m),
                                   lap.solve_lap_auction(cost, m))
-    assert (lap.jv_launches, lap.auction_launches) == (jv0, auc0)
+    assert [timing.counter(n) for n in names] == before
 
 
 def test_solvers_reject_what_they_do_not_take():

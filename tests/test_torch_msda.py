@@ -22,6 +22,7 @@ from monosowa_tpu.ops.msda_pallas import ms_deform_attn_pallas
 from monosowa_tpu_torch.convert import load_flax_params
 from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
 from monosowa_tpu_torch.ops import msda
+from monosowa_tpu_torch.utils import timing
 
 SHAPES = ((12, 20), (6, 10), (3, 5), (2, 3))
 
@@ -90,10 +91,11 @@ def test_plain_matches_pallas_kernel(q):
 
 def test_wrapper_runs_plain_version_on_cpu():
     value, loc, w = _inputs(3, 11)
-    before = msda.launches
+    before = timing.counter("msda.fwd_launches")
     got = msda.ms_deform_attn(torch.from_numpy(value), SHAPES,
                               torch.from_numpy(loc), torch.from_numpy(w))
-    assert msda.launches == before       # no kernel launch for CPU tensors
+    # no kernel launch for CPU tensors
+    assert timing.counter("msda.fwd_launches") == before
     np.testing.assert_array_equal(got.numpy(), _plain(value, loc, w))
 
 
@@ -233,9 +235,11 @@ def test_wrapper_takes_bf16_value_with_float32_loc_and_aw():
     value, loc, w = _inputs(11, 11)
     tv = torch.from_numpy(value).to(torch.bfloat16)
     tl, tw = torch.from_numpy(loc), torch.from_numpy(w)
-    before = (msda.launches, msda.launches_bf16)
+    names = ("msda.fwd_launches", "msda.fwd_launches_bf16")
+    before = [timing.counter(n) for n in names]
     got = msda.ms_deform_attn(tv, SHAPES, tl, tw)
-    assert (msda.launches, msda.launches_bf16) == before   # CPU: no kernel
+    # CPU: no kernel
+    assert [timing.counter(n) for n in names] == before
     assert got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), _plain_bf16(tv, loc, w))
     # loc and aw stay float32 whatever value's dtype; no float16 at all

@@ -26,6 +26,7 @@ from monosowa_tpu.ops.msda_mxu import msda_dvalue_mxu, msda_gdot_mxu
 from monosowa_tpu_torch.convert import load_flax_params
 from monosowa_tpu_torch.models.transformer import MSDeformAttnModule
 from monosowa_tpu_torch.ops import msda
+from monosowa_tpu_torch.utils import timing
 
 SHAPES = ((12, 20), (6, 10), (3, 5), (2, 3))
 NAMES = ("dvalue", "dloc", "daw")
@@ -187,11 +188,13 @@ def test_wrapper_output_carries_grad_fn_on_cpu():
     value.requires_grad_()
     loc.requires_grad_()
     aw.requires_grad_()
-    before = (msda.launches, msda.bwd_launches)
+    names = ("msda.fwd_launches", "msda.bwd_launches")
+    before = [timing.counter(n) for n in names]
     out = msda.ms_deform_attn(value, SHAPES, loc, aw)
     assert out.grad_fn is not None
     out.backward(dout)
-    assert (msda.launches, msda.bwd_launches) == before   # no kernels here
+    # no kernels here
+    assert [timing.counter(n) for n in names] == before
     want = _plain_bwd(*(t.detach().numpy() for t in (value, loc, aw, dout)))
     for t, w in zip((value, loc, aw), want):
         np.testing.assert_array_equal(t.grad.numpy(), w)

@@ -114,6 +114,19 @@ def lever_runs(root: str, cost, n_valid) -> list:
             for k, name in enumerate(LEVERS)]
 
 
+def launch_counts(lap) -> dict:
+    """The checkout's LAP launch counters: the tracer's ``lap.*`` counters
+    (``utils/timing.py``), or an older checkout's module counters of
+    ``ops/lap.py``."""
+    from monosowa_tpu_torch.utils import timing
+
+    if hasattr(timing, "TRACER"):
+        return {k: v for k, v in timing.TRACER.counters.items()
+                if k.startswith("lap.")}
+    return {k: v for k, v in vars(lap).items()
+            if k.endswith("_launches") and isinstance(v, int)}
+
+
 def worker(root: str, reps: int, forms: bool, levers: bool) -> None:
     """Time the checkout at ``root``: one JSON line a case (and a form or
     lever)."""
@@ -137,12 +150,12 @@ def worker(root: str, reps: int, forms: bool, levers: bool) -> None:
         if levers and solver == "auction":
             runs += lever_runs(root, cost, n_valid)
         for form, fn in runs:
-            counts = {k: v for k, v in vars(lap).items()
-                      if k.endswith("_launches") and isinstance(v, int)}
+            counts = launch_counts(lap)
             got = fn()
             torch.cuda.synchronize()
-            moved = {k: getattr(lap, k) - v for k, v in counts.items()
-                     if getattr(lap, k) != v}
+            moved = {k: v - counts.get(k, 0)
+                     for k, v in launch_counts(lap).items()
+                     if v != counts.get(k, 0)}
             print(json.dumps({
                 "tree": root, "case": label, "form": form,
                 "equal_plain": bool((got == want).all()),

@@ -47,6 +47,7 @@ def main() -> int:
     from monosowa_tpu_torch.ops import tfl
     from monosowa_tpu_torch.sowa import (bank, candidates_device, fitting,
                                          pipeline, sample)
+    from monosowa_tpu_torch.utils import timing
 
     argv = sys.argv[1:]
     use_bank = "--bank" in argv
@@ -95,7 +96,7 @@ def main() -> int:
 
     def label_group(jobs):
         spans.clear()
-        tfl.launches = 0
+        timing.reset_counters("tfl.launches")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         n = labeler.label_frames(jobs)
@@ -113,7 +114,7 @@ def main() -> int:
                 "fit_parts_device_ms": {k: sum(v) for k, v in parts.items()},
                 "spans_ms": {k: v for k, v in parts.items()
                              if k in ("extract_chunk_ms", "fused_fit_ms")},
-                "tfl_launches": tfl.launches}
+                "tfl_launches": timing.counter("tfl.launches")}
 
     with tempfile.TemporaryDirectory() as tmp:
         groups = [sample.make_jobs(frames, window, tmp, lo=g * GROUP,
