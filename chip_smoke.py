@@ -4903,9 +4903,29 @@ def busy_share(fn, top: int = 6) -> dict:
                             for k, t, c in rows[:top]]}
 
 
+def msda_swapped(layers, wrap):
+    """Set each MSDA module's call to ``wrap(its call)``, with a forward
+    pre-hook on the module that does nothing: a hooked module makes its
+    stage run eagerly where it would replay a CUDA graph
+    (``monosowa_tpu_torch/utils/graphs.py``), so the swapped call runs.
+    Returns a restore function."""
+    saved = [layer.msda for layer in layers]
+    hooks = [layer.register_forward_pre_hook(lambda *_: None)
+             for layer in layers]
+    for layer in layers:
+        layer.msda = wrap(layer.msda)
+
+    def restore():
+        for layer, fn, hook in zip(layers, saved, hooks):
+            layer.msda = fn
+            hook.remove()
+    return restore
+
+
 def recording_msda(layers):
     """Swap each MSDA module's call for one that keeps a copy of its
-    inputs and then calls it; returns the list and a restore function."""
+    inputs and then calls it (``msda_swapped``); returns the list and a
+    restore function."""
     recorded = []
 
     def wrap(fn):
@@ -4915,14 +4935,7 @@ def recording_msda(layers):
             return fn(value, shapes, loc, aw)
         return rec
 
-    saved = [layer.msda for layer in layers]
-    for layer in layers:
-        layer.msda = wrap(layer.msda)
-
-    def restore():
-        for layer, fn in zip(layers, saved):
-            layer.msda = fn
-    return recorded, restore
+    return recorded, msda_swapped(layers, wrap)
 
 
 def check_msda_recorded(label: str, recorded) -> dict:
@@ -5094,11 +5107,9 @@ def masks(dev, root: str, frames: dict) -> dict:
     att_flips, flips, kept, near_thr = 0, 0, [], 0
     for fid in fids:
         cls_k, log_k, att_k = decoder_forward(backend, frames[fid])
-        for layer in layers:
-            layer.msda = msda.ms_deform_attn_plain
+        restore = msda_swapped(layers, lambda _: msda.ms_deform_attn_plain)
         cls_p, log_p, att_p = decoder_forward(backend, frames[fid])
-        for layer in layers:
-            layer.msda = msda.ms_deform_attn
+        restore()
         cls_s, log_s, _ = decoder_forward(backend, frames[fid], att_p)
         att_flips += sum(int((a != b).sum()) for a, b in zip(att_k, att_p))
         for name, a, b, c in (("class_logits", cls_s, cls_p, cls_k),

@@ -17,6 +17,9 @@ zoo serves a float32 checkpoint:
   binarised attention mask (``sigmoid < 0.5`` of the mask logits resized to
   the next level, a fully masked row unmasked) feeds the next layer.
 
+On the card the trunk and the pixel decoder are replayed as CUDA graphs
+(``utils/graphs.py``), the decoder runs eagerly.
+
 Sine position embeddings and reference points are numpy constants of the
 shapes.  Submodules are named after the JAX param tree, so
 ``convert.load_zoo_params`` fills them by path; ``import_hf_mask2former``
@@ -41,6 +44,7 @@ from monosowa_tpu_torch.models.swin import (SwinBackbone, SwinConfig,
 from monosowa_tpu_torch.ops.msda import ms_deform_attn
 from monosowa_tpu_torch.ops.resize import resize_bilinear_torch
 from monosowa_tpu_torch.utils import timing
+from monosowa_tpu_torch.utils.graphs import StageGraphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,6 +356,7 @@ class Mask2Former(nn.Module):
         self.backbone = SwinBackbone(cfg.backbone, gen)
         self.pixel_decoder = PixelDecoder(cfg, gen)
         self.transformer = TransformerModule(cfg, gen)
+        self.graphs = StageGraphs()
         self.to(dev)
         self.eval()
 
@@ -359,11 +364,16 @@ class Mask2Former(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """pixels (B, H, W, 3) normalised NHWC -> (class logits (B, Q,
         num_labels + 1), mask logits (B, Q, H/4, W/4)); the three stages
-        are spans of the tracer (``utils/timing.py``)."""
+        are spans of the tracer (``utils/timing.py``).  Swin-B and the
+        pixel decoder replay CUDA graphs where ``utils/graphs.py`` finds
+        that they may (on the card, no gradient, eval mode, no hook); the
+        decoder, whose attention masks a hook may read, runs eagerly on the
+        pixel decoder's outputs."""
         with timing.span("m2f.backbone"):
-            feats = self.backbone(pixels)
+            feats = self.graphs.run(self.backbone, pixels)
         with timing.span("m2f.pixel_decoder"):
-            mask_features, multi_scale = self.pixel_decoder(feats)
+            mask_features, multi_scale = self.graphs.run(self.pixel_decoder,
+                                                         feats)
         with timing.span("m2f.decoder"):
             classes, masks = self.transformer(multi_scale, mask_features)
         return classes[-1], masks[-1]

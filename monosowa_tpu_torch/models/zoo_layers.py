@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from monosowa_tpu_torch.utils import graphs
+
 STD = 0.02
 
 
@@ -80,11 +82,19 @@ def group_norm_nhwc(m: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=256)
+def _constant(fn, args: tuple, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(fn(*args)).to(device)
+
+
 def constant(fn, args: tuple, device: torch.device) -> torch.Tensor:
     """``fn(*args)``, a numpy table of the shapes (the JAX package's
     compile-time constants: position embeddings, reference points, window
-    masks), as a tensor on ``device``, built and copied once."""
-    return torch.from_numpy(fn(*args)).to(device)
+    masks), as a tensor on ``device``, built and copied once into a cache
+    every network shares; a CUDA graph that reads it holds it
+    (``utils/graphs.py`` ``note``)."""
+    t = _constant(fn, args, device)
+    graphs.note(t)
+    return t
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

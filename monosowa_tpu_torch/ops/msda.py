@@ -52,7 +52,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from monosowa_tpu_torch.utils import timing
+from monosowa_tpu_torch.utils import graphs, timing
 
 SpatialShapes = Sequence[Tuple[int, int]]
 # value's dtypes on every device (the kernels' two forms)
@@ -571,6 +571,7 @@ def _launch(source: str, tensors, out_tensors, spatial_shapes):
     q, n_levels, p = loc.shape[1], loc.shape[3], loc.shape[4]
     plan = msda_plan(tuple((int(h), int(w)) for h, w in spatial_shapes), q,
                      p, d, value.device, value.element_size(), b * m)
+    graphs.note(plan)       # a CUDA graph captured over the launch reads it
     kernel = _kernel(entry)
     # index order needs no arrays: the kernels then count for themselves
     order_runs = (None, None) if plan.identity else \

@@ -20,7 +20,10 @@ it is a child of).
 
 Counters.  ``count(name, n)`` adds to the open unit and to the process
 total, which ``counter(name)`` reads: the kernels' launches
-(``msda.fwd_launches``, ``lap.jv_launches``, ...) and ``sync``.
+(``msda.fwd_launches``, ``lap.jv_launches``, ...), ``sync``, and the CUDA
+graphs' ``graph.captures`` and ``graph.replays`` (``utils/graphs.py``).
+Inside ``Tracer.counts_kept`` a count goes to the block's own table alone:
+a graph's capture keeps its launches there and counts them on each replay.
 
 Everything is kept in memory; nothing is written while spans run.  The
 tracer is process-wide (``TRACER``; the module's ``span``, ``unit``,
@@ -190,6 +193,7 @@ def _add(table: Dict[str, List[float]], name: str, dur: float,
 class _Local(threading.local):
     top: Optional[Span] = None        # the innermost open span
     unit: Optional[Record] = None     # the innermost open unit's record
+    kept: Optional[Dict[str, int]] = None   # counts_kept's table
 
 
 _NULL = contextlib.nullcontext()
@@ -229,6 +233,10 @@ class Tracer:
         return _Wait(self, "sync." + what)
 
     def count(self, name: str, n: int = 1) -> None:
+        kept = self._local.kept
+        if kept is not None:
+            kept[name] = kept.get(name, 0) + n
+            return
         rec = self._local.unit
         if rec is not None:
             rec.counts[name] = rec.counts.get(name, 0) + n
@@ -244,6 +252,17 @@ class Tracer:
         with self._lock:
             for name in names:
                 self.counters[name] = 0
+
+    @contextlib.contextmanager
+    def counts_kept(self):
+        """Within the block this thread's counts go to the yielded table
+        alone, neither to the open unit nor to the process totals."""
+        local = self._local
+        before, local.kept = local.kept, {}
+        try:
+            yield local.kept
+        finally:
+            local.kept = before
 
     def window(self, name: str, steps: int, skip: Iterable[int] = ()
                ) -> Optional[List[Record]]:
