@@ -34,11 +34,22 @@ ROOT = os.path.dirname(HERE)
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "monosowa_tpu")
 # the prefix of the benchmark's own profiler ranges
 ANNOTATION = "bench."
+# BENCHMARK.json's lists of named entries
+SPEC_LISTS = ("configs", "workloads", "end_to_end", "per_layer")
 
 
 def load_json(path: str) -> Any:
     with open(path) as f:
         return json.load(f)
+
+
+def pending_entries(bench_dir: str) -> List[Dict[str, Any]]:
+    """The files of ``<bench_dir>/pending/``, in name order."""
+    held = os.path.join(bench_dir, "pending")
+    if not os.path.isdir(held):
+        return []
+    return [load_json(os.path.join(held, f))
+            for f in sorted(os.listdir(held)) if f.endswith(".json")]
 
 
 def load_module(path: str, name: Optional[str] = None):
@@ -57,20 +68,22 @@ class Bench:
     """``BENCHMARK.json`` and the files it names, under ``root``.  With
     ``pending``, also the entries of ``pending/<cell>.json``: cells that
     are built but held out of ``BENCHMARK.json`` (each file says why),
-    which a later change moves into it."""
+    which a later change copies into it.  ``BENCHMARK.json`` wins: a
+    pending entry whose name it already lists under the same key is not
+    taken again, so a pending file left in place once its entries have
+    moved changes nothing."""
 
     def __init__(self, root: str = ROOT, pending: bool = False):
         self.root = root
         self.dir = os.path.join(root, "benchmark")
         self.spec = load_json(os.path.join(root, "BENCHMARK.json"))
-        held = os.path.join(self.dir, "pending")
-        if pending and os.path.isdir(held):
-            for f in sorted(os.listdir(held)):
-                if f.endswith(".json"):
-                    extra = load_json(os.path.join(held, f))
-                    for key in ("configs", "workloads", "end_to_end",
-                                "per_layer"):
-                        self.spec[key] = self.spec[key] + extra.get(key, [])
+        if pending:
+            for extra in pending_entries(self.dir):
+                for key in SPEC_LISTS:
+                    have = {e["name"] for e in self.spec[key]}
+                    self.spec[key] = self.spec[key] + [
+                        e for e in extra.get(key, [])
+                        if e["name"] not in have]
 
     def cell(self, name: str) -> Dict[str, Any]:
         for w in self.spec["workloads"]:

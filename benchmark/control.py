@@ -24,6 +24,15 @@ for p in (HERE, os.path.dirname(HERE)):
 import bench_harness as bh  # noqa: E402
 
 
+def resolve(bench: bh.Bench, workload: str):
+    """(cell, configuration, traffic, the driver's ``controls``) of
+    ``workload``."""
+    cell = bench.cell(workload)
+    traffic = bench.traffic(cell["traffic"])
+    return (cell, bench.config(cell["config"]), traffic,
+            bench.driver(traffic).controls)
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -34,14 +43,11 @@ def main(argv=None) -> int:
                     help="1: also the cells held back in pending/")
     args = ap.parse_args(argv)
     bench = bh.Bench(pending=bool(args.pending))
-    cell = bench.cell(args.workload)
-    config = bench.config(cell["config"])
-    traffic = bench.traffic(cell["traffic"])
+    cell, config, traffic, controls = resolve(bench, args.workload)
     if not torch.cuda.is_available():
         print("control: no CUDA card", file=sys.stderr)
         return 3
     dev = torch.device("cuda")
-    controls = bench.driver(traffic).controls
     for seed in args.seeds:
         res = controls(bench, cell, seed, dev, config, traffic)
         print(json.dumps({"workload": args.workload, "seed": seed,

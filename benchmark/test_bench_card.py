@@ -1,8 +1,10 @@
-"""On the card: the controls at a size a test run holds.  The plain
-reference computed in TF32 in the program's place, and a training step on
-half of each batch, fail the cell's limits; the float32 reference against
-itself passes them.  Run with ``python3 -m pytest benchmark -m cuda`` on a
-machine with a card; skipped without one."""
+"""On the card: the controls at a size a test run holds, the train cell's
+its own (batch 16 at 384 x 1280 on KITTI's rows, about a minute a seed),
+where TF32 moves its numbers past the limits; the mask cell's smaller.
+The plain reference computed in TF32 in the program's place, and a
+training step on half of each batch, fail the cell's limits; the float32
+reference against itself passes them.  Run with ``python3 -m pytest
+benchmark -m cuda`` on a machine with a card; skipped without one."""
 
 import copy
 import os
@@ -23,13 +25,10 @@ def _card():
     return torch.device("cuda")
 
 
-def _small(bench, cell, kept_cars_only=False):
+def _cell(bench, cell):
     c = bench.cell(cell)
     config = copy.deepcopy(bench.config(c["config"]))
     traffic = bench.traffic(c["traffic"])
-    ov = bench_tiny.overrides(bench, cell, kept_cars_only=kept_cars_only)
-    config.update(ov["config"])
-    traffic.update(ov["traffic"])
     limits = bh.load_json(os.path.join(HERE, "checks",
                                        cell + ".json"))["limits"]
     return c, config, traffic, limits
@@ -43,15 +42,7 @@ def _fails(numbers, limits):
 def test_train_controls_fail(seed):
     dev = _card()
     bench = bh.Bench(pending=True)
-    cell, config, traffic, limits = _small(bench, "monodetr-kitti-train-b16",
-                                           kept_cars_only=True)
-    config["dataset"] = dict(config["dataset"], batch_size=4,
-                             resolution=[640, 192])
-    traffic.update({"frame_hw": [188, 621],
-                    "calib_p2": [360.77, 0, 304.78, 22.43, 0, 360.77, 86.43,
-                                 0.108, 0, 0, 1, 0.0027],
-                    "near_depth_m": [6.0, 20.0],
-                    "far_depth_m": [24.0, 60.0]})
+    cell, config, traffic, limits = _cell(bench, "monodetr-kitti-train-b16")
     drv = bench.driver(traffic)
     res = drv.controls(bench, cell, seed, dev, config, traffic)
     assert _fails(res["tf32"], limits), res
@@ -63,7 +54,10 @@ def test_train_controls_fail(seed):
 def test_mask_control_fails(seed):
     dev = _card()
     bench = bh.Bench()
-    cell, config, traffic, limits = _small(bench, "mask2former-swinb-masks")
+    cell, config, traffic, limits = _cell(bench, "mask2former-swinb-masks")
+    ov = bench_tiny.overrides(bench, cell["name"])
+    config.update(ov["config"])
+    traffic.update(ov["traffic"])
     config["input_hw"] = [192, 640]
     traffic["frame_hw"] = [188, 621]
     drv = bench.driver(traffic)

@@ -48,16 +48,17 @@ def test_cell_on_cpu(cell, fault, kept_cars_only, correct):
 
 
 @pytest.mark.parametrize("seed", [2 ** 40 + 17, 5])
-def test_train_cell_on_kitti_rows_finds_the_ports_fault(seed):
-    """On KITTI's row mix the port's matching takes empty target slots
-    (PERF.md, Open questions): the run comes out not correct, which is why
-    the cell is held in ``pending/``.  A change that mends the port makes
-    this test fail, and moves the cell into BENCHMARK.json."""
+@pytest.mark.parametrize("fault", ["altered_match", "half_batch"])
+def test_train_cell_on_kitti_rows_fails_each_fault(fault, seed):
+    """On KITTI's row mix (every class and Car state, a kept Car not always
+    first), an altered assignment and a step on half of each batch each
+    make the run not correct: the check holds whatever the port's own
+    matching does on these rows."""
     torch.set_num_threads(4)
     bench = bh.Bench(pending=True)
     cell = "monodetr-kitti-train-b16"
     res = RUN.run_cell(bench, cell, seed, 2.0, trace=False, device="cpu",
-                       overrides=bench_tiny.overrides(bench, cell))
+                       overrides=bench_tiny.overrides(bench, cell, fault))
     assert res["correct"] is False, res["checks"]
 
 

@@ -9,6 +9,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 import bench_harness as bh
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -64,19 +66,97 @@ def test_added_files_are_found(tmp_path):
     assert e2e == ["setup_s"]
 
 
+TRAIN = "monodetr-kitti-train-b16"
+TRAIN_LAYERS = ["train.loader_wait_ms", "train.mfu_pct",
+                "train.msda_fwd_roofline", "train.msda_bwd_roofline",
+                "train.device_idle_pct"]
+
+
 def test_pending_cells_enter_by_entries_alone(tmp_path):
-    """A cell held in ``pending/`` is run only on request, and moving its
-    entries into BENCHMARK.json, with no file edited, gives a benchmark
-    that keeps the contract and finds every file the cell names."""
-    assert not any(w["name"] == "monodetr-kitti-train-b16"
-                   for w in bh.Bench().spec["workloads"])
-    merged = bh.Bench(pending=True)
-    assert merged.cell("monodetr-kitti-train-b16")["chips"] == 1
+    """The hand-off of a held-back cell, rehearsed on a copy: its
+    configuration, cell, end-to-end and per-layer entries copied from
+    ``pending/`` into BENCHMARK.json, with no benchmark file edited and the
+    pending file left in place, give a benchmark that keeps the contract, finds every file it
+    names, finds the cell without ``pending`` and reports its metrics; the
+    pending file then adds nothing."""
     shutil.copytree(HERE, tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    json.dump(merged.spec, open(tmp_path / "BENCHMARK.json", "w"))
-    _keeps_the_contract(str(tmp_path))
-    _names_existing_files(bh.Bench(str(tmp_path)), str(tmp_path))
+    assert bh.pending_entries(str(tmp_path / "benchmark"))
+    json.dump(bh.Bench(pending=True).spec,
+              open(tmp_path / "BENCHMARK.json", "w"), indent=1)
+    root = str(tmp_path)
+
+    _keeps_the_contract(root)
+    bench = bh.Bench(root)
+    _names_existing_files(bench, root)
+    assert bh.Bench(root, pending=True).spec == bench.spec
+    _names_once(bench.spec)
+    assert bench.cell(TRAIN)["chips"] == 1
+    assert [m["name"] for m in bench.metrics(TRAIN, False)] == \
+        ["setup_s", "train_images_per_s"]
+    assert [m["name"] for m in bench.metrics(TRAIN, True)] == TRAIN_LAYERS
+    assert [m["name"] for m in bench.metrics("mask2former-swinb-masks",
+                                             False)] == \
+        ["mask_frames_per_s", "setup_s"]
+
+
+def test_a_metric_naming_a_held_back_cell_breaks_the_contract(tmp_path):
+    """A metric may name only cells of its own BENCHMARK.json: the train
+    cell's rate copied in without its cell is refused."""
+    shutil.copytree(HERE, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    spec = bh.Bench().spec
+    spec["end_to_end"] += bh.Bench(pending=True).spec["end_to_end"][
+        len(spec["end_to_end"]):]
+    assert spec["end_to_end"][-1]["workloads"] == [TRAIN]
+    json.dump(spec, open(tmp_path / "BENCHMARK.json", "w"), indent=1)
+    with pytest.raises(AssertionError):
+        _keeps_the_contract(str(tmp_path))
+
+
+def test_pending_merge_names_each_entry_once():
+    """``Bench(pending=True)`` lists each configuration, cell and metric
+    once, whichever side holds the held-back cell; ``pending=False`` reads
+    BENCHMARK.json alone, and the mask cell never reports the train
+    cell's rate."""
+    merged = bh.Bench(pending=True)
+    _names_once(merged.spec)
+    assert merged.cell(TRAIN)["config"] == "monodetr-kitti"
+    assert bh.Bench().spec == json.load(open(os.path.join(ROOT,
+                                                          "BENCHMARK.json")))
+    for bench in (bh.Bench(), merged):
+        names = [m["name"] for m in
+                 bench.metrics("mask2former-swinb-masks", False)]
+        assert names == ["mask_frames_per_s", "setup_s"]
+    assert [m["name"] for m in merged.metrics(TRAIN, False)] == \
+        ["setup_s", "train_images_per_s"]
+    assert [m["name"] for m in merged.metrics(TRAIN, True)] == TRAIN_LAYERS
+
+
+def test_control_resolves_the_pending_train_cell():
+    """``control.py --pending 1`` finds the train cell's configuration,
+    traffic and controls, then, on a machine without a card, stops."""
+    control = bh.load_module(os.path.join(HERE, "control.py"),
+                             "bench_control_module")
+    cell, config, traffic, controls = control.resolve(
+        bh.Bench(pending=True), TRAIN)
+    assert cell["name"] == TRAIN and config["name"] == cell["config"]
+    assert traffic["driver"] == "detector_train" and callable(controls)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, os.path.join(HERE, "control.py"), "--workload",
+         TRAIN, "--seeds", "1", "--pending", "1"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+    assert out.returncode == 3, out.stderr[-2000:]
+    assert "no CUDA card" in out.stderr and out.stdout.strip() == ""
+
+
+def _names_once(spec):
+    for key in bh.SPEC_LISTS:
+        names = [e["name"] for e in spec[key]]
+        assert len(set(names)) == len(names), (key, names)
+    metrics = [m["name"] for m in spec["end_to_end"] + spec["per_layer"]]
+    assert len(set(metrics)) == len(metrics)
 
 
 def test_every_named_file_exists():
@@ -186,3 +266,7 @@ def _keeps_the_contract(root):
             assert w in e2e[m["moves"]].get("workloads", cells)
     names = [m["name"] for m in spec["end_to_end"] + spec["per_layer"]]
     assert len(set(names)) == len(names) and all(map(name.match, names))
+    # every cell a metric names is a cell of this BENCHMARK.json: a cell
+    # held in pending/ is no cell of it, so its metrics wait there with it
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        assert set(m.get("workloads", [])) <= set(cells), m
